@@ -1,0 +1,94 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``paddle_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface under
+``paddle_tpu_torch/build/`` and loaded with ``ctypes``. All sources are
+compiled together, one ``nvcc`` process each, on the first call that
+needs any kernel. A library's file name carries a hash of its source and
+flags, so an edited source is rebuilt. Nothing here runs at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+__all__ = ["library", "build_all", "check", "BUILD_DIR", "CSRC_DIR"]
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+last_build_seconds = 0.0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (looked on PATH and in CUDA_HOME or "
+                       "/usr/local/cuda): the CUDA kernels cannot be built")
+
+
+def _target(src: Path) -> Path:
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> dict[str, ctypes.CDLL]:
+    """Compile every stale source in parallel, load every library, and
+    return them by source stem. Raises with nvcc's output on failure."""
+    global last_build_seconds
+    with _lock:
+        if _libs:
+            return _libs
+        t0 = time.perf_counter()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        srcs = sorted(CSRC_DIR.glob("*.cu"))
+        jobs = []
+        for src in srcs:
+            out = _target(src)
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            jobs.append((src, out, tmp, proc))
+        errors = []
+        for src, out, tmp, proc in jobs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{src.name}:\n{log}")
+            else:
+                os.replace(tmp, out)
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        for src in srcs:
+            _libs[src.stem] = ctypes.CDLL(str(_target(src)))
+        last_build_seconds = time.perf_counter() - t0
+        return _libs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<name>.cu``."""
+    return build_all()[name]
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error (its cudaGetLastError())."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

@@ -1,0 +1,40 @@
+"""Carry a reference parameter tree into the port."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["params_from_jax"]
+
+_NP_TO_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float16": torch.float16, "int8": torch.int8,
+                "int32": torch.int32}
+
+
+def _leaf(a, device, dtype) -> torch.Tensor:
+    a = np.asarray(a)
+    name = a.dtype.name
+    if name == "bfloat16":
+        # numpy has no native bfloat16: move the raw bits
+        t = torch.from_numpy(a.view(np.uint16).astype(np.int16).copy()).view(
+            torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(a).copy())
+        if name not in _NP_TO_TORCH:
+            raise TypeError(f"unsupported leaf dtype {name}")
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def params_from_jax(tree, device, dtype=None):
+    """Turn a parameter tree with numpy leaves (the JAX package's
+    parameters after ``np.asarray`` on each leaf) into the port's tree of
+    tensors on ``device``. Dicts stay dicts, ``(int8, scale)`` tuples stay
+    tuples; ``dtype``, when given, casts floating leaves."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(params_from_jax(v, device, dtype) for v in tree)
+    return _leaf(tree, device, dtype)

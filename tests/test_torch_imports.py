@@ -1,0 +1,66 @@
+"""The PyTorch port stands alone: every module of ``paddle_tpu_torch``
+and ``chip_smoke.py`` import with ``jax`` and ``paddle_tpu`` blocked, and
+the entry points never drop to the CPU on their own."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_BLOCKED = """
+import importlib, pkgutil, sys
+for name in ("jax", "jaxlib", "paddle_tpu"):
+    sys.modules[name] = None
+import paddle_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__,
+                                             "paddle_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke
+loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "paddle_tpu")
+          and sys.modules[m] is not None]
+assert not loaded, loaded
+print(len(mods))
+"""
+
+
+def test_port_imports_without_jax_or_reference():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _BLOCKED], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 12
+
+
+def test_no_silent_cpu_fallback():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    from paddle_tpu_torch.core.device import resolve_device
+    from paddle_tpu_torch.inference.serving import ServingEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig(vocab_size=64, hidden=32, n_layers=1, n_heads=4,
+                      n_kv_heads=2, ffn_hidden=48, max_seq_len=64,
+                      dtype=torch.float32, param_dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="device=.cpu."):
+        ServingEngine(cfg, max_batch=1, page_size=16)
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """No card: nonzero exit and no result line. Alone in a directory
+    (without the package) it fails as well."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
