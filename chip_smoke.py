@@ -17,6 +17,24 @@ Phases, each failing loudly (any failure exits nonzero):
 4. ``cpu``: a small fp32 config (head dim 128) on the card and on the
    CPU with identical weights; greedy streams must be equal except where
    the CPU's top-2 logit margin is under 1e-4.
+5. ``train_kernels``: the training kernels against their plain versions:
+   flash attention forward (K1) and backward (K2) at the gpt3-350m
+   attention shape and a small fp32 case at head dim 64 and 128 (K2 run
+   twice, bitwise equal), and the vocab-streaming cross-entropy forward
+   (K4) and backward (K5) at the gpt3-350m loss shape and a small case
+   with ragged tiles in fp32 and bf16; kernel, plain and library times
+   beside the bound. Outputs are held element by element (see
+   ``_scaled_err``), and dhead also on the vocab columns no token has as
+   its label, where dl is the softmax part alone.
+6. ``train``: ``make_train_step(gpt3-350m)`` at full width (24 layers,
+   B 16, S 1024, bf16 moments, fp32 masters) on random weights drawn on
+   the card, 3 warm-up steps and the best of 3 windows of 4 steps; the
+   loss must start near ln(V) and fall, K1/K2 must launch 24 times per
+   step, and K4/K5 run once per step: 2 launches and 3 per 8192-column
+   vocab slab (21).
+7. ``train_cpu``: a small fp32 GPT trained 3 steps on the card and on the
+   CPU from identical weights; losses within rtol 1e-4 and parameters
+   within atol 1e-4 (TF32 off).
 
 Prints the card's name and power limit, one JSON line ``{"kernels": ...}``
 and, last, ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -29,17 +47,34 @@ import json
 import math
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
 
-PHASES = ("kernels", "engine", "int8", "cpu")
+PHASES = ("kernels", "engine", "int8", "cpu", "train_kernels", "train",
+          "train_cpu")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12         # dense bf16 tensor-core peak
 RPA_BF16_ATOL = 2e-2             # bf16 output; plain rounds p/l to bf16
 RPA_FP32_ATOL = 1e-4             # fp32 inputs, TF32 off, sum order only
 QMM_ATOL = 1e-3                  # fp32 accumulators, sum order only
 MARGIN = 1e-4                    # CPU top-2 logit margin of a tie
+# training kernels: each element's error over the larger of its own
+# magnitude and the RMS of its row (head row of o / dqkv, token row of dx,
+# vocab column of dhead), see _scaled_err
+BF16_TOL = 3 * 2 ** -7           # 3 bf16 ulps (an ulp is <= 2^-7 of a value):
+                                 # each side's output rounding, and p or dl
+                                 # rounded against another running max
+ZERO_ROW = 1e-3                  # rows under this share of the tensor's RMS
+                                 # are rounding noise of an exact 0 (dq of
+                                 # query 0: ds = p (dp - delta) = 0)
+FP32_TOL = 1e-4                  # fp32 inputs, TF32 off, sum order only
+CE_FWD_ATOL = 1e-3               # fp32 nll / lse from bf16 operands
+CE_LOGIT_STD = 3.0               # x ~ N(0, 1), wte ~ N(0, 9 / H): the top
+                                 # probability of a row is ~0.1, not ~1 / V
+TRAIN_CPU_RTOL = 1e-4            # card vs CPU losses, fp32
+TRAIN_CPU_ATOL = 1e-4            # card vs CPU parameters after 3 steps
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -368,11 +403,398 @@ def check_cuda_vs_cpu(dev) -> None:
           f"{exceptions} near-tie exceptions")
 
 
+def _scaled_err(got, ref, dim: int = -1) -> tuple[float, float]:
+    """(max |got - ref|, max of |got - ref| / max(|ref|, RMS of ref along
+    ``dim``)): each element's error in units of its own magnitude, floored
+    by its row's RMS so that elements near zero are held to the row's
+    scale and rows of small values to their own; rows whose RMS is under
+    ZERO_ROW of the whole tensor's are held to that floor."""
+    g, r = got.float(), ref.float()
+    diff = (g - r).abs()
+    rms = r.pow(2).mean(dim=dim, keepdim=True).sqrt()
+    floor = ZERO_ROW * r.pow(2).mean().sqrt().item()
+    scale = torch.maximum(r.abs(), rms).clamp_min(max(floor, 1e-30))
+    return diff.max().item(), (diff / scale).max().item()
+
+
+def _hold(name: str, got, ref, tol: float, dim: int = -1) -> float:
+    err, scaled = _scaled_err(got, ref, dim)
+    print(f"{name}: max_abs_err {err:.3e}, scaled {scaled:.3e} (tol "
+          f"{tol:.3e})")
+    if not scaled <= tol:
+        raise AssertionError(f"{name}: scaled error {scaled} > {tol}")
+    return err
+
+
+def _heads(dqkv, h: int):
+    """[B, S, 3*h*d] -> [B, S, 3, h, d]: rows of one head of q, k or v."""
+    B, S, H3 = dqkv.shape
+    return dqkv.reshape(B, S, 3, h, H3 // (3 * h))
+
+
+def check_flash(dev) -> tuple[dict, dict]:
+    """K1 and K2 at the gpt3-350m attention shape (bf16, causal) and at a
+    small fp32 case for head dims 64 and 128 (causal and not)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for d in (64, 128):
+        for causal in (True, False):
+            h, S = 256 // d * 2, 256
+            qkv = torch.randn((2, S, 3 * h * d), generator=gen, device=dev)
+            do = torch.randn((2, S, h, d), generator=gen, device=dev)
+            o, lse = fa.flash_fwd(qkv, h, causal, d ** -0.5)
+            ro, rlse = fa.flash_fwd_plain(qkv, h, causal, d ** -0.5)
+            tag = f"flash fp32 d{d} causal={causal}"
+            _hold(tag + " o", o, ro, FP32_TOL)
+            _hold(tag + " lse", lse, rlse, FP32_TOL)
+            dqkv = fa.flash_bwd(qkv, o, lse, do, h, causal, d ** -0.5)
+            ref = fa.flash_bwd_plain(qkv, ro, rlse, do, h, causal, d ** -0.5)
+            _hold(tag + " dqkv", _heads(dqkv, h), _heads(ref, h), FP32_TOL)
+    B, S, h, d = 16, 1024, 16, 64
+    scale = d ** -0.5
+    qkv = torch.randn((B, S, 3 * h * d), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    do = torch.randn((B, S, h, d), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    o, lse = fa.flash_fwd(qkv, h, True, scale)
+    ro, rlse = fa.flash_fwd_plain(qkv, h, True, scale)
+    err_o = _hold("flash bf16 o", o, ro, BF16_TOL)
+    _hold("flash bf16 o, rows 768..1023", o[:, 768:], ro[:, 768:], BF16_TOL)
+    _hold("flash bf16 lse", lse, rlse, FP32_TOL)
+    dqkv = fa.flash_bwd(qkv, o, lse, do, h, True, scale)
+    again = fa.flash_bwd(qkv, o, lse, do, h, True, scale)
+    if not torch.equal(dqkv, again):
+        raise AssertionError("flash backward is not deterministic")
+    ref = fa.flash_bwd_plain(qkv, o, lse, do, h, True, scale)
+    err_d = _hold("flash bf16 dqkv", _heads(dqkv, h), _heads(ref, h),
+                  BF16_TOL)
+    del ro, rlse, ref, again
+    torch.cuda.empty_cache()
+    fwd_ms = _time_ms(lambda: fa.flash_fwd(qkv, h, True, scale))
+    bwd_ms = _time_ms(lambda: fa.flash_bwd(qkv, o, lse, do, h, True, scale))
+    fwd_plain = _time_ms(lambda: fa.flash_fwd_plain(qkv, h, True, scale),
+                         iters=3, warmup=1)
+    bwd_plain = _time_ms(lambda: fa.flash_bwd_plain(qkv, o, lse, do, h,
+                                                    True, scale),
+                         iters=3, warmup=1)
+    # library yardstick: SDPA on contiguous head-major q, k, v
+    q, k, v = (t.reshape(B, S, h, d).transpose(1, 2).contiguous()
+               .requires_grad_(True) for t in qkv.split(h * d, dim=-1))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd = _time_ms(lambda: sdpa(q, k, v, is_causal=True))
+    out = sdpa(q, k, v, is_causal=True)
+    do_h = do.transpose(1, 2).contiguous()
+    lib_bwd = _time_ms(lambda: torch.autograd.grad(out, (q, k, v), do_h,
+                                                   retain_graph=True))
+    pairs = B * h * S * (S + 1) / 2          # causal (query, key) pairs
+    qkv_b, o_b, st_b = qkv.numel() * 2, o.numel() * 2, B * h * S * 4
+    f_bound = _bound(qkv_b + o_b + st_b, 4.0 * d * pairs)
+    b_bound = _bound(2 * qkv_b + o_b + 2 * st_b, 10.0 * d * pairs)
+    print(f"flash fwd: kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, "
+          f"sdpa {lib_fwd:.4f} ms, bound {f_bound[0]:.4f} ms ({f_bound[1]})")
+    print(f"flash bwd: kernel {bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms, "
+          f"sdpa bwd {lib_bwd:.4f} ms, bound {b_bound[0]:.4f} ms "
+          f"({b_bound[1]})")
+    src = "paddle_tpu_torch/csrc/flash_attention.cu"
+    ref_py = "paddle_tpu/ops/pallas/flash_attention.py"
+    shape = f"B{B} S{S} h{h} d{d} causal"
+    return ({"name": "flash_fwd", "route": "cuda", "source": src,
+             "replaces": ref_py + ":139", "max_abs_err": err_o,
+             "ms": fwd_ms, "plain_ms": fwd_plain, "bound_ms": f_bound[0],
+             "bound_by": f_bound[1], "library_ms": lib_fwd, "shape": shape},
+            {"name": "flash_bwd", "route": "cuda", "source": src,
+             "replaces": ref_py + ":298", "max_abs_err": err_d,
+             "ms": bwd_ms, "plain_ms": bwd_plain, "bound_ms": b_bound[0],
+             "bound_by": b_bound[1], "library_ms": lib_bwd, "shape": shape})
+
+
+def check_ce(dev) -> tuple[dict, dict]:
+    """K4 and K5 at the gpt3-350m loss shape (bf16, N 16384, H 1024,
+    V 50304) and at a small case with ragged token and vocab tiles, fp32
+    and bf16."""
+    from paddle_tpu_torch.ops.kernels import fused_ce as ce
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def case(N, H, V, dt):
+        x = torch.randn((N, H), generator=gen, device=dev).to(dt)
+        wte = (torch.randn((V, H), generator=gen, device=dev)
+               * (CE_LOGIT_STD / math.sqrt(H))).to(dt)
+        lab = torch.randint(0, V, (N,), generator=gen, device=dev)
+        g = torch.full((N,), 1.0 / N, device=dev)
+        return x, wte, lab, g
+
+    def hold_bwd(tag, dx, dh, rdx, rdh, lab, tol):
+        """dx by token row, dhead by vocab column; the columns that are
+        no token's label hold only the softmax part of dl."""
+        err = max(_hold(tag + " dx", dx, rdx, tol),
+                  _hold(tag + " dhead", dh, rdh, tol, dim=0))
+        free = torch.ones(dh.shape[1], dtype=torch.bool, device=dev)
+        free[lab] = False
+        _hold(f"{tag} dhead, {int(free.sum())} columns without a label",
+              dh[:, free], rdh[:, free], tol, dim=0)
+        return err
+
+    # ragged token and vocab tiles, two vocab slabs, the last ragged
+    for dt, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+        x, wte, lab, g = case(300, 128, ce.SLAB + 1000, dt)
+        nll, lse = ce.fused_ce_fwd(x, wte.t(), lab)
+        rnll, rlse = ce.fused_ce_fwd_plain(x, wte.t(), lab)
+        _hold(f"ce {dt} small nll", nll, rnll, FP32_TOL)
+        _hold(f"ce {dt} small lse", lse, rlse, FP32_TOL)
+        dx, dh = ce.fused_ce_bwd(x, wte.t(), lab, lse, g)
+        rdx, rdh = ce.fused_ce_bwd_plain(x, wte.t(), lab, lse, g)
+        hold_bwd(f"ce {dt} small", dx, dh, rdx, rdh, lab, tol)
+
+    N, H, V = 16384, 1024, 50304
+    x, wte, lab, g = case(N, H, V, torch.bfloat16)
+    head = wte.t()
+    nll, lse = ce.fused_ce_fwd(x, head, lab)
+    rnll, rlse = ce.fused_ce_fwd_plain(x, head, lab)
+    err_f = (nll - rnll).abs().max().item()
+    err_l = (lse - rlse).abs().max().item()
+    top_p = torch.exp(torch.matmul(x[:1024].float(), wte.float().t())
+                      .amax(-1) - rlse[:1024]).mean().item()
+    print(f"ce bf16 nll / lse: max_abs_err {err_f:.3e} / {err_l:.3e} "
+          f"(atol {CE_FWD_ATOL}); mean top probability {top_p:.3f} over "
+          "1024 tokens")
+    if not max(err_f, err_l) <= CE_FWD_ATOL:
+        raise AssertionError(f"ce fwd: max_abs_err {err_f} / {err_l}")
+    del rnll, rlse
+    dx, dh = ce.fused_ce_bwd(x, head, lab, lse, g)
+    dx2, dh2 = ce.fused_ce_bwd(x, head, lab, lse, g)
+    if not (torch.equal(dx, dx2) and torch.equal(dh, dh2)):
+        raise AssertionError("ce backward is not deterministic")
+    del dx2, dh2
+    rdx, rdh = ce.fused_ce_bwd_plain(x, head, lab, lse, g)
+    err_b = hold_bwd("ce bf16", dx, dh, rdx, rdh, lab, BF16_TOL)
+    del rdx, rdh, dx, dh
+    torch.cuda.empty_cache()
+    fwd_ms = _time_ms(lambda: ce.fused_ce_fwd(x, head, lab), iters=5)
+    bwd_ms = _time_ms(lambda: ce.fused_ce_bwd(x, head, lab, lse, g),
+                      iters=3)
+    fwd_plain = _time_ms(lambda: ce.fused_ce_fwd_plain(x, head, lab),
+                         iters=3, warmup=1)
+    bwd_plain = _time_ms(lambda: ce.fused_ce_bwd_plain(x, head, lab, lse,
+                                                       g), iters=2, warmup=1)
+    # library yardstick: F.cross_entropy on the fp32 logits x @ wte.T
+    xf = x.float().requires_grad_(True)
+    wf = wte.float().requires_grad_(True)
+    xent = torch.nn.functional.cross_entropy
+
+    def lib_fwd():
+        return xent(xf @ wf.t(), lab, reduction="sum")
+
+    lib_fwd_ms = _time_ms(lib_fwd, iters=3, warmup=1)
+    loss = lib_fwd() / N
+    lib_bwd_ms = _time_ms(lambda: torch.autograd.grad(
+        loss, (xf, wf), retain_graph=True), iters=3, warmup=1)
+    del loss, xf, wf
+    torch.cuda.empty_cache()
+    io = (N * H + V * H) * 2 + N * 4
+    f_bound = _bound(io + 2 * N * 4, 2.0 * N * H * V)
+    b_bound = _bound(io + 2 * N * 4 + (N * H + V * H) * 2, 6.0 * N * H * V)
+    print(f"ce fwd: kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, "
+          f"cross_entropy {lib_fwd_ms:.4f} ms, bound {f_bound[0]:.4f} ms "
+          f"({f_bound[1]})")
+    print(f"ce bwd: kernel {bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms, "
+          f"cross_entropy bwd {lib_bwd_ms:.4f} ms, bound {b_bound[0]:.4f} "
+          f"ms ({b_bound[1]})")
+    src = "paddle_tpu_torch/csrc/fused_ce.cu"
+    ref_py = "paddle_tpu/ops/pallas/fused_ce.py"
+    shape = f"N{N} H{H} V{V}"
+    return ({"name": "fused_ce_fwd", "route": "cuda", "source": src,
+             "replaces": ref_py + ":81", "max_abs_err": max(err_f, err_l),
+             "ms": fwd_ms, "plain_ms": fwd_plain, "bound_ms": f_bound[0],
+             "bound_by": f_bound[1], "library_ms": lib_fwd_ms,
+             "shape": shape},
+            {"name": "fused_ce_bwd", "route": "cuda", "source": src,
+             "replaces": ref_py + ":125", "max_abs_err": err_b,
+             "ms": bwd_ms, "plain_ms": bwd_plain, "bound_ms": b_bound[0],
+             "bound_by": b_bound[1], "library_ms": lib_bwd_ms,
+             "shape": shape})
+
+
+def _train_counters():
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused_ce as ce
+
+    return {"flash_fwd": fa.flash_fwd, "flash_bwd": fa.flash_bwd,
+            "fused_ce_fwd": ce.fused_ce_fwd, "fused_ce_bwd": ce.fused_ce_bwd}
+
+
+TRAIN_CATEGORIES = (
+    ("K4/K5 cross-entropy", ("ce_gemm_kernel", "ce_stats_reduce")),
+    ("K1/K2 flash attention", ("fwd_tc_kernel", "bwd_tc_kernel",
+                               "fwd_fma_kernel", "bwd_fma_kernel")),
+    ("GEMMs (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma", "cublas")),
+)
+
+
+def _profile_train(step, params, opt, toks, labs, n: int = 2) -> None:
+    """Device time of n flagship steps by kind of kernel, the device's
+    busy share of their wall time (profiler cost included), and the
+    AdamW update timed alone (zero gradients, the same arithmetic)."""
+    from paddle_tpu_torch.parallel.train_step import adamw_update
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            loss, params, opt = step(params, opt, toks, labs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _print_profile(prof, {"wall_s": wall})
+    cuda = torch.autograd.DeviceType.CUDA
+    sums = {name: 0.0 for name, _ in TRAIN_CATEGORIES}
+    rest = 0.0
+    for e in prof.key_averages():
+        if e.device_type != cuda or e.self_device_time_total <= 0:
+            continue
+        for name, keys in TRAIN_CATEGORIES:
+            if any(k in e.key for k in keys):
+                sums[name] += e.self_device_time_total
+                break
+        else:
+            rest += e.self_device_time_total
+    sums["elementwise, copies, reductions (incl. AdamW)"] = rest
+    for name, us in sums.items():
+        print(f"train profile: {name}: {us / 1e3 / n:.2f} ms/step")
+    gtree = _map_leaves(params, torch.zeros_like)
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adamw_update(params, gtree, opt, 1e-4, m_dtype="bfloat16",
+                     v_dtype="bfloat16")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    print(f"train profile: AdamW update alone {min(times[1:]) * 1e3:.2f} "
+          "ms (host clock, synchronized)")
+
+
+def _map_leaves(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def run_train(dev, profile: bool = False) -> dict:
+    """gpt3-350m at full width, the reference bench's flagship step:
+    B 16, S 1024, bf16 moments, fp32 masters; best of 3 windows of 4
+    steps after 3 warm-up steps."""
+    import dataclasses
+
+    from paddle_tpu_torch.models.gpt import gpt_flops_per_token, gpt_presets
+    from paddle_tpu_torch.ops.kernels import fused_ce as ce
+    from paddle_tpu_torch.parallel.train_step import make_train_step
+
+    cfg = dataclasses.replace(gpt_presets("gpt3-350m"), unroll=True,
+                              remat=False)
+    batch, warmup, windows, win = 16, 3, 3, 4
+    step, params, opt = make_train_step(cfg, lr=1e-4, seed=0,
+                                        m_dtype="bfloat16",
+                                        v_dtype="bfloat16", device=dev)
+    rng = np.random.RandomState(0)
+    toks = step.put_batch(rng.randint(0, cfg.vocab_size,
+                                      size=(batch, cfg.seq_len)))
+    labs = step.put_batch(rng.randint(0, cfg.vocab_size,
+                                      size=(batch, cfg.seq_len)))
+    losses = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(warmup):
+        loss, params, opt = step(params, opt, toks, labs)
+        losses.append(loss.item())
+    if profile:
+        _profile_train(step, params, opt, toks, labs)
+        return {}
+    counters = _train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    best = float("inf")
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(win):
+            loss, params, opt = step(params, opt, toks, labs)
+        losses.append(loss.item())     # syncs
+        best = min(best, time.perf_counter() - t0)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    steps = windows * win
+    slabs = -(-cfg.vocab_size // ce.SLAB)
+    want = {"flash_fwd": cfg.n_layers * steps,
+            "flash_bwd": cfg.n_layers * steps,
+            "fused_ce_fwd": 2 * steps, "fused_ce_bwd": 3 * slabs * steps}
+    if launches != want:
+        raise AssertionError(f"train launches {launches} != {want}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite loss in {losses}")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 0.5:
+        raise AssertionError(f"step-1 loss {losses[0]} not near "
+                             f"ln(V) = {math.log(cfg.vocab_size):.3f}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    step_s = best / win
+    tok_s = batch * cfg.seq_len / step_s
+    mfu = gpt_flops_per_token(cfg) * tok_s / BF16_FLOP_PER_S
+    print(f"train gpt3-350m B{batch} S{cfg.seq_len}: step "
+          f"{step_s * 1e3:.2f} ms, {tok_s:.1f} tokens/s, MFU {mfu:.4f} "
+          f"(bf16 peak {BF16_FLOP_PER_S:.0e}), losses "
+          f"{[round(v, 4) for v in losses]}, launches {launches}, peak mem "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return launches
+
+
+def check_train_cpu(dev) -> None:
+    """3 fp32 AdamW steps of a small GPT (H 256, 4 heads of 64, 2 layers,
+    S 256, B 2) on the card and on the CPU from identical weights."""
+    from paddle_tpu_torch.models.gpt import GPTConfig, init_params
+    from paddle_tpu_torch.parallel.train_step import (adamw_init,
+                                                      make_train_step)
+
+    cfg = GPTConfig(vocab_size=1024, hidden=256, n_layers=2, n_heads=4,
+                    seq_len=256, dtype=torch.float32,
+                    param_dtype=torch.float32, remat=False)
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(7), "cpu")
+    rng = np.random.RandomState(8)
+    toks = rng.randint(0, cfg.vocab_size, size=(2, cfg.seq_len))
+    labs = rng.randint(0, cfg.vocab_size, size=(2, cfg.seq_len))
+    runs = {}
+    for name, device in (("cpu", "cpu"), ("cuda", dev)):
+        step, _, _ = make_train_step(cfg, lr=1e-4, device=device)
+        params = {k: ({kk: vv.clone().to(device) for kk, vv in v.items()}
+                      if isinstance(v, dict) else v.clone().to(device))
+                  for k, v in cpu_params.items()}
+        opt = adamw_init(params)
+        losses = []
+        for _ in range(3):
+            loss, params, opt = step(params, opt, toks, labs)
+            losses.append(loss.item())
+        runs[name] = (losses, params)
+    (lc, pc), (lg, pg) = runs["cpu"], runs["cuda"]
+    if not np.allclose(lg, lc, rtol=TRAIN_CPU_RTOL, atol=0):
+        raise AssertionError(f"losses differ: cuda {lg} vs cpu {lc}")
+    worst = 0.0
+    for k, v in pc.items():
+        for kk, a in (v.items() if isinstance(v, dict) else [(k, v)]):
+            b = pg[k][kk] if isinstance(v, dict) else pg[k]
+            worst = max(worst, (a.detach() - b.detach().cpu()).abs().max()
+                        .item())
+    if not worst <= TRAIN_CPU_ATOL:
+        raise AssertionError(f"params differ by {worst} > {TRAIN_CPU_ATOL}")
+    print(f"train cpu/cuda: losses {lg} vs {lc}, params max diff "
+          f"{worst:.3e}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
-                    + "; 'profile' (never by default) runs the bf16 engine "
+                    + "; 'profile' and 'train_profile' (never by default) "
+                    "run the bf16 engine and two flagship training steps "
                     "under torch.profiler")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
@@ -397,10 +819,19 @@ def main(argv=None) -> int:
     print(f"built {sorted(_build.build_all())} in "
           f"{_build.last_build_seconds:.1f} s")
     kernels = {}
+    t0 = time.perf_counter()
+
+    def done(phase: str) -> None:
+        nonlocal t0
+        now = time.perf_counter()
+        print(f"phase {phase}: {now - t0:.1f} s")
+        t0 = now
+
     if "kernels" in phases:
         kernels["ragged_paged_attention"] = check_rpa(dev)
         kernels["quant_matmul"] = check_qmm(dev)
         torch.cuda.empty_cache()
+        done("kernels")
     launches = {}
     if {"engine", "int8", "profile"} & set(phases):
         cfg = llama_presets("llama3-8b")
@@ -427,8 +858,27 @@ def main(argv=None) -> int:
                       "(random weights: near-flat logits)")
         del params
         torch.cuda.empty_cache()
+        done("engine/int8")
     if "cpu" in phases:
         check_cuda_vs_cpu(dev)
+        done("cpu")
+    if "train_kernels" in phases:
+        kernels["flash_fwd"], kernels["flash_bwd"] = check_flash(dev)
+        torch.cuda.empty_cache()
+        kernels["fused_ce_fwd"], kernels["fused_ce_bwd"] = check_ce(dev)
+        torch.cuda.empty_cache()
+        done("train_kernels")
+    if "train" in phases:
+        launches.update(run_train(dev))
+        torch.cuda.empty_cache()
+        done("train")
+    if "train_profile" in phases:
+        run_train(dev, profile=True)
+        torch.cuda.empty_cache()
+        done("train_profile")
+    if "train_cpu" in phases:
+        check_train_cpu(dev)
+        done("train_cpu")
     if set(phases) != set(PHASES):
         print(f"phases {phases} only: no result line")
         return 0
@@ -437,9 +887,10 @@ def main(argv=None) -> int:
         rec["launches"] = launches[name]
         recs.append(rec)
     print(json.dumps({"kernels": recs}))
+    # count: the cards this script drove, one
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

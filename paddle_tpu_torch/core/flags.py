@@ -1,8 +1,14 @@
-"""The port's copy of the runtime flags its serving slice reads.
+"""The port's copy of the runtime flags its serving and training slices
+read.
 
 Same names, defaults and ``FLAGS_<name>`` environment override as the
 reference registry (paddle_tpu/core/flags.py). Flags of paths the port
 does not have yet are defined so that turning one on can be refused.
+
+The training step is the reference's step with ``use_auto_fusion=0``:
+the port has no fusion compiler yet, so the plain op-by-op composition
+runs and ``use_auto_fusion``, ``use_fused_norm_epilogue`` and
+``use_fused_bias_act`` are not defined here.
 """
 
 from __future__ import annotations
@@ -65,3 +71,14 @@ GLOBAL_FLAGS.define("serving_kv_quant", False)
 GLOBAL_FLAGS.define("serving_lora", False)
 GLOBAL_FLAGS.define("serving_priorities", False)
 GLOBAL_FLAGS.define("serving_constrained", False)
+
+# training: False runs the plain chunked cross-entropy, as the reference
+GLOBAL_FLAGS.define("use_fused_ce", True)
+# training paths of later slices (the XLA-expression flash backward, the
+# head-major kernels, a library kernel): moving one off its default is
+# refused by ops/kernels/flash_attention.py
+GLOBAL_FLAGS.define("flash_attention_kernel_bwd", True)
+GLOBAL_FLAGS.define("flash_attention_native_layout", True)
+GLOBAL_FLAGS.define("use_library_flash_attention", False)
+# sharded training (later slice): turning it on is refused
+GLOBAL_FLAGS.define("dist_allreduce_quant", False)

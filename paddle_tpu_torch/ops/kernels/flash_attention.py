@@ -1,0 +1,225 @@
+"""Causal flash attention on the fused qkv projection: the CUDA kernels'
+wrappers, their plain PyTorch versions and the autograd function.
+
+Port of paddle_tpu/ops/pallas/flash_attention.py, fused-qkv entry
+``flash_attention_qkv_raw``: forward ``_flash_fwd_kernel_native``,
+backward ``_flash_bwd_fused_kernel_native`` (the merged dq + dk/dv
+kernel that writes one dqkv cotangent).
+
+- qkv [B, S, 3*h*d]: q, k and v at lane offsets 0, h*d and 2*h*d, head
+  j at j*d inside each; read in place, never split into copies.
+- forward: o [B, S, h, d] in qkv's dtype and lse [B, h, S] fp32.
+  s = (q k^T) * sm_scale in fp32, causal fill -1e30, p = exp(s - m) with
+  l summed over the fp32 p, p cast to the input dtype before p v,
+  o = acc / l, lse = m + log(l).
+- backward: dqkv [B, S, 3*h*d]. p = exp(s - lse) (masked 0),
+  dp = do v^T, ds = p (dp - delta) cast to the input dtype,
+  dq = ds k * scale, dk = ds^T q * scale, dv = p^T do with p cast;
+  delta = rowsum(do * o) in fp32 is computed here, outside the kernel.
+
+On a CPU tensor the wrappers run the plain versions; on a CUDA tensor
+they launch ``csrc/flash_attention.cu`` or raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ...core.flags import GLOBAL_FLAGS
+from . import _build
+
+__all__ = ["flash_attention_qkv", "flash_qkv_supported", "flash_fwd",
+           "flash_bwd", "flash_fwd_plain", "flash_bwd_plain"]
+
+SUPPORTED_HEAD_DIMS = (64, 128, 256)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_FLAG_DEFAULTS = (("flash_attention_kernel_bwd", True),
+                  ("flash_attention_native_layout", True),
+                  ("use_library_flash_attention", False))
+_fns = {}
+
+
+def _check_flags() -> None:
+    """The XLA-expression backward, the head-major kernels and a library
+    kernel are paths of a later slice: refuse them rather than run this
+    one under their names."""
+    for name, default in _FLAG_DEFAULTS:
+        if GLOBAL_FLAGS.get(name) != default:
+            raise NotImplementedError(
+                f"later slice: FLAGS_{name}={GLOBAL_FLAGS.get(name)} (only "
+                f"{default} is ported)")
+
+
+def flash_qkv_supported(shape, n_heads: int, dtype) -> bool:
+    """The reference's gate for the fused entry: [B, S, 3*h*d] with S a
+    multiple of 128, d in (64, 128, 256) and h even for d 64 (its
+    128-lane head pairs), and fp32 or bf16, the dtypes the kernels
+    take. Raises while a flash flag is off its default."""
+    _check_flags()
+    if len(shape) != 3 or shape[2] % (3 * n_heads):
+        return False
+    d = shape[2] // (3 * n_heads)
+    hp = max(1, 128 // d)
+    return (shape[1] % 128 == 0 and shape[1] >= 128
+            and d in SUPPORTED_HEAD_DIMS and n_heads % hp == 0
+            and dtype in _DTYPE_CODE)
+
+
+def _split(qkv: torch.Tensor, n_heads: int):
+    B, S, H3 = qkv.shape
+    H = H3 // 3
+    d = H // n_heads
+    return [qkv[..., i * H:(i + 1) * H].reshape(B, S, n_heads, d).float()
+            for i in range(3)]
+
+
+def _mask(S: int, device) -> torch.Tensor:
+    return torch.ones(S, S, dtype=torch.bool, device=device).tril()
+
+
+def flash_fwd_plain(qkv, n_heads: int, causal: bool, sm_scale: float):
+    """(o [B, S, h, d], lse [B, h, S] fp32) by one masked softmax over
+    the whole sequence, with the kernel's cast points."""
+    q, k, v = _split(qkv, n_heads)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * sm_scale
+    if causal:
+        s = torch.where(_mask(s.shape[-1], s.device), s, -1e30)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1)                                    # [B, h, S]
+    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(qkv.dtype).float(), v)
+    o = (acc / l.transpose(1, 2)[..., None]).to(qkv.dtype)
+    return o, m[..., 0] + torch.log(l)
+
+
+def flash_bwd_plain(qkv, o, lse, do, n_heads: int, causal: bool,
+                    sm_scale: float) -> torch.Tensor:
+    """dqkv [B, S, 3*h*d] in qkv's dtype, from the saved o and lse."""
+    dt = qkv.dtype
+    B, S, H3 = qkv.shape
+    q, k, v = _split(qkv, n_heads)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)   # [B, h, S]
+    do_ = do.to(dt).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * sm_scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        p = torch.where(_mask(S, p.device), p, 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do_, v)
+    ds = (p * (dp - delta[..., None])).to(dt).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k) * sm_scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q) * sm_scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), do_)
+    return torch.cat([t.reshape(B, S, H3 // 3) for t in (dq, dk, dv)],
+                     dim=-1).to(dt)
+
+
+def _kernel(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_build.library("flash_attention"), name)
+        P, I = ctypes.c_void_p, ctypes.c_int
+        n_ptr = 3 if name == "flash_fwd" else 5
+        fn.argtypes = [P] * n_ptr + [I, I, I, I, I, ctypes.c_float, I, P]
+        fn.restype = I
+        _fns[name] = fn
+    return fn
+
+
+def _check_cuda(qkv, n_heads: int, *others) -> tuple[int, int, int, int]:
+    if qkv.dtype not in _DTYPE_CODE:
+        raise TypeError(f"qkv dtype {qkv.dtype}: the kernels take float32 "
+                        "or bfloat16")
+    if qkv.dim() != 3 or qkv.shape[2] % (3 * n_heads):
+        raise ValueError(f"qkv {tuple(qkv.shape)} is not [B, S, 3*h*d] for "
+                         f"{n_heads} heads")
+    B, S, H3 = qkv.shape
+    d = H3 // (3 * n_heads)
+    if d not in SUPPORTED_HEAD_DIMS or S % 64:
+        raise ValueError(f"head dim {d} / seq {S}: the kernels take d in "
+                         f"{SUPPORTED_HEAD_DIMS} and S % 64 == 0")
+    for t in (qkv, *others):
+        if t.device != qkv.device or not t.is_contiguous():
+            raise ValueError("all operands must be contiguous and on "
+                             f"{qkv.device}")
+        if t.data_ptr() % 16:
+            raise ValueError("the kernels read 16-byte vectors: operands "
+                             "must be 16-byte aligned")
+    return B, S, n_heads, d
+
+
+def flash_fwd(qkv, n_heads: int, causal: bool, sm_scale: float):
+    """K1: (o, lse). Counts its CUDA launches in ``flash_fwd.launches``."""
+    if qkv.device.type == "cpu":
+        return flash_fwd_plain(qkv, n_heads, causal, sm_scale)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"unsupported device {qkv.device}")
+    B, S, h, d = _check_cuda(qkv, n_heads)
+    o = torch.empty((B, S, h, d), dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty((B, h, S), dtype=torch.float32, device=qkv.device)
+    err = _kernel("flash_fwd")(
+        qkv.data_ptr(), o.data_ptr(), lse.data_ptr(), B, S, h, d,
+        int(causal), float(sm_scale), _DTYPE_CODE[qkv.dtype],
+        torch.cuda.current_stream(qkv.device).cuda_stream)
+    _build.check(err, "flash_fwd")
+    flash_fwd.launches += 1
+    return o, lse
+
+
+def flash_bwd(qkv, o, lse, do, n_heads: int, causal: bool,
+              sm_scale: float) -> torch.Tensor:
+    """K2: dqkv, deterministic (no atomics). Counts its CUDA launches in
+    ``flash_bwd.launches``."""
+    if qkv.device.type == "cpu":
+        return flash_bwd_plain(qkv, o, lse, do, n_heads, causal, sm_scale)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"unsupported device {qkv.device}")
+    B, S, h, d = _check_cuda(qkv, n_heads, lse)
+    if o.shape != (B, S, h, d) or do.shape != (B, S, h, d) or \
+            lse.shape != (B, h, S) or lse.dtype != torch.float32:
+        raise ValueError(f"o {tuple(o.shape)} / do {tuple(do.shape)} / lse "
+                         f"{tuple(lse.shape)} {lse.dtype} do not match qkv "
+                         f"{tuple(qkv.shape)}")
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    do_ = do.to(qkv.dtype).contiguous()
+    _check_cuda(qkv, n_heads, do_, delta)
+    dqkv = torch.empty_like(qkv)
+    err = _kernel("flash_bwd")(
+        qkv.data_ptr(), do_.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dqkv.data_ptr(), B, S, h, d, int(causal), float(sm_scale),
+        _DTYPE_CODE[qkv.dtype],
+        torch.cuda.current_stream(qkv.device).cuda_stream)
+    _build.check(err, "flash_bwd")
+    flash_bwd.launches += 1
+    return dqkv
+
+
+flash_fwd.launches = 0
+flash_bwd.launches = 0
+
+
+class _FlashQKV(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, n_heads, causal, sm_scale):
+        o, lse = flash_fwd(qkv, n_heads, causal, sm_scale)
+        ctx.save_for_backward(qkv, o, lse)
+        ctx.args = (n_heads, causal, sm_scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, o, lse = ctx.saved_tensors
+        return flash_bwd(qkv, o, lse, g, *ctx.args), None, None, None
+
+
+def flash_attention_qkv(qkv, n_heads: int, causal: bool = True,
+                        sm_scale: float | None = None) -> torch.Tensor:
+    """Differentiable attention straight from the fused qkv projection:
+    [B, S, 3*h*d] -> [B, S, h, d]; K1 forward, K2 backward."""
+    if not flash_qkv_supported(qkv.shape, n_heads, qkv.dtype):
+        raise ValueError(f"flash_attention_qkv: shape {tuple(qkv.shape)} "
+                         f"{qkv.dtype} with {n_heads} heads is not supported")
+    d = qkv.shape[-1] // (3 * n_heads)
+    scale = sm_scale if sm_scale is not None else 1.0 / d ** 0.5
+    return _FlashQKV.apply(qkv.contiguous(), n_heads, causal, scale)

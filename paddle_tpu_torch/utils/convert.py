@@ -5,7 +5,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "opt_state_from_jax"]
 
 _NP_TO_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "float16": torch.float16, "int8": torch.int8,
@@ -38,3 +38,10 @@ def params_from_jax(tree, device, dtype=None):
     if isinstance(tree, (tuple, list)):
         return tuple(params_from_jax(v, device, dtype) for v in tree)
     return _leaf(tree, device, dtype)
+
+
+def opt_state_from_jax(state, device):
+    """Carry an AdamW state of the reference (numpy leaves) into the port:
+    ``m``, ``v`` (int8 moments as ``{"qm", "qs"}`` dicts), the step
+    ``t`` and, in master mode, the fp32 ``master`` tree."""
+    return {k: params_from_jax(v, device) for k, v in state.items()}

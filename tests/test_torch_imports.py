@@ -35,7 +35,7 @@ def test_port_imports_without_jax_or_reference():
                          env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 12
+    assert int(out.stdout.split()[-1]) >= 17
 
 
 def test_no_silent_cpu_fallback():
@@ -53,6 +53,20 @@ def test_no_silent_cpu_fallback():
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_training_entry_points_do_not_fall_back():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.parallel.train_step import make_train_step
+
+    cfg = GPTConfig(vocab_size=64, hidden=128, n_layers=1, n_heads=2,
+                    seq_len=128)
+    with pytest.raises(RuntimeError, match="device=.cpu."):
+        make_train_step(cfg)
+    step, params, _ = make_train_step(cfg, device="cpu")
+    assert params["wte"].device.type == "cpu"
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

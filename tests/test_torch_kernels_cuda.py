@@ -7,12 +7,23 @@ machine as it is:
 
 Tolerances: fp32 1e-4 (TF32 off, summation order only); bf16 attention
 2e-2 (the plain version rounds probabilities to bf16 before the value
-product); int8 matmul atol 1e-3 / rtol 1e-4 (fp32 accumulators)."""
+product); int8 matmul atol 1e-3 / rtol 1e-4 (fp32 accumulators). The
+training kernels are held element by element, each error over the larger
+of the element's magnitude and the RMS of its row (a head row of o or
+dqkv, a token row of dx, a vocab column of dhead; rows under 1e-3 of the
+tensor's RMS, rounding noise of an exact 0, held to that floor): 1e-4 in
+fp32, 3 * 2^-7 in bf16, three bf16 ulps (each side's output rounding,
+and p, ds or dl rounded against another running max). The cross-entropy
+logits have std 3,
+so the softmax is far from flat, and dhead is also held on the vocab
+columns that are no token's label, where dl is the softmax part alone."""
 
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.ops.kernels import flash_attention as fa
+from paddle_tpu_torch.ops.kernels import fused_ce as ce
 from paddle_tpu_torch.ops.kernels.quant_matmul import (quant_matmul,
                                                        quant_matmul_plain)
 from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
@@ -87,3 +98,70 @@ def test_unsupported_geometry_raises(cuda):
         ragged_paged_attention(fl[0][..., :96].contiguous(),
                                fl[1][:, :, :96].contiguous(),
                                fl[2][..., :96].contiguous(), *ints, 0.1)
+
+
+def _scaled(got, ref, dim=-1):
+    g, r = got.float(), ref.float()
+    rms = r.pow(2).mean(dim=dim, keepdim=True).sqrt()
+    floor = max(1e-3 * r.pow(2).mean().sqrt().item(), 1e-30)
+    return ((g - r).abs() / torch.maximum(r.abs(), rms).clamp_min(floor)
+            ).max().item()
+
+
+def _heads(dqkv, h):
+    B, S, H3 = dqkv.shape
+    return dqkv.reshape(B, S, 3, h, H3 // (3 * h))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3 * 2 ** -7)])
+@pytest.mark.parametrize("h,d,causal", [(4, 64, True), (2, 128, True),
+                                        (2, 128, False), (1, 256, True)])
+def test_flash_kernels_match_plain(cuda, dtype, tol, h, d, causal):
+    rng = np.random.default_rng(2)
+    qkv = torch.from_numpy(rng.normal(size=(2, 192, 3 * h * d)).astype(
+        np.float32)).to(cuda, dtype)
+    do = torch.from_numpy(rng.normal(size=(2, 192, h, d)).astype(
+        np.float32)).to(cuda, dtype)
+    before = (fa.flash_fwd.launches, fa.flash_bwd.launches)
+    o, lse = fa.flash_fwd(qkv, h, causal, d ** -0.5)
+    ro, rlse = fa.flash_fwd_plain(qkv, h, causal, d ** -0.5)
+    dqkv = fa.flash_bwd(qkv, o, lse, do, h, causal, d ** -0.5)
+    ref = fa.flash_bwd_plain(qkv, o, lse, do, h, causal, d ** -0.5)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert _scaled(o, ro) <= tol and _scaled(lse, rlse) <= 1e-4
+    assert _scaled(_heads(dqkv, h), _heads(ref, h)) <= tol
+    assert torch.equal(dqkv, fa.flash_bwd(qkv, o, lse, do, h, causal,
+                                          d ** -0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3 * 2 ** -7)])
+@pytest.mark.parametrize("N,H,V", [(300, 128, 1000), (1024, 256, 4096),
+                                   (300, 128, 9192)])
+def test_fused_ce_kernels_match_plain(cuda, dtype, tol, N, H, V):
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(N, H)).astype(np.float32)).to(
+        cuda, dtype)
+    wte = torch.from_numpy((rng.normal(size=(V, H)) * 3 / H ** 0.5).astype(
+        np.float32)).to(cuda, dtype)
+    lab = torch.from_numpy(rng.integers(0, V, size=N)).to(cuda)
+    g = torch.from_numpy(rng.random(N).astype(np.float32)).to(cuda)
+    before = (ce.fused_ce_fwd.launches, ce.fused_ce_bwd.launches)
+    nll, lse = ce.fused_ce_fwd(x, wte.t(), lab)
+    rnll, rlse = ce.fused_ce_fwd_plain(x, wte.t(), lab)
+    dx, dh = ce.fused_ce_bwd(x, wte.t(), lab, lse, g)
+    rdx, rdh = ce.fused_ce_bwd_plain(x, wte.t(), lab, lse, g)
+    torch.cuda.synchronize()
+    slabs = -(-V // ce.SLAB)
+    assert (ce.fused_ce_fwd.launches, ce.fused_ce_bwd.launches) == \
+        (before[0] + 2, before[1] + 3 * slabs)
+    assert _scaled(nll, rnll) <= 1e-4 and _scaled(lse, rlse) <= 1e-4
+    assert _scaled(dx, rdx) <= tol and _scaled(dh, rdh, dim=0) <= tol
+    free = torch.ones(V, dtype=torch.bool, device=cuda)
+    free[lab] = False
+    assert _scaled(dh[:, free], rdh[:, free], dim=0) <= tol
