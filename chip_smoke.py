@@ -25,16 +25,25 @@ Phases, each failing loudly (any failure exits nonzero):
    with ragged tiles in fp32 and bf16; kernel, plain and library times
    beside the bound. Outputs are held element by element (see
    ``_scaled_err``), and dhead also on the vocab columns no token has as
-   its label, where dl is the softmax part alone.
+   its label, where dl is the softmax part alone. Then the residual +
+   bias + norm epilogue (K6) at the gpt3-350m norm shape in its layer
+   forms (residual + bias, norm-only, with the gelu), the rms form at
+   H 4096 and small fp32 cases, r bit-equal and y by row; and the bias +
+   gelu (K7) at the gpt3-350m FFN shape and a small fp32 case.
 6. ``train``: ``make_train_step(gpt3-350m)`` at full width (24 layers,
    B 16, S 1024, bf16 moments, fp32 masters) on random weights drawn on
-   the card, 3 warm-up steps and the best of 3 windows of 4 steps; the
-   loss must start near ln(V) and fall, K1/K2 must launch 24 times per
-   step, and K4/K5 run once per step: 2 launches and 3 per 8192-column
-   vocab slab (21).
+   the card, with the fusion compiler on (its default), 3 warm-up steps
+   and the best of 3 windows of 4 steps; the loss must start near ln(V)
+   and fall, K1/K2 must launch 24 times per step, K4/K5 once per step (2
+   launches and 3 per 8192-column vocab slab, 21), K6 2L + 1 = 49 times
+   and K7 24 times, and the fusion report must list 49 applied
+   ``layer_epilogue`` and 24 applied ``bias_gelu`` sites and no error.
+   The same step then runs with ``use_auto_fusion`` off, and its step
+   time and peak memory are printed beside the fused step's.
 7. ``train_cpu``: a small fp32 GPT trained 3 steps on the card and on the
-   CPU from identical weights; losses within rtol 1e-4 and parameters
-   within atol 1e-4 (TF32 off).
+   CPU from identical weights, fusion on for both; losses within rtol
+   1e-4 and parameters within atol 1e-4 (TF32 off), every training kernel
+   launched on the card.
 
 Prints the card's name and power limit, one JSON line ``{"kernels": ...}``
 and, last, ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -56,6 +65,7 @@ PHASES = ("kernels", "engine", "int8", "cpu", "train_kernels", "train",
           "train_cpu")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12         # dense bf16 tensor-core peak
+FP32_FLOP_PER_S = 67e12          # fp32 outside the tensor cores (K6, K7)
 RPA_BF16_ATOL = 2e-2             # bf16 output; plain rounds p/l to bf16
 RPA_FP32_ATOL = 1e-4             # fp32 inputs, TF32 off, sum order only
 QMM_ATOL = 1e-3                  # fp32 accumulators, sum order only
@@ -91,8 +101,8 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound(nbytes: float, flops: float):
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+def _bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / flop_rate * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -616,23 +626,143 @@ def check_ce(dev) -> tuple[dict, dict]:
              "shape": shape})
 
 
+def _vec(gen, dev, h: int, mean: float, std: float, dtype=torch.float32):
+    return (mean + std * torch.randn((h,), generator=gen, device=dev)).to(
+        dtype)
+
+
+def check_norm_epilogue(dev) -> dict:
+    """K6 against its plain version: at the gpt3-350m norm shape
+    ([16384, 1024] bf16) in the residual + bias layer form (ln2 and the
+    next layer's ln1), the norm-only form (layer 0's ln1), with the tanh
+    gelu, the rms form at H 4096 (llama's), and small fp32 cases. r must
+    be bit-equal; y is held by _scaled_err by row."""
+    from paddle_tpu_torch.ops.kernels import fused_norm_epilogue as fne
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+
+    def case(tag, n, h, dt, norm, sub, bias, beta, act=None):
+        x = torch.randn((n, h), generator=gen, device=dev).to(dt)
+        s = (torch.randn((n, h), generator=gen, device=dev).to(dt)
+             if sub else None)
+        b = _vec(gen, dev, h, 0.0, 0.5) if bias else None
+        g = _vec(gen, dev, h, 1.0, 0.2)
+        be = _vec(gen, dev, h, 0.0, 0.2) if beta else None
+        r, y = fne.norm_epilogue_fwd(x, s, b, g, be, norm, 1e-5, act)
+        rr, ry = fne.norm_epilogue_plain(x, s, b, g, be, norm, 1e-5, act)
+        torch.cuda.synchronize()
+        if not torch.equal(r, rr):
+            raise AssertionError(f"K6 {tag}: r is not bit-equal to the "
+                                 "plain composition")
+        tol = BF16_TOL if dt == torch.bfloat16 else FP32_TOL
+        err = _hold(f"K6 {tag} y (r bit-equal)", y, ry, tol)
+        worst[dt] = max(worst[dt], err)
+        return x, s, b, g, be
+
+    N, H = 16384, 1024
+    bf = torch.bfloat16
+    x, s, b, g, be = case("layer residual+bias bf16 [16384, 1024]", N, H, bf,
+                          "layer", True, True, True)
+    case("layer norm-only bf16 [16384, 1024]", N, H, bf, "layer", False,
+         False, True)
+    case("layer residual+bias gelu bf16 [16384, 1024]", N, H, bf, "layer",
+         True, True, True, "gelu")
+    case("rms residual bf16 [4096, 4096]", 4096, 4096, bf, "rms", True,
+         False, False)
+    case("layer residual+bias fp32 [512, 256]", 512, 256, torch.float32,
+         "layer", True, True, True)
+    case("rms residual+bias gelu fp32 [512, 4096]", 512, 4096,
+         torch.float32, "rms", True, True, False, "gelu")
+    ms = _time_ms(lambda: fne.norm_epilogue_fwd(x, s, b, g, be, "layer",
+                                                1e-5))
+    plain_ms = _time_ms(lambda: fne.norm_epilogue_plain(x, s, b, g, be,
+                                                        "layer", 1e-5))
+    # nearest library call: F.layer_norm on a precomputed r (the adds
+    # left out), weight and bias in r's dtype
+    r = (x + s) + b.to(bf)
+    gb, beb = g.to(bf), be.to(bf)
+    library_ms = _time_ms(lambda: torch.nn.functional.layer_norm(
+        r, (H,), gb, beb, 1e-5))
+    bound_ms, bound_by = _bound(4 * N * H * 2 + 3 * H * 4, 10.0 * N * H,
+                                FP32_FLOP_PER_S)
+    print(f"K6 layer residual+bias bf16: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, layer_norm on r {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by})")
+    return {"name": "fused_norm_epilogue", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/fused_norm_epilogue.cu",
+            "replaces": "paddle_tpu/ops/pallas/fused_norm_epilogue.py:106",
+            "max_abs_err": worst[bf], "max_abs_err_fp32":
+            worst[torch.float32], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "shape": f"N{N} H{H} layer, residual + bias, bf16"}
+
+
+def check_bias_gelu(dev) -> dict:
+    """K7 against its plain version at the gpt3-350m FFN shape
+    ([16384, 4096] bf16, fp32 bias) and a small fp32 case."""
+    from paddle_tpu_torch.ops.kernels import fused_bias_act as fba
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    errs = {}
+    for (n, f), dt, tol in (((16384, 4096), torch.bfloat16, BF16_TOL),
+                            ((512, 256), torch.float32, FP32_TOL)):
+        x = (2.0 * torch.randn((n, f), generator=gen, device=dev)).to(dt)
+        b = _vec(gen, dev, f, 0.0, 0.5)
+        y = fba.bias_gelu_fwd(x, b)
+        ref = fba.bias_gelu_plain(x, b)
+        torch.cuda.synchronize()
+        errs[dt] = _hold(f"K7 {dt} [{n}, {f}]", y, ref, tol)
+    x = (2.0 * torch.randn((16384, 4096), generator=gen,
+                           device=dev)).to(torch.bfloat16)
+    b = _vec(gen, dev, 4096, 0.0, 0.5)
+    ms = _time_ms(lambda: fba.bias_gelu_fwd(x, b))
+    plain_ms = _time_ms(lambda: fba.bias_gelu_plain(x, b))
+    # nearest library call: the tanh gelu on a pre-biased input (the add
+    # left out)
+    xb = x + b.to(torch.bfloat16)
+    library_ms = _time_ms(lambda: torch.nn.functional.gelu(
+        xb, approximate="tanh"))
+    N, Fd = x.shape
+    bound_ms, bound_by = _bound(2 * N * Fd * 2 + Fd * 4, 12.0 * N * Fd,
+                                FP32_FLOP_PER_S)
+    print(f"K7 bias gelu bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"gelu on x + b {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by})")
+    return {"name": "fused_bias_act", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/fused_bias_act.cu",
+            "replaces": "paddle_tpu/ops/pallas/fused_bias_act.py:91",
+            "max_abs_err": errs[torch.bfloat16], "max_abs_err_fp32":
+            errs[torch.float32], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "shape": f"N{N} F{Fd} bf16"}
+
+
 def _train_counters():
+    from paddle_tpu_torch.ops.kernels import fused_bias_act as fba
+    from paddle_tpu_torch.ops.kernels import fused_norm_epilogue as fne
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import fused_ce as ce
 
     return {"flash_fwd": fa.flash_fwd, "flash_bwd": fa.flash_bwd,
-            "fused_ce_fwd": ce.fused_ce_fwd, "fused_ce_bwd": ce.fused_ce_bwd}
+            "fused_ce_fwd": ce.fused_ce_fwd, "fused_ce_bwd": ce.fused_ce_bwd,
+            "fused_norm_epilogue": fne.norm_epilogue_fwd,
+            "fused_bias_act": fba.bias_gelu_fwd}
 
 
 TRAIN_CATEGORIES = (
     ("K4/K5 cross-entropy", ("ce_gemm_kernel", "ce_stats_reduce")),
     ("K1/K2 flash attention", ("fwd_tc_kernel", "bwd_tc_kernel",
                                "fwd_fma_kernel", "bwd_fma_kernel")),
+    ("K6/K7 norm epilogue, bias gelu", ("norm_epilogue_kernel",
+                                        "bias_gelu_kernel")),
     ("GEMMs (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma", "cublas")),
 )
 
 
-def _profile_train(step, params, opt, toks, labs, n: int = 2) -> None:
+def _profile_train(step, params, opt, toks, labs, tag: str,
+                   n: int = 2) -> None:
     """Device time of n flagship steps by kind of kernel, the device's
     busy share of their wall time (profiler cost included), and the
     AdamW update timed alone (zero gradients, the same arithmetic)."""
@@ -662,7 +792,7 @@ def _profile_train(step, params, opt, toks, labs, n: int = 2) -> None:
             rest += e.self_device_time_total
     sums["elementwise, copies, reductions (incl. AdamW)"] = rest
     for name, us in sums.items():
-        print(f"train profile: {name}: {us / 1e3 / n:.2f} ms/step")
+        print(f"train profile ({tag}): {name}: {us / 1e3 / n:.2f} ms/step")
     gtree = _map_leaves(params, torch.zeros_like)
     times = []
     for _ in range(4):
@@ -672,7 +802,8 @@ def _profile_train(step, params, opt, toks, labs, n: int = 2) -> None:
                      v_dtype="bfloat16")
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    print(f"train profile: AdamW update alone {min(times[1:]) * 1e3:.2f} "
+    print(f"train profile ({tag}): AdamW update alone "
+          f"{min(times[1:]) * 1e3:.2f} "
           "ms (host clock, synchronized)")
 
 
@@ -682,12 +813,24 @@ def _map_leaves(tree, fn):
     return fn(tree)
 
 
-def run_train(dev, profile: bool = False) -> dict:
+def _template_counts(report) -> dict:
+    counts: dict = {}
+    for row in report.sites:
+        key = (row["template"], row["applied"])
+        counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+def run_train(dev, profile: bool = False, fused: bool = True):
     """gpt3-350m at full width, the reference bench's flagship step:
     B 16, S 1024, bf16 moments, fp32 masters; best of 3 windows of 4
-    steps after 3 warm-up steps."""
+    steps after 3 warm-up steps. ``fused`` sets ``use_auto_fusion`` (the
+    default, True, is the main path). Returns (launches of the timed
+    windows, {step_ms, tok_s, mfu, peak_gib})."""
     import dataclasses
 
+    from paddle_tpu_torch import compiler
+    from paddle_tpu_torch.core.flags import GLOBAL_FLAGS
     from paddle_tpu_torch.models.gpt import gpt_flops_per_token, gpt_presets
     from paddle_tpu_torch.ops.kernels import fused_ce as ce
     from paddle_tpu_torch.parallel.train_step import make_train_step
@@ -695,41 +838,60 @@ def run_train(dev, profile: bool = False) -> dict:
     cfg = dataclasses.replace(gpt_presets("gpt3-350m"), unroll=True,
                               remat=False)
     batch, warmup, windows, win = 16, 3, 3, 4
-    step, params, opt = make_train_step(cfg, lr=1e-4, seed=0,
-                                        m_dtype="bfloat16",
-                                        v_dtype="bfloat16", device=dev)
-    rng = np.random.RandomState(0)
-    toks = step.put_batch(rng.randint(0, cfg.vocab_size,
-                                      size=(batch, cfg.seq_len)))
-    labs = step.put_batch(rng.randint(0, cfg.vocab_size,
-                                      size=(batch, cfg.seq_len)))
-    losses = []
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(warmup):
-        loss, params, opt = step(params, opt, toks, labs)
-        losses.append(loss.item())
-    if profile:
-        _profile_train(step, params, opt, toks, labs)
-        return {}
-    counters = _train_counters()
-    for fn in counters.values():
-        fn.launches = 0
-    best = float("inf")
-    for _ in range(windows):
-        torch.cuda.synchronize()
+    was = GLOBAL_FLAGS.get("use_auto_fusion")
+    GLOBAL_FLAGS.set("use_auto_fusion", fused)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        step, params, opt = make_train_step(cfg, lr=1e-4, seed=0,
+                                            m_dtype="bfloat16",
+                                            v_dtype="bfloat16", device=dev)
+        rng = np.random.RandomState(0)
+        toks = step.put_batch(rng.randint(0, cfg.vocab_size,
+                                          size=(batch, cfg.seq_len)))
+        labs = step.put_batch(rng.randint(0, cfg.vocab_size,
+                                          size=(batch, cfg.seq_len)))
+        losses = []
         t0 = time.perf_counter()
-        for _ in range(win):
+        for _ in range(warmup):
             loss, params, opt = step(params, opt, toks, labs)
-        losses.append(loss.item())     # syncs
-        best = min(best, time.perf_counter() - t0)
+            losses.append(loss.item())
+            if len(losses) == 1:        # the first step traces the model
+                t_first = time.perf_counter() - t0
+        if profile:
+            _profile_train(step, params, opt, toks, labs,
+                           "fusion on" if fused else "fusion off")
+            return {}, {}
+        counters = _train_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        best = float("inf")
+        for _ in range(windows):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(win):
+                loss, params, opt = step(params, opt, toks, labs)
+            losses.append(loss.item())     # syncs
+            best = min(best, time.perf_counter() - t0)
+        report = compiler.last_report() if fused else None
+    finally:
+        GLOBAL_FLAGS.set("use_auto_fusion", was)
     launches = {k: fn.launches for k, fn in counters.items()}
     steps = windows * win
+    L = cfg.n_layers
     slabs = -(-cfg.vocab_size // ce.SLAB)
-    want = {"flash_fwd": cfg.n_layers * steps,
-            "flash_bwd": cfg.n_layers * steps,
-            "fused_ce_fwd": 2 * steps, "fused_ce_bwd": 3 * slabs * steps}
+    want = {"flash_fwd": L * steps, "flash_bwd": L * steps,
+            "fused_ce_fwd": 2 * steps, "fused_ce_bwd": 3 * slabs * steps,
+            "fused_norm_epilogue": (2 * L + 1) * steps if fused else 0,
+            "fused_bias_act": L * steps if fused else 0}
     if launches != want:
         raise AssertionError(f"train launches {launches} != {want}")
+    if fused:
+        counts = _template_counts(report)
+        want_sites = {("layer_epilogue", True): 2 * L + 1,
+                      ("bias_gelu", True): L}
+        if counts != want_sites or report.errors:
+            raise AssertionError(f"fusion report {counts} (errors "
+                                 f"{report.errors}) != {want_sites}")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite loss in {losses}")
     if abs(losses[0] - math.log(cfg.vocab_size)) > 0.5:
@@ -740,17 +902,27 @@ def run_train(dev, profile: bool = False) -> dict:
     step_s = best / win
     tok_s = batch * cfg.seq_len / step_s
     mfu = gpt_flops_per_token(cfg) * tok_s / BF16_FLOP_PER_S
-    print(f"train gpt3-350m B{batch} S{cfg.seq_len}: step "
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tag = "fusion on" if fused else "fusion off"
+    print(f"train gpt3-350m B{batch} S{cfg.seq_len} ({tag}): step "
           f"{step_s * 1e3:.2f} ms, {tok_s:.1f} tokens/s, MFU {mfu:.4f} "
-          f"(bf16 peak {BF16_FLOP_PER_S:.0e}), losses "
+          f"(bf16 peak {BF16_FLOP_PER_S:.0e}), first step (trace "
+          f"included) {t_first * 1e3:.0f} ms, losses "
           f"{[round(v, 4) for v in losses]}, launches {launches}, peak mem "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    return launches
+          f"{peak:.2f} GiB")
+    if fused:
+        print(f"train fusion report: program {report.program_hash}, "
+              f"{report.n_applied}/{report.n_sites} sites applied: "
+              + ", ".join(f"{c} {t}" for (t, _), c in counts.items()))
+    return launches, {"step_ms": step_s * 1e3, "tok_s": tok_s, "mfu": mfu,
+                      "peak_gib": peak}
 
 
 def check_train_cpu(dev) -> None:
     """3 fp32 AdamW steps of a small GPT (H 256, 4 heads of 64, 2 layers,
-    S 256, B 2) on the card and on the CPU from identical weights."""
+    S 256, B 2) on the card and on the CPU from identical weights, fusion
+    on for both: the card runs the fp32 K1/K2, K4/K5, K6 and K7 kernels,
+    the CPU their plain versions."""
     from paddle_tpu_torch.models.gpt import GPTConfig, init_params
     from paddle_tpu_torch.parallel.train_step import (adamw_init,
                                                       make_train_step)
@@ -763,6 +935,9 @@ def check_train_cpu(dev) -> None:
     toks = rng.randint(0, cfg.vocab_size, size=(2, cfg.seq_len))
     labs = rng.randint(0, cfg.vocab_size, size=(2, cfg.seq_len))
     runs = {}
+    counters = _train_counters()
+    for fn in counters.values():
+        fn.launches = 0
     for name, device in (("cpu", "cpu"), ("cuda", dev)):
         step, _, _ = make_train_step(cfg, lr=1e-4, device=device)
         params = {k: ({kk: vv.clone().to(device) for kk, vv in v.items()}
@@ -775,6 +950,9 @@ def check_train_cpu(dev) -> None:
             losses.append(loss.item())
         runs[name] = (losses, params)
     (lc, pc), (lg, pg) = runs["cpu"], runs["cuda"]
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel did not run on the card: {launches}")
     if not np.allclose(lg, lc, rtol=TRAIN_CPU_RTOL, atol=0):
         raise AssertionError(f"losses differ: cuda {lg} vs cpu {lc}")
     worst = 0.0
@@ -785,8 +963,8 @@ def check_train_cpu(dev) -> None:
                         .item())
     if not worst <= TRAIN_CPU_ATOL:
         raise AssertionError(f"params differ by {worst} > {TRAIN_CPU_ATOL}")
-    print(f"train cpu/cuda: losses {lg} vs {lc}, params max diff "
-          f"{worst:.3e}")
+    print(f"train cpu/cuda (fusion on): losses {lg} vs {lc}, params max "
+          f"diff {worst:.3e}, card launches {launches}")
 
 
 def main(argv=None) -> int:
@@ -795,7 +973,7 @@ def main(argv=None) -> int:
                     help="comma-separated subset of " + ",".join(PHASES)
                     + "; 'profile' and 'train_profile' (never by default) "
                     "run the bf16 engine and two flagship training steps "
-                    "under torch.profiler")
+                    "(fusion on, then off) under torch.profiler")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -867,14 +1045,24 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         kernels["fused_ce_fwd"], kernels["fused_ce_bwd"] = check_ce(dev)
         torch.cuda.empty_cache()
+        kernels["fused_norm_epilogue"] = check_norm_epilogue(dev)
+        kernels["fused_bias_act"] = check_bias_gelu(dev)
+        torch.cuda.empty_cache()
         done("train_kernels")
     if "train" in phases:
-        launches.update(run_train(dev))
+        ln, on = run_train(dev)
+        launches.update(ln)
         torch.cuda.empty_cache()
+        _, off = run_train(dev, fused=False)
+        torch.cuda.empty_cache()
+        print("train fusion on vs off: step "
+              f"{on['step_ms']:.2f} vs {off['step_ms']:.2f} ms, peak mem "
+              f"{on['peak_gib']:.2f} vs {off['peak_gib']:.2f} GiB")
         done("train")
     if "train_profile" in phases:
-        run_train(dev, profile=True)
-        torch.cuda.empty_cache()
+        for fused in (True, False):
+            run_train(dev, profile=True, fused=fused)
+            torch.cuda.empty_cache()
         done("train_profile")
     if "train_cpu" in phases:
         check_train_cpu(dev)

@@ -1,0 +1,404 @@
+"""Fusion template catalog: aten graph patterns -> fused entries.
+
+Port of paddle_tpu/compiler/catalog.py for the templates of GPT
+training: ``rms_epilogue``, ``layer_epilogue`` (K6,
+ops/kernels/fused_norm_epilogue.py) and ``bias_gelu`` (K7,
+ops/kernels/fused_bias_act.py). ``rope_attention`` and ``swiglu`` wait
+for their kernels (K11, K12) and are not registered.
+
+Each template is ``(name, matcher)``; a matcher inspects one node of a
+:class:`~.fusion_pass.Graph` (the anchor: a node that only occurs inside
+its chain, ``aten.rsqrt`` for the norms and ``aten.gelu`` with
+``approximate="tanh"`` for the gelu) and walks producers and consumers
+to the whole chain. It returns candidate :class:`~.fusion_pass.Site`
+objects in preference order (residual + bias, then residual, then the
+norm alone) or None; the pass applies the first safe candidate.
+
+The matchers recognize the aten lowering of the port's own composition
+(models/gpt.py::_layer_norm, models/llama.py::rms_norm, the FFN's
+``F.gelu(h + b.to(dt), approximate="tanh")``) and nothing else: the
+layer statistic is ``aten.var.correction`` with ``correction=0`` over
+the last axis, the mean ``aten.mean.dim`` over the last axis, the gelu
+follows the add of a rank-1 bias. Anything else (another correction,
+another axis, the exact gelu, a rank-2 bias, extra users of a chain's
+intermediates) returns None or fails validation.
+
+Two standing guards every matcher applies, as the reference's:
+
+- a chain is never followed across a resharding point
+  (:func:`_is_sharded`; the one-device port has no such op yet);
+- ``applied`` is the fused function's own ``*_supported`` gate, so a
+  geometry the kernel does not take keeps its unfused nodes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.flags import GLOBAL_FLAGS
+from .fusion_pass import Graph, Site, lit_scalar
+
+_aten = torch.ops.aten
+# ops that mark a resharding point a fused kernel must not absorb: the
+# one-device port has none yet (the reference's sharding_constraint)
+_RESHARD_TARGETS: tuple = ()
+
+
+def _val(atom):
+    """The traced tensor (shape, dtype, device) of a node, else None."""
+    v = getattr(atom, "meta", {}).get("val") if isinstance(
+        atom, torch.fx.Node) else None
+    return v if isinstance(v, torch.Tensor) else None
+
+
+def _is(node, *targets) -> bool:
+    return (node is not None and node.op == "call_function"
+            and node.target in targets)
+
+
+def _is_sharded(g: Graph, atom) -> bool:
+    _, node = g.producer(atom)
+    return node is not None and node.target in _RESHARD_TARGETS
+
+
+def _arg(node, pos: int, name: str, default=None):
+    if len(node.args) > pos:
+        return node.args[pos]
+    return node.kwargs.get(name, default)
+
+
+def _plain_binary(node) -> bool:
+    """An elementwise add/sub/mul without an ``alpha`` scale."""
+    return _arg(node, 2, "alpha", 1) == 1
+
+
+def _lit_operand(node):
+    """(literal value, other operand) when one operand of a binary node
+    is a scalar literal, else (None, None)."""
+    a, b = node.args[:2]
+    for lit_at, other in ((a, b), (b, a)):
+        v = lit_scalar(lit_at)
+        if v is not None:
+            return v, other
+    return None, None
+
+
+def _other(node, cur):
+    a, b = node.args[:2]
+    return b if a is cur else a
+
+
+def _rows(shape) -> int:
+    n = 1
+    for d in shape[:-1]:
+        n *= d
+    return n
+
+
+def _last_axis(dims, ndim: int) -> bool:
+    if isinstance(dims, int):
+        dims = [dims]
+    return dims is not None and len(dims) == 1 and dims[0] in (-1, ndim - 1)
+
+
+def _mean_last_axis(g: Graph, atom, of_var, cons: set) -> bool:
+    """Match ``of_var.mean(-1, keepdim=True)``; True on success (its node
+    and any peeled plumbing added to ``cons``)."""
+    root, peeled = g.peel(atom)
+    mi, mnode = g.producer(root)
+    if not _is(mnode, _aten.mean.dim) or mnode.args[0] is not of_var:
+        return False
+    v = _val(of_var)
+    if (v is None or not _last_axis(_arg(mnode, 1, "dim"), v.dim())
+            or not _arg(mnode, 2, "keepdim", False)
+            or mnode.kwargs.get("dtype") is not None):
+        return False
+    cons.update(peeled)
+    cons.add(mi)
+    return True
+
+
+# ---------------------------------------------------------------------------
+# norm epilogues (rms / layer)
+# ---------------------------------------------------------------------------
+
+def _rank1_partner(g: Graph, node, cur, h: int):
+    """(root, peeled) of the operand of ``node`` other than ``cur`` when
+    it is an [h] tensor (through casts and views), else (None, None)."""
+    root, peeled = g.peel(_other(node, cur))
+    v = _val(root)
+    if v is not None and tuple(v.shape) == (h,):
+        return root, peeled
+    return None, None
+
+
+def _norm_tail(g: Graph, y1, x_dtype, want_beta: bool, cons: set):
+    """Forward walk from the normalized value: mul by a rank-1 gain, add
+    of a rank-1 beta (layer), cast back to ``x_dtype``. Returns
+    (gain_root, beta_root, y_out) or None."""
+    h = _val(y1).shape[-1]
+    gi, gnode = g.sole_consumer(y1)
+    if not _is(gnode, _aten.mul.Tensor):
+        return None
+    gain, peeled = _rank1_partner(g, gnode, y1, h)
+    if gain is None:
+        return None
+    cons.add(gi)
+    cons.update(peeled)
+    cur, beta = gnode, None
+    if want_beta:
+        bi, bnode = g.sole_consumer(cur)
+        if not _is(bnode, _aten.add.Tensor) or not _plain_binary(bnode):
+            return None
+        beta, peeled = _rank1_partner(g, bnode, cur, h)
+        if beta is None:
+            return None
+        cons.add(bi)
+        cons.update(peeled)
+        cur = bnode
+    if x_dtype != torch.float32:
+        ci, cnode = g.sole_consumer(cur)
+        if (not _is(cnode, _aten._to_copy.default)
+                or _val(cnode) is None or _val(cnode).dtype != x_dtype):
+            return None
+        cons.add(ci)
+        cur = cnode
+    return gain, beta, cur
+
+
+def _residual_candidates(g: Graph, x_atom, with_bias: bool):
+    """Producer patterns of the norm input that fold into the epilogue,
+    preferred first: GPT's ``add(add(a, b), cast(bias[h]))`` (with
+    ``with_bias``) and ``add(a, b)``. Yields (extra_consumed,
+    named_inputs, r_node)."""
+    xi, xnode = g.producer(x_atom)
+    xv = _val(x_atom)
+    if (not _is(xnode, _aten.add.Tensor) or not _plain_binary(xnode)
+            or xv is None):
+        return
+
+    def like_x(*atoms) -> bool:
+        vals = [_val(a) for a in atoms]
+        return all(v is not None and v.shape == xv.shape
+                   and v.dtype == xv.dtype for v in vals)
+
+    if with_bias:
+        for inner, b in (xnode.args[:2], xnode.args[1::-1]):
+            b_root, peeled = g.peel(b)
+            bv = _val(b_root)
+            if bv is None or tuple(bv.shape) != (xv.shape[-1],):
+                continue
+            ii, inode = g.producer(inner)
+            if not _is(inode, _aten.add.Tensor) or not _plain_binary(inode):
+                continue
+            a, s = inode.args[:2]
+            if like_x(a, s):
+                yield ({xi, ii, *peeled}, {"x": a, "sub": s, "bias": b_root},
+                       x_atom)
+    a, b = xnode.args[:2]
+    if like_x(a, b):
+        yield {xi}, {"x": a, "sub": b}, x_atom
+
+
+def _stat(g: Graph, stat_at, norm: str, cons: set):
+    """The fp32 operand u of the norm statistic, or None: rms is
+    ``(u * u).mean(-1, keepdim=True)`` (or ``u.pow(2)``), layer is
+    ``u.var(-1, unbiased=False, keepdim=True)`` (``aten.var.correction``
+    with correction 0; any other correction is another statistic)."""
+    root, peeled = g.peel(stat_at)
+    si, snode = g.producer(root)
+    if norm == "rms":
+        if not _is(snode, _aten.mean.dim):
+            return None
+        sq = snode.args[0]
+        qi, qnode = g.producer(sq)
+        if _is(qnode, _aten.mul.Tensor) and qnode.args[0] is qnode.args[1]:
+            u = qnode.args[0]
+        elif (_is(qnode, _aten.pow.Tensor_Scalar)
+              and lit_scalar(qnode.args[1]) == 2.0):
+            u = qnode.args[0]
+        else:
+            return None
+        if not _mean_last_axis(g, root, sq, cons):
+            return None
+        cons.add(qi)
+    else:
+        if not _is(snode, _aten.var.correction):
+            return None
+        u = snode.args[0]
+        v = _val(u)
+        corr = snode.kwargs.get("correction")
+        if (v is None or corr is None or lit_scalar(corr) != 0.0
+                or not _last_axis(_arg(snode, 1, "dim"), v.dim())
+                or not snode.kwargs.get("keepdim", False)):
+            return None
+        cons.add(si)
+    cons.update(peeled)
+    return u
+
+
+def _norm_sites(g: Graph, i, node, norm: str):
+    """The rms and layer templates' shared matcher, anchored at rsqrt."""
+    if not _is(node, _aten.rsqrt.default):
+        return None
+    cons = {i}
+    ai, anode = g.producer(node.args[0])
+    if not _is(anode, _aten.add.Tensor) or not _plain_binary(anode):
+        return None
+    eps, stat_at = _lit_operand(anode)
+    if eps is None or eps <= 0:
+        return None
+    cons.add(ai)
+    u = _stat(g, stat_at, norm, cons)
+    uv = _val(u)
+    if uv is None or uv.dtype != torch.float32:
+        return None
+
+    # u = x cast to fp32 (or x itself when the model runs fp32)
+    ci, cnode = g.producer(u)
+    x_atom = u
+    if (_is(cnode, _aten._to_copy.default) and _val(cnode.args[0]) is not None
+            and _val(cnode.args[0]).device == uv.device):
+        x_atom = cnode.args[0]
+        cons.add(ci)
+    xv = _val(x_atom)
+    if xv is None:
+        return None
+
+    # normalized value: mul(u, rsqrt) for rms, mul(sub(u, mean), rsqrt)
+    # for layer
+    rvar, rpeel, ni, nnode = g.forward_through(node)
+    if not _is(nnode, _aten.mul.Tensor):
+        return None
+    cons.update(rpeel)
+    partner = _other(nnode, rvar)
+    if norm == "rms":
+        if partner is not u:
+            return None
+    else:
+        si, snode = g.producer(partner)
+        if (not _is(snode, _aten.sub.Tensor) or not _plain_binary(snode)
+                or snode.args[0] is not u
+                or not _mean_last_axis(g, snode.args[1], u, cons)):
+            return None
+        cons.add(si)
+    cons.add(ni)
+
+    tail = _norm_tail(g, nnode, xv.dtype, want_beta=(norm == "layer"),
+                      cons=cons)
+    if tail is None:
+        return None
+    gain, beta, y_out = tail
+
+    from ..ops.kernels.fused_norm_epilogue import (
+        fused_norm_epilogue, fused_norm_epilogue_supported)
+
+    supported = fused_norm_epilogue_supported(_rows(xv.shape), xv.shape[-1],
+                                              xv.dtype)
+    resharded = _is_sharded(g, x_atom)
+
+    def mk(extra_cons, named, r_node):
+        all_cons = frozenset(cons | extra_cons)
+        names = ("x",) + tuple(k for k in ("sub", "bias") if k in named)
+        inputs = tuple([named.get("x", x_atom)]
+                       + [named[k] for k in names[1:]]
+                       + [gain] + ([beta] if beta is not None else []))
+
+        def norm_epilogue_site(*vals, names=names, has_beta=beta is not None,
+                               norm=norm, eps=float(eps)):
+            kw = dict(zip(names, vals[:len(names)]))
+            kw["gain"] = vals[len(names)]
+            if has_beta:
+                kw["beta"] = vals[len(names) + 1]
+            x = kw.pop("x")
+            return fused_norm_epilogue(x, norm=norm, eps=eps, **kw)
+
+        binds = (((y_out, 1),) if r_node is None
+                 else ((r_node, 0), (y_out, 1)))
+        return Site(f"{norm}_epilogue", all_cons, max(all_cons), inputs,
+                    binds, norm_epilogue_site,
+                    applied=supported and not resharded,
+                    note="resharded" if resharded else "")
+
+    cands = [mk(ec, named, rn) for ec, named, rn in _residual_candidates(
+        g, x_atom, with_bias=(norm == "layer"))]
+    cands.append(mk(set(), {}, None))
+    return cands
+
+
+def match_rms_epilogue(g: Graph, i, node):
+    return _norm_sites(g, i, node, "rms")
+
+
+def match_layer_epilogue(g: Graph, i, node):
+    return _norm_sites(g, i, node, "layer")
+
+
+# ---------------------------------------------------------------------------
+# bias + gelu (tanh approximation)
+# ---------------------------------------------------------------------------
+
+def match_bias_gelu(g: Graph, i, node):
+    """``aten.gelu(add(h, cast(bias[f])), approximate="tanh")``."""
+    if (not _is(node, _aten.gelu.default)
+            or _arg(node, 1, "approximate", "none") != "tanh"):
+        return None
+    x_at = node.args[0]
+    bi, bnode = g.producer(x_at)
+    xv = _val(x_at)
+    if not _is(bnode, _aten.add.Tensor) or not _plain_binary(bnode) \
+            or xv is None:
+        return None
+    found = None
+    for h_at, b_at in (bnode.args[:2], bnode.args[1::-1]):
+        b_root, peeled = g.peel(b_at)
+        bv, hv = _val(b_root), _val(h_at)
+        if (bv is not None and tuple(bv.shape) == (xv.shape[-1],)
+                and hv is not None and hv.shape == xv.shape
+                and hv.dtype == xv.dtype):
+            found = (h_at, b_root, peeled)
+            break
+    if found is None:
+        return None
+    h_at, b_root, peeled = found
+    cons = {i, bi, *peeled}
+
+    from ..ops.kernels.fused_bias_act import (fused_bias_act_supported,
+                                              fused_bias_gelu)
+
+    supported = fused_bias_act_supported(_rows(xv.shape), xv.shape[-1],
+                                         xv.dtype)
+
+    def bias_gelu_site(h, b):
+        return (fused_bias_gelu(h, b),)
+
+    return [Site("bias_gelu", frozenset(cons), max(cons), (h_at, b_root),
+                 ((node, 0),), bias_gelu_site,
+                 applied=supported and not _is_sharded(g, h_at))]
+
+
+# ---------------------------------------------------------------------------
+# the catalog
+# ---------------------------------------------------------------------------
+
+ALL_TEMPLATES = (
+    ("rms_epilogue", match_rms_epilogue),
+    ("layer_epilogue", match_layer_epilogue),
+    ("bias_gelu", match_bias_gelu),
+)
+
+
+def active_templates():
+    """The catalog filtered by the per-template kill switches:
+    ``use_fused_norm_epilogue`` disables discovery of the norm templates,
+    ``use_fused_bias_act`` that of ``bias_gelu``."""
+    norm_on = bool(GLOBAL_FLAGS.get("use_fused_norm_epilogue"))
+    act_on = bool(GLOBAL_FLAGS.get("use_fused_bias_act"))
+    out = []
+    for name, matcher in ALL_TEMPLATES:
+        if name in ("rms_epilogue", "layer_epilogue") and not norm_on:
+            continue
+        if name == "bias_gelu" and not act_on:
+            continue
+        out.append((name, matcher))
+    return out

@@ -9,16 +9,19 @@ logits are fp32. Attention on the fused qkv projection goes through the
 flash kernels (K1 forward, K2 backward) and the chunked loss through the
 vocab-streaming cross-entropy kernels (K4, K5) on CUDA.
 
-This is the reference's forward with its fusion compiler off
-(``use_auto_fusion=0``): the plain op-by-op composition. Eager PyTorch
-always runs the layer loop unrolled, so ``unroll`` changes nothing.
-MoE layers, ring attention and the sharding hooks belong to later
-slices and raise.
+The model is written as the plain op-by-op composition
+(``_model_apply_unfused``); ``model_apply`` runs it through the fusion
+compiler (``compiler.fused_call``), which places K6 (residual + bias +
+LayerNorm) and K7 (bias + gelu) in the forward, as the reference's
+default path does. Eager PyTorch always runs the layer loop unrolled, so
+``unroll`` changes nothing. MoE layers, ring attention and the sharding
+hooks belong to later slices and raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Optional
 
@@ -26,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..compiler import fused_call, remat_call
 from ..core.flags import GLOBAL_FLAGS
 from ..ops.kernels.flash_attention import (flash_attention_qkv,
                                            flash_qkv_supported)
@@ -50,10 +54,10 @@ class GPTConfig:
     param_dtype: Any = torch.float32     # master params
     tie_embeddings: bool = True
     use_flash: bool = True
-    # False | True | "full": True and "full" both run each block under
-    # torch.utils.checkpoint, which recomputes the whole block, K1
-    # included, in the backward (a policy that saves the flash outputs,
-    # as the reference's does, is later work)
+    # False | True | "full": True and "full" both run each block through
+    # compiler.remat_call (torch.utils.checkpoint), which recomputes the
+    # whole block, K1, K6 and K7 included, in the backward (a policy that
+    # saves the flash outputs, as the reference's does, is later work)
     remat: bool | str = True
     unroll: bool = False                 # eager: always unrolled
     ring_axis: Optional[str] = None
@@ -188,19 +192,34 @@ def model_apply(params: dict, tokens, cfg: GPTConfig, sp_constraint=None,
                 blocks_fn=None, return_hidden: bool = False,
                 emb_constraint=None):
     """Forward to fp32 logits [B, T, V] (or, with ``return_hidden``, the
-    final hidden states), and the MoE aux loss (0 here)."""
+    final hidden states), and the MoE aux loss (0 here). Routed through
+    the fusion compiler, as the reference's when no sharding hooks are
+    passed: the plan places K6 at every LayerNorm and K7 at every FFN
+    gelu (with ``use_auto_fusion=0``, the plain composition runs)."""
     if sp_constraint is not None or blocks_fn is not None or \
             emb_constraint is not None:
         raise NotImplementedError("later slice: sp_constraint, blocks_fn "
                                   "and emb_constraint (sharded steps)")
     _refuse_later_slices(cfg)
+    return fused_call(("gpt_apply", cfg, bool(return_hidden)),
+                      functools.partial(_model_apply_unfused, cfg=cfg,
+                                        return_hidden=return_hidden),
+                      params, tokens)
+
+
+def _model_apply_unfused(params: dict, tokens, cfg: GPTConfig,
+                         return_hidden: bool = False):
+    """The plain op-by-op forward. With ``remat`` each block runs through
+    ``compiler.remat_call``: recomputed in the backward, and planned by
+    the compiler as a nested program of its own."""
     B, T = tokens.shape
     x = params["wte"][tokens.long()].to(cfg.dtype) + \
         params["wpe"][:T].to(cfg.dtype)
     for i in range(cfg.n_layers):
         bp = {k: v[i] for k, v in params["blocks"].items()}
         if cfg.remat:
-            x = checkpoint(block_apply, bp, x, cfg, use_reentrant=False)
+            x = remat_call(("gpt_block", cfg),
+                           functools.partial(block_apply, cfg=cfg), bp, x)
         else:
             x = block_apply(bp, x, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

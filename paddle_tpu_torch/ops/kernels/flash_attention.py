@@ -1,5 +1,5 @@
 """Causal flash attention on the fused qkv projection: the CUDA kernels'
-wrappers, their plain PyTorch versions and the autograd function.
+wrappers, their plain PyTorch versions and the differentiable operator.
 
 Port of paddle_tpu/ops/pallas/flash_attention.py, fused-qkv entry
 ``flash_attention_qkv_raw``: forward ``_flash_fwd_kernel_native``,
@@ -18,7 +18,11 @@ kernel that writes one dqkv cotangent).
   delta = rowsum(do * o) in fp32 is computed here, outside the kernel.
 
 On a CPU tensor the wrappers run the plain versions; on a CUDA tensor
-they launch ``csrc/flash_attention.cu`` or raise.
+they launch ``csrc/flash_attention.cu`` or raise. The differentiable
+entry ``flash_attention_qkv`` is the registered operator pair
+``paddle_tpu_torch::flash_qkv_fwd`` / ``flash_qkv_bwd`` (K2 as the
+forward's registered backward), so that the fusion compiler's trace
+records each as one node, with shape-only fake implementations.
 """
 
 from __future__ import annotations
@@ -199,18 +203,55 @@ flash_fwd.launches = 0
 flash_bwd.launches = 0
 
 
-class _FlashQKV(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, qkv, n_heads, causal, sm_scale):
-        o, lse = flash_fwd(qkv, n_heads, causal, sm_scale)
-        ctx.save_for_backward(qkv, o, lse)
-        ctx.args = (n_heads, causal, sm_scale)
-        return o
+# The fused-qkv entry is a pair of registered operators, so that the
+# fusion compiler's trace (torch.fx make_fx) records each as one node on
+# any device: the fake implementations give shapes only, the real ones
+# are the wrappers above (plain version on the CPU, K1/K2 on CUDA).
 
-    @staticmethod
-    def backward(ctx, g):
-        qkv, o, lse = ctx.saved_tensors
-        return flash_bwd(qkv, o, lse, g, *ctx.args), None, None, None
+@torch.library.custom_op("paddle_tpu_torch::flash_qkv_fwd", mutates_args=())
+def _flash_qkv_fwd_op(qkv: torch.Tensor, n_heads: int, causal: bool,
+                      sm_scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    # contiguous, as the fake implementation says: a trace turns the
+    # caller's reshape of o into a view
+    o, lse = flash_fwd(qkv, n_heads, causal, sm_scale)
+    return o.contiguous(), lse.contiguous()
+
+
+@_flash_qkv_fwd_op.register_fake
+def _(qkv, n_heads, causal, sm_scale):
+    B, S, H3 = qkv.shape
+    d = H3 // (3 * n_heads)
+    return (qkv.new_empty((B, S, n_heads, d)),
+            qkv.new_empty((B, n_heads, S), dtype=torch.float32))
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_qkv_bwd", mutates_args=())
+def _flash_qkv_bwd_op(qkv: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+                      do: torch.Tensor, n_heads: int, causal: bool,
+                      sm_scale: float) -> torch.Tensor:
+    return flash_bwd(qkv, o, lse, do, n_heads, causal, sm_scale)
+
+
+@_flash_qkv_bwd_op.register_fake
+def _(qkv, o, lse, do, n_heads, causal, sm_scale):
+    return torch.empty_like(qkv)
+
+
+def _flash_qkv_setup(ctx, inputs, output):
+    qkv, n_heads, causal, sm_scale = inputs
+    o, lse = output
+    ctx.save_for_backward(qkv, o, lse)
+    ctx.args = (n_heads, causal, sm_scale)
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_qkv_backward(ctx, do, _dlse):
+    qkv, o, lse = ctx.saved_tensors
+    return _flash_qkv_bwd_op(qkv, o, lse, do, *ctx.args), None, None, None
+
+
+_flash_qkv_fwd_op.register_autograd(_flash_qkv_backward,
+                                    setup_context=_flash_qkv_setup)
 
 
 def flash_attention_qkv(qkv, n_heads: int, causal: bool = True,
@@ -222,4 +263,5 @@ def flash_attention_qkv(qkv, n_heads: int, causal: bool = True,
                          f"{qkv.dtype} with {n_heads} heads is not supported")
     d = qkv.shape[-1] // (3 * n_heads)
     scale = sm_scale if sm_scale is not None else 1.0 / d ** 0.5
-    return _FlashQKV.apply(qkv.contiguous(), n_heads, causal, scale)
+    return _flash_qkv_fwd_op(qkv.contiguous(), n_heads, bool(causal),
+                             float(scale))[0]

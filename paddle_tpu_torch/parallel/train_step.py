@@ -1,6 +1,16 @@
 """The single-device GPT training step: forward, backward and AdamW
 (port of paddle_tpu/parallel/train_step.py, ``make_sharded_train_step``
-on a one-device mesh, with the fusion compiler off).
+on a one-device mesh).
+
+The reference wraps its whole step in ``compiler.auto_fuse``; here the
+forward is fused inside ``models/gpt.py::model_apply`` (``fused_call``)
+and nothing more. That covers what the step-level pass can find: the
+backward is autograd's (the fused entries carry their own composed
+backwards, as the reference's custom_vjps do) and AdamW is a loop of
+in-place updates with no catalog chain in it. tests/test_torch_compiler.py
+holds the port's per-template site counts (2L + 1 ``layer_epilogue``,
+L ``bias_gelu``) equal to the JAX compiler's on the same unrolled model,
+where the JAX compiler runs.
 
 AdamW keeps the reference's arithmetic: fp32 update math, bias
 corrections in fp32, weight decay on every leaf, moments stored as fp32,

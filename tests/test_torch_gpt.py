@@ -1,11 +1,13 @@
 """The port's GPT against the JAX reference on the CPU: presets, the
 parameter tree, and the loss with the gradient of every leaf at the
 reference bench's CPU configuration (vocab 1024, H 256, 4 layers, 4
-heads, S 256, B 2), in fp32 with the fusion compiler off. The
-reference's flash kernels run in Pallas interpret mode; the port's run
-their plain versions. Tolerance: rtol 1e-5 on the loss; gradients
-rtol 1e-5 with atol 1e-5 of each leaf's largest gradient (summation
-order only)."""
+heads, S 256, B 2), in fp32. The port runs its default path, the fusion
+compiler on (K6 at every LayerNorm, K7 at every gelu, their plain arms
+on the CPU); the reference runs with its compiler off, which it holds
+equal to its fused path, and, where the JAX compiler runs (it needs
+``jax.core.Var``), with it on. The reference's Pallas kernels run in
+interpret mode. Tolerance: rtol 1e-5 on the loss; gradients rtol 1e-5
+with atol 1e-5 of each leaf's largest gradient (summation order only)."""
 
 import dataclasses
 
@@ -18,6 +20,7 @@ import jax.numpy as jnp
 
 from paddle_tpu.core.flags import GLOBAL_FLAGS as JFLAGS
 from paddle_tpu.models import gpt as jg
+from paddle_tpu_torch import compiler as tcompiler
 from paddle_tpu_torch.models import gpt as tg
 from paddle_tpu_torch.utils.convert import params_from_jax
 
@@ -83,9 +86,7 @@ def test_layer_norm_matches():
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("loss_chunk,remat", [(512, False), (0, False),
-                                              (512, True)])
-def test_loss_and_grads_match(no_auto_fusion, loss_chunk, remat):
+def _check_loss_and_grads(loss_chunk, remat, monkeypatch):
     jc, tc = _cfgs(remat=remat)
     jp = jg.init_params(jc, jax.random.PRNGKey(0))
     tok, lab = _batch()
@@ -95,8 +96,13 @@ def test_loss_and_grads_match(no_auto_fusion, loss_chunk, remat):
     flat = jax.tree_util.tree_leaves(tp)
     for p in flat:
         p.requires_grad_(True)
+    monkeypatch.setattr(tcompiler, "_LAST_REPORT", None)
     tloss = tg.loss_fn(tp, torch.from_numpy(tok), torch.from_numpy(lab), tc,
                        loss_chunk=loss_chunk)
+    # the port's fused path ran: 2L + 1 layer epilogues and L gelus
+    L = SHAPE["n_layers"]
+    rep = tcompiler.last_report()
+    assert (rep.n_sites, rep.n_applied) == (3 * L + 1, 3 * L + 1)
     tgrads = torch.autograd.grad(tloss, flat)
     np.testing.assert_allclose(tloss.item(), float(loss), rtol=1e-5)
     jflat = jax.tree_util.tree_flatten_with_path(
@@ -106,6 +112,20 @@ def test_loss_and_grads_match(no_auto_fusion, loss_chunk, remat):
         scale = float(np.abs(want).max())
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
                                    atol=1e-5 * scale, err_msg=str(path))
+
+
+@pytest.mark.parametrize("loss_chunk,remat", [(512, False), (0, False),
+                                              (512, True)])
+def test_loss_and_grads_match(no_auto_fusion, monkeypatch, loss_chunk,
+                              remat):
+    _check_loss_and_grads(loss_chunk, remat, monkeypatch)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_loss_and_grads_match_the_fused_reference(monkeypatch, remat):
+    _needs_the_jax_compiler()
+    assert JFLAGS.get("use_auto_fusion")
+    _check_loss_and_grads(512, remat, monkeypatch)
 
 
 def test_later_slices_raise():
@@ -125,3 +145,9 @@ def test_flops_per_token_matches_bench():
     for name in ("gpt3-125m", "gpt3-350m", "gpt3-1.3b"):
         assert tg.gpt_flops_per_token(tg.gpt_presets(name)) == \
             bench._flops_per_token(jg.gpt_presets(name))
+
+
+def _needs_the_jax_compiler():
+    if not hasattr(jax.core, "Var"):
+        pytest.skip("this jax has no jax.core.Var, which the JAX compiler "
+                    "(paddle_tpu.compiler) needs")

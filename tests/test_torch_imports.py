@@ -25,6 +25,7 @@ import chip_smoke
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "paddle_tpu")
           and sys.modules[m] is not None]
 assert not loaded, loaded
+print(" ".join(mods))
 print(len(mods))
 """
 
@@ -35,7 +36,12 @@ def test_port_imports_without_jax_or_reference():
                          env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 17
+    assert int(out.stdout.split()[-1]) >= 22
+    mods = set(out.stdout.split()[:-1])
+    assert {"paddle_tpu_torch.compiler", "paddle_tpu_torch.compiler.catalog",
+            "paddle_tpu_torch.compiler.fusion_pass",
+            "paddle_tpu_torch.ops.kernels.fused_norm_epilogue",
+            "paddle_tpu_torch.ops.kernels.fused_bias_act"} <= mods
 
 
 def test_no_silent_cpu_fallback():

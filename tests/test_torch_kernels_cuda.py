@@ -165,3 +165,87 @@ def test_fused_ce_kernels_match_plain(cuda, dtype, tol, N, H, V):
     free = torch.ones(V, dtype=torch.bool, device=cuda)
     free[lab] = False
     assert _scaled(dh[:, free], rdh[:, free], dim=0) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3 * 2 ** -7)])
+@pytest.mark.parametrize("norm,sub,bias,act", [
+    ("layer", True, True, None), ("layer", False, False, None),
+    ("layer", True, False, "gelu"), ("rms", True, True, None),
+    ("rms", False, False, "gelu")])
+@pytest.mark.parametrize("n,h", [(256, 128), (512, 1024), (256, 4096)])
+def test_norm_epilogue_kernel_matches_plain(cuda, dtype, tol, norm, sub,
+                                            bias, act, n, h):
+    """K6: r bit-equal to the plain composition, y within tol by row."""
+    from paddle_tpu_torch.ops.kernels import fused_norm_epilogue as fne
+
+    rng = np.random.default_rng(4)
+
+    def arr(*shape, mean=0.0, std=1.0):
+        return torch.from_numpy((mean + std * rng.normal(size=shape)).astype(
+            np.float32)).to(cuda)
+
+    x = arr(n, h).to(dtype)
+    s = arr(n, h).to(dtype) if sub else None
+    b = arr(h, std=0.5) if bias else None
+    g, be = arr(h, mean=1.0, std=0.2), arr(h, std=0.2)
+    be = be.to(torch.bfloat16) if norm == "layer" else None
+    before = fne.norm_epilogue_fwd.launches
+    r, y = fne.norm_epilogue_fwd(x, s, b, g, be, norm, 1e-5, act)
+    rr, ry = fne.norm_epilogue_plain(x, s, b, g, be, norm, 1e-5, act)
+    torch.cuda.synchronize()
+    assert fne.norm_epilogue_fwd.launches == before + 1
+    assert torch.equal(r, rr)
+    assert _scaled(y, ry) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3 * 2 ** -7)])
+@pytest.mark.parametrize("n,f", [(256, 128), (300, 4096), (1024, 1024)])
+def test_bias_gelu_kernel_matches_plain(cuda, dtype, tol, n, f):
+    """K7 within tol by row, the bias in fp32 and in bf16."""
+    from paddle_tpu_torch.ops.kernels import fused_bias_act as fba
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy((2 * rng.normal(size=(n, f))).astype(
+        np.float32)).to(cuda, dtype)
+    for b in (torch.from_numpy(rng.normal(size=f).astype(np.float32)).to(
+            cuda), torch.from_numpy(rng.normal(size=f).astype(
+                np.float32)).to(cuda, torch.bfloat16)):
+        before = fba.bias_gelu_fwd.launches
+        y = fba.bias_gelu_fwd(x, b)
+        ref = fba.bias_gelu_plain(x, b)
+        torch.cuda.synchronize()
+        assert fba.bias_gelu_fwd.launches == before + 1
+        assert _scaled(y, ref) <= tol
+
+
+@pytest.mark.cuda
+def test_fused_gpt_forward_runs_the_kernels(cuda):
+    """A small bf16 GPT's fused forward on the card launches K6 2L+1 and
+    K7 L times and stays within three bf16 ulps of the unfused one."""
+    from paddle_tpu_torch.core.flags import GLOBAL_FLAGS
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops.kernels import fused_bias_act as fba
+    from paddle_tpu_torch.ops.kernels import fused_norm_epilogue as fne
+
+    cfg = gpt.GPTConfig(vocab_size=512, hidden=256, n_layers=2, n_heads=4,
+                        seq_len=256, remat=False)
+    params = gpt.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             cuda)
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 512, size=(2, 256))).to(cuda)
+    before = (fne.norm_epilogue_fwd.launches, fba.bias_gelu_fwd.launches)
+    fused, _ = gpt.model_apply(params, tokens, cfg, return_hidden=True)
+    torch.cuda.synchronize()
+    assert (fne.norm_epilogue_fwd.launches - before[0],
+            fba.bias_gelu_fwd.launches - before[1]) == (5, 2)
+    old = GLOBAL_FLAGS.get("use_auto_fusion")
+    GLOBAL_FLAGS.set("use_auto_fusion", False)
+    try:
+        plain, _ = gpt.model_apply(params, tokens, cfg, return_hidden=True)
+    finally:
+        GLOBAL_FLAGS.set("use_auto_fusion", old)
+    assert _scaled(fused, plain) <= 3 * 2 ** -7

@@ -1,5 +1,8 @@
 """The port's AdamW and single-device training step against the JAX
-reference on the CPU, with the fusion compiler off.
+reference on the CPU. The port's step runs its default path, the fusion
+compiler on; the reference's runs with its compiler off (which it holds
+equal to its fused path) and, where the JAX compiler runs (it needs
+``jax.core.Var``), with it on.
 
 - ``adamw_update`` from identical numpy state, two steps, in every moment
   storage (fp32, bf16, int8 m with bf16 v), with and without fp32
@@ -28,6 +31,7 @@ from paddle_tpu.core.flags import GLOBAL_FLAGS as JFLAGS
 from paddle_tpu.distributed.process_mesh import build_mesh
 from paddle_tpu.models import gpt as jg
 from paddle_tpu.parallel import train_step as jts
+from paddle_tpu_torch import compiler as tcompiler
 from paddle_tpu_torch.models import gpt as tg
 from paddle_tpu_torch.parallel import train_step as tts
 from paddle_tpu_torch.utils.convert import opt_state_from_jax, params_from_jax
@@ -94,7 +98,19 @@ def test_adamw_update_bit_equal(master, m_dtype, v_dtype):
 
 
 @pytest.mark.parametrize("bf16", [False, True])
-def test_three_step_trajectory_matches(no_auto_fusion, bf16):
+def test_three_step_trajectory_matches(no_auto_fusion, monkeypatch, bf16):
+    _check_trajectory(bf16, monkeypatch)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_three_step_trajectory_matches_the_fused_reference(monkeypatch,
+                                                            bf16):
+    _needs_the_jax_compiler()
+    assert JFLAGS.get("use_auto_fusion")
+    _check_trajectory(bf16, monkeypatch)
+
+
+def _check_trajectory(bf16, monkeypatch):
     jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if bf16
                 else (jnp.float32, torch.float32))
     jc = jg.GPTConfig(**SMALL, dtype=jdt)
@@ -111,11 +127,16 @@ def test_three_step_trajectory_matches(no_auto_fusion, bf16):
     tok = rng.randint(0, SMALL["vocab_size"], size=(2, SMALL["seq_len"]))
     lab = rng.randint(0, SMALL["vocab_size"], size=(2, SMALL["seq_len"]))
     jl, tl = [], []
+    monkeypatch.setattr(tcompiler, "_LAST_REPORT", None)
     for _ in range(3):
         loss, jp, js = jstep(jp, js, tok, lab)
         jl.append(float(loss))
         loss, tp, ts = tstep(tp, ts, tok, lab)
         tl.append(loss.item())
+    # the port's fused step ran: 2L + 1 layer epilogues and L gelus
+    rep = tcompiler.last_report()
+    L = SMALL["n_layers"]
+    assert (rep.n_sites, rep.n_applied) == (3 * L + 1, 3 * L + 1)
     np.testing.assert_allclose(tl, jl, rtol=1e-3 if bf16 else 1e-5)
     assert tl[-1] < tl[0]
     if bf16:
@@ -151,3 +172,9 @@ def test_later_slices_raise():
                             device="cpu")
     with pytest.raises(ValueError):
         tts.make_train_step(tc, v_dtype="int8", device="cpu")
+
+
+def _needs_the_jax_compiler():
+    if not hasattr(jax.core, "Var"):
+        pytest.skip("this jax has no jax.core.Var, which the JAX compiler "
+                    "(paddle_tpu.compiler) needs")
