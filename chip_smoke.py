@@ -44,6 +44,29 @@ Phases, each failing loudly (any failure exits nonzero):
    CPU from identical weights, fusion on for both; losses within rtol
    1e-4 and parameters within atol 1e-4 (TF32 off), every training kernel
    launched on the card.
+8. ``decode_kernels``: the LLaMA engine's kernels against their plain
+   versions at the llama1b shapes: dense GQA decode attention (K10) at
+   B 1, 8, 16 and five cache positions, flash with RoPE in the tile (K11,
+   bit-equal to K1 on apply_rope'd inputs), K1's separate-input mode and
+   swiglu (K12, also at llama3-8b's width), each with kernel, plain,
+   library time and bound; and K6 in the rms form at the prefill's rows
+   and width (residual and norm-only, r bit-equal, y by row).
+9. ``decode``: ``LlamaForCausalLM`` at llama1b (vocab 32000, hidden 2048,
+   16 layers, 16 heads, 4 kv heads, ffn 5504; random bf16 weights drawn
+   on the card from seed 0) on the reference bench's decode protocol:
+   512-token prompts, prefill ms and decode tokens/s at B 1, 8 and 16
+   (128 new tokens, greedy), a sampled run, the weight-only int8 engine
+   at B 8, the fusion-off engine at B 1 against the fused one by teacher
+   forcing (the fused greedy stream fed to the fused, the unfused and an
+   fp32 engine; every step's logits of each bf16 engine held to the fp32
+   one's, the fused one's mean error within 1.1x the unfused one's), a
+   profiled decode window, and llama3-8b at B 1. Per generate K10
+   launches L x (new - 1), K11 and K12 L and K6 2L + 1 (the prefill's
+   fusion report: 2L + 1 rms_epilogue, L rope_attention, L swiglu
+   applied, no error), K9 (7L + 1) x new with int8 weights.
+10. ``decode_cpu``: a small fp32 LLaMA (head dim 128, G 2) generating on
+   the card and on the CPU from identical weights, fusion on; greedy
+   streams equal except where the CPU's top-2 margin is under 1e-4.
 
 Prints the card's name and power limit, one JSON line ``{"kernels": ...}``
 and, last, ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -52,6 +75,7 @@ and, last, ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -62,7 +86,7 @@ import numpy as np
 import torch
 
 PHASES = ("kernels", "engine", "int8", "cpu", "train_kernels", "train",
-          "train_cpu")
+          "train_cpu", "decode_kernels", "decode", "decode_cpu")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12         # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12          # fp32 outside the tensor cores (K6, K7)
@@ -631,34 +655,43 @@ def _vec(gen, dev, h: int, mean: float, std: float, dtype=torch.float32):
         dtype)
 
 
+def _norm_case(gen, dev, worst, tag, n, h, dt, norm, sub, bias, beta,
+               act=None, gain_dtype=torch.float32):
+    """One K6 case against its plain version: r bit-equal, y held by
+    _scaled_err by row; the worst y error goes into ``worst[dt]``."""
+    from paddle_tpu_torch.ops.kernels import fused_norm_epilogue as fne
+
+    x = torch.randn((n, h), generator=gen, device=dev).to(dt)
+    s = (torch.randn((n, h), generator=gen, device=dev).to(dt)
+         if sub else None)
+    b = _vec(gen, dev, h, 0.0, 0.5) if bias else None
+    g = _vec(gen, dev, h, 1.0, 0.2, gain_dtype)
+    be = _vec(gen, dev, h, 0.0, 0.2) if beta else None
+    r, y = fne.norm_epilogue_fwd(x, s, b, g, be, norm, 1e-5, act)
+    rr, ry = fne.norm_epilogue_plain(x, s, b, g, be, norm, 1e-5, act)
+    torch.cuda.synchronize()
+    if not torch.equal(r, rr):
+        raise AssertionError(f"K6 {tag}: r is not bit-equal to the plain "
+                             "composition")
+    tol = BF16_TOL if dt == torch.bfloat16 else FP32_TOL
+    worst[dt] = max(worst[dt], _hold(f"K6 {tag} y (r bit-equal)", y, ry,
+                                     tol))
+    return x, s, b, g, be
+
+
 def check_norm_epilogue(dev) -> dict:
     """K6 against its plain version: at the gpt3-350m norm shape
     ([16384, 1024] bf16) in the residual + bias layer form (ln2 and the
     next layer's ln1), the norm-only form (layer 0's ln1), with the tanh
-    gelu, the rms form at H 4096 (llama's), and small fp32 cases. r must
-    be bit-equal; y is held by _scaled_err by row."""
+    gelu, the rms form at H 4096 (llama3-8b's), and small fp32 cases. r
+    must be bit-equal; y is held by _scaled_err by row."""
     from paddle_tpu_torch.ops.kernels import fused_norm_epilogue as fne
 
     gen = torch.Generator(device=dev).manual_seed(9)
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
 
-    def case(tag, n, h, dt, norm, sub, bias, beta, act=None):
-        x = torch.randn((n, h), generator=gen, device=dev).to(dt)
-        s = (torch.randn((n, h), generator=gen, device=dev).to(dt)
-             if sub else None)
-        b = _vec(gen, dev, h, 0.0, 0.5) if bias else None
-        g = _vec(gen, dev, h, 1.0, 0.2)
-        be = _vec(gen, dev, h, 0.0, 0.2) if beta else None
-        r, y = fne.norm_epilogue_fwd(x, s, b, g, be, norm, 1e-5, act)
-        rr, ry = fne.norm_epilogue_plain(x, s, b, g, be, norm, 1e-5, act)
-        torch.cuda.synchronize()
-        if not torch.equal(r, rr):
-            raise AssertionError(f"K6 {tag}: r is not bit-equal to the "
-                                 "plain composition")
-        tol = BF16_TOL if dt == torch.bfloat16 else FP32_TOL
-        err = _hold(f"K6 {tag} y (r bit-equal)", y, ry, tol)
-        worst[dt] = max(worst[dt], err)
-        return x, s, b, g, be
+    def case(*args, **kw):
+        return _norm_case(gen, dev, worst, *args, **kw)
 
     N, H = 16384, 1024
     bf = torch.bfloat16
@@ -967,6 +1000,561 @@ def check_train_cpu(dev) -> None:
           f"diff {worst:.3e}, card launches {launches}")
 
 
+# ---------------------------------------------------------------------------
+# LLaMA prefill + decode engine (LlamaForCausalLM): K10, K11, K12, K1-sep
+# ---------------------------------------------------------------------------
+
+LLAMA1B = dict(vocab_size=32000, hidden=2048, n_layers=16, n_heads=16,
+               n_kv_heads=4, ffn_hidden=5504, max_seq_len=2048)
+DECODE_PROMPT, DECODE_NEW = 512, 128
+FUSED_VS_FP32 = 1.1              # fused / unfused mean logit error vs fp32
+DECODE_LOGIT_TOL = 0.18          # bf16 engine vs fp32 logits, scaled: 1.5x
+                                 # the largest reading (0.1230, unfused;
+                                 # fused 0.1175) of 128 forced llama1b steps
+
+
+def _decode_counters():
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused_bias_act as fba
+    from paddle_tpu_torch.ops.kernels import fused_norm_epilogue as fne
+    from paddle_tpu_torch.ops.kernels import fused_rope_attention as fra
+    from paddle_tpu_torch.ops.kernels.quant_matmul import quant_matmul
+
+    return {"decode_attention": da.decode_attention,
+            "rope_flash_fwd": fra.rope_flash_fwd, "swiglu": fba.swiglu_fwd,
+            "flash_fwd_sep": fa.flash_fwd_sep,
+            "fused_norm_epilogue": fne.norm_epilogue_fwd,
+            "quant_matmul": quant_matmul}
+
+
+def _counted(fn):
+    """(fn(), launches of the decode path's kernels during it): every
+    count set to 0 just before, read just after."""
+    counters = _decode_counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: c.launches for k, c in counters.items()}
+
+
+def check_decode_attention(dev) -> dict:
+    """K10 at the llama1b decode shapes: B 1, 8, 16, nKV 4, G 4, S 2048,
+    d 128, bf16, pos 0 (the first chunk alone), 100 (a ragged chunk), 511
+    and 639 (the prompt's end and the last step of a 128-token decode),
+    2047 (the whole cache); once in fp32."""
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    nKV, G, S, d = 4, 4, 2048, 128
+    scale = d ** -0.5
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    cases = [(B, torch.bfloat16) for B in (1, 8, 16)] + [(2, torch.float32)]
+    for B, dt in cases:
+        q = torch.randn((B, nKV * G, d), generator=gen, device=dev).to(dt)
+        ck = torch.randn((B, nKV, S, d), generator=gen, device=dev).to(dt)
+        cv = torch.randn((B, nKV, S, d), generator=gen, device=dev).to(dt)
+        for pos in (0, 100, 511, 639, 2047):
+            got = da.decode_attention(q, ck, cv, pos, scale)
+            ref = da.decode_attention_plain(q, ck, cv, pos, scale)
+            again = da.decode_attention(q, ck, cv, pos, scale)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError("K10 is not deterministic")
+            tol = BF16_TOL if dt == torch.bfloat16 else FP32_TOL
+            worst[dt] = max(worst[dt], _hold(
+                f"K10 {dt} B{B} pos {pos}", got, ref, tol))
+    B, pos = 16, DECODE_PROMPT + DECODE_NEW - 1
+    q = torch.randn((B, nKV * G, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    ck = torch.randn((B, nKV, S, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    cv = torch.randn((B, nKV, S, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    ms = _time_ms(lambda: da.decode_attention(q, ck, cv, pos, scale))
+    plain_ms = _time_ms(lambda: da.decode_attention_plain(q, ck, cv, pos,
+                                                          scale))
+    # library yardstick: SDPA on the repeated cache cut at pos
+    qh = q[:, :, None, :]
+    kr = ck[:, :, :pos + 1].repeat_interleave(G, dim=1)
+    vr = cv[:, :, :pos + 1].repeat_interleave(G, dim=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = _time_ms(lambda: sdpa(qh, kr, vr, scale=scale))
+    nbytes = 2 * B * nKV * (pos + 1) * d * 2 + 2 * q.numel() * 2
+    bound_ms, bound_by = _bound(nbytes, 4.0 * B * nKV * G * (pos + 1) * d)
+    print(f"K10 bf16 B{B} pos {pos}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by})")
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/decode_attention.cu",
+            "replaces": "paddle_tpu/ops/pallas/decode_attention.py:74",
+            "max_abs_err": worst[torch.bfloat16],
+            "max_abs_err_fp32": worst[torch.float32], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "shape": f"B{B} nKV{nKV} G{G} S{S} d{d} pos {pos} bf16"}
+
+
+def _rope_case(gen, dev, B, S, h, d, dt):
+    from paddle_tpu_torch.models.llama import LlamaConfig, rope_angles
+
+    q, k, v = (torch.randn((B, S, h, d), generator=gen, device=dev).to(dt)
+               for _ in range(3))
+    cfg = LlamaConfig(hidden=h * d, n_heads=h)
+    cos, sin = rope_angles(cfg, torch.arange(S, device=dev))
+    return q, k, v, cos, sin
+
+
+def check_rope_flash(dev) -> tuple[dict, dict]:
+    """K11 at the llama1b prefill shapes ([1, 512, 16, 128] and [16, 512,
+    16, 128] bf16, q rotated alone and with k) and small fp32 cases at
+    head dims 128 and 256; and K1's separate-input mode at [1, 512, 16,
+    128]. K11 must equal K1-separate on apply_rope'd inputs bit for bit:
+    the same tile loop, so any difference is the in-tile rotation."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused_rope_attention as fra
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    cases = [((1, 512, 16, 128), torch.bfloat16),
+             ((16, 512, 16, 128), torch.bfloat16),
+             ((2, 128, 2, 128), torch.float32),
+             ((2, 128, 1, 256), torch.float32)]
+    for shape, dt in cases:
+        q, k, v, cos, sin = _rope_case(gen, dev, *shape, dt)
+        cb, sb = cos[None, :, None, :], sin[None, :, None, :]
+        scale = shape[-1] ** -0.5
+        tol = BF16_TOL if dt == torch.bfloat16 else FP32_TOL
+        for rope_k in (False, True):
+            got = fra.rope_flash_fwd(q, k, v, cos, sin, True, scale, True,
+                                     rope_k)
+            ref = fra.rope_flash_plain(q, k, v, cos, sin, True, scale, True,
+                                       rope_k)
+            qr = fra._apply_rope_ref(q, cb, sb)
+            kr = fra._apply_rope_ref(k, cb, sb) if rope_k else k
+            k1 = fa.flash_fwd_sep(qr, kr, v, True, scale)
+            torch.cuda.synchronize()
+            tag = f"K11 {dt} {list(shape)} rope_k={rope_k}"
+            if not torch.equal(got, k1):
+                raise AssertionError(f"{tag}: not bit-equal to K1 on the "
+                                     "apply_rope'd inputs (the rotation "
+                                     "in the tile is off)")
+            worst[dt] = max(worst[dt], _hold(tag + " (== K1 on rotated)",
+                                             got, ref, tol))
+    q, k, v, cos, sin = _rope_case(gen, dev, 1, 512, 16, 128, torch.bfloat16)
+    scale = 128 ** -0.5
+    got = fa.flash_fwd_sep(q, k, v, True, scale)
+    ref = fa.flash_sep_plain(q, k, v, True, scale)
+    torch.cuda.synchronize()
+    err_sep = _hold("K1-separate bf16 [1, 512, 16, 128]", got, ref, BF16_TOL)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def timings(B):
+        q, k, v, cos, sin = _rope_case(gen, dev, B, 512, 16, 128,
+                                       torch.bfloat16)
+        cb, sb = cos[None, :, None, :], sin[None, :, None, :]
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (
+            fra._apply_rope_ref(q, cb, sb), fra._apply_rope_ref(k, cb, sb),
+            v))
+        lib = _time_ms(lambda: sdpa(qh, kh, vh, is_causal=True))
+        pairs = B * 16 * 512 * 513 / 2
+        bound = _bound(4 * q.numel() * 2, 4.0 * 128 * pairs)
+        return q, k, v, cos, sin, lib, bound
+
+    q, k, v, cos, sin, lib_rope, b_rope = timings(16)
+    ms_rope = _time_ms(lambda: fra.rope_flash_fwd(q, k, v, cos, sin, True,
+                                                  scale, True, False))
+    plain_rope = _time_ms(lambda: fra.rope_flash_plain(
+        q, k, v, cos, sin, True, scale, True, False), iters=5, warmup=1)
+    print(f"K11 bf16 [16, 512, 16, 128] q only: kernel {ms_rope:.4f} ms, "
+          f"plain {plain_rope:.4f} ms, sdpa on rotated q/k "
+          f"{lib_rope:.4f} ms, bound {b_rope[0]:.4f} ms ({b_rope[1]})")
+    q, k, v, cos, sin, lib_sep, b_sep = timings(1)
+    ms_sep = _time_ms(lambda: fa.flash_fwd_sep(q, k, v, True, scale))
+    plain_sep = _time_ms(lambda: fa.flash_sep_plain(q, k, v, True, scale),
+                         iters=5, warmup=1)
+    print(f"K1-separate bf16 [1, 512, 16, 128]: kernel {ms_sep:.4f} ms, "
+          f"plain {plain_sep:.4f} ms, sdpa {lib_sep:.4f} ms, bound "
+          f"{b_sep[0]:.4f} ms ({b_sep[1]})")
+    return ({"name": "rope_flash_fwd", "route": "cuda",
+             "source": "paddle_tpu_torch/csrc/fused_rope_attention.cu",
+             "replaces": "paddle_tpu/ops/pallas/fused_rope_attention.py:116",
+             "max_abs_err": worst[torch.bfloat16],
+             "max_abs_err_fp32": worst[torch.float32], "ms": ms_rope,
+             "plain_ms": plain_rope, "bound_ms": b_rope[0],
+             "bound_by": b_rope[1], "library_ms": lib_rope,
+             "shape": "B16 S512 h16 d128 causal, q rotated, bf16"},
+            {"name": "flash_fwd_sep", "route": "cuda",
+             "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+             "replaces": "paddle_tpu/ops/pallas/flash_attention.py:139",
+             "max_abs_err": err_sep, "ms": ms_sep, "plain_ms": plain_sep,
+             "bound_ms": b_sep[0], "bound_by": b_sep[1],
+             "library_ms": lib_sep,
+             "shape": "B1 S512 h16 d128 causal, separate q/k/v, bf16"})
+
+
+def check_swiglu(dev) -> dict:
+    """K12 at the llama1b prefill FFN shapes ([512, 5504] at B 1, [8192,
+    5504] at B 16), llama3-8b's ([512, 14336]) in bf16, and a small fp32
+    case."""
+    from paddle_tpu_torch.ops.kernels import fused_bias_act as fba
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    errs = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for (n, f), dt in (((512, 5504), torch.bfloat16),
+                       ((8192, 5504), torch.bfloat16),
+                       ((512, 14336), torch.bfloat16),
+                       ((512, 256), torch.float32)):
+        g = (2.0 * torch.randn((n, f), generator=gen, device=dev)).to(dt)
+        u = torch.randn((n, f), generator=gen, device=dev).to(dt)
+        y = fba.swiglu_fwd(g, u)
+        ref = fba.swiglu_plain(g, u)
+        torch.cuda.synchronize()
+        tol = BF16_TOL if dt == torch.bfloat16 else FP32_TOL
+        errs[dt] = max(errs[dt], _hold(
+            f"K12 {dt} [{n}, {f}] (bit-equal: {torch.equal(y, ref)})", y,
+            ref, tol))
+    g = (2.0 * torch.randn((8192, 5504), generator=gen, device=dev)).to(
+        torch.bfloat16)
+    u = torch.randn((8192, 5504), generator=gen, device=dev).to(
+        torch.bfloat16)
+    ms = _time_ms(lambda: fba.swiglu_fwd(g, u))
+    plain_ms = _time_ms(lambda: fba.swiglu_plain(g, u))
+    g32 = g.float()
+    silu_ms = _time_ms(lambda: torch.nn.functional.silu(g32))
+    N, Fd = g.shape
+    bound_ms, bound_by = _bound(3 * N * Fd * 2, 6.0 * N * Fd,
+                                FP32_FLOP_PER_S)
+    print(f"K12 swiglu bf16 [{N}, {Fd}]: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, no single library call (F.silu on the fp32 "
+          f"gate alone {silu_ms:.4f} ms), bound {bound_ms:.4f} ms "
+          f"({bound_by})")
+    return {"name": "swiglu", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/fused_bias_act.cu",
+            "replaces": "paddle_tpu/ops/pallas/fused_bias_act.py:97",
+            "max_abs_err": errs[torch.bfloat16],
+            "max_abs_err_fp32": errs[torch.float32], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "silu_fp32_ms": silu_ms,
+            "shape": f"N{N} F{Fd} bf16"}
+
+
+def check_llama_norm_epilogue(dev) -> None:
+    """K6 in the rms form at the llama1b prefill's shapes ([512, 2048] at
+    B 1, [8192, 2048] at B 16, bf16 gains as the weights are): the
+    residual form (ffn_norm and the next layer's attn_norm) and the
+    norm-only form (layer 0's attn_norm, the final norm)."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    worst = {torch.bfloat16: 0.0}
+    H, bf = LLAMA1B["hidden"], torch.bfloat16
+    for n in (DECODE_PROMPT, 16 * DECODE_PROMPT):
+        for form, sub in (("residual", True), ("norm-only", False)):
+            _norm_case(gen, dev, worst, f"rms {form} bf16 [{n}, {H}]", n, H,
+                       bf, "rms", sub, False, False, gain_dtype=bf)
+
+
+def _forced_logits(m, prompt: torch.Tensor, toks: np.ndarray):
+    """The logits an engine picks each token of ``toks`` from when it is
+    fed ``toks`` (teacher forcing): the prefill's, then one decode step
+    per token but the last. fp32 [n, B, V]."""
+    with torch.no_grad():
+        cache = m._empty_cache(prompt.shape[0])
+        logits, cache = m._prefill_impl(prompt, cache)
+        out, T = [logits], prompt.shape[1]
+        for s in range(toks.shape[1] - 1):
+            tok = torch.from_numpy(toks[:, s]).to(prompt.device)
+            logits, cache = m._decode_impl(cache, tok, T + s)
+            out.append(logits)
+    return torch.stack(out).float()
+
+
+def _logits_at(m, prompt: torch.Tensor, toks: np.ndarray, j: int):
+    """The logits the engine picked token j from."""
+    return _forced_logits(m, prompt, toks[:, :j + 1])[-1]
+
+
+def _streams_agree(tag, m_ref, prompt, ref, got) -> int:
+    """Rows of ``got`` must equal ``ref``'s except from a token where
+    ``m_ref``'s logits (recomputed there) of the two picks are within
+    MARGIN of each other: a near-tie, which for a runner-up pick is the
+    top-2 margin. Returns the number of such rows."""
+    exceptions = 0
+    for b in range(ref.shape[0]):
+        diff = np.nonzero(ref[b] != got[b])[0]
+        if not len(diff):
+            continue
+        j = int(diff[0])
+        logits = _logits_at(m_ref, prompt, ref, j)[b].float()
+        top = torch.topk(logits, 2)
+        margin = (top.values[0] - top.values[1]).item()
+        gap = (logits[int(ref[b, j])] - logits[int(got[b, j])]).item()
+        print(f"{tag}: row {b} differs at token {j}: tokens {ref[b, j]} vs "
+              f"{got[b, j]}, logit gap {gap:.3e} (limit {MARGIN:.3e}), "
+              f"top-2 {top.indices.tolist()} margin {margin:.3e}")
+        if not 0.0 <= gap < MARGIN:
+            raise AssertionError(f"{tag}: row {b} differs at token {j} "
+                                 f"with logit gap {gap}")
+        exceptions += 1
+    return exceptions
+
+
+def _fusion_off_agrees(m, cfg, params, prompt, on: np.ndarray,
+                       off: np.ndarray) -> str:
+    """The unfused engine against the fused one (bf16), by teacher
+    forcing: the fused engine's greedy stream ``on`` is fed to three
+    engines — the fused one, the unfused one and an fp32 one (weights
+    cast up, fusion off) — and the logits of every step are held, so a
+    near-tie that parts the two greedy streams ends no comparison.
+    - Each engine's picks from its forced logits are its own stream (the
+      unfused one's up to where ``off`` parts from ``on``).
+    - Each bf16 engine's logits are held to the fp32 engine's by
+      _scaled_err along the vocab, within DECODE_LOGIT_TOL.
+    - The fused engine is no further from fp32 than the unfused one:
+      mean absolute error within FUSED_VS_FP32 of the unfused one's."""
+    from paddle_tpu_torch.core.flags import GLOBAL_FLAGS
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    was = GLOBAL_FLAGS.get("use_auto_fusion")
+    logits = {}
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                param_dtype=torch.float32)
+    m32 = LlamaForCausalLM(cfg32, params=_map_leaves(params,
+                                                     torch.Tensor.float),
+                           max_batch=1, max_seq_len=m.max_seq,
+                           device=prompt.device)
+    try:
+        for name, fused, eng in (("fused", True, m), ("unfused", False, m),
+                                 ("fp32", False, m32)):
+            GLOBAL_FLAGS.set("use_auto_fusion", fused)
+            logits[name] = _forced_logits(eng, prompt, on)
+    finally:
+        GLOBAL_FLAGS.set("use_auto_fusion", was)
+    del m32
+    n = on.shape[1]
+    parted = np.nonzero((on != off).any(axis=0))[0]
+    j = int(parted[0]) if len(parted) else n
+    picks = {k: v.argmax(-1).t().cpu().numpy() for k, v in logits.items()}
+    if not (np.array_equal(picks["fused"], on)
+            and np.array_equal(picks["unfused"][:, :j + 1],
+                               off[:, :j + 1])):
+        raise AssertionError("fusion off vs on: the forced logits do not "
+                             "give the engines' own streams")
+    ref = logits["fp32"]
+    stats = {}
+    for k in ("fused", "unfused"):
+        err, scaled = _scaled_err(logits[k], ref)
+        stats[k] = ((logits[k] - ref).abs().mean().item(), err, scaled)
+    vs = _scaled_err(logits["fused"], logits["unfused"])
+    print(f"fusion off vs on: {n} teacher-forced steps against fp32: mean "
+          "/ max abs / max scaled logit error fused "
+          "{:.4e} / {:.4e} / {:.4e}, unfused {:.4e} / {:.4e} / {:.4e}; "
+          "fused vs unfused max abs {:.4e}, scaled {:.4e} (tol {:.3e}); "
+          "fp32 picks equal the fused stream at {:.3f} of tokens".format(
+              *stats["fused"], *stats["unfused"], *vs, DECODE_LOGIT_TOL,
+              (picks["fp32"] == on).mean()))
+    if not max(stats["fused"][2], stats["unfused"][2]) <= DECODE_LOGIT_TOL:
+        raise AssertionError(f"decode logits against fp32: {stats}")
+    if not stats["fused"][0] <= FUSED_VS_FP32 * stats["unfused"][0]:
+        raise AssertionError(f"the fused engine is further from fp32 "
+                             f"than the unfused one: {stats}")
+    if j == n:
+        return "greedy streams equal"
+    return f"greedy streams equal up to token {j} of {n}"
+
+
+def _timed_generate(m, prompt, k, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = m.generate(prompt, max_new_tokens=k, **kw)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _check_generate_launches(tag, L, new, ln, int8=False, fused=True):
+    want = {"decode_attention": L * (new - 1),
+            "rope_flash_fwd": L if fused else 0,
+            "swiglu": L if fused else 0,
+            "flash_fwd_sep": 0 if fused else L,
+            "fused_norm_epilogue": 2 * L + 1 if fused else 0,
+            "quant_matmul": (7 * L + 1) * new if int8 else 0}
+    if ln != want:
+        raise AssertionError(f"{tag}: launches {ln} != {want}")
+
+
+def _check_fusion_report(L) -> str:
+    from paddle_tpu_torch import compiler
+
+    rep = compiler.last_report()
+    counts = _template_counts(rep)
+    want = {("rms_epilogue", True): 2 * L + 1, ("rope_attention", True): L,
+            ("swiglu", True): L}
+    if counts != want or rep.errors:
+        raise AssertionError(f"prefill fusion report {counts} (errors "
+                             f"{rep.errors}) != {want}")
+    return (f"program {rep.program_hash}, {rep.n_applied}/{rep.n_sites} "
+            "sites applied: " + ", ".join(f"{c} {t}" for (t, _), c
+                                          in counts.items()))
+
+
+def run_decode(dev) -> dict:
+    """LlamaForCausalLM at llama1b, random bf16 weights drawn on the card
+    from seed 0, the reference bench's decode protocol (bench.py
+    _bench_decode): prompts of 512 tokens from RandomState(0), prefill ms
+    (max_new_tokens=1) and decode tokens/s by prefill subtraction, min of
+    2 each after a warm-up call of each, at B 1, 8 and 16, 128 new tokens,
+    greedy; then a sampled generate at B 8, the weight-only int8 engine
+    at B 8, the fusion-off engine at B 1 against the fused one (teacher
+    forced, each held to an fp32 engine), a profiled decode window, and
+    llama3-8b at B 1 (32 new tokens). Each run's launches are checked
+    with its counts set to 0 just before it. Returns the main path's own
+    counts: K10, K11 and K12 from the B 16 greedy generate, K1's
+    separate-input mode from the fusion-off one."""
+    from paddle_tpu_torch.core.flags import GLOBAL_FLAGS
+    from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
+                                               init_llama_params,
+                                               llama_presets)
+
+    cfg = LlamaConfig(**LLAMA1B)
+    L, n = cfg.n_layers, DECODE_NEW
+    params = init_llama_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.RandomState(0)
+    counts = {}
+    results, greedy_b1, greedy_b8, prompts, report = {}, None, None, {}, ""
+    for B in (1, 8, 16):
+        m = LlamaForCausalLM(cfg, params=params, max_batch=B,
+                             max_seq_len=cfg.max_seq_len, device=dev)
+        prompts[B] = torch.from_numpy(rng.randint(
+            0, cfg.vocab_size, (B, DECODE_PROMPT))).to(dev)
+        (_, toks), ln = _counted(lambda: _timed_generate(m, prompts[B], n))
+        _check_generate_launches(f"decode B{B}", L, n, ln)
+        if B == 16:
+            counts.update((k, ln[k]) for k in ("decode_attention",
+                                               "rope_flash_fwd", "swiglu"))
+        report = _check_fusion_report(L)
+        if toks.shape != (B, n) or not ((toks >= 0) & (toks < cfg.vocab_size)
+                                        ).all():
+            raise AssertionError(f"decode B{B}: tokens {toks.shape} out of "
+                                 "range")
+        _timed_generate(m, prompts[B], 1)
+        t_pre = min(_timed_generate(m, prompts[B], 1)[0] for _ in range(2))
+        runs = [_timed_generate(m, prompts[B], n) for _ in range(2)]
+        for _, again in runs:
+            if not np.array_equal(again, toks):
+                raise AssertionError(f"decode B{B}: greedy stream changed "
+                                     "between calls")
+        dt = min(t for t, _ in runs) - t_pre
+        results[B] = (t_pre * 1e3, B * (n - 1) / dt)
+        print(f"decode llama1b B{B}: prefill {DECODE_PROMPT} tokens "
+              f"{t_pre * 1e3:.2f} ms, decode {B * (n - 1) / dt:.1f} "
+              f"tokens/s ({dt / (n - 1) * 1e3:.2f} ms/step), launches per "
+              f"generate {ln}")
+        if B == 1:
+            greedy_b1 = (m, toks)
+        if B == 8:
+            greedy_b8 = toks
+            (_, samp), ln = _counted(lambda: _timed_generate(
+                m, prompts[8], n, temperature=0.8, top_p=0.9, seed=1))
+            _check_generate_launches("sampled B8", L, n, ln)
+            if samp.shape != (8, n) or np.array_equal(samp, toks):
+                raise AssertionError("sampled B8: shape or stream wrong")
+            print(f"decode llama1b B8 sampled (T 0.8, top_p 0.9): "
+                  f"{(samp == toks).mean():.3f} of tokens equal the greedy "
+                  "stream's")
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                wall, _ = _timed_generate(m, prompts[8], 32)
+            _print_profile(prof, {"wall_s": wall})
+        del m
+        torch.cuda.empty_cache()
+    print(f"decode fusion report: {report}")
+
+    # weight-only int8 at B 8
+    mq = LlamaForCausalLM(dataclasses.replace(cfg, weight_only_int8=True),
+                          params=params, max_batch=8, device=dev)
+    (_, qtoks), ln = _counted(lambda: _timed_generate(mq, prompts[8], n))
+    _check_generate_launches("int8 B8", L, n, ln, int8=True)
+    _timed_generate(mq, prompts[8], 1)
+    tq = min(_timed_generate(mq, prompts[8], 1)[0] for _ in range(2))
+    dq = min(_timed_generate(mq, prompts[8], n)[0] for _ in range(2)) - tq
+    results["int8"] = (tq * 1e3, 8 * (n - 1) / dq)
+    print(f"decode llama1b int8 B8: prefill {tq * 1e3:.2f} ms, decode "
+          f"{8 * (n - 1) / dq:.1f} tokens/s, launches per generate {ln}; "
+          f"{(qtoks == greedy_b8).mean():.3f} of greedy tokens equal the "
+          "bf16 engine's (random weights: near-flat logits)")
+    del mq
+    torch.cuda.empty_cache()
+
+    # fusion off at B 1: the prefill through K1-separate and plain
+    # composition, held to the fused greedy stream
+    m, toks = greedy_b1
+    was = GLOBAL_FLAGS.get("use_auto_fusion")
+    GLOBAL_FLAGS.set("use_auto_fusion", False)
+    try:
+        (_, off), ln = _counted(lambda: _timed_generate(m, prompts[1], n))
+        t_off = min(_timed_generate(m, prompts[1], 1)[0] for _ in range(2))
+    finally:
+        GLOBAL_FLAGS.set("use_auto_fusion", was)
+    _check_generate_launches("fusion off B1", L, n, ln, fused=False)
+    counts["flash_fwd_sep"] = ln["flash_fwd_sep"]
+    agree = _fusion_off_agrees(m, cfg, params, prompts[1], toks, off)
+    print(f"decode fusion off B1: prefill {t_off * 1e3:.2f} ms (fused "
+          f"{results[1][0]:.2f}); {agree}")
+    del m, greedy_b1
+    del params
+    torch.cuda.empty_cache()
+
+    # llama3-8b at B 1
+    cfg8 = llama_presets("llama3-8b")
+    m8 = LlamaForCausalLM(cfg8, max_batch=1, max_seq_len=2048, device=dev)
+    p8 = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg8.vocab_size, (1, DECODE_PROMPT))).to(dev)
+    (_, t8), ln = _counted(lambda: _timed_generate(m8, p8, 32))
+    _check_generate_launches("llama3-8b B1", cfg8.n_layers, 32, ln)
+    _check_fusion_report(cfg8.n_layers)
+    t_pre8 = min(_timed_generate(m8, p8, 1)[0] for _ in range(2))
+    t_all8 = min(_timed_generate(m8, p8, 32)[0] for _ in range(2))
+    print(f"decode llama3-8b B1: prefill {t_pre8 * 1e3:.2f} ms, decode "
+          f"{31 / (t_all8 - t_pre8):.1f} tokens/s, peak mem "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    del m8
+    torch.cuda.empty_cache()
+    return counts
+
+
+def check_decode_cpu(dev) -> None:
+    """A small fp32 LLaMA (head dim 128, G 2) generating on the card and
+    on the CPU from identical weights, fusion on for both: the card runs
+    K6, K11, K12 and K10 in fp32; greedy streams equal except where the
+    CPU's top-2 margin is under MARGIN."""
+    from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
+                                               init_llama_params)
+
+    cfg = LlamaConfig(vocab_size=1024, hidden=512, n_layers=2, n_heads=4,
+                      n_kv_heads=2, ffn_hidden=1024, max_seq_len=512,
+                      dtype=torch.float32, param_dtype=torch.float32)
+    cpu_params = init_llama_params(cfg, torch.Generator().manual_seed(14),
+                                   "cpu")
+    prompt = np.random.RandomState(15).randint(0, 1024, (2, 128))
+    out = {}
+    m_cpu = LlamaForCausalLM(cfg, params=cpu_params, device="cpu")
+    out["cpu"] = m_cpu.generate(prompt, max_new_tokens=24)
+    gpu_params = _map_leaves(cpu_params, lambda t: t.to(dev))
+    m_gpu = LlamaForCausalLM(cfg, params=gpu_params, device=dev)
+    out["cuda"], ln = _counted(lambda: m_gpu.generate(prompt,
+                                                      max_new_tokens=24))
+    if not all(ln[k] for k in ("decode_attention", "rope_flash_fwd",
+                               "swiglu", "fused_norm_epilogue")):
+        raise AssertionError(f"a kernel did not run on the card: {ln}")
+    exc = _streams_agree("decode cpu/cuda", m_cpu, torch.from_numpy(prompt),
+                         out["cpu"], out["cuda"])
+    print(f"decode cpu/cuda (fp32, fusion on): 2 greedy streams of 24 "
+          f"tokens equal, {exc} near-tie exceptions, card launches {ln}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1067,6 +1655,20 @@ def main(argv=None) -> int:
     if "train_cpu" in phases:
         check_train_cpu(dev)
         done("train_cpu")
+    if "decode_kernels" in phases:
+        kernels["decode_attention"] = check_decode_attention(dev)
+        kernels["rope_flash_fwd"], kernels["flash_fwd_sep"] = \
+            check_rope_flash(dev)
+        kernels["swiglu"] = check_swiglu(dev)
+        check_llama_norm_epilogue(dev)
+        torch.cuda.empty_cache()
+        done("decode_kernels")
+    if "decode" in phases:
+        launches.update(run_decode(dev))
+        done("decode")
+    if "decode_cpu" in phases:
+        check_decode_cpu(dev)
+        done("decode_cpu")
     if set(phases) != set(PHASES):
         print(f"phases {phases} only: no result line")
         return 0

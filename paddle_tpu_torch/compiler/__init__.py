@@ -46,7 +46,8 @@ __all__ = ["auto_fuse", "fused_call", "discover", "last_report",
 
 # flags the key carries: the catalog's kill switches, and the flags of
 # branches a trace bakes in (flash route, cross-entropy route)
-_KEY_FLAGS = ("use_fused_norm_epilogue", "use_fused_bias_act",
+_KEY_FLAGS = ("use_fused_norm_epilogue", "use_fused_rope_attention",
+              "use_fused_bias_act",
               "use_fused_ce", "flash_attention_kernel_bwd",
               "flash_attention_native_layout", "use_library_flash_attention")
 

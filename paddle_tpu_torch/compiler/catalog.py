@@ -1,27 +1,31 @@
 """Fusion template catalog: aten graph patterns -> fused entries.
 
-Port of paddle_tpu/compiler/catalog.py for the templates of GPT
-training: ``rms_epilogue``, ``layer_epilogue`` (K6,
-ops/kernels/fused_norm_epilogue.py) and ``bias_gelu`` (K7,
-ops/kernels/fused_bias_act.py). ``rope_attention`` and ``swiglu`` wait
-for their kernels (K11, K12) and are not registered.
+Port of paddle_tpu/compiler/catalog.py, all five templates:
+``rms_epilogue``, ``layer_epilogue`` (K6,
+ops/kernels/fused_norm_epilogue.py), ``rope_attention`` (K11,
+ops/kernels/fused_rope_attention.py), ``bias_gelu`` (K7) and ``swiglu``
+(K12, both ops/kernels/fused_bias_act.py).
 
 Each template is ``(name, matcher)``; a matcher inspects one node of a
 :class:`~.fusion_pass.Graph` (the anchor: a node that only occurs inside
-its chain, ``aten.rsqrt`` for the norms and ``aten.gelu`` with
-``approximate="tanh"`` for the gelu) and walks producers and consumers
-to the whole chain. It returns candidate :class:`~.fusion_pass.Site`
-objects in preference order (residual + bias, then residual, then the
-norm alone) or None; the pass applies the first safe candidate.
+its chain, ``aten.rsqrt`` for the norms, ``aten.gelu`` with
+``approximate="tanh"`` for the gelu, ``aten.silu`` for the swiglu and the
+separate-input flash operator for the rope) and walks producers and
+consumers to the whole chain. It returns candidate
+:class:`~.fusion_pass.Site` objects in preference order (residual + bias,
+then residual, then the norm alone; both rotations, then q only, then k
+only) or None; the pass applies the first safe candidate.
 
 The matchers recognize the aten lowering of the port's own composition
-(models/gpt.py::_layer_norm, models/llama.py::rms_norm, the FFN's
-``F.gelu(h + b.to(dt), approximate="tanh")``) and nothing else: the
-layer statistic is ``aten.var.correction`` with ``correction=0`` over
-the last axis, the mean ``aten.mean.dim`` over the last axis, the gelu
-follows the add of a rank-1 bias. Anything else (another correction,
-another axis, the exact gelu, a rank-2 bias, extra users of a chain's
-intermediates) returns None or fails validation.
+(models/gpt.py::_layer_norm, models/llama.py::rms_norm and apply_rope,
+the FFNs' ``F.gelu(h + b.to(dt), approximate="tanh")`` and
+``F.silu(gate.float()).to(dt) * up``) and nothing else: the layer
+statistic is ``aten.var.correction`` with ``correction=0`` over the last
+axis, the mean ``aten.mean.dim`` over the last axis, the gelu follows the
+add of a rank-1 bias, the rotation splits the last axis in halves
+(``aten.split.Tensor``) and multiplies them by fp32 tables. Anything else
+(another correction, another axis, the exact gelu, a rank-2 bias, extra
+users of a chain's intermediates) returns None or fails validation.
 
 Two standing guards every matcher applies, as the reference's:
 
@@ -32,6 +36,8 @@ Two standing guards every matcher applies, as the reference's:
 """
 
 from __future__ import annotations
+
+import operator
 
 import torch
 
@@ -378,27 +384,267 @@ def match_bias_gelu(g: Graph, i, node):
 
 
 # ---------------------------------------------------------------------------
+# RoPE + flash attention
+# ---------------------------------------------------------------------------
+
+def _flash_sep_args(node):
+    """(q, k, v) when ``node`` is the separate-input flash operator
+    (ops/kernels/flash_attention.py::flash_attention_raw) on 4-d
+    operands, else None. The operator is found by its identity, where
+    the reference compared printed jaxprs."""
+    if node.op != "call_function" or not str(node.target).startswith(
+            "paddle_tpu_torch.flash_fwd_sep."):
+        return None
+    q, k, v = node.args[:3]
+    if any(_val(a) is None or _val(a).dim() != 4 for a in (q, k, v)):
+        return None
+    return q, k, v
+
+
+def _half_slice(g: Graph, atom, lo: bool):
+    """``atom`` as the low (``lo``) or high half of a split of the last
+    axis at d/2 (``aten.split.Tensor`` and its ``getitem``): returns
+    (consumed indices, split source) or None."""
+    gi, gnode = g.producer(atom)
+    if not _is(gnode, operator.getitem) or gnode.args[1] != (0 if lo else 1):
+        return None
+    si, snode = g.producer(gnode.args[0])
+    if not _is(snode, _aten.split.Tensor):
+        return None
+    src = snode.args[0]
+    sv = _val(src)
+    if (sv is None or sv.shape[-1] % 2 or snode.args[1] != sv.shape[-1] // 2
+            or not _last_axis(_arg(snode, 2, "dim", 0), sv.dim())):
+        return None
+    return (gi, si), src
+
+
+def _table_mul(g: Graph, atom, cons: set):
+    """Match ``mul(half, table)`` with an fp32 table (possibly arriving
+    through casts and views); returns (half, lo, src, table, table_root)
+    or None.
+
+    The table's peeled nodes are deliberately NOT consumed: the cos/sin
+    tables are computed once and shared by every layer's rope chains, so
+    eating their views into one site would leak them to the other layers
+    and fail validation. The site reads the mul's direct table operand
+    instead."""
+    mi, mnode = g.producer(atom)
+    if not _is(mnode, _aten.mul.Tensor):
+        return None
+    for half_at, tab_at in (mnode.args[:2], mnode.args[1::-1]):
+        for lo in (True, False):
+            hs = _half_slice(g, half_at, lo)
+            if hs is None:
+                continue
+            idx, src = hs
+            root, _ = g.peel(tab_at)
+            rv = _val(root)
+            if rv is None or rv.dtype != torch.float32:
+                continue
+            cons.update((mi, *idx))
+            return half_at, lo, src, tab_at, root
+    return None
+
+
+def _rope_chain(g: Graph, atom):
+    """Match the apply_rope lowering producing ``atom``: cat(x1*cos -
+    x2*sin, x2*cos + x1*sin) over the fp32 halves of x (cast to fp32 and
+    back when x is not fp32). Returns {x, cos, sin, cos_root, sin_root,
+    cons} or None."""
+    av = _val(atom)
+    if av is None:
+        return None
+    cons: set = set()
+    cur = atom
+    ci, cnode = g.producer(cur)
+    if _is(cnode, _aten._to_copy.default):
+        cons.add(ci)
+        cur = cnode.args[0]
+    ki, knode = g.producer(cur)
+    if (not _is(knode, _aten.cat.default) or len(knode.args[0]) != 2
+            or not _last_axis(_arg(knode, 1, "dim", 0), av.dim())):
+        return None
+    cons.add(ki)
+    o1, o2 = knode.args[0]
+    si, snode = g.producer(o1)
+    ai, anode = g.producer(o2)
+    if (not _is(snode, _aten.sub.Tensor) or not _plain_binary(snode)
+            or not _is(anode, _aten.add.Tensor) or not _plain_binary(anode)):
+        return None
+    cons.update((si, ai))
+    # o1 = x1*cos - x2*sin (operand order fixed by sub)
+    m1 = _table_mul(g, snode.args[0], cons)
+    m2 = _table_mul(g, snode.args[1], cons)
+    if m1 is None or m2 is None or not m1[1] or m2[1]:
+        return None
+    x1, _, src, cos_at, cos_root = m1
+    x2, _, src2, sin_at, sin_root = m2
+    if src is not src2:
+        return None
+    # o2 = x2*cos + x1*sin, either operand order
+    m3 = _table_mul(g, anode.args[0], cons)
+    m4 = _table_mul(g, anode.args[1], cons)
+    if m3 is None or m4 is None:
+        return None
+    if m3[1]:                       # the low half first: the x1*sin term
+        m3, m4 = m4, m3
+    if (m3[1] or not m4[1] or m3[0] is not x2 or m4[0] is not x1
+            or m3[4] is not cos_root or m4[4] is not sin_root):
+        return None
+    # src = x cast to fp32 (or x itself when x is fp32)
+    sv = _val(src)
+    if sv is None or sv.dtype != torch.float32:
+        return None
+    ei, enode = g.producer(src)
+    x_root = src
+    if _is(enode, _aten._to_copy.default):
+        x_root = enode.args[0]
+        cons.add(ei)
+    if _val(x_root) is None or _val(x_root).dtype != av.dtype:
+        return None
+    return {"x": x_root, "cos": cos_at, "sin": sin_at, "cos_root": cos_root,
+            "sin_root": sin_root, "cons": cons}
+
+
+def match_rope_attention(g: Graph, i, node):
+    """flash_attention_raw over rotated q (and k): K11 with the rotation
+    in the tile. Candidates: both rotations, then q only (k's rotated
+    value escapes, as into the prefill's cache, or hides behind the GQA
+    repeat), then k only."""
+    qkv = _flash_sep_args(node)
+    if qkv is None:
+        return None
+    q_at, k_at, v_at = qkv
+    qv = _val(q_at)
+    S, d = qv.shape[1], qv.shape[-1]
+
+    def chain(atom):
+        c = _rope_chain(g, atom)
+        # tables of positions 0..S-1, one row each
+        if c is None or any(_val(c[t]).numel() != S * d // 2
+                            for t in ("cos", "sin")):
+            return None
+        return c
+
+    qc, kc = chain(q_at), chain(k_at)
+    if qc is not None and kc is not None and (
+            qc["cos_root"] is not kc["cos_root"]
+            or qc["sin_root"] is not kc["sin_root"]):
+        kc = None               # other tables: only the q rotation is ours
+    if qc is None and kc is None:
+        return None
+
+    from ..ops.kernels.fused_rope_attention import (
+        fused_rope_flash_attention, fused_rope_supported)
+
+    supported = fused_rope_supported(tuple(qv.shape), qv.dtype)
+    resharded = _is_sharded(g, q_at)
+    causal, scale = bool(node.args[3]), float(node.args[4])
+
+    def mk(use_q, use_k):
+        chain_q = qc if use_q else None
+        chain_k = kc if use_k else None
+        tables = chain_q or chain_k
+        cons = frozenset({i} | (chain_q["cons"] if chain_q else set())
+                         | (chain_k["cons"] if chain_k else set()))
+        inputs = (chain_q["x"] if chain_q else q_at,
+                  chain_k["x"] if chain_k else k_at,
+                  v_at, tables["cos"], tables["sin"])
+
+        def rope_attention_site(q, k, v, cos, sin, rq=use_q, rk=use_k):
+            return (fused_rope_flash_attention(q, k, v, cos, sin,
+                                               causal=causal,
+                                               sm_scale=scale, rope_q=rq,
+                                               rope_k=rk),)
+
+        return Site("rope_attention", cons, max(cons), inputs, ((node, 0),),
+                    rope_attention_site,
+                    applied=supported and not resharded,
+                    note="resharded" if resharded else "")
+
+    cands = [mk(qc is not None, kc is not None)]
+    if qc is not None and kc is not None:
+        cands += [mk(True, False), mk(False, True)]
+    return cands
+
+
+# ---------------------------------------------------------------------------
+# swiglu
+# ---------------------------------------------------------------------------
+
+def match_swiglu(g: Graph, i, node):
+    """``silu(gate.float()).to(gate.dtype) * up`` (no casts in fp32)."""
+    if not _is(node, _aten.silu.default):
+        return None
+    cons = {i}
+    g32 = node.args[0]
+    gv = _val(g32)
+    if gv is None or gv.dtype != torch.float32:
+        return None
+    gate_at = g32
+    ci, cnode = g.producer(g32)
+    if (_is(cnode, _aten._to_copy.default) and _val(cnode.args[0]) is not None
+            and _val(cnode.args[0]).device == gv.device):
+        gate_at = cnode.args[0]
+        cons.add(ci)
+    gate_v = _val(gate_at)
+    cur = node
+    if gate_v.dtype != torch.float32:
+        di, dnode = g.sole_consumer(cur)
+        if (not _is(dnode, _aten._to_copy.default) or _val(dnode) is None
+                or _val(dnode).dtype != gate_v.dtype):
+            return None
+        cons.add(di)
+        cur = dnode
+    mi, mnode = g.sole_consumer(cur)
+    if not _is(mnode, _aten.mul.Tensor):
+        return None
+    up_at = _other(mnode, cur)
+    up_v = _val(up_at)
+    if (up_v is None or up_v.shape != gate_v.shape
+            or up_v.dtype != gate_v.dtype):
+        return None
+    cons.add(mi)
+
+    from ..ops.kernels.fused_bias_act import (fused_bias_act_supported,
+                                              fused_swiglu)
+
+    supported = fused_bias_act_supported(_rows(gate_v.shape),
+                                         gate_v.shape[-1], gate_v.dtype)
+
+    def swiglu_site(gate, up):
+        return (fused_swiglu(gate, up),)
+
+    return [Site("swiglu", frozenset(cons), max(cons), (gate_at, up_at),
+                 ((mnode, 0),), swiglu_site,
+                 applied=supported and not _is_sharded(g, gate_at))]
+
+
+# ---------------------------------------------------------------------------
 # the catalog
 # ---------------------------------------------------------------------------
 
 ALL_TEMPLATES = (
     ("rms_epilogue", match_rms_epilogue),
     ("layer_epilogue", match_layer_epilogue),
+    ("rope_attention", match_rope_attention),
     ("bias_gelu", match_bias_gelu),
+    ("swiglu", match_swiglu),
 )
+
+# kill switch of each template
+_SWITCH = {"rms_epilogue": "use_fused_norm_epilogue",
+           "layer_epilogue": "use_fused_norm_epilogue",
+           "rope_attention": "use_fused_rope_attention",
+           "bias_gelu": "use_fused_bias_act",
+           "swiglu": "use_fused_bias_act"}
 
 
 def active_templates():
     """The catalog filtered by the per-template kill switches:
     ``use_fused_norm_epilogue`` disables discovery of the norm templates,
-    ``use_fused_bias_act`` that of ``bias_gelu``."""
-    norm_on = bool(GLOBAL_FLAGS.get("use_fused_norm_epilogue"))
-    act_on = bool(GLOBAL_FLAGS.get("use_fused_bias_act"))
-    out = []
-    for name, matcher in ALL_TEMPLATES:
-        if name in ("rms_epilogue", "layer_epilogue") and not norm_on:
-            continue
-        if name == "bias_gelu" and not act_on:
-            continue
-        out.append((name, matcher))
-    return out
+    ``use_fused_rope_attention`` that of ``rope_attention``,
+    ``use_fused_bias_act`` that of ``bias_gelu`` and ``swiglu``."""
+    return [(name, matcher) for name, matcher in ALL_TEMPLATES
+            if name not in _SWITCH or GLOBAL_FLAGS.get(_SWITCH[name])]

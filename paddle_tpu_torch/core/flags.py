@@ -7,9 +7,9 @@ does not have yet are defined so that turning one on can be refused.
 
 The training step runs the reference's default path: the fusion
 compiler (``compiler/``) plans GPT's forward with ``use_auto_fusion``
-on, and ``use_fused_norm_epilogue`` / ``use_fused_bias_act`` are the
-kill switches of its templates. ``use_fused_rope_attention`` is not
-defined: its template waits for the LLaMA-training slice.
+on, and ``use_fused_norm_epilogue`` / ``use_fused_rope_attention`` /
+``use_fused_bias_act`` are the kill switches of its templates (LLaMA's
+prefill runs through the same compiler).
 """
 
 from __future__ import annotations
@@ -76,9 +76,10 @@ GLOBAL_FLAGS.define("serving_constrained", False)
 # training: False runs the plain chunked cross-entropy, as the reference
 GLOBAL_FLAGS.define("use_fused_ce", True)
 # the fusion compiler: False calls the model untraced (the plain
-# composition); the other two disable discovery of their templates
+# composition); the other three disable discovery of their templates
 GLOBAL_FLAGS.define("use_auto_fusion", True)
 GLOBAL_FLAGS.define("use_fused_norm_epilogue", True)
+GLOBAL_FLAGS.define("use_fused_rope_attention", True)
 GLOBAL_FLAGS.define("use_fused_bias_act", True)
 # training paths of later slices (the XLA-expression flash backward, the
 # head-major kernels, a library kernel): moving one off its default is

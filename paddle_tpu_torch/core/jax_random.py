@@ -12,12 +12,17 @@ integer ops:
 - ``prng_key(seed)``: a 32-bit seed becomes the key ``[0, seed]``
   (``jax_enable_x64`` off, so the high word is 0);
 - ``fold_in(key, data)``: ``threefry2x32(key, [0, data])``;
+- ``split(key, n)``: key i is ``threefry2x32(key, [0, i])`` (the
+  partitionable layout counts with the 64-bit iota split into (hi, lo));
 - ``random_bits32(key, n)``: the ``jax_threefry_partitionable=True``
   layout — element i hashes the 64-bit counter i split into (hi, lo)
   and returns ``y0 ^ y1``;
 - ``uniform``/``gumbel``: mantissa fill ``(bits >> 9) | 0x3F800000``,
   minus 1.0, scaled into [tiny, 1), then ``-log(-log(u))`` (the "low"
-  Gumbel mode, JAX's default).
+  Gumbel mode, JAX's default);
+- ``categorical(key, logits)``: ``argmax(gumbel + logits)`` over the last
+  axis, the noise for all ``[B, V]`` rows drawn from the one key (in the
+  partitionable layout that is the flat ``B * V`` draw, reshaped).
 
 uint32 arithmetic is carried in int64 tensors masked to 32 bits. Every
 function takes a leading batch of keys, so one call covers all rows of
@@ -28,8 +33,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["threefry2x32", "prng_key", "fold_in", "random_bits32",
-           "uniform_from_bits", "gumbel"]
+__all__ = ["threefry2x32", "prng_key", "fold_in", "split", "random_bits32",
+           "uniform_from_bits", "gumbel", "categorical"]
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -66,6 +71,13 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``: key [..., 2], data int [...] -> [..., 2]."""
     d = torch.as_tensor(data, device=key.device).to(torch.int64) & _M32
     y0, y1 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def split(key: torch.Tensor, n: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, n)``: key [2] -> int64 keys [n, 2]."""
+    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(i), i)
     return torch.stack([y0, y1], dim=-1)
 
 
@@ -140,3 +152,10 @@ def gumbel(key: torch.Tensor, n: int) -> torch.Tensor:
     float32 [..., n], bit for bit with JAX on the CPU."""
     u = uniform_from_bits(random_bits32(key, n), _FLOAT32_TINY, 1.0)
     return -xla_log(-xla_log(u))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, -1)`` for float32 logits
+    [..., V] and one key [2]: int64 [...]."""
+    noise = gumbel(key, logits.numel()).reshape(logits.shape)
+    return torch.argmax(noise + logits, dim=-1)

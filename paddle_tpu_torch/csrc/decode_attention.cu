@@ -1,0 +1,210 @@
+// One-token GQA attention over a dense kv-head-major cache (K10), for
+// Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel
+//   paddle_tpu/ops/pallas/decode_attention.py::_decode_kernel
+// (launched by decode_attention, fp cache): q [B, nH, d] (one token per
+// row), cache_k / cache_v [B, nKV, S, d], pos the last valid cache index;
+// o [B, nH, d]. The G = nH / nKV query heads that share a kv head are
+// served together, so each kv head's cache is read once and the repeated
+// [B, nH, S, d] cache never exists; positions past pos are never read
+// (the TPU kernel's k loop runs to ceil((pos + 1) / block)). s = (q k^T) *
+// scale in fp32, p = exp(s - m) with l summed over the fp32 p and p cast to
+// the cache dtype before p v (the TPU kernel's cast points), o = acc / l.
+//
+// Bound on the H100: bytes. Each step reads 2 * nKV * (pos + 1) * d cache
+// values per batch row and does 4 * nH * (pos + 1) * d flop: one flop per
+// byte in bf16, far under the ~295 the tensor cores need. At LLaMA-1B
+// (nKV 4, d 128, bf16) with pos 2047 that is 4.2 MB per row, 1.3 us at
+// 3.35 TB/s.
+//
+// Design. The TPU walks the cache in order in one program per (b, kv
+// head); one block per (b, kv head) would occupy 4 of 132 SMs at batch 1.
+// So the cache is split into chunks of 64 positions: one block per (chunk,
+// kv head, b) stages its chunk's k and v rows in shared memory, scores the
+// G heads against them and writes a partial (m, l, acc[G][d]) to scratch;
+// a second kernel combines the partials of a (b, kv head) in chunk order,
+// o = sum_j acc_j e^(m_j - M) / sum_j l_j e^(m_j - M). No atomics: the
+// output is bitwise reproducible. The int8-cache arm of the TPU kernel
+// (per-position scales) is not here.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kChunk = 64;        // cache positions per block
+constexpr int kMaxG = 16;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <typename T> __device__ __forceinline__ float round_to(float v) {
+  return to_f(from_f<T>(v));
+}
+
+size_t chunk_smem(int G, int D) {
+  return sizeof(float) * ((size_t)G * D + (size_t)kChunk * (D + 1) +
+                          (size_t)kChunk * D + (size_t)G * kChunk);
+}
+
+// part: per (b, kv head, chunk): m[G], l[G], acc[G][D], fp32.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+decode_chunk_kernel(const T* __restrict__ q, const T* __restrict__ ck,
+                    const T* __restrict__ cv, float* __restrict__ part,
+                    int nKV, int G, int S, int pos, float scale) {
+  extern __shared__ float smem[];
+  float* qs = smem;                         // [G][D]
+  float* ks = qs + G * D;                   // [kChunk][D + 1]
+  float* vs = ks + kChunk * (D + 1);        // [kChunk][D]
+  float* ss = vs + kChunk * D;              // [G][kChunk]
+  const int j = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int n_chunks = gridDim.x;
+  const int p0 = j * kChunk;
+  const int n = min(kChunk, pos + 1 - p0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  const T* qb = q + ((size_t)b * nKV * G + (size_t)kh * G) * D;
+  for (int e = tid; e < G * D; e += kThreads) qs[e] = to_f(qb[e]);
+  const size_t row0 = ((size_t)b * nKV + kh) * S + p0;
+  const T* kb = ck + row0 * D;
+  const T* vb = cv + row0 * D;
+  for (int e = tid; e < n * D; e += kThreads) {
+    const int c = e / D, dd = e % D;
+    ks[c * (D + 1) + dd] = to_f(kb[e]);
+    vs[e] = to_f(vb[e]);
+  }
+  __syncthreads();
+
+  for (int e = tid; e < G * kChunk; e += kThreads) {
+    const int g = e / kChunk, c = e % kChunk;
+    float s = -INFINITY;
+    if (c < n) {
+      s = 0.f;
+#pragma unroll 8
+      for (int dd = 0; dd < D; ++dd)
+        s = fmaf(qs[g * D + dd], ks[c * (D + 1) + dd], s);
+      s *= scale;
+    }
+    ss[e] = s;
+  }
+  __syncthreads();
+
+  float* pb = part + (((size_t)b * nKV + kh) * n_chunks + j) * G * (D + 2);
+  for (int g = warp; g < G; g += kThreads / 32) {
+    float* row = ss + g * kChunk;
+    float mx = fmaxf(row[lane], row[lane + 32]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    const float p_a = expf(row[lane] - mx), p_b = expf(row[lane + 32] - mx);
+    float sum = p_a + p_b;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    row[lane] = round_to<T>(p_a);         // p cast before p v
+    row[lane + 32] = round_to<T>(p_b);
+    if (lane == 0) {
+      pb[g] = mx;
+      pb[G + g] = sum;
+    }
+  }
+  __syncthreads();
+
+  float* accb = pb + 2 * G;
+  for (int e = tid; e < G * D; e += kThreads) {
+    const int g = e / D, dd = e % D;
+    const float* prow = ss + g * kChunk;
+    float a = 0.f;
+    for (int c = 0; c < n; ++c) a = fmaf(prow[c], vs[c * D + dd], a);
+    accb[e] = a;
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+decode_combine_kernel(const float* __restrict__ part, T* __restrict__ out,
+                      int nKV, int G, int n_chunks) {
+  const int kh = blockIdx.x, b = blockIdx.y;
+  const float* base = part + ((size_t)b * nKV + kh) * n_chunks * G * (D + 2);
+  T* ob = out + ((size_t)b * nKV * G + (size_t)kh * G) * D;
+  for (int e = threadIdx.x; e < G * D; e += kThreads) {
+    const int g = e / D;
+    float M = -INFINITY;
+    for (int j = 0; j < n_chunks; ++j)
+      M = fmaxf(M, base[(size_t)j * G * (D + 2) + g]);
+    float L = 0.f, A = 0.f;
+    for (int j = 0; j < n_chunks; ++j) {
+      const float* pj = base + (size_t)j * G * (D + 2);
+      const float w = expf(pj[g] - M);
+      L = fmaf(pj[G + g], w, L);
+      A = fmaf(pj[2 * G + e], w, A);
+    }
+    ob[e] = from_f<T>(A / fmaxf(L, 1e-30f));
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* ck, const void* cv, float* part,
+           void* out, int B, int nKV, int G, int S, int pos, float scale,
+           cudaStream_t st) {
+  const int n_chunks = (pos + kChunk) / kChunk;    // ceil((pos + 1) / 64)
+  const size_t smem = chunk_smem(G, D);
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_chunk_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  decode_chunk_kernel<T, D><<<dim3(n_chunks, nKV, B), kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(ck),
+      static_cast<const T*>(cv), part, nKV, G, S, pos, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  decode_combine_kernel<T, D><<<dim3(nKV, B), kThreads, 0, st>>>(
+      part, static_cast<T*>(out), nKV, G, n_chunks);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Scratch floats the wrapper allocates for `part`.
+extern "C" long long decode_attention_scratch(int B, int nKV, int G, int d,
+                                              int pos) {
+  return (long long)B * nKV * ((pos + kChunk) / kChunk) * G * (d + 2);
+}
+
+// dtype: 0 = float32, 1 = bfloat16; d in {64, 128, 256}; 1 <= G <= 16;
+// 0 <= pos < S. q [B, nKV * G, d]; cache_k / cache_v [B, nKV, S, d];
+// out [B, nKV * G, d]. Returns cudaGetLastError() after the launches.
+extern "C" int decode_attention(const void* q, const void* ck, const void* cv,
+                                float* part, void* out, int B, int nKV, int G,
+                                int S, int d, int pos, float scale, int dtype,
+                                void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || nKV <= 0 || G < 1 || G > kMaxG || pos < 0 || pos >= S)
+    return (int)cudaErrorInvalidValue;
+#define ARGS q, ck, cv, part, out, B, nKV, G, S, pos, scale, st
+  if (dtype == 1) {
+    if (d == 64) return launch<__nv_bfloat16, 64>(ARGS);
+    if (d == 128) return launch<__nv_bfloat16, 128>(ARGS);
+    if (d == 256) return launch<__nv_bfloat16, 256>(ARGS);
+  } else if (dtype == 0) {
+    if (d == 64) return launch<float, 64>(ARGS);
+    if (d == 128) return launch<float, 128>(ARGS);
+    if (d == 256) return launch<float, 256>(ARGS);
+  }
+#undef ARGS
+  return (int)cudaErrorInvalidValue;
+}

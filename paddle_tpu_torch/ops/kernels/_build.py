@@ -4,8 +4,9 @@ Every ``paddle_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface under
 ``paddle_tpu_torch/build/`` and loaded with ``ctypes``. All sources are
 compiled together, one ``nvcc`` process each, on the first call that
-needs any kernel. A library's file name carries a hash of its source and
-flags, so an edited source is rebuilt. Nothing here runs at import.
+needs any kernel. A library's file name carries a hash of its source, of
+the shared headers (``csrc/*.cuh``) and of the flags, so an edited source
+or header is rebuilt. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -45,6 +46,8 @@ def _nvcc() -> str:
 
 def _target(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for hdr in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(hdr.read_bytes())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 

@@ -1,10 +1,16 @@
-"""Causal flash attention on the fused qkv projection: the CUDA kernels'
-wrappers, their plain PyTorch versions and the differentiable operator.
+"""Causal flash attention: the CUDA kernels' wrappers, their plain
+PyTorch versions and the differentiable operators.
 
-Port of paddle_tpu/ops/pallas/flash_attention.py, fused-qkv entry
-``flash_attention_qkv_raw``: forward ``_flash_fwd_kernel_native``,
-backward ``_flash_bwd_fused_kernel_native`` (the merged dq + dk/dv
-kernel that writes one dqkv cotangent).
+Port of paddle_tpu/ops/pallas/flash_attention.py, native layout, two
+entries:
+
+- ``flash_attention_qkv_raw`` on the fused qkv projection (GPT): forward
+  ``_flash_fwd_kernel_native``, backward ``_flash_bwd_fused_kernel_native``
+  (the merged dq + dk/dv kernel that writes one dqkv cotangent);
+- ``flash_attention_raw`` on separate q, k, v [B, S, h, d] (LLaMA's
+  prefill): the same forward kernel given three base pointers and row
+  strides (K1's separate-input mode, ``flash_fwd_sep``). Its backward is
+  the LLaMA-training slice's and raises here.
 
 - qkv [B, S, 3*h*d]: q, k and v at lane offsets 0, h*d and 2*h*d, head
   j at j*d inside each; read in place, never split into copies.
@@ -21,8 +27,11 @@ On a CPU tensor the wrappers run the plain versions; on a CUDA tensor
 they launch ``csrc/flash_attention.cu`` or raise. The differentiable
 entry ``flash_attention_qkv`` is the registered operator pair
 ``paddle_tpu_torch::flash_qkv_fwd`` / ``flash_qkv_bwd`` (K2 as the
-forward's registered backward), so that the fusion compiler's trace
-records each as one node, with shape-only fake implementations.
+forward's registered backward), and ``flash_attention_raw`` the
+registered operator ``paddle_tpu_torch::flash_fwd_sep``, so that the
+fusion compiler's trace records each as one node, with shape-only fake
+implementations (the ``rope_attention`` template finds the separate entry
+by its operator).
 """
 
 from __future__ import annotations
@@ -35,7 +44,9 @@ from ...core.flags import GLOBAL_FLAGS
 from . import _build
 
 __all__ = ["flash_attention_qkv", "flash_qkv_supported", "flash_fwd",
-           "flash_bwd", "flash_fwd_plain", "flash_bwd_plain"]
+           "flash_bwd", "flash_fwd_plain", "flash_bwd_plain",
+           "flash_attention_raw", "flash_supported", "flash_fwd_sep",
+           "flash_sep_plain"]
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -71,6 +82,16 @@ def flash_qkv_supported(shape, n_heads: int, dtype) -> bool:
             and dtype in _DTYPE_CODE)
 
 
+def flash_supported(shape, dtype) -> bool:
+    """The reference's gate for the separate entry (``supported``): [B, S,
+    h, d] with S a multiple of 128 and d in (64, 128, 256), and fp32 or
+    bf16, the dtypes the kernel takes. Raises while a flash flag is off
+    its default."""
+    _check_flags()
+    return (len(shape) == 4 and shape[1] % 128 == 0 and shape[1] >= 128
+            and shape[3] in SUPPORTED_HEAD_DIMS and dtype in _DTYPE_CODE)
+
+
 def _split(qkv: torch.Tensor, n_heads: int):
     B, S, H3 = qkv.shape
     H = H3 // 3
@@ -83,19 +104,30 @@ def _mask(S: int, device) -> torch.Tensor:
     return torch.ones(S, S, dtype=torch.bool, device=device).tril()
 
 
-def flash_fwd_plain(qkv, n_heads: int, causal: bool, sm_scale: float):
-    """(o [B, S, h, d], lse [B, h, S] fp32) by one masked softmax over
-    the whole sequence, with the kernel's cast points."""
-    q, k, v = _split(qkv, n_heads)
+def _fwd_plain(q, k, v, dt, causal: bool, sm_scale: float):
+    """(o [B, S, h, d] in ``dt``, lse [B, h, S] fp32) from fp32 q, k, v by
+    one masked softmax over the whole sequence, with the kernel's cast
+    points."""
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) * sm_scale
     if causal:
         s = torch.where(_mask(s.shape[-1], s.device), s, -1e30)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1)                                    # [B, h, S]
-    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(qkv.dtype).float(), v)
-    o = (acc / l.transpose(1, 2)[..., None]).to(qkv.dtype)
+    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(dt).float(), v)
+    o = (acc / l.transpose(1, 2)[..., None]).to(dt)
     return o, m[..., 0] + torch.log(l)
+
+
+def flash_fwd_plain(qkv, n_heads: int, causal: bool, sm_scale: float):
+    """(o [B, S, h, d], lse [B, h, S] fp32) of the fused qkv."""
+    return _fwd_plain(*_split(qkv, n_heads), qkv.dtype, causal, sm_scale)
+
+
+def flash_sep_plain(q, k, v, causal: bool, sm_scale: float):
+    """o [B, S, h, d] of separate q, k, v [B, S, h, d]."""
+    return _fwd_plain(q.float(), k.float(), v.float(), q.dtype, causal,
+                      sm_scale)[0]
 
 
 def flash_bwd_plain(qkv, o, lse, do, n_heads: int, causal: bool,
@@ -199,8 +231,49 @@ def flash_bwd(qkv, o, lse, do, n_heads: int, causal: bool,
     return dqkv
 
 
+def flash_fwd_sep(q, k, v, causal: bool, sm_scale: float) -> torch.Tensor:
+    """K1 in its separate-input mode: o of q, k, v [B, S, h, d]. Counts
+    its CUDA launches in ``flash_fwd_sep.launches``."""
+    if q.device.type == "cpu":
+        return flash_sep_plain(q, k, v, causal, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    B, S, h, d = _check_sep(q, k, v)
+    o = torch.empty_like(q)
+    err = _kernel("flash_fwd_sep")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None, B, S,
+        h, d, int(causal), float(sm_scale), _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_fwd_sep")
+    flash_fwd_sep.launches += 1
+    return o
+
+
+def _check_sep(q, k, v) -> tuple[int, int, int, int]:
+    """The separate-input kernels' operand rules (shared with K11)."""
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or \
+            v.dtype != q.dtype:
+        raise TypeError(f"q {q.dtype} / k {k.dtype} / v {v.dtype}: the "
+                        "kernels take float32 or bfloat16, all alike")
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}: want three [B, S, h, d]")
+    B, S, h, d = q.shape
+    if d not in SUPPORTED_HEAD_DIMS or S % 64:
+        raise ValueError(f"head dim {d} / seq {S}: the kernels take d in "
+                         f"{SUPPORTED_HEAD_DIMS} and S % 64 == 0")
+    for t in (q, k, v):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"q, k, v must be contiguous and on {q.device}")
+        if t.data_ptr() % 16:
+            raise ValueError("the kernels read 16-byte vectors: operands "
+                             "must be 16-byte aligned")
+    return B, S, h, d
+
+
 flash_fwd.launches = 0
 flash_bwd.launches = 0
+flash_fwd_sep.launches = 0
 
 
 # The fused-qkv entry is a pair of registered operators, so that the
@@ -265,3 +338,36 @@ def flash_attention_qkv(qkv, n_heads: int, causal: bool = True,
     scale = sm_scale if sm_scale is not None else 1.0 / d ** 0.5
     return _flash_qkv_fwd_op(qkv.contiguous(), n_heads, bool(causal),
                              float(scale))[0]
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd_sep", mutates_args=())
+def _flash_sep_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, sm_scale: float) -> torch.Tensor:
+    return flash_fwd_sep(q, k, v, causal, sm_scale).contiguous()
+
+
+@_flash_sep_op.register_fake
+def _(q, k, v, causal, sm_scale):
+    return torch.empty_like(q)
+
+
+def _flash_sep_backward(ctx, do):
+    raise NotImplementedError("later slice: LLaMA training (the backward "
+                              "of flash_attention_raw)")
+
+
+_flash_sep_op.register_autograd(_flash_sep_backward)
+
+
+def flash_attention_raw(q, k, v, causal: bool = False,
+                        sm_scale: float | None = None) -> torch.Tensor:
+    """Attention on separate q, k, v [B, S, h, d] in the native layout:
+    K1's separate-input mode on CUDA, its plain version on the CPU. The
+    forward only: differentiating it raises (LLaMA training is a later
+    slice)."""
+    if not flash_supported(q.shape, q.dtype):
+        raise ValueError(f"flash_attention_raw: shape {tuple(q.shape)} "
+                         f"{q.dtype} is not supported")
+    scale = sm_scale if sm_scale is not None else 1.0 / q.shape[-1] ** 0.5
+    return _flash_sep_op(q.contiguous(), k.contiguous(), v.contiguous(),
+                         bool(causal), float(scale))

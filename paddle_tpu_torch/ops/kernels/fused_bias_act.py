@@ -1,21 +1,26 @@
-"""Fused bias + tanh gelu: the CUDA kernel's wrapper, its plain PyTorch
-version and the autograd function.
+"""Fused FFN activations: the CUDA kernels' wrappers, their plain
+PyTorch versions and the autograd functions.
 
-Port of paddle_tpu/ops/pallas/fused_bias_act.py, kernel
-``_bias_gelu_kernel``: ``y = gelu_tanh(x + bias)`` over x [..., F] with
-bias [F] broadcast over the rows (GPT's FFN, between the two matmuls).
-Rounding is the port's eager composition ``F.gelu(x +
-bias.to(x.dtype), approximate="tanh")``: the bias and the add round to
-x's dtype, and the gelu runs in fp32 and rounds once (aten.gelu on bf16).
+Port of paddle_tpu/ops/pallas/fused_bias_act.py:
 
-The backward is composed, as the reference's: the autograd function
-saves (x, bias) and pulls dy back through that composition.
+- K7, ``_bias_gelu_kernel``: ``y = gelu_tanh(x + bias)`` over x [..., F]
+  with bias [F] broadcast over the rows (GPT's FFN, between the two
+  matmuls). Rounding is the port's eager composition ``F.gelu(x +
+  bias.to(x.dtype), approximate="tanh")``: the bias and the add round to
+  x's dtype, and the gelu runs in fp32 and rounds once (aten.gelu on
+  bf16).
+- K12, ``_swiglu_kernel``: ``y = silu(gate.float()).to(dtype) * up`` over
+  gate and up [..., F] (LLaMA's FFN, between the gate/up and the down
+  projections): silu in fp32, rounded back, the product in the input
+  dtype.
 
-``fused_swiglu`` (the reference's K12, LLaMA's FFN) is not ported yet.
+The backwards are composed, as the reference's: each autograd function
+saves its inputs and pulls dy back through the plain composition.
 
-The compiler's ``bias_gelu`` template places this function; nothing calls
-it by hand. On a CPU tensor the wrapper runs the plain version; on a CUDA
-tensor it launches ``csrc/fused_bias_act.cu`` or raises.
+The compiler's ``bias_gelu`` and ``swiglu`` templates place these
+functions; nothing calls them by hand. On a CPU tensor a wrapper runs the
+plain version; on a CUDA tensor it launches ``csrc/fused_bias_act.cu`` or
+raises.
 """
 
 from __future__ import annotations
@@ -28,10 +33,10 @@ import torch.nn.functional as F
 from . import _build
 
 __all__ = ["fused_bias_gelu", "fused_swiglu", "fused_bias_act_supported",
-           "bias_gelu_fwd", "bias_gelu_plain"]
+           "bias_gelu_fwd", "bias_gelu_plain", "swiglu_fwd", "swiglu_plain"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None
+_fns = {}
 
 
 def fused_bias_act_supported(n: int, f: int, dtype) -> bool:
@@ -39,7 +44,8 @@ def fused_bias_act_supported(n: int, f: int, dtype) -> bool:
     n % 256 == 0, fp32 or bf16). Its VMEM term is a TPU limit the
     grid-stride kernel does not have, and its single-device term guards
     GSPMD partitioning, which the one-device port does not do: both are
-    dropped, so the port fuses wide FFNs the reference leaves unfused."""
+    dropped, so the port fuses wide FFNs the reference leaves unfused
+    (LLaMA's f 5504 and 14336 in bf16, which the VMEM term refuses)."""
     return (dtype in _DTYPE_CODE and n > 0 and n % 256 == 0
             and f > 0 and f % 128 == 0)
 
@@ -49,15 +55,28 @@ def bias_gelu_plain(x, bias):
     return F.gelu(x + bias.to(x.dtype), approximate="tanh")
 
 
-def _kernel_fn():
-    global _fn
-    if _fn is None:
-        fn = _build.library("fused_bias_act").bias_gelu
+def swiglu_plain(gate, up):
+    """The eager composition."""
+    return F.silu(gate.float()).to(gate.dtype) * up
+
+
+def _kernel_fn(name: str = "bias_gelu"):
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_build.library("fused_bias_act"), name)
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, I, P, I, I, I, P]
+        fn.argtypes = ([P, P, I, P, I, I, I, P] if name == "bias_gelu"
+                       else [P, P, P, I, I, I, P])
         fn.restype = I
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
+
+
+def _vectors(t):
+    """t as a contiguous, 16-byte aligned tensor (the kernels read 16-byte
+    vectors of one row)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def bias_gelu_fwd(x, bias):
@@ -76,9 +95,7 @@ def bias_gelu_fwd(x, bias):
     if f % 8:
         raise ValueError(f"width {f}: the kernel reads 16-byte vectors of "
                          "one row (f % 8 == 0)")
-    x = x.contiguous()
-    if x.data_ptr() % 16:
-        x = x.clone()
+    x = _vectors(x)
     bias = bias.contiguous()
     y = torch.empty_like(x)
     err = _kernel_fn()(x.data_ptr(), bias.data_ptr(), _DTYPE_CODE[bias.dtype],
@@ -117,6 +134,56 @@ def fused_bias_gelu(x, bias):
     return _BiasGelu.apply(x, bias)
 
 
+def swiglu_fwd(gate, up):
+    """K12: y. Counts its CUDA launches in ``swiglu_fwd.launches``."""
+    if gate.device.type == "cpu":
+        return swiglu_plain(gate, up)
+    if gate.device.type != "cuda":
+        raise ValueError(f"unsupported device {gate.device}")
+    if gate.dtype not in _DTYPE_CODE or up.dtype != gate.dtype:
+        raise TypeError(f"gate {gate.dtype} / up {up.dtype}: the kernel "
+                        "takes float32 or bfloat16, both alike")
+    if up.shape != gate.shape or up.device != gate.device:
+        raise ValueError(f"up {tuple(up.shape)} on {up.device} does not "
+                         f"match gate {tuple(gate.shape)} on {gate.device}")
+    f = gate.shape[-1]
+    if f % 8:
+        raise ValueError(f"width {f}: the kernel reads 16-byte vectors of "
+                         "one row (f % 8 == 0)")
+    gate, up = _vectors(gate), _vectors(up)
+    y = torch.empty_like(gate)
+    err = _kernel_fn("swiglu")(
+        gate.data_ptr(), up.data_ptr(), y.data_ptr(), gate.numel() // f, f,
+        _DTYPE_CODE[gate.dtype],
+        torch.cuda.current_stream(gate.device).cuda_stream)
+    _build.check(err, "swiglu")
+    swiglu_fwd.launches += 1
+    return y
+
+
+swiglu_fwd.launches = 0
+
+
+class _Swiglu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, gate, up):
+        ctx.save_for_backward(gate, up)
+        return swiglu_fwd(gate, up)
+
+    @staticmethod
+    def backward(ctx, dy):
+        gate, up = ctx.saved_tensors
+        with torch.enable_grad():
+            gg = gate.detach().requires_grad_(True)
+            uu = up.detach().requires_grad_(True)
+            dg, du = torch.autograd.grad(swiglu_plain(gg, uu), (gg, uu), dy)
+        return dg, du
+
+
 def fused_swiglu(gate, up):
-    """K12, LLaMA's FFN gating: ported with the LLaMA-training slice."""
-    raise NotImplementedError("later slice: fused_swiglu (K12)")
+    """Differentiable ``silu(gate.float()).to(dtype) * up`` over arbitrary
+    leading dims: K12 forward, the composed backward."""
+    if gate.shape != up.shape:
+        raise ValueError(f"gate/up shape mismatch: {tuple(gate.shape)} vs "
+                         f"{tuple(up.shape)}")
+    return _Swiglu.apply(gate, up)

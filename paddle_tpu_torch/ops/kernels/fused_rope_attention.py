@@ -1,0 +1,157 @@
+"""Flash attention with RoPE applied inside the tile (K11): the CUDA
+kernel's wrapper, its plain PyTorch version and the registered operator.
+
+Port of paddle_tpu/ops/pallas/fused_rope_attention.py (kernel
+``_rope_flash_fwd_kernel``). q, k, v are [B, S, h, d] in the native
+layout, q and k NOT yet rotated; ``cos``/``sin`` are the half-width angle
+tables of positions 0..S-1 (anything reshapable to [S, d/2], as
+models/llama.py ``rope_angles`` makes them). ``rope_q``/``rope_k`` say
+which side the kernel rotates: LLaMA's GQA prefill passes the repeated,
+already rotated k with ``rope_k=False`` (its rotated k escapes into the
+cache and through the repeat); an MHA model rotates both.
+
+The kernel rotates with the full-width tables of :func:`rope_tables`,
+``x * C + swap(x) * S``, rounding as the eager ``apply_rope`` does, so the
+rotated tiles are bit for bit the composition's; the plain version is that
+composition: ``apply_rope`` on the chosen sides, then the plain flash.
+
+The forward only: the backward (K2/K3 on the rotated inputs) comes with
+LLaMA training and raises here. The compiler's ``rope_attention``
+template places this function. On a CPU tensor the wrapper runs the plain
+version; on a CUDA tensor it launches ``csrc/fused_rope_attention.cu`` or
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ...core.flags import GLOBAL_FLAGS
+from . import _build
+from .flash_attention import (_DTYPE_CODE, _FLAG_DEFAULTS, _check_sep,
+                              flash_sep_plain, flash_supported)
+
+__all__ = ["fused_rope_flash_attention", "fused_rope_supported",
+           "rope_tables", "rope_flash_fwd", "rope_flash_plain"]
+
+_fn = None
+
+
+def fused_rope_supported(shape, dtype) -> bool:
+    """The reference's gate: the flash flags in their native-kernel
+    default state, a flash-supported [B, S, h, d] and d in (128, 256)."""
+    if any(GLOBAL_FLAGS.get(name) != default
+           for name, default in _FLAG_DEFAULTS):
+        return False
+    return (len(shape) == 4 and flash_supported(shape, dtype)
+            and shape[-1] in (128, 256))
+
+
+def rope_tables(cos, sin, d: int):
+    """Full-width fp32 tables from half-width ones (any shape ending in
+    d/2): C = [cos, cos], S = [-sin, sin]."""
+    cos, sin = cos.float(), sin.float()
+    return torch.cat([cos, cos], dim=-1), torch.cat([-sin, sin], dim=-1)
+
+
+def _apply_rope_ref(x, cos, sin):
+    """Textual copy of models/llama.py ``apply_rope`` (split-half form):
+    the composition the kernel is held to."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def _half_tables(cos, sin, s: int, d: int):
+    return (cos.reshape(s, d // 2).float(), sin.reshape(s, d // 2).float())
+
+
+def rope_flash_plain(q, k, v, cos, sin, causal: bool, sm_scale: float,
+                     rope_q: bool, rope_k: bool) -> torch.Tensor:
+    """The composition: rotate the chosen sides, then the plain flash."""
+    _, s, _, d = q.shape
+    cos, sin = _half_tables(cos, sin, s, d)
+    cb, sb = cos[None, :, None, :], sin[None, :, None, :]
+    qr = _apply_rope_ref(q, cb, sb) if rope_q else q
+    kr = _apply_rope_ref(k, cb, sb) if rope_k else k
+    return flash_sep_plain(qr, kr, v, causal, sm_scale)
+
+
+def _kernel_fn():
+    global _fn
+    if _fn is None:
+        fn = _build.library("fused_rope_attention").rope_flash_fwd
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P] * 7 + [I] * 5 + [ctypes.c_float, I, I, I, P]
+        fn.restype = I
+        _fn = fn
+    return _fn
+
+
+def rope_flash_fwd(q, k, v, cos, sin, causal: bool, sm_scale: float,
+                   rope_q: bool, rope_k: bool) -> torch.Tensor:
+    """K11: o. Counts its CUDA launches in ``rope_flash_fwd.launches``."""
+    if q.device.type == "cpu":
+        return rope_flash_plain(q, k, v, cos, sin, causal, sm_scale, rope_q,
+                                rope_k)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if not (rope_q or rope_k):
+        raise ValueError("rope_flash_fwd rotates q, k or both")
+    B, S, h, d = _check_sep(q, k, v)
+    if d not in (128, 256):
+        raise ValueError(f"head dim {d}: the kernel takes 128 or 256")
+    cos_f, sin_f = (t.contiguous() for t in rope_tables(
+        *_half_tables(cos, sin, S, d), d))
+    if cos_f.device != q.device:
+        raise ValueError(f"tables on {cos_f.device}, q on {q.device}")
+    o = torch.empty_like(q)
+    err = _kernel_fn()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), cos_f.data_ptr(),
+        sin_f.data_ptr(), o.data_ptr(), None, B, S, h, d, int(causal),
+        float(sm_scale), int(rope_q), int(rope_k), _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "rope_flash_fwd")
+    rope_flash_fwd.launches += 1
+    return o
+
+
+rope_flash_fwd.launches = 0
+
+
+@torch.library.custom_op("paddle_tpu_torch::rope_flash_fwd", mutates_args=())
+def _rope_flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   cos: torch.Tensor, sin: torch.Tensor, causal: bool,
+                   sm_scale: float, rope_q: bool, rope_k: bool
+                   ) -> torch.Tensor:
+    return rope_flash_fwd(q, k, v, cos, sin, causal, sm_scale, rope_q,
+                          rope_k).contiguous()
+
+
+@_rope_flash_op.register_fake
+def _(q, k, v, cos, sin, causal, sm_scale, rope_q, rope_k):
+    return torch.empty_like(q)
+
+
+def _rope_flash_backward(ctx, do):
+    raise NotImplementedError("later slice: LLaMA training (the backward "
+                              "of fused_rope_flash_attention)")
+
+
+_rope_flash_op.register_autograd(_rope_flash_backward)
+
+
+def fused_rope_flash_attention(q, k, v, cos, sin, causal: bool = True,
+                               sm_scale: float | None = None,
+                               rope_q: bool = True,
+                               rope_k: bool = True) -> torch.Tensor:
+    """Flash attention over unrotated q (and k) with RoPE in the tile."""
+    if not fused_rope_supported(q.shape, q.dtype):
+        raise ValueError(f"fused_rope_flash_attention: shape "
+                         f"{tuple(q.shape)} {q.dtype} is not supported")
+    scale = sm_scale if sm_scale is not None else 1.0 / q.shape[-1] ** 0.5
+    return _rope_flash_op(q.contiguous(), k.contiguous(), v.contiguous(),
+                          cos, sin, bool(causal), float(scale), bool(rope_q),
+                          bool(rope_k))

@@ -6,7 +6,10 @@ plain version ``_quant_matmul_xla``): y = (x @ W) * s with x [..., K]
 bf16 or fp32, W [K, N] int8, s [1, N] or [N]; y is fp32 [..., N].
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches ``csrc/quant_matmul.cu`` or raises.
+launches ``csrc/quant_matmul.cu`` or raises. ``quant_matmul`` is the
+registered operator ``paddle_tpu_torch::quant_matmul`` with a shape-only
+fake implementation, so that the fusion compiler's trace of LLaMA's
+int8 prefill records it as one node instead of reaching the launch.
 """
 
 from __future__ import annotations
@@ -44,6 +47,10 @@ def _kernel_fn():
 def quant_matmul(x, wq, scale) -> torch.Tensor:
     """y = (x @ wq) * scale in fp32. Counts its CUDA launches in
     ``quant_matmul.launches``."""
+    return _qmm_op(x, wq, scale)
+
+
+def _qmm(x, wq, scale) -> torch.Tensor:
     if x.device.type == "cpu":
         return quant_matmul_plain(x, wq, scale)
     if x.device.type != "cuda":
@@ -77,3 +84,14 @@ def quant_matmul(x, wq, scale) -> torch.Tensor:
 
 
 quant_matmul.launches = 0
+
+
+@torch.library.custom_op("paddle_tpu_torch::quant_matmul", mutates_args=())
+def _qmm_op(x: torch.Tensor, wq: torch.Tensor,
+            scale: torch.Tensor) -> torch.Tensor:
+    return _qmm(x, wq, scale)
+
+
+@_qmm_op.register_fake
+def _(x, wq, scale):
+    return x.new_empty((*x.shape[:-1], wq.shape[1]), dtype=torch.float32)

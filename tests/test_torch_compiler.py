@@ -389,3 +389,166 @@ def _needs_the_jax_compiler():
     if not hasattr(jax.core, "Var"):
         pytest.skip("this jax has no jax.core.Var, which the JAX compiler "
                     "(paddle_tpu.compiler) needs")
+
+
+# -- LLaMA: rope_attention and swiglu ---------------------------------------
+
+def _rope_inputs(seed=0, B=1, S=128, h=2, d=128, dtype=BF, kv_heads=None):
+    from paddle_tpu_torch.models.llama import LlamaConfig, rope_angles
+
+    q = _rand(seed, B, S, h, d, dtype=dtype)
+    k = _rand(seed + 1, B, S, kv_heads or h, d, dtype=dtype)
+    v = _rand(seed + 2, B, S, kv_heads or h, d, dtype=dtype)
+    cos, sin = rope_angles(LlamaConfig(hidden=h * d, n_heads=h),
+                           torch.arange(S))
+    return q, k, v, cos[None, :, None, :], sin[None, :, None, :]
+
+
+def _rope_flash(q, k, v, cos, sin, rep=1, escape=False):
+    from paddle_tpu_torch.models.llama import _repeat_kv, apply_rope
+    from paddle_tpu_torch.ops.kernels.flash_attention import \
+        flash_attention_raw
+
+    qr, kr = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    o = flash_attention_raw(qr, _repeat_kv(kr, rep), _repeat_kv(v, rep),
+                            causal=True)
+    return (o, kr) if escape else (o,)
+
+
+def _rope_sites(rep):
+    return [(s["template"], s["applied"], s["eqns"]) for s in rep.sites]
+
+
+def test_rope_attention_fuses_both_rotations_for_mha():
+    args = _rope_inputs()
+    rep = compiler.discover(_rope_flash, *args)
+    # flash + 12 nodes per rotation: the fp32 cast, the split and its two
+    # halves, four table products, sub, add, cat, the cast back
+    assert _rope_sites(rep) == [("rope_attention", True, 25)]
+    _fused_equals_plain(_rope_flash, *args)
+
+
+def test_rope_attention_is_q_only_when_k_escapes():
+    fn = functools.partial(_rope_flash, escape=True)
+    args = _rope_inputs(1)
+    assert _rope_sites(compiler.discover(fn, *args)) == \
+        [("rope_attention", True, 13)]
+    _fused_equals_plain(fn, *args)
+
+
+def test_rope_attention_is_q_only_under_gqa():
+    """The k rotation hides behind the repeat: the site reads the
+    repeated, rotated k (the matcher does not peel the repeat)."""
+    fn = functools.partial(_rope_flash, rep=2)
+    args = _rope_inputs(2, h=4, kv_heads=2, dtype=torch.float32)
+    # fp32: no casts, 10 nodes of the q rotation + flash
+    assert _rope_sites(compiler.discover(fn, *args)) == \
+        [("rope_attention", True, 11)]
+    _fused_equals_plain(fn, *args)
+
+
+def test_rope_with_other_tables_for_k_fuses_q_only():
+    def fn(q, k, v, cos, sin):
+        from paddle_tpu_torch.models.llama import apply_rope
+        from paddle_tpu_torch.ops.kernels.flash_attention import \
+            flash_attention_raw
+
+        return (flash_attention_raw(apply_rope(q, cos, sin),
+                                    apply_rope(k, sin, cos), v, causal=True),)
+
+    args = _rope_inputs(3)
+    assert _rope_sites(compiler.discover(fn, *args)) == \
+        [("rope_attention", True, 13)]
+    _fused_equals_plain(fn, *args)
+
+
+def test_swiglu_golden():
+    def fn(g, u):
+        return (F.silu(g.float()).to(g.dtype) * u,)
+
+    args = (_rand(0, 2, N // 2, 4 * H, dtype=BF), _rand(1, 2, N // 2, 4 * H,
+                                                      dtype=BF))
+    assert [(s["template"], s["applied"], s["eqns"])
+            for s in compiler.discover(fn, *args).sites] == \
+        [("swiglu", True, 4)]
+    _fused_equals_plain(fn, *args)
+
+
+def test_swiglu_near_miss_does_not_match():
+    """silu in bf16 (no fp32 round trip) is another function."""
+    rep = compiler.discover(lambda g, u: (F.silu(g) * u,),
+                            _rand(0, N, H, dtype=BF), _rand(1, N, H, dtype=BF))
+    assert rep.sites == []
+
+
+LLAMA_SHAPE = dict(vocab_size=256, hidden=512, n_layers=3, n_heads=4,
+                   ffn_hidden=768, max_seq_len=256)
+
+
+def _llama(dtype, n_kv_heads=2, seed=0):
+    from paddle_tpu_torch.models import llama as tl
+
+    cfg = tl.LlamaConfig(**LLAMA_SHAPE, n_kv_heads=n_kv_heads, dtype=dtype,
+                         param_dtype=dtype)
+    params = tl.init_llama_params(cfg, torch.Generator().manual_seed(seed),
+                                  "cpu")
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():        # norm gains off their init values
+        for name in ("attn_norm", "ffn_norm"):
+            params["blocks"][name].add_(0.1 * torch.randn(
+                params["blocks"][name].shape, generator=gen).to(dtype))
+    tokens = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, 256, size=(2, 128)))
+    return tl, cfg, params, tokens
+
+
+@pytest.mark.parametrize("n_kv_heads", [2, 4], ids=["gqa", "mha"])
+def test_llama_prefill_fuses_every_layer(n_kv_heads):
+    """2L + 1 rms epilogues, L q-only rope sites (the rotated k escapes
+    into the cache) and L swiglus, all applied: the rope tables are shared
+    by every layer and no site consumes them."""
+    tl, cfg, params, tokens = _llama(BF, n_kv_heads)
+    m = tl.LlamaForCausalLM(cfg, params=params, max_batch=2, device="cpu")
+    rep = compiler.discover(functools.partial(tl._prefill_unfused, cfg=cfg),
+                            params, tokens, m._empty_cache(2))
+    L = cfg.n_layers
+    assert _by_template(rep) == {"rms_epilogue": 2 * L + 1,
+                                 "rope_attention": L, "swiglu": L}
+    assert rep.n_applied == rep.n_sites and not rep.errors
+    assert {s["eqns"] for s in rep.sites
+            if s["template"] == "rope_attention"} == {13}
+
+
+def test_llama_apply_fuses_both_rotations_for_mha():
+    tl, cfg, params, tokens = _llama(BF, 4)
+    rep = compiler.discover(functools.partial(tl._llama_apply_unfused,
+                                              cfg=cfg), params, tokens)
+    assert {s["eqns"] for s in rep.sites
+            if s["template"] == "rope_attention"} == {25}
+    assert rep.n_applied == rep.n_sites == 2 * 3 + 1 + 3 + 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
+def test_llama_fused_prefill_is_bitwise_unfused(flags, dtype):
+    """Logits and the filled cache, fusion on against off."""
+    tl, cfg, params, tokens = _llama(dtype)
+    m = tl.LlamaForCausalLM(cfg, params=params, max_batch=2, device="cpu")
+    runs = []
+    for on in (True, False):
+        flags("use_auto_fusion", on)
+        cache = m._empty_cache(2)
+        logits, cache = m._prefill_impl(tokens, cache)
+        runs.append((logits, cache["k"], cache["v"]))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_rope_kill_switch(flags):
+    tl, cfg, params, tokens = _llama(BF)
+    fn = functools.partial(tl._llama_apply_unfused, cfg=cfg)
+    flags("use_fused_rope_attention", False)
+    assert _by_template(compiler.discover(fn, params, tokens)) == \
+        {"rms_epilogue": 7, "swiglu": 3}
+    flags("use_fused_bias_act", False)
+    assert _by_template(compiler.discover(fn, params, tokens)) == \
+        {"rms_epilogue": 7}

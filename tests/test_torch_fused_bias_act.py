@@ -1,15 +1,18 @@
-"""The port's bias + tanh gelu (K7) against the JAX reference on the
-CPU: the port's plain arm (what its wrapper runs on a CPU tensor)
-against ``paddle_tpu.ops.pallas.fused_bias_act.fused_bias_gelu`` with
-``use_kernel=True``, the Pallas kernel in interpret mode. Inputs come
-from a numpy seed.
+"""The port's bias + tanh gelu (K7) and swiglu (K12) against the JAX
+reference on the CPU: the port's plain arms (what its wrappers run on a
+CPU tensor) against ``paddle_tpu.ops.pallas.fused_bias_act``'s
+``fused_bias_gelu`` / ``fused_swiglu`` with ``use_kernel=True``, the
+Pallas kernels in interpret mode. Inputs come from a numpy seed.
 
 Tolerances: fp32 within rtol 1e-6 and atol 1e-6 (y is O(1); XLA's and
 PyTorch's tanh may differ in the last bit). bf16 within 3 ulps of the
 larger of the values and half the gelu's input (JAX rounds each op of
 the gelu's polynomial in bf16, 1 + tanh on the grid of 1 included;
 PyTorch computes it in fp32 and rounds once). Gradients in fp32 within
-rtol 1e-5 and atol 1e-5 of each gradient's largest value.
+rtol 1e-5 and atol 1e-5 of each gradient's largest value. swiglu: bf16
+bit-equal (silu in fp32 rounds once to bf16, the product of two bf16
+values rounds once); fp32 within rtol 1e-6 and atol 1e-6 (the last bit of
+exp); its gradients as the gelu's.
 """
 
 import numpy as np
@@ -83,10 +86,54 @@ def test_gradients_match_reference(shape):
 def test_gate_swiglu_and_errors():
     sup = tf.fused_bias_act_supported
     assert sup(256, 4096, torch.bfloat16) and sup(512, 128, torch.float32)
+    assert sup(512, 5504, torch.bfloat16) and sup(512, 14336, torch.bfloat16)
     assert not sup(255, 4096, torch.bfloat16)
     assert not sup(256, 4000, torch.bfloat16)
     assert not sup(256, 4096, torch.float16)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tf.fused_swiglu(torch.zeros(256, 128), torch.zeros(256, 128))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        tf.fused_swiglu(torch.zeros(256, 128), torch.zeros(256, 64))
     with pytest.raises(ValueError, match="bias"):
         tf.fused_bias_gelu(torch.zeros(256, 128), torch.zeros(64))
+
+
+def _swiglu_inputs(seed, shape, dtype):
+    rng = np.random.RandomState(seed)
+    g = (3.0 * rng.randn(*shape)).astype(np.float32)
+    u = rng.randn(*shape).astype(np.float32)
+    if dtype == "bfloat16":
+        g, u = (np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+                for a in (g, u))
+    return g, u
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 128, 256), (256, 640)])
+def test_swiglu_matches_reference_kernel(shape, dtype):
+    g, u = _swiglu_inputs(3, shape, dtype)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jy = np.asarray(jf.fused_swiglu(jnp.asarray(g, jdt), jnp.asarray(u, jdt),
+                                    use_kernel=True).astype(jnp.float32))
+    ty = tf.fused_swiglu(torch.from_numpy(g).to(tdt),
+                         torch.from_numpy(u).to(tdt)).float().numpy()
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(ty, jy)
+    else:
+        np.testing.assert_allclose(ty, jy, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(2, 128, 256), (256, 640)])
+def test_swiglu_gradients_match_reference(shape):
+    g, u = _swiglu_inputs(4, shape, "float32")
+    cy = np.random.RandomState(5).randn(*shape).astype(np.float32)
+    want = jax.grad(lambda a, b: jnp.sum(
+        jf.fused_swiglu(a, b, use_kernel=True) * cy), argnums=(0, 1))(
+        jnp.asarray(g), jnp.asarray(u))
+    gt = torch.from_numpy(g).requires_grad_(True)
+    ut = torch.from_numpy(u).requires_grad_(True)
+    loss = (tf.fused_swiglu(gt, ut) * torch.from_numpy(cy)).sum()
+    got = torch.autograd.grad(loss, (gt, ut))
+    for name, w, t in zip(("gate", "up"), want, got):
+        w = np.asarray(w)
+        np.testing.assert_allclose(t.numpy(), w, rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(w).max()),
+                                   err_msg=name)

@@ -36,12 +36,15 @@ def test_port_imports_without_jax_or_reference():
                          env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 22
+    assert int(out.stdout.split()[-1]) >= 24
     mods = set(out.stdout.split()[:-1])
     assert {"paddle_tpu_torch.compiler", "paddle_tpu_torch.compiler.catalog",
             "paddle_tpu_torch.compiler.fusion_pass",
             "paddle_tpu_torch.ops.kernels.fused_norm_epilogue",
-            "paddle_tpu_torch.ops.kernels.fused_bias_act"} <= mods
+            "paddle_tpu_torch.ops.kernels.fused_bias_act",
+            "paddle_tpu_torch.ops.kernels.decode_attention",
+            "paddle_tpu_torch.ops.kernels.fused_rope_attention",
+            "paddle_tpu_torch.models.llama"} <= mods
 
 
 def test_no_silent_cpu_fallback():
@@ -59,6 +62,20 @@ def test_no_silent_cpu_fallback():
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_llama_engine_does_not_fall_back():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(vocab_size=64, hidden=256, n_layers=1, n_heads=2,
+                      n_kv_heads=1, ffn_hidden=256, max_seq_len=256,
+                      dtype=torch.float32, param_dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="device=.cpu."):
+        LlamaForCausalLM(cfg)
+    m = LlamaForCausalLM(cfg, device="cpu")
+    assert m.params["wte"].device.type == "cpu"
 
 
 def test_training_entry_points_do_not_fall_back():

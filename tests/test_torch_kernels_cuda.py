@@ -249,3 +249,132 @@ def test_fused_gpt_forward_runs_the_kernels(cuda):
     finally:
         GLOBAL_FLAGS.set("use_auto_fusion", old)
     assert _scaled(fused, plain) <= 3 * 2 ** -7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3 * 2 ** -7)])
+@pytest.mark.parametrize("G,d,S", [(4, 128, 2048), (2, 64, 256),
+                                   (8, 256, 512), (1, 128, 128)])
+def test_decode_attention_kernel_matches_plain(cuda, dtype, tol, G, d, S):
+    """K10 at cache positions 0, a ragged chunk, a chunk edge and S - 1,
+    deterministic across calls."""
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+
+    rng = np.random.default_rng(7)
+    B, nkv = 3, 2
+    q, ck, cv = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        cuda, dtype) for s in ((B, nkv * G, d), (B, nkv, S, d),
+                               (B, nkv, S, d)))
+    for pos in (0, 37, 63, 64, S - 1):
+        before = da.decode_attention.launches
+        got = da.decode_attention(q, ck, cv, pos, d ** -0.5)
+        ref = da.decode_attention_plain(q, ck, cv, pos, d ** -0.5)
+        torch.cuda.synchronize()
+        assert da.decode_attention.launches == before + 1
+        assert _scaled(got, ref) <= tol, pos
+        assert torch.equal(got, da.decode_attention(q, ck, cv, pos,
+                                                    d ** -0.5))
+
+
+def _rope_inputs(cuda, dtype, B, S, h, d, seed=8):
+    from paddle_tpu_torch.models.llama import LlamaConfig, rope_angles
+
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, S, h, d)).astype(
+        np.float32)).to(cuda, dtype) for _ in range(3))
+    cos, sin = rope_angles(LlamaConfig(hidden=h * d, n_heads=h),
+                           torch.arange(S, device=cuda))
+    return q, k, v, cos, sin
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3 * 2 ** -7)])
+@pytest.mark.parametrize("h,d", [(2, 128), (1, 256)])
+@pytest.mark.parametrize("rope_k", [False, True])
+def test_rope_flash_kernel_matches_plain(cuda, dtype, tol, h, d, rope_k):
+    """K11 within tol of its plain version, and bit-equal to K1's
+    separate-input mode on apply_rope'd inputs (the same tile loop: any
+    difference would be the rotation in the tile)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused_rope_attention as fra
+
+    q, k, v, cos, sin = _rope_inputs(cuda, dtype, 2, 192, h, d)
+    before = fra.rope_flash_fwd.launches
+    got = fra.rope_flash_fwd(q, k, v, cos, sin, True, d ** -0.5, True,
+                             rope_k)
+    ref = fra.rope_flash_plain(q, k, v, cos, sin, True, d ** -0.5, True,
+                               rope_k)
+    cb, sb = cos[None, :, None, :], sin[None, :, None, :]
+    kr = fra._apply_rope_ref(k, cb, sb) if rope_k else k
+    k1 = fa.flash_fwd_sep(fra._apply_rope_ref(q, cb, sb), kr, v, True,
+                          d ** -0.5)
+    torch.cuda.synchronize()
+    assert fra.rope_flash_fwd.launches == before + 1
+    assert torch.equal(got, k1)
+    assert _scaled(got, ref) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3 * 2 ** -7)])
+@pytest.mark.parametrize("h,d,causal", [(4, 64, True), (2, 128, False),
+                                        (1, 256, True)])
+def test_flash_sep_kernel_matches_plain(cuda, dtype, tol, h, d, causal):
+    """K1's separate-input mode, and equal to the fused-qkv mode on the
+    same values."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    q, k, v, _, _ = _rope_inputs(cuda, dtype, 2, 192, h, d, seed=9)
+    before = fa.flash_fwd_sep.launches
+    got = fa.flash_fwd_sep(q, k, v, causal, d ** -0.5)
+    ref = fa.flash_sep_plain(q, k, v, causal, d ** -0.5)
+    qkv = torch.cat([t.reshape(2, 192, h * d) for t in (q, k, v)], dim=-1)
+    fused, _ = fa.flash_fwd(qkv, h, causal, d ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd_sep.launches == before + 1
+    assert torch.equal(got, fused)
+    assert _scaled(got, ref) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3 * 2 ** -7)])
+@pytest.mark.parametrize("n,f", [(256, 128), (300, 5504), (64, 14336)])
+def test_swiglu_kernel_matches_plain(cuda, dtype, tol, n, f):
+    from paddle_tpu_torch.ops.kernels import fused_bias_act as fba
+
+    rng = np.random.default_rng(10)
+    g, u = (torch.from_numpy((s * rng.normal(size=(n, f))).astype(
+        np.float32)).to(cuda, dtype) for s in (2.0, 1.0))
+    before = fba.swiglu_fwd.launches
+    y = fba.swiglu_fwd(g, u)
+    ref = fba.swiglu_plain(g, u)
+    torch.cuda.synchronize()
+    assert fba.swiglu_fwd.launches == before + 1
+    assert _scaled(y, ref) <= tol
+
+
+@pytest.mark.cuda
+def test_llama_engine_runs_the_kernels(cuda):
+    """A small bf16 LLaMA's generate on the card: K11, K12 and K6 in the
+    fused prefill (L, L, 2L + 1), K10 L times per decode step."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.ops.kernels import fused_bias_act as fba
+    from paddle_tpu_torch.ops.kernels import fused_norm_epilogue as fne
+    from paddle_tpu_torch.ops.kernels import fused_rope_attention as fra
+
+    cfg = LlamaConfig(vocab_size=512, hidden=512, n_layers=2, n_heads=4,
+                      n_kv_heads=2, ffn_hidden=768, max_seq_len=512)
+    m = LlamaForCausalLM(cfg, device=cuda)
+    prompt = np.random.default_rng(11).integers(0, 512, size=(2, 128))
+    counters = (da.decode_attention, fra.rope_flash_fwd, fba.swiglu_fwd,
+                fne.norm_epilogue_fwd)
+    before = [c.launches for c in counters]
+    toks = m.generate(prompt, max_new_tokens=5)
+    torch.cuda.synchronize()
+    assert toks.shape == (2, 5)
+    assert [c.launches - b for c, b in zip(counters, before)] == \
+        [2 * 4, 2, 2, 5]

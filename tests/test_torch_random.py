@@ -50,3 +50,36 @@ def test_xla_log_bit_equal():
     x = x[x > 0]
     np.testing.assert_array_equal(jr.xla_log(torch.from_numpy(x)).numpy(),
                                   np.asarray(jnp.log(jnp.asarray(x))))
+
+
+def test_split_pinned_values():
+    np.testing.assert_array_equal(
+        jr.split(jr.prng_key(0)).numpy(),
+        [[1797259609, 2579123966], [928981903, 3453687069]])
+
+
+@pytest.mark.parametrize("n", [2, 3, 7])
+def test_split_bit_equal(n):
+    for seed in SEEDS:
+        got = jr.split(jr.prng_key(seed), n)
+        want = jax.random.split(jax.random.PRNGKey(seed), n)
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(want).astype(np.int64))
+        # the engine's chain: the key it keeps is split again
+        np.testing.assert_array_equal(
+            jr.split(got[0]).numpy(),
+            np.asarray(jax.random.split(want[0])).astype(np.int64))
+
+
+@pytest.mark.parametrize("B,V", [(1, 7), (3, 512), (2, 4099)])
+def test_categorical_bit_equal(B, V):
+    rng = np.random.RandomState(B * V)
+    logits = (3 * rng.randn(B, V)).astype(np.float32)
+    logits[:, ::5] = -1e30                  # nucleus-masked entries
+    for seed in SEEDS:
+        key = jr.split(jr.prng_key(seed))[1]
+        jkey = jax.random.split(jax.random.PRNGKey(seed))[1]
+        got = jr.categorical(key, torch.from_numpy(logits)).numpy()
+        want = np.asarray(jax.random.categorical(jkey, jnp.asarray(logits),
+                                                 -1))
+        np.testing.assert_array_equal(got, want)
