@@ -67,6 +67,25 @@ Phases, each failing loudly (any failure exits nonzero):
 10. ``decode_cpu``: a small fp32 LLaMA (head dim 128, G 2) generating on
    the card and on the CPU from identical weights, fusion on; greedy
    streams equal except where the CPU's top-2 margin is under 1e-4.
+11. ``serving_kernels``: the serving engine's int8, speculative and
+   multi-tenant kernels against their plain versions: K8q (int8 pages)
+   at the llama3-8b step's attention shapes in bf16 and fp32 and K10q
+   (int8 dense cache) at K10's shapes, each bit-equal to its fp kernel on
+   the inputs dequantized beforehand; K13 (grouped LoRA BGMV) at the
+   step's q and v projections, within 1e-5 of its fp32 plain version,
+   slot-0 rows exactly 0; kernel, plain, library time and bound.
+12. ``serving``: llama3-8b serving (random bf16 weights from seed 0):
+   (a) int8 KV pages against bf16 (K8q L per step, 65552 KV bytes per
+   token); (b) speculative decode, k 3, with the n-gram proposer and with
+   drafts known to be right or wrong, streams held to the
+   non-speculative engine's; (c) two LoRA adapters, priorities and a
+   schema-constrained request on a tight pool (K13 2L per step, a
+   preemption, the ledger summed after every step, no-adapter streams
+   held to the LoRA-off engine's); (d) card against CPU, small fp32, int8
+   KV with the multi-tenant axes and with speculation; (e) the public
+   int8 decode entry (K10q). Streams are held by ``_serving_streams_agree``:
+   equal, except from a token the reference engine's own logits hold
+   within 1e-4 of the other pick.
 
 Prints the card's name and power limit, one JSON line ``{"kernels": ...}``
 and, last, ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -86,7 +105,8 @@ import numpy as np
 import torch
 
 PHASES = ("kernels", "engine", "int8", "cpu", "train_kernels", "train",
-          "train_cpu", "decode_kernels", "decode", "decode_cpu")
+          "train_cpu", "decode_kernels", "decode", "decode_cpu",
+          "serving_kernels", "serving")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12         # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12          # fp32 outside the tensor cores (K6, K7)
@@ -130,13 +150,16 @@ def _bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def check_rpa(dev) -> dict:
-    """K8 at the llama3-8b attention shapes: a mixed batch of decode rows,
-    page-straddling prefill chunks, a partial chunk and idle sink rows."""
-    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+RPA_SHAPE = (32, 16, 32, 8, 128, 128, 16, 129)  # C qb nH nKV d bs mb P
 
-    C, qb, nH, nKV, d, bs, mb, P = 32, 16, 32, 8, 128, 128, 16, 129
-    gen = torch.Generator(device=dev).manual_seed(1)
+
+def _rpa_rows(dev):
+    """The llama3-8b engine step's attention rows: decode rows, page-
+    straddling prefill chunks, partial chunks and idle sink rows. Returns
+    (rows, pos0, n_valid) on ``dev``, the number of pages the chunks
+    reach (a page shared by chunks counted once) and the flops of the
+    valid query rows' dots over their causal keys."""
+    C, qb, nH, nKV, d, bs, mb, P = RPA_SHAPE
     rng = np.random.RandomState(1)
     rows = np.zeros((C, mb), np.int32)
     pos0 = np.zeros((C,), np.int32)
@@ -151,9 +174,44 @@ def check_rpa(dev) -> dict:
         else:                                      # partial chunks
             pos0[c], nval[c] = rng.randint(0, 1500), rng.randint(2, qb)
     # rows 24.. stay idle against the sink page: pos0 0, n_valid 1
-    rows_t = torch.from_numpy(rows).to(dev)
-    pos_t = torch.from_numpy(pos0).to(dev)
-    nv_t = torch.from_numpy(nval).to(dev)
+    pages = set()
+    flops = 0.0
+    for c in range(C):
+        last = pos0[c] + nval[c] - 1
+        pages.update(int(p) for p in rows[c, :last // bs + 1])
+        for i in range(nval[c]):
+            flops += 4.0 * nH * d * (pos0[c] + i + 1)
+    return (tuple(torch.from_numpy(a).to(dev) for a in (rows, pos0, nval)),
+            len(pages), flops)
+
+
+def _sdpa_on_pages(q, kp, vp, rows_t, pos_t, nv_t, scale):
+    """The library yardstick of K8 and K8q: SDPA over the pre-gathered
+    pages (GQA expanded) with the engine's mask; a timing closure."""
+    C, qb, nH, d = q.shape
+    nKV, bs, mb = kp.shape[1], kp.shape[3], rows_t.shape[1]
+    dev = q.device
+    idx = rows_t.long()
+    kg = kp[idx].permute(0, 2, 1, 4, 3).reshape(C, nKV, mb * bs, d)
+    vg = vp[idx].permute(0, 2, 1, 3, 4).reshape(C, nKV, mb * bs, d)
+    kg = kg.repeat_interleave(nH // nKV, dim=1)
+    vg = vg.repeat_interleave(nH // nKV, dim=1)
+    qh = q.transpose(1, 2)
+    qpos = pos_t[:, None] + torch.minimum(
+        torch.arange(qb, device=dev)[None, :], nv_t[:, None] - 1)
+    mask = (torch.arange(mb * bs, device=dev)[None, None, :]
+            <= qpos[:, :, None])[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qh, kg, vg, attn_mask=mask, scale=scale)
+
+
+def check_rpa(dev) -> dict:
+    """K8 at the llama3-8b attention shapes (``_rpa_rows``)."""
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+
+    C, qb, nH, nKV, d, bs, mb, P = RPA_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(1)
+    (rows_t, pos_t, nv_t), n_pages, flops = _rpa_rows(dev)
     scale = 1.0 / math.sqrt(d)
     errs = {}
     for dt, tol in ((torch.float32, RPA_FP32_ATOL),
@@ -176,32 +234,13 @@ def check_rpa(dev) -> dict:
                                                      nv_t, scale))
     plain_ms = _time_ms(lambda: rpa.ragged_paged_attention_plain(
         q, kp, vp, rows_t, pos_t, nv_t, scale))
-    # library yardstick: SDPA over the pre-gathered pages (GQA expanded)
-    idx = rows_t.long()
-    kg = kp[idx].permute(0, 2, 1, 4, 3).reshape(C, nKV, mb * bs, d)
-    vg = vp[idx].permute(0, 2, 1, 3, 4).reshape(C, nKV, mb * bs, d)
-    kg = kg.repeat_interleave(nH // nKV, dim=1)
-    vg = vg.repeat_interleave(nH // nKV, dim=1)
-    qh = q.transpose(1, 2)
-    qpos = pos_t[:, None] + torch.minimum(
-        torch.arange(qb, device=dev)[None, :], nv_t[:, None] - 1)
-    mask = (torch.arange(mb * bs, device=dev)[None, None, :]
-            <= qpos[:, :, None])[:, None]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = _time_ms(lambda: sdpa(qh, kg, vg, attn_mask=mask,
-                                       scale=scale))
+    library_ms = _time_ms(_sdpa_on_pages(q, kp, vp, rows_t, pos_t, nv_t,
+                                         scale))
     # what these inputs need: q and o once, every page a chunk reaches
     # once (pages shared between chunks counted once), and the dots of
     # the valid query rows over their causal keys
-    pages = set()
-    flops = 0.0
-    for c in range(C):
-        last = pos0[c] + nval[c] - 1
-        pages.update(int(p) for p in rows[c, :last // bs + 1])
-        for i in range(nval[c]):
-            flops += 4.0 * nH * d * (pos0[c] + i + 1)
-    nbytes = (2 * q.numel() * 2 + len(pages) * 2 * nKV * bs * d * 2
-              + (rows.size + 2 * C) * 4)
+    nbytes = (2 * q.numel() * 2 + n_pages * 2 * nKV * bs * d * 2
+              + (rows_t.numel() + 2 * C) * 4)
     bound_ms, bound_by = _bound(nbytes, flops)
     print(f"rpa bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
           f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
@@ -213,6 +252,127 @@ def check_rpa(dev) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
             "shape": f"C{C} qb{qb} nH{nH} nKV{nKV} d{d} bs{bs} mb{mb}"}
+
+
+def check_rpa_int8(dev) -> dict:
+    """K8q at the llama3-8b attention shapes (``_rpa_rows``), int8 pages
+    with [P, nKV] fp32 scales, bf16 (tensor-core kernel) and fp32 q (FMA
+    kernel): equal to K8 on the pre-dequantized pages (torch.equal: the
+    staged tiles are the same bits, so any difference is the dequant),
+    and within K8's tolerance of the plain version."""
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+    from paddle_tpu_torch.ops.quant import dequantize_int8
+
+    C, qb, nH, nKV, d, bs, mb, P = RPA_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(21)
+    (rows_t, pos_t, nv_t), n_pages, flops = _rpa_rows(dev)
+    scale = 1.0 / math.sqrt(d)
+    kq, vq = (torch.randint(-127, 128, shape, generator=gen, device=dev,
+                            dtype=torch.int8)
+              for shape in ((P, nKV, d, bs), (P, nKV, bs, d)))
+    ks, vs = (torch.rand((P, nKV), generator=gen, device=dev) * 0.02 + 0.01
+              for _ in range(2))
+    valid = (torch.arange(qb, device=dev)[None, :] < nv_t[:, None])
+    errs = {}
+    for dt, tol in ((torch.float32, RPA_FP32_ATOL),
+                    (torch.bfloat16, RPA_BF16_ATOL)):
+        q = torch.randn((C, qb, nH, d), generator=gen, device=dev).to(dt)
+        kd = dequantize_int8(kq, ks[:, :, None, None], dt)
+        vd = dequantize_int8(vq, vs[:, :, None, None], dt)
+        got = rpa.ragged_paged_attention_int8(q, kq, vq, ks, vs, rows_t,
+                                              pos_t, nv_t, scale)
+        k8 = rpa.ragged_paged_attention(q, kd, vd, rows_t, pos_t, nv_t,
+                                        scale)
+        ref = rpa.ragged_paged_attention_plain(q, kq, vq, rows_t, pos_t,
+                                               nv_t, scale, ks, vs)
+        torch.cuda.synchronize()
+        if not torch.equal(got, k8):
+            n = (got != k8).sum().item()
+            raise AssertionError(f"K8q {dt}: {n} elements differ from K8 "
+                                 "on the pre-dequantized pages")
+        err = (got.float() - ref.float()).abs()[valid].max().item()
+        print(f"K8q {dt}: equal to K8 on dequantized pages; max_abs_err "
+              f"{err:.3e} against plain (atol {tol})")
+        if not err <= tol:
+            raise AssertionError(f"K8q {dt}: max_abs_err {err} > {tol}")
+        errs[dt] = err
+    ms = _time_ms(lambda: rpa.ragged_paged_attention_int8(
+        q, kq, vq, ks, vs, rows_t, pos_t, nv_t, scale))
+    plain_ms = _time_ms(lambda: rpa.ragged_paged_attention_plain(
+        q, kq, vq, rows_t, pos_t, nv_t, scale, ks, vs))
+    library_ms = _time_ms(_sdpa_on_pages(q, kd, vd, rows_t, pos_t, nv_t,
+                                         scale))
+    # q and o (bf16) once, the int8 pages the chunks reach once with
+    # their two fp32 scales, the int32 rows
+    nbytes = (2 * q.numel() * 2 + n_pages * 2 * nKV * (bs * d + 4)
+              + (rows_t.numel() + 2 * C) * 4)
+    bound_ms, bound_by = _bound(nbytes, flops)
+    print(f"K8q bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa on "
+          f"dequantized pages {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by})")
+    return {"name": "ragged_paged_attention_int8", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+            "replaces": "paddle_tpu/ops/pallas/ragged_paged_attention.py:85",
+            "max_abs_err": errs[torch.bfloat16],
+            "max_abs_err_fp32": errs[torch.float32], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "shape": f"C{C} qb{qb} nH{nH} nKV{nKV} d{d} bs{bs} mb{mb} int8"}
+
+
+LORA_TOL = 1e-5        # fp32 products of exact bf16 widenings; sum order
+
+
+def check_lora(dev) -> dict:
+    """K13 at the llama3-8b engine step's shapes: x [32, 16, 4096] bf16,
+    rank 8, 5 slots (slot 0 the zero identity), N 4096 (q) and 1024 (v),
+    mixed ids with 0; fp32 out held by row to the plain version within
+    LORA_TOL (``_scaled_err``), slot-0 rows exactly 0."""
+    from paddle_tpu_torch.ops.kernels import lora_matmul as lm
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    C, qb, H, r, S = 32, 16, 4096, 8, 5
+    x = torch.randn((C, qb, H), generator=gen, device=dev).to(torch.bfloat16)
+    ids = torch.from_numpy(np.random.RandomState(22).randint(
+        0, S, size=C).astype(np.int32)).to(dev)
+    ids[:3] = torch.tensor([0, 1, 4], dtype=torch.int32, device=dev)
+    recs = {}
+    for N in (4096, 1024):
+        a = (torch.randn((S, H, r), generator=gen, device=dev) * 0.05).to(
+            torch.bfloat16)
+        b = (torch.randn((S, r, N), generator=gen, device=dev) * 0.05).to(
+            torch.bfloat16)
+        a[0], b[0] = 0, 0
+        got = lm.lora_matmul(x, a, b, ids)
+        ref = lm.lora_matmul_plain(x, a, b, ids)
+        torch.cuda.synchronize()
+        err = _hold(f"K13 N{N}", got, ref, LORA_TOL)
+        zero = got[ids == 0]
+        if not (zero == 0).all():
+            raise AssertionError(f"K13 N{N}: slot-0 rows are not exactly 0")
+        ms = _time_ms(lambda: lm.lora_matmul(x, a, b, ids))
+        plain_ms = _time_ms(lambda: lm.lora_matmul_plain(x, a, b, ids))
+        # library yardstick: two fp32 bmm on the pre-gathered A and B
+        xf = x.float()
+        ag, bg = a[ids.long()].float(), b[ids.long()].float()
+        library_ms = _time_ms(lambda: torch.bmm(torch.bmm(xf, ag), bg))
+        used = len(set(ids.tolist()))
+        nbytes = (x.numel() * 2 + used * (H * r + r * N) * 2 + C * 4
+                  + C * qb * N * 4)
+        bound_ms, bound_by = _bound(nbytes, 2.0 * C * qb * r * (H + N),
+                                    FP32_FLOP_PER_S)
+        print(f"K13 N{N}: {int((ids == 0).sum())} slot-0 rows exactly 0; "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, two fp32 bmm "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        recs[N] = {"name": "lora_matmul", "route": "cuda",
+                   "source": "paddle_tpu_torch/csrc/lora_matmul.cu",
+                   "replaces": "paddle_tpu/ops/pallas/lora_matmul.py:57",
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": library_ms,
+                   "shape": f"C{C} qb{qb} H{H} r{r} N{N} bf16"}
+    recs[4096]["ms_n1024"] = recs[1024]["ms"]
+    return recs[4096]
 
 
 QMM_SHAPES = (  # (M, K, N): the layer matmuls at C*qb = 512, the head at C
@@ -1028,10 +1188,10 @@ def _decode_counters():
             "quant_matmul": quant_matmul}
 
 
-def _counted(fn):
-    """(fn(), launches of the decode path's kernels during it): every
-    count set to 0 just before, read just after."""
-    counters = _decode_counters()
+def _counted(fn, counters_of=_decode_counters):
+    """(fn(), launches of a path's kernels during it): every count set to
+    0 just before, read just after."""
+    counters = counters_of()
     torch.cuda.synchronize()
     for c in counters.values():
         c.launches = 0
@@ -1095,6 +1255,64 @@ def check_decode_attention(dev) -> dict:
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
             "shape": f"B{B} nKV{nKV} G{G} S{S} d{d} pos {pos} bf16"}
+
+
+def check_decode_int8(dev) -> dict:
+    """K10q at K10's shapes (B 16, nKV 4, G 4, S 2048, d 128), int8 caches
+    with [B, nKV, S] fp32 scales, bf16 and fp32 q, at five positions:
+    equal to K10 on the pre-dequantized cache (torch.equal) and within
+    K10's tolerance of the plain version."""
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.ops.quant import dequantize_int8
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    B, nKV, G, S, d = 16, 4, 4, 2048, 128
+    scale = d ** -0.5
+    kq, vq = (torch.randint(-127, 128, (B, nKV, S, d), generator=gen,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((B, nKV, S), generator=gen, device=dev) * 0.02
+              + 0.01 for _ in range(2))
+    worst = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q = torch.randn((B, nKV * G, d), generator=gen, device=dev).to(dt)
+        kd = dequantize_int8(kq, ks[..., None], dt)
+        vd = dequantize_int8(vq, vs[..., None], dt)
+        tol = BF16_TOL if dt == torch.bfloat16 else FP32_TOL
+        worst[dt] = 0.0
+        for pos in (0, 100, 511, 639, 2047):
+            got = da.decode_attention_int8(q, kq, vq, ks, vs, pos, scale)
+            k10 = da.decode_attention(q, kd, vd, pos, scale)
+            ref = da.decode_attention_plain(q, kq, vq, pos, scale, ks, vs)
+            torch.cuda.synchronize()
+            if not torch.equal(got, k10):
+                raise AssertionError(f"K10q {dt} pos {pos}: differs from "
+                                     "K10 on the pre-dequantized cache")
+            worst[dt] = max(worst[dt], _hold(f"K10q {dt} pos {pos}", got,
+                                             ref, tol))
+    pos = DECODE_PROMPT + DECODE_NEW - 1
+    ms = _time_ms(lambda: da.decode_attention_int8(q, kq, vq, ks, vs, pos,
+                                                   scale))
+    plain_ms = _time_ms(lambda: da.decode_attention_plain(
+        q, kq, vq, pos, scale, ks, vs))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kr = kd[:, :, :pos + 1].repeat_interleave(G, dim=1)
+    vr = vd[:, :, :pos + 1].repeat_interleave(G, dim=1)
+    qh = q[:, :, None, :]
+    library_ms = _time_ms(lambda: sdpa(qh, kr, vr, scale=scale))
+    nbytes = 2 * B * nKV * (pos + 1) * (d + 4) + 2 * q.numel() * 2
+    bound_ms, bound_by = _bound(nbytes, 4.0 * B * nKV * G * (pos + 1) * d)
+    print(f"K10q bf16 B{B} pos {pos}: equal to K10 on dequantized caches; "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa on the "
+          f"dequantized repeated cache {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by})")
+    return {"name": "decode_attention_int8", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/decode_attention.cu",
+            "replaces": "paddle_tpu/ops/pallas/decode_attention.py:74",
+            "max_abs_err": worst[torch.bfloat16],
+            "max_abs_err_fp32": worst[torch.float32], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "shape": f"B{B} nKV{nKV} G{G} S{S} d{d} pos {pos} int8"}
 
 
 def _rope_case(gen, dev, B, S, h, d, dt):
@@ -1555,6 +1773,471 @@ def check_decode_cpu(dev) -> None:
           f"tokens equal, {exc} near-tie exceptions, card launches {ln}")
 
 
+def _serving_counters():
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+    from paddle_tpu_torch.ops.kernels.lora_matmul import lora_matmul
+
+    return {"ragged_paged_attention": rpa.ragged_paged_attention,
+            "ragged_paged_attention_int8": rpa.ragged_paged_attention_int8,
+            "lora_matmul": lora_matmul,
+            "decode_attention": da.decode_attention,
+            "decode_attention_int8": da.decode_attention_int8}
+
+
+def _serving_counted(fn):
+    return _counted(fn, _serving_counters)
+
+
+class _LogitTap:
+    """Records, for every token an engine emits, the top-8 logits of the
+    row it was picked from: ``tokens[(rid, j)] = (values, ids)`` for
+    token j of request rid. It wraps the serving module's
+    ``_pick_tokens`` (each dispatch's logits, after any constraint mask)
+    and the engine's step and harvest (which row gave which token)."""
+
+    def __init__(self, eng):
+        from paddle_tpu_torch.inference import serving
+
+        self.eng, self.mod, self.tokens = eng, serving, {}
+        self._pick, self._last, self._by_out = serving._pick_tokens, None, {}
+        step, harvest = eng._unified_step_impl, eng._harvest
+
+        def pick(logits, *a, **kw):
+            top = torch.topk(logits, 8, dim=-1)
+            self._last = (top.values.cpu(), top.indices.cpu())
+            return self._pick(logits, *a, **kw)
+
+        def step_impl(*a, **kw):
+            out = step(*a, **kw)
+            self._by_out[id(out)] = self._last
+            return out
+
+        def harvest_(inflight):
+            out, snap = inflight
+            vals, ids = self._by_out.pop(id(out))
+            before = {idx: len(req.out_tokens)
+                      for idx, _s, req, _k, _m, _d in snap}
+            harvest(inflight)
+            qb = eng.qb if eng.spec_k else 1
+            for idx, _s, req, kind, m, _d in snap:
+                for t in range(len(req.out_tokens) - before[idx]):
+                    row = idx * qb + ((m - 1 if kind == "fin" else t)
+                                      if eng.spec_k else 0)
+                    self.tokens[(req.rid, before[idx] + t)] = (vals[row],
+                                                               ids[row])
+
+        self._pick_tap = pick
+        eng._unified_step_impl, eng._harvest = step_impl, harvest_
+
+    def __enter__(self):
+        self.mod._pick_tokens = self._pick_tap
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._pick_tokens = self._pick
+        del self.eng._unified_step_impl, self.eng._harvest
+
+
+def _serving_streams_agree(tag, ref, got, tap) -> tuple[int, int]:
+    """Greedy requests of ``got`` must emit ``ref``'s streams, except from
+    a token where the logits ``ref``'s engine picked it from (``tap``)
+    hold the two picks within MARGIN of each other (a near-tie). Returns
+    (tokens equal up to the first difference, near-tie exceptions)."""
+    same, exceptions = 0, 0
+    for a, b in zip(ref, got):
+        if a.temperature:
+            continue
+        diff = [j for j, (x, y) in enumerate(zip(a.out_tokens, b.out_tokens))
+                if x != y]
+        if len(a.out_tokens) != len(b.out_tokens):
+            raise AssertionError(f"{tag}: request {a.rid} lengths differ")
+        if not diff:
+            same += len(a.out_tokens)
+            continue
+        j = diff[0]
+        same += j
+        vals, ids = tap.tokens[(a.rid, j)]
+
+        def logit(tok):
+            hit = (ids == tok).nonzero()
+            return vals[hit[0, 0]].item() if len(hit) else -math.inf
+
+        top, gap = vals[0].item(), logit(a.out_tokens[j]) - logit(
+            b.out_tokens[j])
+        print(f"{tag}: request {a.rid} differs at token {j}: "
+              f"{a.out_tokens[j]} vs {b.out_tokens[j]}, logit gap {gap:.3e} "
+              f"(limit {MARGIN:.3e})")
+        if not (0.0 <= gap < MARGIN and logit(a.out_tokens[j]) == top):
+            raise AssertionError(f"{tag}: request {a.rid} differs at token "
+                                 f"{j} with logit gap {gap}")
+        exceptions += 1
+    return same, exceptions
+
+
+def _drive(eng, reqs, tick: float = 0.0) -> int:
+    """The engine's ``run`` loop, with the page ledger held to the pool
+    after every step; returns the number of steps. ``tick`` > 0 runs the
+    arrivals on a clock of ``tick`` seconds per step instead of the wall
+    clock, so that two engines see the same schedule."""
+    for r in sorted(reqs, key=lambda r: r.arrival):
+        eng.submit(r)
+    t0, n = time.perf_counter(), 0
+
+    def now():
+        return n * tick if tick else time.perf_counter() - t0
+
+    while eng.step(now=now()):
+        n += 1
+        acc = eng.page_accounting()
+        if acc["total"] != eng.n_pages - 1:
+            raise AssertionError(f"ledger {acc} != {eng.n_pages - 1}")
+        if eng._inflight is None and not any(eng.slots) and eng.queue:
+            time.sleep(0.005)
+    for r in reqs:
+        if len(r.out_tokens) != r.max_new_tokens or r.t_done is None:
+            raise AssertionError(f"request {r.rid} did not complete")
+    return eng.stats["unified_steps"]
+
+
+class _OracleProposer:
+    """Drafts a request's tokens from the non-speculative engine's streams
+    of the same requests (found by prompt), with the second draft of
+    every odd request off by one token: verification must accept the
+    right drafts and roll the wrong ones back. On random weights the
+    n-gram proposer seldom drafts (a random model's next token rarely
+    occurred before in the history); these drafts exercise the verify
+    rows whatever the weights."""
+
+    def __init__(self, reqs, vocab: int):
+        self.reqs, self.vocab = reqs, vocab
+
+    def propose(self, history, k: int) -> list:
+        for r in self.reqs:
+            n = len(r.prompt)
+            if len(history) > n and np.array_equal(history[:n], r.prompt):
+                d = list(r.out_tokens[len(history) - n:][:k])
+                if r.rid % 2 and len(d) > 1:
+                    d[1] = (d[1] + 1) % self.vocab
+                return d
+        return []
+
+
+def _printable_vocab(V: int) -> list:
+    """A toy tokenizer for the schema: ids 1..94 the printable characters,
+    every other id an empty piece (never legal), id 0 the pad token."""
+    import string
+
+    vocab = [""] * V
+    for i, ch in enumerate(string.printable[:94]):
+        vocab[i + 1] = ch
+    return vocab
+
+
+SERVING_ENGINE = dict(max_batch=8, page_size=128, max_seq=2048)
+
+
+def _spec_requests(cls, vocab: int):
+    """Eight requests whose prompts repeat a random 64-token pattern 2-8
+    times, greedy and sampled, 16-32 new tokens."""
+    rng = np.random.RandomState(7)
+    out = []
+    for i in range(8):
+        pat = rng.randint(1, vocab, size=64).astype(np.int32)
+        kw = dict(temperature=0.9, top_p=0.85, seed=200 + i) if i % 4 == 3 \
+            else {}
+        out.append(cls(rid=i, prompt=np.tile(pat, rng.randint(2, 9)),
+                       max_new_tokens=int(rng.randint(16, 33)), **kw))
+    return out
+
+
+def _tenant_requests(cls, vocab: int, lora: bool):
+    """Six low-priority requests of ``_requests`` at t = 0 (rids 1 and 4
+    on adapter a1, 2 on a2 when ``lora``, rid 3 constrained to a schema),
+    and a high-priority 900-token request at t = 0.5 s that finds the
+    pool full and preempts."""
+    reqs = _requests(cls, vocab)[:6]
+    for r in reqs:
+        r.arrival = 0.0
+        if lora and r.rid in (1, 2, 4):
+            r.adapter_id = "a2" if r.rid == 2 else "a1"
+        if r.rid == 3:
+            r.schema_id = "animal"
+    hi = np.random.RandomState(8).randint(1, vocab, size=900).astype(
+        np.int32)
+    reqs.append(cls(rid=6, prompt=hi, max_new_tokens=24, priority=2,
+                    arrival=0.5))
+    return reqs
+
+
+def _tenant_engine(cfg, params, dev, lora: bool, n_pages: int):
+    from paddle_tpu_torch.inference.multitenant import (json_schema_dfa,
+                                                        make_lora)
+    from paddle_tpu_torch.inference.serving import ServingEngine
+
+    eng = ServingEngine(cfg, params=params, device=dev, n_pages=n_pages,
+                        lora=lora, priorities=True, constrained=True,
+                        **SERVING_ENGINE)
+    if lora:
+        for name, seed in (("a1", 1), ("a2", 2)):
+            eng.register_adapter(name, make_lora(cfg, 8, seed=seed))
+    vocab = _printable_vocab(cfg.vocab_size)
+    eng.register_schema("animal", json_schema_dfa(
+        {"enum": ["cat", "car", "dog"]}, vocab).fresh)
+    return eng, vocab
+
+
+def run_serving(dev) -> dict:
+    """The serving engine's int8 KV, speculative and multi-tenant paths
+    at llama3-8b (32 layers, f 14336, vocab 128256, random bf16 weights
+    from seed 0 on the card), then card against CPU on a small fp32
+    config, and the public int8 decode entry. Returns the launches of
+    each path's own kernel in its own run: K8q in (a), K13 in (c), K10q
+    in (e)."""
+    from paddle_tpu_torch.inference.serving import Request, ServingEngine
+    from paddle_tpu_torch.models.llama import init_llama_params, llama_presets
+
+    cfg = llama_presets("llama3-8b")
+    L = cfg.n_layers
+    params = init_llama_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    counts = {}
+
+    # (a) int8 KV pages against the bf16 engine
+    runs = {}
+    for kv_quant in (False, True):
+        eng = ServingEngine(cfg, params=params, device=dev,
+                            kv_quant=kv_quant, **SERVING_ENGINE)
+        reqs = _requests(Request, cfg.vocab_size)
+        stats, ln = _serving_counted(lambda: eng.run(reqs))
+        steps = stats["unified_steps"]
+        for r in reqs:
+            if len(r.out_tokens) != r.max_new_tokens or r.t_done is None:
+                raise AssertionError(f"kv_quant={kv_quant}: request "
+                                     f"{r.rid} did not complete")
+        acc = eng.page_accounting()
+        if acc["total"] != eng.n_pages - 1:
+            raise AssertionError(f"page ledger {acc}")
+        want = (0, L * steps) if kv_quant else (L * steps, 0)
+        got = (ln["ragged_paged_attention"],
+               ln["ragged_paged_attention_int8"])
+        if got != want:
+            raise AssertionError(f"kv_quant={kv_quant}: K8 / K8q launches "
+                                 f"{got} != {want}")
+        # llama3-8b: 65552 (int8 k and v + the two fp32 scales of a page
+        # over its 128 tokens) against 131072 in bf16
+        bpt = eng.kv_bytes_per_token()
+        item = torch.finfo(cfg.dtype).bits // 8
+        per_layer = cfg.n_kv_heads * (2 * cfg.head_dim + 8 / eng.bs
+                                      if kv_quant else 2 * item * cfg.head_dim)
+        if bpt != L * per_layer:
+            raise AssertionError(f"kv bytes per token {bpt} != "
+                                 f"{L * per_layer}")
+        runs[kv_quant] = reqs
+        print(f"serving llama3-8b kv_quant={kv_quant}: {steps} steps, "
+              f"{stats['wall_s'] / steps * 1e3:.1f} ms/step, "
+              f"{stats['throughput_tok_s']:.1f} tok/s, ttft p50 "
+              f"{stats['ttft_p50_s'] * 1e3:.1f} ms, {bpt:.0f} KV bytes per "
+              f"token, launches K8 {got[0]} K8q {got[1]}")
+        if kv_quant:
+            counts["ragged_paged_attention_int8"] = got[1]
+        del eng
+    greedy = [(a.out_tokens, b.out_tokens) for a, b in zip(runs[False],
+                                                          runs[True])
+              if a.temperature == 0]
+    same = sum(x == y for a, b in greedy for x, y in zip(a, b))
+    print(f"serving int8 KV vs bf16 greedy agreement: first token "
+          f"{sum(a[0] == b[0] for a, b in greedy)}/{len(greedy)}, all "
+          f"tokens {same}/{sum(len(a) for a, _ in greedy)} (random weights:"
+          " near-flat logits)")
+
+    # (b) speculative decode against the non-speculative engine, with
+    # the n-gram proposer, then with drafts known to be right or wrong
+    eng = ServingEngine(cfg, params=params, device=dev, **SERVING_ENGINE)
+    base = _spec_requests(Request, cfg.vocab_size)
+    with _LogitTap(eng) as tap:
+        base_st = eng.run(base)
+    del eng
+    for name in ("n-gram", "oracle"):
+        eng = ServingEngine(cfg, params=params, device=dev, speculative_k=3,
+                            **SERVING_ENGINE)
+        if name == "oracle":
+            eng._proposer = _OracleProposer(base, cfg.vocab_size)
+        reqs = _spec_requests(Request, cfg.vocab_size)
+        st = eng.run(reqs)
+        del eng
+        same, exc = _serving_streams_agree(f"serving spec {name}", base,
+                                           reqs, tap)
+        samp = sum(a.out_tokens == b.out_tokens
+                   for a, b in zip(base, reqs) if a.temperature)
+        if name == "oracle" and not (st["spec_accepted_tokens"] and
+                                     st["waste_spec_rejected_slot_tokens"]):
+            raise AssertionError(f"oracle drafts: {st}")
+        print(f"serving spec k=3 ({name} drafts): {st['unified_steps']} "
+              f"steps against {base_st['unified_steps']}, "
+              f"{st['wall_s'] / st['unified_steps'] * 1e3:.1f} ms/step, "
+              f"accept rate {st['spec_accept_rate']:.3f} "
+              f"({st['spec_accepted_tokens']}/{st['spec_proposed_tokens']}, "
+              f"{st['waste_spec_rejected_slot_tokens']} rejected); greedy "
+              f"tokens equal {same}, {exc} near-tie exceptions; sampled "
+              f"streams equal {samp}/2")
+
+    # (c) LoRA + priorities + constrained decoding on a tight pool
+    bs = SERVING_ENGINE["page_size"]
+    need = sum(-(-(len(r.prompt) + r.max_new_tokens) // bs)
+               for r in _tenant_requests(Request, cfg.vocab_size, True)[:6])
+    n_pages = 1 + need + 2 + 2          # + one page per adapter, slack 2
+    res = {}
+    for lora in (False, True):
+        eng, vocab = _tenant_engine(cfg, params, dev, lora, n_pages)
+        reqs = _tenant_requests(Request, cfg.vocab_size, lora)
+        with _LogitTap(eng) as tap:
+            steps, ln = _serving_counted(lambda: _drive(eng, reqs))
+        res[lora] = (reqs, tap, eng.stats, ln, steps)
+        if lora:
+            if ln["lora_matmul"] != 2 * L * steps:
+                raise AssertionError(f"K13 launches {ln['lora_matmul']} != "
+                                     f"2 x {L} x {steps}")
+            counts["lora_matmul"] = ln["lora_matmul"]
+            held = eng.adapters.n_pages_held()
+        del eng
+    reqs, _, st, ln, steps = res[True]
+    if st["preemptions"] < 1 or not any(r.n_preempted for r in reqs):
+        raise AssertionError(f"no preemption: {st['preemptions']}")
+    text = "".join(vocab[t] for t in reqs[3].out_tokens)
+    if text[:3] not in ("cat", "car", "dog") or any(reqs[3].out_tokens[3:]):
+        raise AssertionError(f"constrained stream {reqs[3].out_tokens}")
+    plain = [r for r in res[False][0] if r.rid not in (1, 2, 4)]
+    tenant = [r for r in reqs if r.rid not in (1, 2, 4)]
+    same, exc = _serving_streams_agree("serving lora", plain, tenant,
+                                       res[False][1])
+    print(f"serving multi-tenant: {steps} steps on {n_pages} pages, "
+          f"preemptions {st['preemptions']} (victims "
+          f"{[r.rid for r in reqs if r.n_preempted]}, all completed), "
+          f"adapter pages {held}, constrained stream {text!r}, "
+          f"no-adapter tokens equal to the LoRA-off engine's {same}, "
+          f"{exc} near-tie exceptions; launches {ln}")
+    del params, res
+    torch.cuda.empty_cache()
+
+    # (d) card against CPU, small fp32, every axis
+    check_serving_cpu(dev)
+
+    # (e) the public int8 decode entry: a 128-step decode over a dense
+    # int8 cache at the llama1b decode shapes
+    counts["decode_attention_int8"] = _int8_decode_entry(dev)
+    return counts
+
+
+def _int8_decode_entry(dev) -> int:
+    """``decode_attention(..., k_scale=, v_scale=)``, the reference's only
+    route to its int8 arm, at K10's decode shapes (B 16, nKV 4, G 4,
+    d 128, S 2048) over positions 512..639 of a per-position int8 cache
+    quantized from a bf16 one; every call must reach K10q."""
+    from paddle_tpu_torch.ops.kernels.decode_attention import \
+        decode_attention
+    from paddle_tpu_torch.ops.quant import absmax_quantize_int8
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+    B, nKV, G, S, d = 16, 4, 4, 2048, 128
+    cache = [torch.randn((B, nKV, S, d), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2)]
+    (kq, ks), (vq, vs) = (absmax_quantize_int8(c, axis=-1) for c in cache)
+    ks, vs = ks[..., 0], vs[..., 0]
+    q = torch.randn((B, nKV * G, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+
+    def loop():
+        return [decode_attention(q, kq, vq, pos, d ** -0.5, k_scale=ks,
+                                 v_scale=vs)
+                for pos in range(DECODE_PROMPT, DECODE_PROMPT + DECODE_NEW)]
+
+    outs, ln = _serving_counted(loop)
+    if ln["decode_attention_int8"] != DECODE_NEW or ln["decode_attention"]:
+        raise AssertionError(f"int8 decode entry launches {ln}")
+    if not all(torch.isfinite(o).all() for o in outs):
+        raise AssertionError("int8 decode entry: non-finite output")
+    print(f"int8 decode entry: {DECODE_NEW} calls at B{B}, launches {ln}")
+    return ln["decode_attention_int8"]
+
+
+def check_serving_cpu(dev) -> None:
+    """A small fp32 engine (head dim 128, G 2, page 16) on the card and on
+    the CPU from identical weights, int8 KV pages on, twice: with LoRA,
+    priorities and constrained decoding on a tight pool, and with
+    speculation (constrained decoding refuses it). Greedy streams equal
+    except where the CPU engine's logits hold the two picks within
+    MARGIN; ledgers equal; K8q, and K13 with LoRA, launched on the card."""
+    from paddle_tpu_torch.inference.multitenant import (json_schema_dfa,
+                                                        make_lora)
+    from paddle_tpu_torch.inference.serving import Request, ServingEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, init_llama_params
+
+    cfg = LlamaConfig(vocab_size=1024, hidden=512, n_layers=2, n_heads=4,
+                      n_kv_heads=2, ffn_hidden=1024, max_seq_len=512,
+                      dtype=torch.float32, param_dtype=torch.float32)
+    cpu_params = init_llama_params(cfg, torch.Generator().manual_seed(25),
+                                   "cpu")
+    cuda_params = _map_leaves(cpu_params, lambda t: t.to(dev))
+    vocab = _printable_vocab(cfg.vocab_size)
+
+    def requests(tenant: bool):
+        rng = np.random.RandomState(26)
+        pat = rng.randint(1, 1024, size=12).astype(np.int32)
+        reqs = []
+        for i in range(6):
+            prompt = (np.tile(pat, rng.randint(2, 6)) if i % 2 else
+                      rng.randint(1, 1024, size=rng.randint(10, 90)).astype(
+                          np.int32))
+            kw = {}
+            if tenant:
+                kw = dict(priority=int(i == 5), arrival=0.4 * (i == 5),
+                          adapter_id=("a1", None, "a2")[i % 3],
+                          schema_id="animal" if i == 2 else None)
+            reqs.append(Request(rid=i, prompt=prompt, max_new_tokens=12,
+                                **kw))
+        return reqs
+
+    for tag, kw in (("lora+priorities+constrained",
+                     dict(lora=True, priorities=True, constrained=True,
+                          n_pages=24)),
+                    ("speculative", dict(speculative_k=3))):
+        res = {}
+        for name, params, device in (("cpu", cpu_params, "cpu"),
+                                     ("cuda", cuda_params, dev)):
+            eng = ServingEngine(cfg, params=params, max_batch=3,
+                                page_size=16, max_seq=512, prefill_budget=64,
+                                kv_quant=True, device=device, **kw)
+            if "lora" in kw:
+                for a, seed in (("a1", 1), ("a2", 2)):
+                    eng.register_adapter(a, make_lora(cfg, 8, seed=seed,
+                                                      scale=0.3))
+                eng.register_schema("animal", json_schema_dfa(
+                    {"enum": ["cat", "car", "dog"]}, vocab).fresh)
+            reqs = requests("lora" in kw)
+            with _LogitTap(eng) as tap:
+                if name == "cuda":
+                    _, ln = _serving_counted(lambda: _drive(eng, reqs, 0.05))
+                else:
+                    _drive(eng, reqs, 0.05)
+            res[name] = (reqs, tap, eng.page_accounting(), dict(eng.stats))
+        want = ["ragged_paged_attention_int8"] + (
+            ["lora_matmul"] if "lora" in kw else [])
+        if not all(ln[k] for k in want) or ln["ragged_paged_attention"]:
+            raise AssertionError(f"serving cpu/cuda {tag}: launches {ln}")
+        same, exc = _serving_streams_agree(f"serving cpu/cuda {tag}",
+                                           res["cpu"][0], res["cuda"][0],
+                                           res["cpu"][1])
+        if res["cpu"][2] != res["cuda"][2]:
+            raise AssertionError(f"ledgers differ: {res['cpu'][2]} vs "
+                                 f"{res['cuda'][2]}")
+        st = res["cuda"][3]
+        print(f"serving cpu/cuda (fp32, int8 KV, {tag}): {same} greedy "
+              f"tokens equal, {exc} near-tie exceptions, preemptions "
+              f"{st['preemptions']}, accepted drafts "
+              f"{st['spec_accepted_tokens']}, card launches {ln}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1669,6 +2352,15 @@ def main(argv=None) -> int:
     if "decode_cpu" in phases:
         check_decode_cpu(dev)
         done("decode_cpu")
+    if "serving_kernels" in phases:
+        kernels["ragged_paged_attention_int8"] = check_rpa_int8(dev)
+        kernels["lora_matmul"] = check_lora(dev)
+        kernels["decode_attention_int8"] = check_decode_int8(dev)
+        torch.cuda.empty_cache()
+        done("serving_kernels")
+    if "serving" in phases:
+        launches.update(run_serving(dev))
+        done("serving")
     if set(phases) != set(PHASES):
         print(f"phases {phases} only: no result line")
         return 0

@@ -66,9 +66,13 @@ GLOBAL_FLAGS.define("serving_prefix_cache", True)
 GLOBAL_FLAGS.define("serving_prefix_cache_pages", 0)
 GLOBAL_FLAGS.define("serving_unified_qb", 16)
 GLOBAL_FLAGS.define("decode_weight_quant", False)
-# paths of later slices: read only so that turning one on is refused
+# n-gram self-drafting: drafts per decode row (0 = off), longest n-gram
 GLOBAL_FLAGS.define("serving_speculative_k", 0)
+GLOBAL_FLAGS.define("serving_spec_ngram", 3)
+# int8 KV pages with per-page, per-kv-head fp32 scale planes
 GLOBAL_FLAGS.define("serving_kv_quant", False)
+# multi-tenancy: per-request LoRA adapters on the page pool, priority
+# classes with preemption, schema-constrained decoding
 GLOBAL_FLAGS.define("serving_lora", False)
 GLOBAL_FLAGS.define("serving_priorities", False)
 GLOBAL_FLAGS.define("serving_constrained", False)

@@ -25,13 +25,22 @@
 // G heads against them and writes a partial (m, l, acc[G][d]) to scratch;
 // a second kernel combines the partials of a (b, kv head) in chunk order,
 // o = sum_j acc_j e^(m_j - M) / sum_j l_j e^(m_j - M). No atomics: the
-// output is bitwise reproducible. The int8-cache arm of the TPU kernel
-// (per-position scales) is not here.
+// output is bitwise reproducible.
+//
+// K10q, the int8-cache arm of the same TPU kernel (quant=True): int8
+// caches with fp32 per-position scales k_scale / v_scale [B, nKV, S]. Each
+// int8 element is multiplied in fp32 by its position's scale and rounded
+// to the q dtype as the chunk is staged in shared memory (ops/quant.py::
+// dequantize_int8, the TPU kernel's order); the rest is K10's code, so on
+// a cache dequantized beforehand K10 gives the same bits. The int8 cache
+// halves the bytes that bound the kernel.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -60,11 +69,26 @@ size_t chunk_smem(int G, int D) {
                           (size_t)kChunk * D + (size_t)G * kChunk);
 }
 
-// part: per (b, kv head, chunk): m[G], l[G], acc[G][D], fp32.
-template <typename T, int D>
+// A cache element as the dots see it: fp caches as they are, int8 caches
+// times the position's scale in fp32, rounded to the q dtype T.
+template <typename T>
+__device__ __forceinline__ float cache_val(const T* p, size_t i,
+                                           const float*, size_t) {
+  return to_f(p[i]);
+}
+template <typename T>
+__device__ __forceinline__ float cache_val(const int8_t* p, size_t i,
+                                           const float* sc, size_t r) {
+  return round_to<T>(__fmul_rn((float)p[i], sc[r]));
+}
+
+// part: per (b, kv head, chunk): m[G], l[G], acc[G][D], fp32. CT: the
+// cache element type, T, or int8_t with the scales ksc / vsc [B, nKV, S].
+template <typename T, typename CT, int D>
 __global__ void __launch_bounds__(kThreads)
-decode_chunk_kernel(const T* __restrict__ q, const T* __restrict__ ck,
-                    const T* __restrict__ cv, float* __restrict__ part,
+decode_chunk_kernel(const T* __restrict__ q, const CT* __restrict__ ck,
+                    const CT* __restrict__ cv, const float* __restrict__ ksc,
+                    const float* __restrict__ vsc, float* __restrict__ part,
                     int nKV, int G, int S, int pos, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;                         // [G][D]
@@ -80,12 +104,12 @@ decode_chunk_kernel(const T* __restrict__ q, const T* __restrict__ ck,
   const T* qb = q + ((size_t)b * nKV * G + (size_t)kh * G) * D;
   for (int e = tid; e < G * D; e += kThreads) qs[e] = to_f(qb[e]);
   const size_t row0 = ((size_t)b * nKV + kh) * S + p0;
-  const T* kb = ck + row0 * D;
-  const T* vb = cv + row0 * D;
+  const CT* kb = ck + row0 * D;
+  const CT* vb = cv + row0 * D;
   for (int e = tid; e < n * D; e += kThreads) {
     const int c = e / D, dd = e % D;
-    ks[c * (D + 1) + dd] = to_f(kb[e]);
-    vs[e] = to_f(vb[e]);
+    ks[c * (D + 1) + dd] = cache_val<T>(kb, e, ksc, row0 + c);
+    vs[e] = cache_val<T>(vb, e, vsc, row0 + c);
   }
   __syncthreads();
 
@@ -157,24 +181,49 @@ decode_combine_kernel(const float* __restrict__ part, T* __restrict__ out,
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* ck, const void* cv, float* part,
-           void* out, int B, int nKV, int G, int S, int pos, float scale,
-           cudaStream_t st) {
+template <typename T, typename CT, int D>
+int launch(const void* q, const void* ck, const void* cv, const float* ksc,
+           const float* vsc, float* part, void* out, int B, int nKV, int G,
+           int S, int pos, float scale, cudaStream_t st) {
   const int n_chunks = (pos + kChunk) / kChunk;    // ceil((pos + 1) / 64)
   const size_t smem = chunk_smem(G, D);
   cudaError_t err = cudaFuncSetAttribute(
-      decode_chunk_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      decode_chunk_kernel<T, CT, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  decode_chunk_kernel<T, D><<<dim3(n_chunks, nKV, B), kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(ck),
-      static_cast<const T*>(cv), part, nKV, G, S, pos, scale);
+  decode_chunk_kernel<T, CT, D>
+      <<<dim3(n_chunks, nKV, B), kThreads, smem, st>>>(
+          static_cast<const T*>(q), static_cast<const CT*>(ck),
+          static_cast<const CT*>(cv), ksc, vsc, part, nKV, G, S, pos, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   decode_combine_kernel<T, D><<<dim3(nKV, B), kThreads, 0, st>>>(
       part, static_cast<T*>(out), nKV, G, n_chunks);
   return (int)cudaGetLastError();
+}
+
+// Q: int8 caches with scales; q and out in `dtype`.
+template <bool Q>
+int forward(const void* q, const void* ck, const void* cv, const float* ksc,
+            const float* vsc, float* part, void* out, int B, int nKV, int G,
+            int S, int d, int pos, float scale, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || nKV <= 0 || G < 1 || G > kMaxG || pos < 0 || pos >= S)
+    return (int)cudaErrorInvalidValue;
+  using C16 = typename std::conditional<Q, int8_t, __nv_bfloat16>::type;
+  using C32 = typename std::conditional<Q, int8_t, float>::type;
+#define ARGS q, ck, cv, ksc, vsc, part, out, B, nKV, G, S, pos, scale, st
+  if (dtype == 1) {
+    if (d == 64) return launch<__nv_bfloat16, C16, 64>(ARGS);
+    if (d == 128) return launch<__nv_bfloat16, C16, 128>(ARGS);
+    if (d == 256) return launch<__nv_bfloat16, C16, 256>(ARGS);
+  } else if (dtype == 0) {
+    if (d == 64) return launch<float, C32, 64>(ARGS);
+    if (d == 128) return launch<float, C32, 128>(ARGS);
+    if (d == 256) return launch<float, C32, 256>(ARGS);
+  }
+#undef ARGS
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -192,19 +241,18 @@ extern "C" int decode_attention(const void* q, const void* ck, const void* cv,
                                 float* part, void* out, int B, int nKV, int G,
                                 int S, int d, int pos, float scale, int dtype,
                                 void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || nKV <= 0 || G < 1 || G > kMaxG || pos < 0 || pos >= S)
-    return (int)cudaErrorInvalidValue;
-#define ARGS q, ck, cv, part, out, B, nKV, G, S, pos, scale, st
-  if (dtype == 1) {
-    if (d == 64) return launch<__nv_bfloat16, 64>(ARGS);
-    if (d == 128) return launch<__nv_bfloat16, 128>(ARGS);
-    if (d == 256) return launch<__nv_bfloat16, 256>(ARGS);
-  } else if (dtype == 0) {
-    if (d == 64) return launch<float, 64>(ARGS);
-    if (d == 128) return launch<float, 128>(ARGS);
-    if (d == 256) return launch<float, 256>(ARGS);
-  }
-#undef ARGS
-  return (int)cudaErrorInvalidValue;
+  return forward<false>(q, ck, cv, nullptr, nullptr, part, out, B, nKV, G, S,
+                        d, pos, scale, dtype, stream);
+}
+
+// K10q: int8 cache_k / cache_v with fp32 per-position scales k_scale /
+// v_scale [B, nKV, S]; the rest as decode_attention.
+extern "C" int decode_attention_int8(const void* q, const void* ck,
+                                     const void* cv, const float* k_scale,
+                                     const float* v_scale, float* part,
+                                     void* out, int B, int nKV, int G, int S,
+                                     int d, int pos, float scale, int dtype,
+                                     void* stream) {
+  return forward<true>(q, ck, cv, k_scale, v_scale, part, out, B, nKV, G, S,
+                       d, pos, scale, dtype, stream);
 }

@@ -10,6 +10,16 @@
 // rows repeat the last valid row. Masked scores are s + (-1e30); the output
 // is acc / max(l, 1e-30).
 //
+// K8q, the int8-page arm of the same TPU kernel (quant=True,
+// serving_kv_quant): int8 pages of the same layouts with fp32 scale planes
+// k_scales / v_scales [P, nKV]. Each int8 tile element is multiplied in
+// fp32 by its page's scale, scales[rows[c, j] * nKV + h], and rounded to
+// the q dtype as it is staged in shared memory (ops/quant.py::
+// dequantize_int8, the TPU kernel's order); the rest of each kernel is the
+// fp pages' code. Run on pages dequantized beforehand, K8 gives the same
+// bits. int8 tiles have their own 16-byte loader: a d x 32 tile of int8 is
+// half the bytes of the bf16 one.
+//
 // Design. The TPU grid walks (chunk, kv-head, page) in order and carries the
 // online-softmax state in scratch between grid steps. Blocks on a GPU run in
 // no order, so one thread block owns one (chunk, kv-head, 64-row tile) and
@@ -28,12 +38,15 @@
 // output contract pins them), loads each tile synchronously (no cp.async or
 // TMA ring overlapping loads with the dots) and runs one block per
 // (chunk, kv head) however long the context; splitting long contexts across
-// blocks and pipelining the page loads is later work.
+// blocks and pipelining the page loads is later work. int8 pages halve
+// the page bytes, the term that dominates.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -53,10 +66,25 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
   return __float2bfloat16(v);
 }
 
-template <typename T, int D, int BK>
+// A page element as the dots see it: fp pages as they are, int8 pages
+// times the page's scale in fp32, rounded to the q dtype T.
+template <typename T>
+__device__ __forceinline__ float tile_val(const T* p, size_t i, float) {
+  return to_f(p[i]);
+}
+template <typename T>
+__device__ __forceinline__ float tile_val(const int8_t* p, size_t i,
+                                          float s) {
+  return to_f(from_f<T>(__fmul_rn((float)p[i], s)));
+}
+
+// PT: the page element type, T for fp pages or int8_t (then ksc / vsc are
+// the [P, nKV] scale planes; unused for fp pages).
+template <typename T, typename PT, int D, int BK>
 __global__ void __launch_bounds__(kThreads)
-rpa_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-           const T* __restrict__ vp, const int* __restrict__ rows,
+rpa_kernel(const T* __restrict__ q, const PT* __restrict__ kp,
+           const PT* __restrict__ vp, const float* __restrict__ ksc,
+           const float* __restrict__ vsc, const int* __restrict__ rows,
            const int* __restrict__ pos0, const int* __restrict__ nval,
            T* __restrict__ out, int qb, int nH, int nKV, int bs, int mb,
            float sm_scale) {
@@ -102,16 +130,18 @@ rpa_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int warp = tid / 32, lane = tid % 32;
   for (int j = 0; j < n_pages; ++j) {
     const int page = rows[c * mb + j];
-    const T* kpg = kp + ((size_t)page * nKV + h) * D * bs;
-    const T* vpg = vp + ((size_t)page * nKV + h) * bs * D;
+    const PT* kpg = kp + ((size_t)page * nKV + h) * D * bs;
+    const PT* vpg = vp + ((size_t)page * nKV + h) * bs * D;
+    const float k_s = ksc ? ksc[(size_t)page * nKV + h] : 1.f;
+    const float v_s = vsc ? vsc[(size_t)page * nKV + h] : 1.f;
     for (int t0 = 0; t0 < bs && j * bs + t0 <= last; t0 += BK) {
       for (int e = tid; e < D * BK; e += kThreads) {
         const int dd = e / BK, t = e % BK;
-        ks[e] = to_f(kpg[(size_t)dd * bs + t0 + t]);
+        ks[e] = tile_val<T>(kpg, (size_t)dd * bs + t0 + t, k_s);
       }
       for (int e = tid; e < BK * D; e += kThreads) {
         const int t = e / D, dd = e % D;
-        vs[e] = to_f(vpg[(size_t)(t0 + t) * D + dd]);
+        vs[e] = tile_val<T>(vpg, (size_t)(t0 + t) * D + dd, v_s);
       }
       __syncthreads();
       for (int e = tid; e < kRows * BK; e += kThreads) {
@@ -175,23 +205,24 @@ rpa_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
-template <typename T, int D, int BK>
+template <typename T, typename PT, int D, int BK>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const int* rows, const int* pos0, const int* nval,
-                   void* out, int C, int qb, int nH, int nKV, int bs, int mb,
-                   float sm_scale, cudaStream_t stream) {
+                   const float* ksc, const float* vsc, const int* rows,
+                   const int* pos0, const int* nval, void* out, int C, int qb,
+                   int nH, int nKV, int bs, int mb, float sm_scale,
+                   cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (kRows * D + 2 * D * BK + kRows * BK + 3 * kRows);
   cudaError_t err = cudaFuncSetAttribute(
-      rpa_kernel<T, D, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      rpa_kernel<T, PT, D, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const int G = nH / nKV;
   dim3 grid(C * nKV, (qb * G + kRows - 1) / kRows);
-  rpa_kernel<T, D, BK><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), rows, pos0, nval, static_cast<T*>(out), qb,
-      nH, nKV, bs, mb, sm_scale);
+  rpa_kernel<T, PT, D, BK><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const PT*>(kp),
+      static_cast<const PT*>(vp), ksc, vsc, rows, pos0, nval,
+      static_cast<T*>(out), qb, nH, nKV, bs, mb, sm_scale);
   return cudaGetLastError();
 }
 
@@ -222,10 +253,27 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int D, int KT>
+// 16 int8 page values (16 bytes) times the page's scale in fp32, rounded
+// to bf16 and stored as two 16-byte vectors.
+__device__ __forceinline__ void dequant16(const int8_t* src, float s,
+                                          uint16_t* dst) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
+  uint32_t w[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    w[i] = pack2(bf16_bits(__fmul_rn((float)v[2 * i], s)),
+                 bf16_bits(__fmul_rn((float)v[2 * i + 1], s)));
+  reinterpret_cast<uint4*>(dst)[0] = make_uint4(w[0], w[1], w[2], w[3]);
+  reinterpret_cast<uint4*>(dst)[1] = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+// Q: int8 pages (kp, vp int8; ksc, vsc the scale planes), else bf16 pages.
+template <int D, int KT, bool Q>
 __global__ void __launch_bounds__(kTcThreads)
-rpa_tc_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ kp,
-              const uint16_t* __restrict__ vp, const int* __restrict__ rows,
+rpa_tc_kernel(const uint16_t* __restrict__ q, const void* __restrict__ kp,
+              const void* __restrict__ vp, const float* __restrict__ ksc,
+              const float* __restrict__ vsc, const int* __restrict__ rows,
               const int* __restrict__ pos0, const int* __restrict__ nval,
               uint16_t* __restrict__ out, int qb, int nH, int nKV, int bs,
               int mb, float sm_scale) {
@@ -273,18 +321,37 @@ rpa_tc_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ kp,
   const int n_pages = min(mb, last / bs + 1);
   for (int j = 0; j < n_pages; ++j) {
     const int page = rows[c * mb + j];
-    const uint16_t* kpg = kp + ((size_t)page * nKV + h) * D * bs;
-    const uint16_t* vpg = vp + ((size_t)page * nKV + h) * bs * D;
+    const size_t k_off = ((size_t)page * nKV + h) * D * bs;
+    const size_t v_off = ((size_t)page * nKV + h) * bs * D;
     for (int t0 = 0; t0 < bs && j * bs + t0 <= last; t0 += KT) {
-      for (int e = tid; e < D * KT / 8; e += kTcThreads) {
-        const int d = e / (KT / 8), k8 = (e % (KT / 8)) * 8;
-        *reinterpret_cast<uint4*>(&ks[d * KS + k8]) =
-            *reinterpret_cast<const uint4*>(kpg + (size_t)d * bs + t0 + k8);
-      }
-      for (int e = tid; e < KT * D / 8; e += kTcThreads) {
-        const int key = e / (D / 8), d8 = (e % (D / 8)) * 8;
-        *reinterpret_cast<uint4*>(&vs[key * VS + d8]) =
-            *reinterpret_cast<const uint4*>(vpg + (size_t)(t0 + key) * D + d8);
+      if constexpr (Q) {
+        const int8_t* kpg = static_cast<const int8_t*>(kp) + k_off;
+        const int8_t* vpg = static_cast<const int8_t*>(vp) + v_off;
+        const float k_s = ksc[(size_t)page * nKV + h];
+        const float v_s = vsc[(size_t)page * nKV + h];
+        for (int e = tid; e < D * KT / 16; e += kTcThreads) {
+          const int d = e / (KT / 16), k16 = (e % (KT / 16)) * 16;
+          dequant16(kpg + (size_t)d * bs + t0 + k16, k_s, &ks[d * KS + k16]);
+        }
+        for (int e = tid; e < KT * D / 16; e += kTcThreads) {
+          const int key = e / (D / 16), d16 = (e % (D / 16)) * 16;
+          dequant16(vpg + (size_t)(t0 + key) * D + d16, v_s,
+                    &vs[key * VS + d16]);
+        }
+      } else {
+        const uint16_t* kpg = static_cast<const uint16_t*>(kp) + k_off;
+        const uint16_t* vpg = static_cast<const uint16_t*>(vp) + v_off;
+        for (int e = tid; e < D * KT / 8; e += kTcThreads) {
+          const int d = e / (KT / 8), k8 = (e % (KT / 8)) * 8;
+          *reinterpret_cast<uint4*>(&ks[d * KS + k8]) =
+              *reinterpret_cast<const uint4*>(kpg + (size_t)d * bs + t0 + k8);
+        }
+        for (int e = tid; e < KT * D / 8; e += kTcThreads) {
+          const int key = e / (D / 8), d8 = (e % (D / 8)) * 8;
+          *reinterpret_cast<uint4*>(&vs[key * VS + d8]) =
+              *reinterpret_cast<const uint4*>(vpg + (size_t)(t0 + key) * D +
+                                              d8);
+        }
       }
       __syncthreads();
       float sc[NB][4];
@@ -388,34 +455,66 @@ rpa_tc_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ kp,
   }
 }
 
-template <int D, int KT>
+template <int D, int KT, bool Q>
 cudaError_t launch_tc(const void* q, const void* kp, const void* vp,
-                      const int* rows, const int* pos0, const int* nval,
-                      void* out, int C, int qb, int nH, int nKV, int bs,
-                      int mb, float sm_scale, cudaStream_t stream) {
+                      const float* ksc, const float* vsc, const int* rows,
+                      const int* pos0, const int* nval, void* out, int C,
+                      int qb, int nH, int nKV, int bs, int mb, float sm_scale,
+                      cudaStream_t stream) {
   const int G = nH / nKV;
   dim3 grid(C * nKV, (qb * G + kRows - 1) / kRows);
-  rpa_tc_kernel<D, KT><<<grid, kTcThreads, 0, stream>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(kp),
-      static_cast<const uint16_t*>(vp), rows, pos0, nval,
+  rpa_tc_kernel<D, KT, Q><<<grid, kTcThreads, 0, stream>>>(
+      static_cast<const uint16_t*>(q), kp, vp, ksc, vsc, rows, pos0, nval,
       static_cast<uint16_t*>(out), qb, nH, nKV, bs, mb, sm_scale);
   return cudaGetLastError();
 }
 
-template <typename T>
+// PT: the page element type (T, or int8_t with scale planes).
+template <typename T, typename PT>
 cudaError_t dispatch(int d, int bs, const void* q, const void* kp,
-                     const void* vp, const int* rows, const int* pos0,
-                     const int* nval, void* out, int C, int qb, int nH,
-                     int nKV, int mb, float sm_scale, cudaStream_t st) {
+                     const void* vp, const float* ksc, const float* vsc,
+                     const int* rows, const int* pos0, const int* nval,
+                     void* out, int C, int qb, int nH, int nKV, int mb,
+                     float sm_scale, cudaStream_t st) {
 #define RPA_CASE(DD, BKK)                                                   \
   if (d == DD && bs % BKK == 0)                                            \
-    return launch<T, DD, BKK>(q, kp, vp, rows, pos0, nval, out, C, qb, nH, \
-                              nKV, bs, mb, sm_scale, st);
+    return launch<T, PT, DD, BKK>(q, kp, vp, ksc, vsc, rows, pos0, nval,   \
+                                  out, C, qb, nH, nKV, bs, mb, sm_scale, st);
   RPA_CASE(64, 32) RPA_CASE(64, 16)
   RPA_CASE(128, 32) RPA_CASE(128, 16)
   RPA_CASE(256, 32) RPA_CASE(256, 16)
 #undef RPA_CASE
   return cudaErrorInvalidValue;
+}
+
+// bf16 q at head dim 64 or 128 runs the tensor-core kernel, everything
+// else (fp32, d 256) the FMA one; Q: int8 pages.
+template <bool Q>
+int forward(const void* q, const void* kp, const void* vp, const float* ksc,
+            const float* vsc, const int* rows, const int* pos0,
+            const int* nval, void* out, int C, int qb, int nH, int nKV, int d,
+            int bs, int mb, float sm_scale, int dtype, cudaStream_t st) {
+  using P32 = typename std::conditional<Q, int8_t, float>::type;
+  using P16 = typename std::conditional<Q, int8_t, __nv_bfloat16>::type;
+  if (dtype == 0)
+    return (int)dispatch<float, P32>(d, bs, q, kp, vp, ksc, vsc, rows, pos0,
+                                     nval, out, C, qb, nH, nKV, mb, sm_scale,
+                                     st);
+  if (dtype == 1 && (d == 64 || d == 128)) {
+#define RPA_TC_CASE(DD, KTT)                                               \
+  if (d == DD && bs % KTT == 0)                                            \
+    return (int)launch_tc<DD, KTT, Q>(q, kp, vp, ksc, vsc, rows, pos0,     \
+                                      nval, out, C, qb, nH, nKV, bs, mb,   \
+                                      sm_scale, st);
+    RPA_TC_CASE(128, 32) RPA_TC_CASE(128, 16)
+    RPA_TC_CASE(64, 32) RPA_TC_CASE(64, 16)
+#undef RPA_TC_CASE
+  }
+  if (dtype == 1)
+    return (int)dispatch<__nv_bfloat16, P16>(d, bs, q, kp, vp, ksc, vsc,
+                                             rows, pos0, nval, out, C, qb, nH,
+                                             nKV, mb, sm_scale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -427,24 +526,21 @@ extern "C" int rpa_forward(const void* q, const void* k_pages,
                            const int* pos0, const int* n_valid, void* out,
                            int C, int qb, int nH, int nKV, int d, int bs,
                            int mb, float sm_scale, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch<float>(d, bs, q, k_pages, v_pages, rows, pos0,
-                                n_valid, out, C, qb, nH, nKV, mb, sm_scale,
-                                st);
-  if (dtype == 1 && (d == 64 || d == 128)) {
-#define RPA_TC_CASE(DD, KTT)                                               \
-  if (d == DD && bs % KTT == 0)                                            \
-    return (int)launch_tc<DD, KTT>(q, k_pages, v_pages, rows, pos0,        \
-                                   n_valid, out, C, qb, nH, nKV, bs, mb,   \
-                                   sm_scale, st);
-    RPA_TC_CASE(128, 32) RPA_TC_CASE(128, 16)
-    RPA_TC_CASE(64, 32) RPA_TC_CASE(64, 16)
-#undef RPA_TC_CASE
-  }
-  if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(d, bs, q, k_pages, v_pages, rows,
-                                        pos0, n_valid, out, C, qb, nH, nKV,
-                                        mb, sm_scale, st);
-  return (int)cudaErrorInvalidValue;
+  return forward<false>(q, k_pages, v_pages, nullptr, nullptr, rows, pos0,
+                        n_valid, out, C, qb, nH, nKV, d, bs, mb, sm_scale,
+                        dtype, static_cast<cudaStream_t>(stream));
+}
+
+// K8q: int8 k/v pages with fp32 scale planes k_scales / v_scales [P, nKV];
+// q and out in `dtype` as above.
+extern "C" int rpa_forward_int8(const void* q, const void* k_pages,
+                                const void* v_pages, const float* k_scales,
+                                const float* v_scales, const int* rows,
+                                const int* pos0, const int* n_valid,
+                                void* out, int C, int qb, int nH, int nKV,
+                                int d, int bs, int mb, float sm_scale,
+                                int dtype, void* stream) {
+  return forward<true>(q, k_pages, v_pages, k_scales, v_scales, rows, pos0,
+                       n_valid, out, C, qb, nH, nKV, d, bs, mb, sm_scale,
+                       dtype, static_cast<cudaStream_t>(stream));
 }

@@ -73,3 +73,35 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="unsupported device"):
         td.decode_attention(q.to("meta"), ck.to("meta"), cv.to("meta"), 3,
                             0.1)
+
+
+def test_int8_plain_arm_matches_reference_kernel():
+    """K10q's plain arm (an int8 cache with per-position fp32 scales,
+    through the public entry) against the reference's quant=True kernel
+    in interpret mode on the same numpy inputs, fp32 atol/rtol 1e-5; equal
+    bit for bit to the fp arm on the cache dequantized beforehand; int8
+    caches without scales are refused."""
+    from paddle_tpu_torch.ops.quant import dequantize_int8
+
+    rng = np.random.RandomState(11)
+    B, nKV, G, S, d = 2, 2, 4, 256, 64
+    q = rng.randn(B, nKV * G, d).astype(np.float32)
+    kq, vq = (rng.randint(-127, 128, size=(B, nKV, S, d)).astype(np.int8)
+              for _ in range(2))
+    ks, vs = (rng.uniform(0.005, 0.02, size=(B, nKV, S)).astype(np.float32)
+              for _ in range(2))
+    t = [torch.from_numpy(a) for a in (q, kq, vq, ks, vs)]
+    kd = dequantize_int8(t[1], t[3][..., None])
+    vd = dequantize_int8(t[2], t[4][..., None])
+    sm = 1.0 / math.sqrt(d)
+    for pos in (0, 100, S - 1):
+        want = np.asarray(jd.decode_attention(
+            *map(jnp.asarray, (q, kq, vq)), pos, sm, block_s=256,
+            k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs)))
+        got = td.decode_attention(t[0], t[1], t[2], pos, sm, k_scale=t[3],
+                                  v_scale=t[4])
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5,
+                                   err_msg=f"pos {pos}")
+        assert torch.equal(got, td.decode_attention(t[0], kd, vd, pos, sm))
+    with pytest.raises(ValueError, match="scale"):
+        td.decode_attention(t[0], t[1], t[2], 5, sm)

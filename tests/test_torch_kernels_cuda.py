@@ -16,7 +16,12 @@ fp32, 3 * 2^-7 in bf16, three bf16 ulps (each side's output rounding,
 and p, ds or dl rounded against another running max). The cross-entropy
 logits have std 3,
 so the softmax is far from flat, and dhead is also held on the vocab
-columns that are no token's label, where dl is the softmax part alone."""
+columns that are no token's label, where dl is the softmax part alone.
+The int8 kernels (K8q, K10q) must equal their fp kernels (K8, K10) bit
+for bit on inputs dequantized beforehand, and their plain versions within
+the fp kernels' tolerances; K13's fp32 output is held by row within 1e-5
+(exact widenings of its inputs, fp32 sums in another order), its slot-0
+rows exactly 0."""
 
 import numpy as np
 import pytest
@@ -378,3 +383,146 @@ def test_llama_engine_runs_the_kernels(cuda):
     assert toks.shape == (2, 5)
     assert [c.launches - b for c, b in zip(counters, before)] == \
         [2 * 4, 2, 2, 5]
+
+
+def _int8(rng, shape):
+    return torch.from_numpy(rng.integers(-127, 128, size=shape).astype(
+        np.int8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("G,d,bs", [(1, 128, 128), (4, 128, 16),
+                                    (4, 64, 32), (2, 256, 48)])
+def test_rpa_int8_kernel_matches_k8_and_plain(cuda, dtype, atol, G, d, bs):
+    """K8q: equal to K8 on the pages dequantized beforehand (torch.equal:
+    the staged tiles are the same bits) and within K8's tolerance of the
+    plain version."""
+    from paddle_tpu_torch.ops.kernels.ragged_paged_attention import \
+        ragged_paged_attention_int8
+    from paddle_tpu_torch.ops.quant import dequantize_int8
+
+    q, _, _, rows, pos0, nv = _rpa_case(G, d, bs)
+    rng = np.random.default_rng(12)
+    P, nkv = 16, 2
+    kq, vq = _int8(rng, (P, nkv, d, bs)).to(cuda), _int8(
+        rng, (P, nkv, bs, d)).to(cuda)
+    ks, vs = (torch.from_numpy(rng.uniform(0.005, 0.02, size=(P, nkv)).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    qt = torch.from_numpy(q).to(cuda, dtype)
+    ints = [torch.from_numpy(a).to(cuda) for a in (rows, pos0, nv)]
+    before = ragged_paged_attention_int8.launches
+    got = ragged_paged_attention(qt, kq, vq, *ints, 0.09, k_scales=ks,
+                                 v_scales=vs)
+    k8 = ragged_paged_attention(
+        qt, dequantize_int8(kq, ks[:, :, None, None], dtype),
+        dequantize_int8(vq, vs[:, :, None, None], dtype), *ints, 0.09)
+    ref = ragged_paged_attention_plain(qt, kq, vq, *ints, 0.09, ks, vs)
+    torch.cuda.synchronize()
+    assert ragged_paged_attention_int8.launches == before + 1
+    assert torch.equal(got, k8)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), atol=atol,
+                               rtol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,qb,H,r,N", [(32, 16, 4096, 8, 4096),
+                                        (5, 3, 256, 8, 1000),
+                                        (4, 40, 300, 16, 512),
+                                        (2, 1, 128, 4, 96)])
+def test_lora_kernel_matches_plain(cuda, dtype, C, qb, H, r, N):
+    """K13 within 1e-5 of the plain fp32 version by row, slot-0 rows
+    exactly 0, deterministic."""
+    from paddle_tpu_torch.ops.kernels.lora_matmul import (lora_matmul,
+                                                          lora_matmul_plain)
+
+    rng = np.random.default_rng(13)
+    S = 5
+    x = torch.from_numpy(rng.normal(size=(C, qb, H)).astype(np.float32))
+    a = torch.from_numpy((0.05 * rng.normal(size=(S, H, r))).astype(
+        np.float32))
+    b = torch.from_numpy((0.05 * rng.normal(size=(S, r, N))).astype(
+        np.float32))
+    a[0], b[0] = 0, 0
+    ids = torch.from_numpy(rng.integers(0, S, size=C).astype(np.int32))
+    ids[0] = 0
+    x, a, b = (t.to(cuda, dtype) for t in (x, a, b))
+    ids = ids.to(cuda)
+    before = lora_matmul.launches
+    got = lora_matmul(x, a, b, ids)
+    ref = lora_matmul_plain(x, a, b, ids)
+    torch.cuda.synchronize()
+    assert lora_matmul.launches == before + 1
+    assert got.dtype == torch.float32 and _scaled(got, ref) <= 1e-5
+    assert (got[ids == 0] == 0).all()
+    assert torch.equal(got, lora_matmul(x, a, b, ids))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3 * 2 ** -7)])
+@pytest.mark.parametrize("G,d,S", [(4, 128, 2048), (2, 64, 256),
+                                   (8, 256, 512)])
+def test_decode_attention_int8_kernel_matches_k10_and_plain(cuda, dtype, tol,
+                                                            G, d, S):
+    """K10q through the public entry: equal to K10 on the cache
+    dequantized beforehand (torch.equal) and within K10's tolerance of
+    the plain version."""
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.ops.quant import dequantize_int8
+
+    rng = np.random.default_rng(14)
+    B, nkv = 3, 2
+    q = torch.from_numpy(rng.normal(size=(B, nkv * G, d)).astype(
+        np.float32)).to(cuda, dtype)
+    kq, vq = (_int8(rng, (B, nkv, S, d)).to(cuda) for _ in range(2))
+    ks, vs = (torch.from_numpy(rng.uniform(0.005, 0.02, size=(B, nkv, S))
+                               .astype(np.float32)).to(cuda)
+              for _ in range(2))
+    kd = dequantize_int8(kq, ks[..., None], dtype)
+    vd = dequantize_int8(vq, vs[..., None], dtype)
+    for pos in (0, 37, 64, S - 1):
+        before = da.decode_attention_int8.launches
+        got = da.decode_attention(q, kq, vq, pos, d ** -0.5, k_scale=ks,
+                                  v_scale=vs)
+        ref = da.decode_attention_plain(q, kq, vq, pos, d ** -0.5, ks, vs)
+        k10 = da.decode_attention(q, kd, vd, pos, d ** -0.5)
+        torch.cuda.synchronize()
+        assert da.decode_attention_int8.launches == before + 1
+        assert torch.equal(got, k10), pos
+        assert _scaled(got, ref) <= tol, pos
+
+
+@pytest.mark.cuda
+def test_serving_engine_runs_the_int8_and_lora_kernels(cuda):
+    """A small bf16 engine with int8 KV pages and LoRA on the card: K8q
+    once per layer and step (K8 never), K13 twice per layer and step."""
+    from paddle_tpu_torch.inference.multitenant import make_lora
+    from paddle_tpu_torch.inference.serving import Request, ServingEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.ops.kernels.lora_matmul import lora_matmul
+    from paddle_tpu_torch.ops.kernels.ragged_paged_attention import \
+        ragged_paged_attention_int8
+
+    cfg = LlamaConfig(vocab_size=512, hidden=512, n_layers=2, n_heads=4,
+                      n_kv_heads=2, ffn_hidden=768, max_seq_len=512)
+    eng = ServingEngine(cfg, max_batch=2, page_size=16, max_seq=256,
+                        prefill_budget=64, kv_quant=True, lora=True,
+                        device=cuda)
+    eng.register_adapter("a", make_lora(cfg, 8, seed=1))
+    rng = np.random.default_rng(15)
+    reqs = [Request(rid=i, prompt=rng.integers(1, 512, size=40).astype(
+        np.int32), max_new_tokens=6, adapter_id="a" if i else None)
+        for i in range(3)]
+    before = (ragged_paged_attention.launches,
+              ragged_paged_attention_int8.launches, lora_matmul.launches)
+    st = eng.run(reqs)
+    torch.cuda.synchronize()
+    n = st["unified_steps"]
+    assert all(len(r.out_tokens) == 6 for r in reqs)
+    assert (ragged_paged_attention.launches - before[0],
+            ragged_paged_attention_int8.launches - before[1],
+            lora_matmul.launches - before[2]) == (0, 2 * n, 4 * n)

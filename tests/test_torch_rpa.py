@@ -71,3 +71,59 @@ def test_wrapper_on_cpu_launches_nothing():
     assert out.shape == q.shape and out.dtype == torch.float32
     assert ragged_paged_attention.launches == before
 
+
+
+def _int8_case(seed, C=3, qb=4, nkv=2, G=4, d=128, bs=128, mb=3, P=8):
+    """int8 pages with per-(page, kv head) scales, the same rows as
+    ``_case``."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(C, qb, nkv * G, d)).astype(np.float32)
+    kq = rng.integers(-127, 128, size=(P, nkv, d, bs)).astype(np.int8)
+    vq = rng.integers(-127, 128, size=(P, nkv, bs, d)).astype(np.int8)
+    ks = rng.uniform(0.005, 0.02, size=(P, nkv)).astype(np.float32)
+    vs = rng.uniform(0.005, 0.02, size=(P, nkv)).astype(np.float32)
+    rows = rng.integers(1, P, size=(C, mb)).astype(np.int32)
+    pos0 = np.array([300, 126, 131], np.int32)[:C]
+    n_valid = np.array([1, qb, 2], np.int32)[:C]
+    return q, kq, vq, ks, vs, rows, pos0, n_valid
+
+
+@pytest.mark.parametrize("ref", ["kernel_interpret", "xla"])
+def test_int8_plain_matches_reference(ref):
+    """K8q's plain arm against the reference's quant=True kernel in
+    interpret mode (d 128, bs 128) and its XLA arm: both dequantize the
+    same way (fp32 multiply, cast to q's dtype), fp32 atol/rtol 1e-5."""
+    q, kq, vq, ks, vs, rows, pos0, nv = _int8_case(3)
+    j = [jnp.asarray(a) for a in (q, kq, vq, rows, pos0, nv)]
+    if ref == "xla":
+        want = _ragged_paged_xla(*j, 0.088, "d_major", jnp.asarray(ks),
+                                 jnp.asarray(vs))
+    else:
+        want = ragged_paged_attention_kernel(*j, 0.088, jnp.asarray(ks),
+                                             jnp.asarray(vs))
+    t = _torch(q, kq, vq, rows, pos0, nv)
+    got = ragged_paged_attention(*t, 0.088, k_scales=torch.from_numpy(ks),
+                                 v_scales=torch.from_numpy(vs))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=ATOL)
+
+
+def test_int8_equals_fp_on_dequantized_pages():
+    """The int8 arm is the fp arm on pages dequantized beforehand, bit for
+    bit; int8 pages without scales are refused, as the reference does."""
+    from paddle_tpu_torch.ops.kernels.ragged_paged_attention import \
+        ragged_paged_attention_int8
+    from paddle_tpu_torch.ops.quant import dequantize_int8
+
+    q, kq, vq, ks, vs, rows, pos0, nv = _int8_case(4)
+    q, kq, vq, ks, vs, rows, pos0, nv = _torch(q, kq, vq, ks, vs, rows,
+                                               pos0, nv)
+    before = ragged_paged_attention_int8.launches
+    got = ragged_paged_attention_int8(q, kq, vq, ks, vs, rows, pos0, nv, 0.1)
+    kd = dequantize_int8(kq, ks[:, :, None, None])
+    vd = dequantize_int8(vq, vs[:, :, None, None])
+    assert torch.equal(got, ragged_paged_attention(q, kd, vd, rows, pos0, nv,
+                                                   0.1))
+    assert ragged_paged_attention_int8.launches == before
+    with pytest.raises(ValueError, match="scale"):
+        ragged_paged_attention(q, kq, vq, rows, pos0, nv, 0.1)

@@ -107,14 +107,52 @@ def test_abort_releases_pages():
                                   "serving_priorities",
                                   "serving_constrained"])
 def test_later_slice_flags_raise(flag):
+    """Each of the five engine flags, turned on through GLOBAL_FLAGS
+    alone, puts the engine on its path: int8 pages with scale planes, a
+    draft budget, an adapter store, priority admission order, the
+    constrained vocabulary mask."""
+    from paddle_tpu_torch.inference import serving
+    from paddle_tpu_torch.inference.multitenant import (AdapterStore,
+                                                        json_schema_dfa)
+
     old = GLOBAL_FLAGS.get(flag)
-    GLOBAL_FLAGS.set(flag, 1 if isinstance(old, int)
-                     and not isinstance(old, bool) else True)
+    GLOBAL_FLAGS.set(flag, 3 if flag == "serving_speculative_k" else True)
     try:
-        with pytest.raises(NotImplementedError, match="later slice"):
-            ServingEngine(TCFG, device="cpu", **ENGINE)
+        eng = ServingEngine(TCFG, device="cpu", **ENGINE)
     finally:
         GLOBAL_FLAGS.set(flag, old)
+    if flag == "serving_kv_quant":
+        assert eng.k_pages.dtype == torch.int8
+        assert eng.v_scales.shape == (TCFG.n_layers, eng.n_pages,
+                                      TCFG.n_kv_heads)
+    elif flag == "serving_speculative_k":
+        assert eng.spec_k == 3
+    elif flag == "serving_lora":
+        assert isinstance(eng.adapters, AdapterStore)
+    elif flag == "serving_priorities":
+        reqs = [Request(rid=i, prompt=np.arange(1, 9, dtype=np.int32),
+                        max_new_tokens=2, priority=p)
+                for i, p in enumerate((0, 2, 1))]
+        for r in reqs:
+            eng.submit(r)
+        eng._admit(0.0)
+        assert [r.rid for r in eng.slots] == [1, 2]
+    else:
+        vocab = [""] * TCFG.vocab_size
+        vocab[1:4] = ["a", "b", "c"]
+        eng.register_schema("s", json_schema_dfa({"enum": ["ab"]},
+                                                 vocab).fresh)
+        seen = []
+        pick = serving._pick_tokens
+        serving._pick_tokens = lambda logits, *a: (seen.append(logits),
+                                                   pick(logits, *a))[1]
+        try:
+            eng.run([Request(rid=0, prompt=np.arange(1, 9, dtype=np.int32),
+                             max_new_tokens=3, schema_id="s")])
+        finally:
+            serving._pick_tokens = pick
+        assert (seen[0][0] > -1e30).nonzero().flatten().tolist() == [1]
+        assert (seen[0][1:] > -1e30).all()
 
 
 def test_flags_read_environment_and_decode_weight_quant(monkeypatch):
