@@ -35,7 +35,8 @@ import functools
 import torch
 from torch.fx.experimental.proxy_tensor import make_fx
 from torch.utils._pytree import tree_flatten, tree_unflatten
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..core.flags import GLOBAL_FLAGS
 from . import fusion_pass
@@ -188,25 +189,68 @@ def discover(fn, *args) -> FusionReport:
     return _LAST_REPORT
 
 
+# What a checkpointed block keeps for its backward, by policy name; the
+# rest is recomputed. "save_flash": the flash forward's o and lse (the
+# reference's save_only_these_names("flash_o", "flash_lse")), so the flash
+# forward never runs twice; "save_dots_and_flash": those and the outputs
+# of the weight matmuls, products without batch dimensions (the
+# reference's dots_with_no_batch_dims_saveable). None saves nothing: the
+# whole block is recomputed.
+REMAT_POLICIES = ("save_flash", "save_dots_and_flash")
+
+
+def _saved_ops(policy: str) -> frozenset:
+    from ..ops.kernels import flash_attention, fused_rope_attention  # noqa: F401 -- registers the operators
+
+    ops = torch.ops.paddle_tpu_torch
+    flash = {ops.flash_qkv_fwd.default, ops.flash_fwd_sep.default,
+             ops.rope_flash_fwd.default}
+    if policy == "save_flash":
+        return frozenset(flash)
+    if policy == "save_dots_and_flash":
+        return frozenset(flash | {torch.ops.aten.mm.default,
+                                  torch.ops.aten.addmm.default})
+    raise ValueError(f"remat policy {policy!r}: expected one of "
+                     f"{REMAT_POLICIES} or None")
+
+
+def checkpointed(fn, args, policy: str | None):
+    """``fn(*args)`` under ``torch.utils.checkpoint``, saving for the
+    backward what ``policy`` names (see REMAT_POLICIES)."""
+    if policy is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    saved = _saved_ops(policy)
+
+    def decide(ctx, op, *a, **kw):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=functools.partial(
+                          create_selective_checkpoint_contexts, decide))
+
+
 _NESTED_IDS: dict = {}
 
 
-def remat_call(key, fn, *args):
-    """``fn(*args)``, recomputed in the backward. Outside a trace this is
+def remat_call(key, fn, *args, policy: str | None = None):
+    """``fn(*args)``, recomputed in the backward except what ``policy``
+    saves (see REMAT_POLICIES). Outside a trace this is
     ``torch.utils.checkpoint``. Inside an auto_fuse trace it records one
     node of a nested program that the pass traces and plans on its own
-    and runs, fused, under checkpoint: the counterpart of the reference's
-    fusion inside ``remat2`` bodies. ``key`` names ``fn``'s static
-    configuration, as in :func:`fused_call`."""
+    and runs, fused, under checkpoint with the same policy: the
+    counterpart of the reference's fusion inside ``remat2`` bodies.
+    ``key`` names ``fn``'s static configuration, as in
+    :func:`fused_call`."""
     if not _TRACING:
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpointed(fn, args, policy)
     flat, spec = tree_flatten(args)
     metas = [_meta(t) for t in flat]
-    nkey = (key, spec, tuple(metas),
+    nkey = (key, policy, spec, tuple(metas),
             tuple(bool(GLOBAL_FLAGS.get(f)) for f in _KEY_FLAGS))
     pid = _NESTED_IDS.get(nkey)
     if pid is None:
         pid = _NESTED_IDS[nkey] = len(fusion_pass.NESTED)
-        fusion_pass.NESTED[pid] = Nested(fn, spec, metas)
+        fusion_pass.NESTED[pid] = Nested(fn, spec, metas, policy)
     outs = fusion_pass.nested_program(list(flat), pid)
     return tree_unflatten(outs, fusion_pass.NESTED[pid].out_spec)

@@ -387,18 +387,23 @@ def match_bias_gelu(g: Graph, i, node):
 # RoPE + flash attention
 # ---------------------------------------------------------------------------
 
-def _flash_sep_args(node):
-    """(q, k, v) when ``node`` is the separate-input flash operator
-    (ops/kernels/flash_attention.py::flash_attention_raw) on 4-d
-    operands, else None. The operator is found by its identity, where
-    the reference compared printed jaxprs."""
+def _flash_sep_args(g: Graph, node):
+    """(q, k, v, o, outs) when ``node`` is the separate-input flash
+    operator (ops/kernels/flash_attention.py::flash_attention_raw) on 4-d
+    operands, else None: ``o`` is the node of its first output, ``outs``
+    the indices of the nodes that take its outputs (o and lse) apart. The
+    operator is found by its identity, where the reference compared
+    printed jaxprs."""
     if node.op != "call_function" or not str(node.target).startswith(
             "paddle_tpu_torch.flash_fwd_sep."):
         return None
     q, k, v = node.args[:3]
     if any(_val(a) is None or _val(a).dim() != 4 for a in (q, k, v)):
         return None
-    return q, k, v
+    outs = {u.args[1]: u for u in node.users if _is(u, operator.getitem)}
+    if 0 not in outs or len(outs) != len(node.users):
+        return None
+    return q, k, v, outs[0], {g.defs[u] for u in outs.values()}
 
 
 def _half_slice(g: Graph, atom, lo: bool):
@@ -512,10 +517,10 @@ def match_rope_attention(g: Graph, i, node):
     in the tile. Candidates: both rotations, then q only (k's rotated
     value escapes, as into the prefill's cache, or hides behind the GQA
     repeat), then k only."""
-    qkv = _flash_sep_args(node)
-    if qkv is None:
+    args = _flash_sep_args(g, node)
+    if args is None:
         return None
-    q_at, k_at, v_at = qkv
+    q_at, k_at, v_at, o_node, outs = args
     qv = _val(q_at)
     S, d = qv.shape[1], qv.shape[-1]
 
@@ -546,7 +551,8 @@ def match_rope_attention(g: Graph, i, node):
         chain_q = qc if use_q else None
         chain_k = kc if use_k else None
         tables = chain_q or chain_k
-        cons = frozenset({i} | (chain_q["cons"] if chain_q else set())
+        cons = frozenset({i} | outs
+                         | (chain_q["cons"] if chain_q else set())
                          | (chain_k["cons"] if chain_k else set()))
         inputs = (chain_q["x"] if chain_q else q_at,
                   chain_k["x"] if chain_k else k_at,
@@ -558,10 +564,11 @@ def match_rope_attention(g: Graph, i, node):
                                                sm_scale=scale, rope_q=rq,
                                                rope_k=rk),)
 
-        return Site("rope_attention", cons, max(cons), inputs, ((node, 0),),
-                    rope_attention_site,
+        return Site("rope_attention", cons, max(cons), inputs,
+                    ((o_node, 0),), rope_attention_site,
                     applied=supported and not resharded,
-                    note="resharded" if resharded else "")
+                    note="resharded" if resharded else "",
+                    projections=len(outs))
 
     cands = [mk(qc is not None, kc is not None)]
     if qc is not None and kc is not None:

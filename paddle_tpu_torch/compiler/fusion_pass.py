@@ -22,7 +22,8 @@ Nested programs stand in for the reference's recursion into ``remat2``
 and ``scan`` bodies: ``nested_program`` is a registered operator that a
 trace records as one node (see ``compiler.remat_call``); its body is
 traced and planned on its own, and the rewrite runs the fused body under
-``torch.utils.checkpoint``, so it is recomputed in the backward.
+``torch.utils.checkpoint`` with the program's remat policy, so it is
+recomputed in the backward except what the policy saves.
 """
 
 from __future__ import annotations
@@ -36,7 +37,6 @@ from typing import Any, Callable, Sequence
 import torch
 import torch.fx
 from torch.utils._pytree import tree_flatten, tree_unflatten
-from torch.utils.checkpoint import checkpoint
 
 __all__ = ["Graph", "Site", "Plan", "plan_graph", "rewrite",
            "program_hash", "lit_scalar", "NESTED"]
@@ -142,6 +142,9 @@ class Site:
     build: Callable[..., Sequence]
     applied: bool = True          # the fused function's gate at plan time
     note: str = ""
+    projections: int = 0          # getitem nodes among ``consumed``: the
+                                  # outputs of a multi-output operator
+                                  # taken apart, no equations of their own
 
 
 @dataclasses.dataclass
@@ -174,7 +177,7 @@ class Plan:
         """JSON-able record of the fusion decisions."""
         return sorted(
             ({"template": s.template, "applied": bool(s.applied),
-              "eqns": len(s.consumed), "note": s.note}
+              "eqns": len(s.consumed) - s.projections, "note": s.note}
              for s in self.walk()),
             key=lambda d: (d["template"], -d["applied"], d["eqns"]))
 
@@ -217,11 +220,13 @@ def _validate(g: Graph, site: Site) -> bool:
 @dataclasses.dataclass
 class Nested:
     """A program traced apart from its caller: ``fn`` over the pytree
-    ``in_spec`` of tensors shaped like ``metas``; ``gm`` and ``plan``
-    once traced."""
+    ``in_spec`` of tensors shaped like ``metas``, checkpointed with the
+    remat ``policy`` (compiler.REMAT_POLICIES, or None); ``gm`` and
+    ``plan`` once traced."""
     fn: Callable
     in_spec: Any
     metas: list
+    policy: Any = None
     out_spec: Any = None
     gm: Any = None
     plan: Any = None
@@ -252,9 +257,11 @@ def _(args, pid):
     return [t.clone() for t in _run_nested(args, pid)]
 
 
-def _remat_runner(gm):
+def _remat_runner(gm, policy):
+    from . import checkpointed
+
     def run_remat(args, pid):
-        return list(checkpoint(gm, *args, use_reentrant=False))
+        return list(checkpointed(gm, args, policy))
     return run_remat
 
 
@@ -338,7 +345,8 @@ def rewrite(gm: torch.fx.GraphModule, plan: Plan) -> torch.fx.GraphModule:
             graph.erase_node(nodes[i])
     for i in plan.nested:
         node = nodes[i]
-        node.target = _remat_runner(NESTED[node.args[1]].gm)
+        n = NESTED[node.args[1]]
+        node.target = _remat_runner(n.gm, n.policy)
     graph.lint()
     gm.recompile()
     return gm

@@ -91,5 +91,9 @@ GLOBAL_FLAGS.define("use_fused_bias_act", True)
 GLOBAL_FLAGS.define("flash_attention_kernel_bwd", True)
 GLOBAL_FLAGS.define("flash_attention_native_layout", True)
 GLOBAL_FLAGS.define("use_library_flash_attention", False)
+# the fused-qkv flash backward: True takes the merged kernel (K2) where the
+# reference's gate holds, False the split dq + dk/dv kernels (K3) always;
+# read when the backward runs
+GLOBAL_FLAGS.define("flash_attention_fused_dqkv", True)
 # sharded training (later slice): turning it on is refused
 GLOBAL_FLAGS.define("dist_allreduce_quant", False)

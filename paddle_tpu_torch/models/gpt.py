@@ -6,8 +6,8 @@ The parameter tree has the reference's names, shapes and dtypes, with
 reference is kept: LayerNorm computes in fp32 and casts back, matmuls
 take and return ``cfg.dtype``, the gelu is tanh-approximate and the
 logits are fp32. Attention on the fused qkv projection goes through the
-flash kernels (K1 forward, K2 backward) and the chunked loss through the
-vocab-streaming cross-entropy kernels (K4, K5) on CUDA.
+flash kernels (K1 forward, K2 or K3 backward) and the chunked loss
+through the vocab-streaming cross-entropy kernels (K4, K5) on CUDA.
 
 The model is written as the plain op-by-op composition
 (``_model_apply_unfused``); ``model_apply`` runs it through the fusion
@@ -54,10 +54,11 @@ class GPTConfig:
     param_dtype: Any = torch.float32     # master params
     tie_embeddings: bool = True
     use_flash: bool = True
-    # False | True | "full": True and "full" both run each block through
-    # compiler.remat_call (torch.utils.checkpoint), which recomputes the
-    # whole block, K1, K6 and K7 included, in the backward (a policy that
-    # saves the flash outputs, as the reference's does, is later work)
+    # False | True | "full": each block runs through compiler.remat_call
+    # (torch.utils.checkpoint with a selective policy, the reference's):
+    # True saves the weight matmuls' outputs and the flash o/lse, "full"
+    # the flash o/lse only; everything else (K6, K7, the elementwise work)
+    # is recomputed in the backward, K1 never
     remat: bool | str = True
     unroll: bool = False                 # eager: always unrolled
     ring_axis: Optional[str] = None
@@ -207,11 +208,18 @@ def model_apply(params: dict, tokens, cfg: GPTConfig, sp_constraint=None,
                       params, tokens)
 
 
+# remat setting -> compiler.remat_call policy (reference gpt.py's
+# save_from_both_policies(dots_with_no_batch_dims_saveable, flash names)
+# and save_only_these_names("flash_o", "flash_lse"))
+_REMAT_POLICY = {True: "save_dots_and_flash", "full": "save_flash"}
+
+
 def _model_apply_unfused(params: dict, tokens, cfg: GPTConfig,
                          return_hidden: bool = False):
     """The plain op-by-op forward. With ``remat`` each block runs through
-    ``compiler.remat_call``: recomputed in the backward, and planned by
-    the compiler as a nested program of its own."""
+    ``compiler.remat_call`` with its policy: recomputed in the backward
+    but for what the policy saves, and planned by the compiler as a
+    nested program of its own."""
     B, T = tokens.shape
     x = params["wte"][tokens.long()].to(cfg.dtype) + \
         params["wpe"][:T].to(cfg.dtype)
@@ -219,7 +227,8 @@ def _model_apply_unfused(params: dict, tokens, cfg: GPTConfig,
         bp = {k: v[i] for k, v in params["blocks"].items()}
         if cfg.remat:
             x = remat_call(("gpt_block", cfg),
-                           functools.partial(block_apply, cfg=cfg), bp, x)
+                           functools.partial(block_apply, cfg=cfg), bp, x,
+                           policy=_REMAT_POLICY[cfg.remat])
         else:
             x = block_apply(bp, x, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

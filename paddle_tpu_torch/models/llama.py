@@ -8,13 +8,15 @@ packages one leaf at a time. Every cast point of the reference is kept:
 RMSNorm and RoPE compute in fp32 and cast back, matmuls accumulate in
 fp32 and return ``cfg.dtype``.
 
-The prefill block (``block_apply``) is the plain composition; the fusion
-compiler (``compiler.fused_call``) places K6 (rms form), K11 (RoPE in the
-flash tile) and K12 (swiglu) in it, as the reference's compiler does.
-Where the reference scans over layers, the port runs an eager loop. The
+The training/prefill block (``block_apply``) is the plain composition;
+the fusion compiler (``compiler.fused_call``) places K6 (rms form), K11
+(RoPE in the flash tile) and K12 (swiglu) in it, as the reference's
+compiler does. Where the reference scans over layers, the port runs an
+eager loop. ``llama_loss`` differentiates through the flash backward K3
+(separate mode, behind K11's rotary pullback or K1's separate-input
+forward); GQA's gradients flow through autograd of the kv repeat. The
 decode step does not go through the compiler: its attention is K10 over
-the dense kv-head-major cache. Forward only: ``llama_loss`` and the
-backwards of K11 and the separate-input flash come with LLaMA training.
+the dense kv-head-major cache.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..compiler import fused_call
+from ..compiler import fused_call, remat_call
 from ..core.device import resolve_device
 from ..core.flags import GLOBAL_FLAGS
 from ..core.jax_random import categorical, prng_key, split
@@ -42,7 +44,7 @@ from ..ops.quant import absmax_quantize_int8
 
 __all__ = ["LlamaConfig", "llama_presets", "init_llama_params", "rms_norm",
            "rope_angles", "apply_rope", "quantize_weights_int8",
-           "block_apply", "llama_apply", "LlamaForCausalLM"]
+           "block_apply", "llama_apply", "llama_loss", "LlamaForCausalLM"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,23 +245,45 @@ def _embed_and_angles(params, tokens, cfg: LlamaConfig):
     return x, cos[None, :, None, :], sin[None, :, None, :]
 
 
-def _llama_apply_unfused(params, tokens, cfg: LlamaConfig):
-    """The plain forward to fp32 logits [B, T, V]."""
+def _remat_block(bp, x, cos, sin, cfg: LlamaConfig):
+    return block_apply(bp, x, cfg, cos, sin)
+
+
+def _llama_apply_unfused(params, tokens, cfg: LlamaConfig,
+                         remat: bool = True):
+    """The plain forward to fp32 logits [B, T, V]. With ``remat`` every
+    block runs through ``compiler.remat_call`` with no policy (the
+    reference's ``jax.checkpoint``): recomputed whole in the backward, and
+    planned by the compiler as a nested program."""
     x, cos, sin = _embed_and_angles(params, tokens, cfg)
     for i in range(cfg.n_layers):
-        x = block_apply(_layer(params["blocks"], i), x, cfg, cos, sin)
+        bp = _layer(params["blocks"], i)
+        if remat:
+            x = remat_call(("llama_block", cfg),
+                           functools.partial(_remat_block, cfg=cfg), bp, x,
+                           cos, sin)
+        else:
+            x = block_apply(bp, x, cfg, cos, sin)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     return _mm(x, params["head"], cfg).float()
 
 
-def llama_apply(params, tokens, cfg: LlamaConfig):
+def llama_apply(params, tokens, cfg: LlamaConfig, remat: bool = True):
     """Forward to logits, routed through the fusion compiler (with
-    ``use_auto_fusion=0`` the plain composition runs). The reference's
-    ``remat`` only decides what a backward recomputes; it comes with LLaMA
-    training."""
-    return fused_call(("llama_apply", cfg),
-                      functools.partial(_llama_apply_unfused, cfg=cfg),
+    ``use_auto_fusion=0`` the plain composition runs); ``remat`` decides
+    what a backward recomputes."""
+    return fused_call(("llama_apply", cfg, bool(remat)),
+                      functools.partial(_llama_apply_unfused, cfg=cfg,
+                                        remat=remat),
                       params, tokens)
+
+
+def llama_loss(params, tokens, labels, cfg: LlamaConfig):
+    """Mean next-token cross-entropy of the fp32 logits."""
+    logits = llama_apply(params, tokens, cfg)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (lse - gold).mean()
 
 
 # ---------------------------------------------------------------------------

@@ -5,12 +5,15 @@ Port of paddle_tpu/ops/pallas/flash_attention.py, native layout, two
 entries:
 
 - ``flash_attention_qkv_raw`` on the fused qkv projection (GPT): forward
-  ``_flash_fwd_kernel_native``, backward ``_flash_bwd_fused_kernel_native``
-  (the merged dq + dk/dv kernel that writes one dqkv cotangent);
-- ``flash_attention_raw`` on separate q, k, v [B, S, h, d] (LLaMA's
-  prefill): the same forward kernel given three base pointers and row
-  strides (K1's separate-input mode, ``flash_fwd_sep``). Its backward is
-  the LLaMA-training slice's and raises here.
+  ``_flash_fwd_kernel_native`` (K1), backward the merged
+  ``_flash_bwd_fused_kernel_native`` (K2, one dqkv cotangent) where
+  ``fused_dqkv_ok`` holds and the flag ``flash_attention_fused_dqkv`` is
+  on, else the split ``_flash_bwd_dq_kernel_native`` +
+  ``_flash_bwd_dkv_kernel_native`` (K3), as the reference chooses;
+- ``flash_attention_raw`` on separate q, k, v [B, S, h, d] (LLaMA): the
+  same forward kernel given three base pointers and row strides (K1's
+  separate-input mode, ``flash_fwd_sep``), backward K3 in its
+  separate mode (``flash_bwd_sep``).
 
 - qkv [B, S, 3*h*d]: q, k and v at lane offsets 0, h*d and 2*h*d, head
   j at j*d inside each; read in place, never split into copies.
@@ -18,20 +21,23 @@ entries:
   s = (q k^T) * sm_scale in fp32, causal fill -1e30, p = exp(s - m) with
   l summed over the fp32 p, p cast to the input dtype before p v,
   o = acc / l, lse = m + log(l).
-- backward: dqkv [B, S, 3*h*d]. p = exp(s - lse) (masked 0),
-  dp = do v^T, ds = p (dp - delta) cast to the input dtype,
-  dq = ds k * scale, dk = ds^T q * scale, dv = p^T do with p cast;
-  delta = rowsum(do * o) in fp32 is computed here, outside the kernel.
+- backward: dqkv [B, S, 3*h*d] (or dq, dk, dv [B, S, h, d]).
+  p = exp(s - lse) (masked 0), dp = do v^T, ds = p (dp - delta) cast to
+  the input dtype, dq = ds k * scale, dk = ds^T q * scale, dv = p^T do
+  with p cast; delta = rowsum(do * o) in fp32 is computed here, outside
+  the kernel. K2 and K3 compute the same function, bit for bit.
 
 On a CPU tensor the wrappers run the plain versions; on a CUDA tensor
 they launch ``csrc/flash_attention.cu`` or raise. The differentiable
 entry ``flash_attention_qkv`` is the registered operator pair
-``paddle_tpu_torch::flash_qkv_fwd`` / ``flash_qkv_bwd`` (K2 as the
-forward's registered backward), and ``flash_attention_raw`` the
-registered operator ``paddle_tpu_torch::flash_fwd_sep``, so that the
-fusion compiler's trace records each as one node, with shape-only fake
-implementations (the ``rope_attention`` template finds the separate entry
-by its operator).
+``paddle_tpu_torch::flash_qkv_fwd`` / ``flash_qkv_bwd`` (K2 or K3 as the
+forward's registered backward, chosen when the backward runs; every
+choice is counted in ``BWD_ROUTES`` on any device), and
+``flash_attention_raw`` the registered operator
+``paddle_tpu_torch::flash_fwd_sep`` (o and lse; K3 as its backward), so
+that the fusion compiler's trace records each as one node, with
+shape-only fake implementations (the ``rope_attention`` template finds
+the separate entry by its operator).
 """
 
 from __future__ import annotations
@@ -46,7 +52,8 @@ from . import _build
 __all__ = ["flash_attention_qkv", "flash_qkv_supported", "flash_fwd",
            "flash_bwd", "flash_fwd_plain", "flash_bwd_plain",
            "flash_attention_raw", "flash_supported", "flash_fwd_sep",
-           "flash_sep_plain"]
+           "flash_sep_plain", "flash_bwd_split", "flash_bwd_sep",
+           "flash_bwd_sep_plain", "fused_dqkv_ok", "BWD_ROUTES"]
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -54,6 +61,10 @@ _FLAG_DEFAULTS = (("flash_attention_kernel_bwd", True),
                   ("flash_attention_native_layout", True),
                   ("use_library_flash_attention", False))
 _fns = {}
+# the fused-qkv backward's route, counted on every device: "merged" (K2)
+# or "split" (K3)
+BWD_ROUTES = {"merged": 0, "split": 0}
+_MIN_BLOCK, _MAX_BLOCK = 128, 512
 
 
 def _check_flags() -> None:
@@ -92,6 +103,25 @@ def flash_supported(shape, dtype) -> bool:
             and shape[3] in SUPPORTED_HEAD_DIMS and dtype in _DTYPE_CODE)
 
 
+def _block(s: int) -> int:
+    """The reference's default square block (``_block_sizes``): the
+    largest multiple of 128 dividing ``s``, at most 512 (0 if none)."""
+    b = min(_MAX_BLOCK, s)
+    b -= b % _MIN_BLOCK
+    while b >= _MIN_BLOCK and s % b:
+        b -= _MIN_BLOCK
+    return b
+
+
+def fused_dqkv_ok(s: int, hd: int, itemsize: int) -> bool:
+    """The reference's gate of the merged backward (``_fused_dqkv_ok``):
+    a square block of at least 128 rows, and the four full-sequence
+    slabs one program holds (k, v, q, do at [s, hd], hd = hp * d) within
+    6 MiB. It is a TPU memory cap that K2 does not need; mirroring it
+    keeps the port's choice of K2 or K3 the reference's."""
+    return _block(s) >= _MIN_BLOCK and 4 * s * hd * itemsize <= 6 * 2 ** 20
+
+
 def _split(qkv: torch.Tensor, n_heads: int):
     B, S, H3 = qkv.shape
     H = H3 // 3
@@ -125,17 +155,16 @@ def flash_fwd_plain(qkv, n_heads: int, causal: bool, sm_scale: float):
 
 
 def flash_sep_plain(q, k, v, causal: bool, sm_scale: float):
-    """o [B, S, h, d] of separate q, k, v [B, S, h, d]."""
+    """(o [B, S, h, d], lse [B, h, S] fp32) of separate q, k, v
+    [B, S, h, d]."""
     return _fwd_plain(q.float(), k.float(), v.float(), q.dtype, causal,
-                      sm_scale)[0]
+                      sm_scale)
 
 
-def flash_bwd_plain(qkv, o, lse, do, n_heads: int, causal: bool,
-                    sm_scale: float) -> torch.Tensor:
-    """dqkv [B, S, 3*h*d] in qkv's dtype, from the saved o and lse."""
-    dt = qkv.dtype
-    B, S, H3 = qkv.shape
-    q, k, v = _split(qkv, n_heads)
+def _bwd_plain(q, k, v, o, lse, do, dt, causal: bool, sm_scale: float):
+    """fp32 (dq, dk, dv) [B, S, h, d] from fp32 q, k, v, the saved o and
+    lse, with the kernels' cast points to ``dt``."""
+    S = q.shape[1]
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2)   # [B, h, S]
     do_ = do.to(dt).float()
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) * sm_scale
@@ -147,8 +176,33 @@ def flash_bwd_plain(qkv, o, lse, do, n_heads: int, causal: bool,
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k) * sm_scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q) * sm_scale
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), do_)
-    return torch.cat([t.reshape(B, S, H3 // 3) for t in (dq, dk, dv)],
-                     dim=-1).to(dt)
+    return dq, dk, dv
+
+
+def flash_bwd_plain(qkv, o, lse, do, n_heads: int, causal: bool,
+                    sm_scale: float) -> torch.Tensor:
+    """dqkv [B, S, 3*h*d] in qkv's dtype, from the saved o and lse (the
+    function of K2 and of K3's fused-qkv mode)."""
+    B, S, H3 = qkv.shape
+    grads = _bwd_plain(*_split(qkv, n_heads), o, lse, do, qkv.dtype, causal,
+                       sm_scale)
+    return torch.cat([t.reshape(B, S, H3 // 3) for t in grads],
+                     dim=-1).to(qkv.dtype)
+
+
+def flash_bwd_sep_plain(q, k, v, o, lse, do, causal: bool,
+                        sm_scale: float):
+    """(dq, dk, dv) [B, S, h, d] in q's dtype of separate q, k, v (K3's
+    separate mode)."""
+    grads = _bwd_plain(q.float(), k.float(), v.float(), o, lse, do, q.dtype,
+                       causal, sm_scale)
+    return tuple(t.to(q.dtype) for t in grads)
+
+
+# (pointers, ints) before the common (B, S, h, d, causal, scale, dtype,
+# stream) of each C entry
+_ARGS = {"flash_fwd": (3, 0), "flash_fwd_sep": (5, 0), "flash_bwd": (5, 0),
+         "flash_bwd_dq": (7, 2), "flash_bwd_dkv": (8, 2)}
 
 
 def _kernel(name: str):
@@ -156,8 +210,9 @@ def _kernel(name: str):
     if fn is None:
         fn = getattr(_build.library("flash_attention"), name)
         P, I = ctypes.c_void_p, ctypes.c_int
-        n_ptr = 3 if name == "flash_fwd" else 5
-        fn.argtypes = [P] * n_ptr + [I, I, I, I, I, ctypes.c_float, I, P]
+        n_ptr, n_int = _ARGS[name]
+        fn.argtypes = [P] * n_ptr + [I] * (n_int + 5) + [ctypes.c_float, I,
+                                                         P]
         fn.restype = I
         _fns[name] = fn
     return fn
@@ -203,6 +258,24 @@ def flash_fwd(qkv, n_heads: int, causal: bool, sm_scale: float):
     return o, lse
 
 
+def _bwd_operands(o, lse, do, dtype, shape):
+    """(delta [B, h, S] fp32, do in ``dtype``), both contiguous, after
+    checking o, do [B, S, h, d] and lse [B, h, S] fp32 against
+    ``shape`` = (B, S, h, d)."""
+    B, S, h, d = shape
+    if o.shape != shape or do.shape != shape or \
+            lse.shape != (B, h, S) or lse.dtype != torch.float32:
+        raise ValueError(f"o {tuple(o.shape)} / do {tuple(do.shape)} / lse "
+                         f"{tuple(lse.shape)} {lse.dtype} do not match "
+                         f"[B, S, h, d] = {shape}")
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return delta, do.to(dtype).contiguous()
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def flash_bwd(qkv, o, lse, do, n_heads: int, causal: bool,
               sm_scale: float) -> torch.Tensor:
     """K2: dqkv, deterministic (no atomics). Counts its CUDA launches in
@@ -212,41 +285,97 @@ def flash_bwd(qkv, o, lse, do, n_heads: int, causal: bool,
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
     B, S, h, d = _check_cuda(qkv, n_heads, lse)
-    if o.shape != (B, S, h, d) or do.shape != (B, S, h, d) or \
-            lse.shape != (B, h, S) or lse.dtype != torch.float32:
-        raise ValueError(f"o {tuple(o.shape)} / do {tuple(do.shape)} / lse "
-                         f"{tuple(lse.shape)} {lse.dtype} do not match qkv "
-                         f"{tuple(qkv.shape)}")
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    do_ = do.to(qkv.dtype).contiguous()
+    delta, do_ = _bwd_operands(o, lse, do, qkv.dtype, (B, S, h, d))
     _check_cuda(qkv, n_heads, do_, delta)
     dqkv = torch.empty_like(qkv)
     err = _kernel("flash_bwd")(
         qkv.data_ptr(), do_.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dqkv.data_ptr(), B, S, h, d, int(causal), float(sm_scale),
-        _DTYPE_CODE[qkv.dtype],
-        torch.cuda.current_stream(qkv.device).cuda_stream)
+        _DTYPE_CODE[qkv.dtype], _stream(qkv))
     _build.check(err, "flash_bwd")
     flash_bwd.launches += 1
     return dqkv
 
 
-def flash_fwd_sep(q, k, v, causal: bool, sm_scale: float) -> torch.Tensor:
-    """K1 in its separate-input mode: o of q, k, v [B, S, h, d]. Counts
-    its CUDA launches in ``flash_fwd_sep.launches``."""
+def _launch_split(q, k, v, do_, lse, delta, dq, dk, dv, row_in: int,
+                  row_out: int, shape, causal: bool, sm_scale: float,
+                  dtype) -> int:
+    """K3's two launches, dq then dk/dv; returns the launch count (2)."""
+    B, S, h, d = shape
+    tail = (B, S, h, d, int(causal), float(sm_scale), _DTYPE_CODE[dtype],
+            _stream(do_))
+    err = _kernel("flash_bwd_dq")(q, k, v, do_.data_ptr(), lse.data_ptr(),
+                                  delta.data_ptr(), dq, row_in, row_out,
+                                  *tail)
+    _build.check(err, "flash_bwd_dq")
+    err = _kernel("flash_bwd_dkv")(q, k, v, do_.data_ptr(), lse.data_ptr(),
+                                   delta.data_ptr(), dk, dv, row_in,
+                                   row_out, *tail)
+    _build.check(err, "flash_bwd_dkv")
+    return 2
+
+
+def flash_bwd_split(qkv, o, lse, do, n_heads: int, causal: bool,
+                    sm_scale: float) -> torch.Tensor:
+    """K3 in its fused-qkv mode: dqkv, from the dq and the dk/dv kernels
+    writing into one buffer at lane offsets 0, H and 2H (no
+    concatenate); bit-equal to K2. Counts its CUDA launches (two a call)
+    in ``flash_bwd_split.launches``."""
+    if qkv.device.type == "cpu":
+        return flash_bwd_plain(qkv, o, lse, do, n_heads, causal, sm_scale)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"unsupported device {qkv.device}")
+    B, S, h, d = _check_cuda(qkv, n_heads, lse)
+    delta, do_ = _bwd_operands(o, lse, do, qkv.dtype, (B, S, h, d))
+    _check_cuda(qkv, n_heads, do_, delta)
+    dqkv = torch.empty_like(qkv)
+    H, es = h * d, qkv.element_size()
+    src, dst = qkv.data_ptr(), dqkv.data_ptr()
+    flash_bwd_split.launches += _launch_split(
+        src, src + H * es, src + 2 * H * es, do_, lse, delta, dst,
+        dst + H * es, dst + 2 * H * es, 3 * H, 3 * H, (B, S, h, d), causal,
+        sm_scale, qkv.dtype)
+    return dqkv
+
+
+def flash_bwd_sep(q, k, v, o, lse, do, causal: bool, sm_scale: float):
+    """K3 in its separate mode: (dq, dk, dv) [B, S, h, d] of separate q,
+    k, v. Counts its CUDA launches (two a call) in
+    ``flash_bwd_sep.launches``."""
+    if q.device.type == "cpu":
+        return flash_bwd_sep_plain(q, k, v, o, lse, do, causal, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    shape = _check_sep(q, k, v)
+    delta, do_ = _bwd_operands(o, lse, do, q.dtype, shape)
+    if lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous and on {q.device}")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    H = shape[2] * shape[3]
+    flash_bwd_sep.launches += _launch_split(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do_, lse, delta,
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), H, H, shape, causal,
+        sm_scale, q.dtype)
+    return dq, dk, dv
+
+
+def flash_fwd_sep(q, k, v, causal: bool, sm_scale: float):
+    """K1 in its separate-input mode: (o, lse [B, h, S] fp32) of q, k, v
+    [B, S, h, d]. Counts its CUDA launches in ``flash_fwd_sep.launches``."""
     if q.device.type == "cpu":
         return flash_sep_plain(q, k, v, causal, sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     B, S, h, d = _check_sep(q, k, v)
     o = torch.empty_like(q)
+    lse = torch.empty((B, h, S), dtype=torch.float32, device=q.device)
     err = _kernel("flash_fwd_sep")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None, B, S,
-        h, d, int(causal), float(sm_scale), _DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), B, S, h, d, int(causal),
+        float(sm_scale), _DTYPE_CODE[q.dtype], _stream(q))
     _build.check(err, "flash_fwd_sep")
     flash_fwd_sep.launches += 1
-    return o
+    return o, lse
 
 
 def _check_sep(q, k, v) -> tuple[int, int, int, int]:
@@ -274,12 +403,14 @@ def _check_sep(q, k, v) -> tuple[int, int, int, int]:
 flash_fwd.launches = 0
 flash_bwd.launches = 0
 flash_fwd_sep.launches = 0
+flash_bwd_split.launches = 0
+flash_bwd_sep.launches = 0
 
 
 # The fused-qkv entry is a pair of registered operators, so that the
 # fusion compiler's trace (torch.fx make_fx) records each as one node on
 # any device: the fake implementations give shapes only, the real ones
-# are the wrappers above (plain version on the CPU, K1/K2 on CUDA).
+# are the wrappers above (plain version on the CPU, K1/K2/K3 on CUDA).
 
 @torch.library.custom_op("paddle_tpu_torch::flash_qkv_fwd", mutates_args=())
 def _flash_qkv_fwd_op(qkv: torch.Tensor, n_heads: int, causal: bool,
@@ -301,12 +432,13 @@ def _(qkv, n_heads, causal, sm_scale):
 @torch.library.custom_op("paddle_tpu_torch::flash_qkv_bwd", mutates_args=())
 def _flash_qkv_bwd_op(qkv: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
                       do: torch.Tensor, n_heads: int, causal: bool,
-                      sm_scale: float) -> torch.Tensor:
-    return flash_bwd(qkv, o, lse, do, n_heads, causal, sm_scale)
+                      sm_scale: float, merged: bool) -> torch.Tensor:
+    bwd = flash_bwd if merged else flash_bwd_split
+    return bwd(qkv, o, lse, do, n_heads, causal, sm_scale)
 
 
 @_flash_qkv_bwd_op.register_fake
-def _(qkv, o, lse, do, n_heads, causal, sm_scale):
+def _(qkv, o, lse, do, n_heads, causal, sm_scale, merged):
     return torch.empty_like(qkv)
 
 
@@ -319,8 +451,17 @@ def _flash_qkv_setup(ctx, inputs, output):
 
 
 def _flash_qkv_backward(ctx, do, _dlse):
+    """K2 when the flag is on and the reference's gate holds, else K3:
+    the reference's choice, read when the backward runs."""
     qkv, o, lse = ctx.saved_tensors
-    return _flash_qkv_bwd_op(qkv, o, lse, do, *ctx.args), None, None, None
+    n_heads = ctx.args[0]
+    d = qkv.shape[-1] // (3 * n_heads)
+    hd = max(1, 128 // d) * d              # the reference's hp heads a lane
+    merged = bool(GLOBAL_FLAGS.get("flash_attention_fused_dqkv")) and \
+        fused_dqkv_ok(qkv.shape[1], hd, qkv.element_size())
+    BWD_ROUTES["merged" if merged else "split"] += 1
+    return (_flash_qkv_bwd_op(qkv, o, lse, do, *ctx.args, merged), None,
+            None, None)
 
 
 _flash_qkv_fwd_op.register_autograd(_flash_qkv_backward,
@@ -330,7 +471,7 @@ _flash_qkv_fwd_op.register_autograd(_flash_qkv_backward,
 def flash_attention_qkv(qkv, n_heads: int, causal: bool = True,
                         sm_scale: float | None = None) -> torch.Tensor:
     """Differentiable attention straight from the fused qkv projection:
-    [B, S, 3*h*d] -> [B, S, h, d]; K1 forward, K2 backward."""
+    [B, S, 3*h*d] -> [B, S, h, d]; K1 forward, K2 or K3 backward."""
     if not flash_qkv_supported(qkv.shape, n_heads, qkv.dtype):
         raise ValueError(f"flash_attention_qkv: shape {tuple(qkv.shape)} "
                          f"{qkv.dtype} with {n_heads} heads is not supported")
@@ -342,32 +483,44 @@ def flash_attention_qkv(qkv, n_heads: int, causal: bool = True,
 
 @torch.library.custom_op("paddle_tpu_torch::flash_fwd_sep", mutates_args=())
 def _flash_sep_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool, sm_scale: float) -> torch.Tensor:
-    return flash_fwd_sep(q, k, v, causal, sm_scale).contiguous()
+                  causal: bool, sm_scale: float
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    o, lse = flash_fwd_sep(q, k, v, causal, sm_scale)
+    return o.contiguous(), lse.contiguous()
 
 
 @_flash_sep_op.register_fake
 def _(q, k, v, causal, sm_scale):
-    return torch.empty_like(q)
+    B, S, h, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((B, h, S), dtype=torch.float32))
 
 
-def _flash_sep_backward(ctx, do):
-    raise NotImplementedError("later slice: LLaMA training (the backward "
-                              "of flash_attention_raw)")
+def _flash_sep_setup(ctx, inputs, output):
+    q, k, v, causal, sm_scale = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.args = (causal, sm_scale)
+    ctx.mark_non_differentiable(lse)
 
 
-_flash_sep_op.register_autograd(_flash_sep_backward)
+def _flash_sep_backward(ctx, do, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    return (*flash_bwd_sep(q, k, v, o, lse, do, *ctx.args), None, None)
+
+
+_flash_sep_op.register_autograd(_flash_sep_backward,
+                                setup_context=_flash_sep_setup)
 
 
 def flash_attention_raw(q, k, v, causal: bool = False,
                         sm_scale: float | None = None) -> torch.Tensor:
-    """Attention on separate q, k, v [B, S, h, d] in the native layout:
-    K1's separate-input mode on CUDA, its plain version on the CPU. The
-    forward only: differentiating it raises (LLaMA training is a later
-    slice)."""
+    """Differentiable attention on separate q, k, v [B, S, h, d] in the
+    native layout: K1's separate-input mode forward and K3's separate
+    mode backward on CUDA, their plain versions on the CPU."""
     if not flash_supported(q.shape, q.dtype):
         raise ValueError(f"flash_attention_raw: shape {tuple(q.shape)} "
                          f"{q.dtype} is not supported")
     scale = sm_scale if sm_scale is not None else 1.0 / q.shape[-1] ** 0.5
     return _flash_sep_op(q.contiguous(), k.contiguous(), v.contiguous(),
-                         bool(causal), float(scale))
+                         bool(causal), float(scale))[0]

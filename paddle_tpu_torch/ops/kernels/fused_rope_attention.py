@@ -15,11 +15,14 @@ The kernel rotates with the full-width tables of :func:`rope_tables`,
 rotated tiles are bit for bit the composition's; the plain version is that
 composition: ``apply_rope`` on the chosen sides, then the plain flash.
 
-The forward only: the backward (K2/K3 on the rotated inputs) comes with
-LLaMA training and raises here. The compiler's ``rope_attention``
-template places this function. On a CPU tensor the wrapper runs the plain
-version; on a CUDA tensor it launches ``csrc/fused_rope_attention.cu`` or
-raises.
+The backward is the reference's (``_fused_bwd``): q and k, saved
+unrotated, are rotated again in fp32 and cast back, K3 in its separate
+mode (``flash_bwd_sep``) runs on the rotated operands with the forward's
+saved o and lse, and the rotary pullback ``dx = dy * C - swap(dy) * S``
+carries dq and dk back to the unrotated inputs; cos and sin get no
+gradient. The compiler's ``rope_attention`` template places this
+function. On a CPU tensor the wrappers run the plain versions; on a CUDA
+tensor they launch ``csrc/fused_rope_attention.cu`` (and K3) or raise.
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ import torch
 from ...core.flags import GLOBAL_FLAGS
 from . import _build
 from .flash_attention import (_DTYPE_CODE, _FLAG_DEFAULTS, _check_sep,
-                              flash_sep_plain, flash_supported)
+                              flash_bwd_sep, flash_sep_plain,
+                              flash_supported)
 
 __all__ = ["fused_rope_flash_attention", "fused_rope_supported",
            "rope_tables", "rope_flash_fwd", "rope_flash_plain"]
@@ -69,14 +73,31 @@ def _half_tables(cos, sin, s: int, d: int):
 
 
 def rope_flash_plain(q, k, v, cos, sin, causal: bool, sm_scale: float,
-                     rope_q: bool, rope_k: bool) -> torch.Tensor:
-    """The composition: rotate the chosen sides, then the plain flash."""
+                     rope_q: bool, rope_k: bool):
+    """The composition: rotate the chosen sides, then the plain flash
+    (o, lse)."""
     _, s, _, d = q.shape
     cos, sin = _half_tables(cos, sin, s, d)
     cb, sb = cos[None, :, None, :], sin[None, :, None, :]
     qr = _apply_rope_ref(q, cb, sb) if rope_q else q
     kr = _apply_rope_ref(k, cb, sb) if rope_k else k
     return flash_sep_plain(qr, kr, v, causal, sm_scale)
+
+
+def _rotate(x, cos_f, sin_f):
+    """x * C + swap(x) * S in fp32, cast back: the backward's rotation of
+    the saved unrotated q or k (bit for bit apply_rope's)."""
+    x32 = x.float()
+    x1, x2 = x32.chunk(2, dim=-1)
+    return (x32 * cos_f + torch.cat([x2, x1], dim=-1) * sin_f).to(x.dtype)
+
+
+def _rope_pullback(dy, cos_f, sin_f):
+    """The rotation's VJP (S o swap = -S): dx = dy * C - swap(dy) * S in
+    fp32, cast back to dy's dtype."""
+    dy32 = dy.float()
+    d1, d2 = dy32.chunk(2, dim=-1)
+    return (dy32 * cos_f - torch.cat([d2, d1], dim=-1) * sin_f).to(dy.dtype)
 
 
 def _kernel_fn():
@@ -91,8 +112,9 @@ def _kernel_fn():
 
 
 def rope_flash_fwd(q, k, v, cos, sin, causal: bool, sm_scale: float,
-                   rope_q: bool, rope_k: bool) -> torch.Tensor:
-    """K11: o. Counts its CUDA launches in ``rope_flash_fwd.launches``."""
+                   rope_q: bool, rope_k: bool):
+    """K11: (o, lse [B, h, S] fp32). Counts its CUDA launches in
+    ``rope_flash_fwd.launches``."""
     if q.device.type == "cpu":
         return rope_flash_plain(q, k, v, cos, sin, causal, sm_scale, rope_q,
                                 rope_k)
@@ -108,14 +130,16 @@ def rope_flash_fwd(q, k, v, cos, sin, causal: bool, sm_scale: float,
     if cos_f.device != q.device:
         raise ValueError(f"tables on {cos_f.device}, q on {q.device}")
     o = torch.empty_like(q)
+    lse = torch.empty((B, h, S), dtype=torch.float32, device=q.device)
     err = _kernel_fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), cos_f.data_ptr(),
-        sin_f.data_ptr(), o.data_ptr(), None, B, S, h, d, int(causal),
-        float(sm_scale), int(rope_q), int(rope_k), _DTYPE_CODE[q.dtype],
+        sin_f.data_ptr(), o.data_ptr(), lse.data_ptr(), B, S, h, d,
+        int(causal), float(sm_scale), int(rope_q), int(rope_k),
+        _DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "rope_flash_fwd")
     rope_flash_fwd.launches += 1
-    return o
+    return o, lse
 
 
 rope_flash_fwd.launches = 0
@@ -125,22 +149,47 @@ rope_flash_fwd.launches = 0
 def _rope_flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    cos: torch.Tensor, sin: torch.Tensor, causal: bool,
                    sm_scale: float, rope_q: bool, rope_k: bool
-                   ) -> torch.Tensor:
-    return rope_flash_fwd(q, k, v, cos, sin, causal, sm_scale, rope_q,
-                          rope_k).contiguous()
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    o, lse = rope_flash_fwd(q, k, v, cos, sin, causal, sm_scale, rope_q,
+                            rope_k)
+    return o.contiguous(), lse.contiguous()
 
 
 @_rope_flash_op.register_fake
 def _(q, k, v, cos, sin, causal, sm_scale, rope_q, rope_k):
-    return torch.empty_like(q)
+    B, S, h, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((B, h, S), dtype=torch.float32))
 
 
-def _rope_flash_backward(ctx, do):
-    raise NotImplementedError("later slice: LLaMA training (the backward "
-                              "of fused_rope_flash_attention)")
+def _rope_flash_setup(ctx, inputs, output):
+    q, k, v, cos, sin, causal, sm_scale, rope_q, rope_k = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, cos, sin, o, lse)
+    ctx.args = (causal, sm_scale, rope_q, rope_k)
+    ctx.mark_non_differentiable(lse)
 
 
-_rope_flash_op.register_autograd(_rope_flash_backward)
+def _rope_flash_backward(ctx, do, _dlse):
+    """Rotate the saved q/k again, K3 on the rotated operands, then the
+    rotary pullback on dq/dk (reference ``_fused_bwd``)."""
+    q, k, v, cos, sin, o, lse = ctx.saved_tensors
+    causal, scale, rope_q, rope_k = ctx.args
+    _, S, _, d = q.shape
+    cos_f, sin_f = rope_tables(*_half_tables(cos, sin, S, d), d)
+    cb, sb = cos_f[None, :, None, :], sin_f[None, :, None, :]
+    qr = _rotate(q, cb, sb) if rope_q else q
+    kr = _rotate(k, cb, sb) if rope_k else k
+    dq, dk, dv = flash_bwd_sep(qr, kr, v, o, lse, do, causal, scale)
+    if rope_q:
+        dq = _rope_pullback(dq, cb, sb)
+    if rope_k:
+        dk = _rope_pullback(dk, cb, sb)
+    return dq, dk, dv, None, None, None, None, None, None
+
+
+_rope_flash_op.register_autograd(_rope_flash_backward,
+                                 setup_context=_rope_flash_setup)
 
 
 def fused_rope_flash_attention(q, k, v, cos, sin, causal: bool = True,
@@ -154,4 +203,4 @@ def fused_rope_flash_attention(q, k, v, cos, sin, causal: bool = True,
     scale = sm_scale if sm_scale is not None else 1.0 / q.shape[-1] ** 0.5
     return _rope_flash_op(q.contiguous(), k.contiguous(), v.contiguous(),
                           cos, sin, bool(causal), float(scale), bool(rope_q),
-                          bool(rope_k))
+                          bool(rope_k))[0]

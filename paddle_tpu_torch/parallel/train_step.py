@@ -16,9 +16,15 @@ AdamW keeps the reference's arithmetic: fp32 update math, bias
 corrections in fp32, weight decay on every leaf, moments stored as fp32,
 bf16 or blockwise int8 (sqrt companding, blocks of 2048), and in master
 mode (``param_dtype`` != ``dtype``) the >= 2-D leaves live in the compute
-dtype with fp32 masters in the state. Where the reference donates its
-buffers to the jitted step, the port updates parameters, masters and
-moments in place under ``torch.no_grad()``.
+dtype with fp32 masters in the state. ``weights="sr-bf16"`` keeps no
+master: the >= 2-D leaves live in bf16 and each update is written back by
+stochastic rounding (16 uniform bits added below bf16's mantissa cut of
+the fp32 bits, then truncation), whose noise comes from a
+``torch.Generator`` on the parameters' device, seeded from the step's
+``seed``; the reference's rbg keys give bits its backend defines, so the
+port is held to the reference's statistical checks, not its bits. Where
+the reference donates its buffers to the jitted step, the port updates
+parameters, masters and moments in place under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -96,6 +102,21 @@ def _dequantize_moment(mq, like):
     return flat[:like.numel()].reshape(like.shape)
 
 
+def _stochastic_round(x32, dtype, generator: torch.Generator):
+    """fp32 -> ``dtype``; to bf16 by stochastic rounding: 16 uniform
+    random bits added to the fp32 bits below bf16's mantissa cut, then
+    truncated, so that the rounding is unbiased. The add runs on an int32
+    view, which wraps modulo 2^32 as the reference's uint32 add does.
+    Other dtypes are a plain cast (fp32 1-D leaves pass through)."""
+    if dtype != torch.bfloat16:
+        return x32.to(dtype)
+    r = torch.randint(0, 1 << 16, x32.shape, generator=generator,
+                      device=x32.device, dtype=torch.int32)
+    r += x32.contiguous().view(torch.int32)
+    r &= -(1 << 16)                             # 0xFFFF0000
+    return r.view(torch.float32).to(dtype)
+
+
 def _store_moment(x32, dtype):
     if dtype == "int8":
         return _quantize_moment(x32)
@@ -138,9 +159,16 @@ def _write(dst, src) -> None:
 
 @torch.no_grad()
 def adamw_update(params, grads, state, lr, wd=0.1, b1=0.9, b2=0.95,
-                 eps=1e-8, m_dtype=None, v_dtype=None):
+                 eps=1e-8, m_dtype=None, v_dtype=None,
+                 stochastic_round=False, sr_generator=None):
     """One AdamW step, written in place into ``params`` and ``state``
-    (returned as well). ``grads`` is a tree like ``params``."""
+    (returned as well). ``grads`` is a tree like ``params``. With
+    ``stochastic_round`` a leaf without a master is written back by
+    stochastic rounding, its noise drawn from ``sr_generator`` (one draw
+    per bf16 leaf per step), which must then be given."""
+    if stochastic_round and sr_generator is None:
+        raise ValueError("stochastic_round draws its noise from "
+                         "sr_generator: pass a torch.Generator")
     t = state["t"] + 1
     bc1 = 1.0 - b1 ** t.float()
     bc2 = 1.0 - b2 ** t.float()
@@ -159,7 +187,11 @@ def adamw_update(params, grads, state, lr, wd=0.1, b1=0.9, b2=0.95,
         p32 = p32 - lr * (step + wd * p32)
         if has_master:
             mw.copy_(p32)
-        p.copy_(p32.to(p.dtype))
+            p.copy_(p32.to(p.dtype))
+        elif stochastic_round:
+            p.copy_(_stochastic_round(p32, p.dtype, sr_generator))
+        else:
+            p.copy_(p32.to(p.dtype))
         _write(m, _store_moment(m32, _moment_dtype_for(p, m_dtype)))
         _write(v, _store_moment(v32, _moment_dtype_for(p, v_dtype)))
     state["t"].copy_(t)
@@ -174,12 +206,11 @@ def make_train_step(cfg: GPTConfig, lr: float = 1e-4, seed: int = 0,
     ``step_fn(params, opt_state, tokens, labels) -> (loss, params,
     opt_state)``; ``step_fn.put_batch`` puts a host batch on the device.
     Weights are drawn on the device from ``torch.Generator`` seeded with
-    ``seed``. ``weights='auto'`` keeps fp32 masters in the state when
-    ``cfg.param_dtype`` differs from ``cfg.dtype``."""
-    if weights == "sr-bf16":
-        raise NotImplementedError("later slice: weights='sr-bf16' (its "
-                                  "stochastic rounding noise)")
-    if weights != "auto":
+    ``seed``. When ``cfg.param_dtype`` differs from ``cfg.dtype``, the
+    >= 2-D leaves live in ``cfg.dtype`` and ``weights='auto'`` keeps fp32
+    masters of them in the state, ``weights='sr-bf16'`` none (stochastic
+    rounding, its noise from a generator seeded with ``seed``)."""
+    if weights not in ("auto", "sr-bf16"):
         raise ValueError(f"weights mode {weights!r}: expected 'auto' or "
                          "'sr-bf16'")
     if mesh is not None or n_microbatches > 1:
@@ -194,14 +225,17 @@ def make_train_step(cfg: GPTConfig, lr: float = 1e-4, seed: int = 0,
         raise ValueError("v_dtype='int8' is unsafe (zeroed second moments "
                          "explode the update); use 'bfloat16'")
     dev = resolve_device(device)
-    master = cfg.param_dtype != cfg.dtype
+    low_precision = cfg.param_dtype != cfg.dtype
+    sr = weights == "sr-bf16" and low_precision
+    master = low_precision and not sr
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
                          dev)
     opt_state = adamw_init(params, master_weights=master, m_dtype=m_dtype,
                            v_dtype=v_dtype)
-    if master:
+    if low_precision:
         params = _tree_map(
             lambda a: a.to(cfg.dtype) if a.dim() >= 2 else a, params)
+    sr_gen = torch.Generator(device=dev).manual_seed(seed) if sr else None
 
     def put_batch(arr):
         return torch.as_tensor(arr).to(dev)
@@ -217,7 +251,8 @@ def make_train_step(cfg: GPTConfig, lr: float = 1e-4, seed: int = 0,
         it = iter(grads)
         grads = _tree_map(lambda _: next(it), params)
         adamw_update(params, grads, opt_state, lr, m_dtype=m_dtype,
-                     v_dtype=v_dtype)
+                     v_dtype=v_dtype, stochastic_round=sr,
+                     sr_generator=sr_gen)
         return loss.detach(), params, opt_state
 
     step_fn.put_batch = put_batch

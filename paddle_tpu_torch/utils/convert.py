@@ -20,7 +20,9 @@ def _leaf(a, device, dtype) -> torch.Tensor:
         t = torch.from_numpy(a.view(np.uint16).astype(np.int16).copy()).view(
             torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(a).copy())
+        # np.array keeps a 0-d leaf (the AdamW step) 0-d, where
+        # np.ascontiguousarray would make it [1]
+        t = torch.from_numpy(np.array(a, order="C"))
         if name not in _NP_TO_TORCH:
             raise TypeError(f"unsupported leaf dtype {name}")
     if dtype is not None and t.is_floating_point():
@@ -41,7 +43,8 @@ def params_from_jax(tree, device, dtype=None):
 
 
 def opt_state_from_jax(state, device):
-    """Carry an AdamW state of the reference (numpy leaves) into the port:
-    ``m``, ``v`` (int8 moments as ``{"qm", "qs"}`` dicts), the step
-    ``t`` and, in master mode, the fp32 ``master`` tree."""
+    """Carry an AdamW state of the reference (numpy leaves) into the port
+    with its tree, dtypes and shapes: ``m``, ``v`` (int8 moments as
+    ``{"qm", "qs"}`` dicts), the 0-d step ``t`` and, in master mode, the
+    fp32 ``master`` tree (absent with ``weights="sr-bf16"``)."""
     return {k: params_from_jax(v, device) for k, v in state.items()}

@@ -92,8 +92,26 @@ def test_training_entry_points_do_not_fall_back():
                     seq_len=128)
     with pytest.raises(RuntimeError, match="device=.cpu."):
         make_train_step(cfg)
+    with pytest.raises(RuntimeError, match="device=.cpu."):
+        make_train_step(cfg, weights="sr-bf16")
     step, params, _ = make_train_step(cfg, device="cpu")
     assert params["wte"].device.type == "cpu"
+
+
+def test_split_flash_backward_does_not_fall_back():
+    """K3's wrappers take their plain versions for CPU tensors only: any
+    other device launches the kernel (CUDA) or raises."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    B, S, h, d = 1, 128, 2, 64
+    meta = dict(device="meta")
+    qkv = torch.empty((B, S, 3 * h * d), **meta)
+    o, do = (torch.empty((B, S, h, d), **meta) for _ in range(2))
+    lse = torch.empty((B, h, S), **meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_bwd_split(qkv, o, lse, do, h, True, 0.125)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_bwd_sep(o, o, o, o, lse, do, True, 0.125)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

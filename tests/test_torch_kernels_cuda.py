@@ -17,8 +17,10 @@ and p, ds or dl rounded against another running max). The cross-entropy
 logits have std 3,
 so the softmax is far from flat, and dhead is also held on the vocab
 columns that are no token's label, where dl is the softmax part alone.
-The int8 kernels (K8q, K10q) must equal their fp kernels (K8, K10) bit
-for bit on inputs dequantized beforehand, and their plain versions within
+The split flash backward (K3) must equal the merged one (K2) bit for bit
+on the fused qkv, and its separate mode the fused mode on the same
+values; the int8 kernels (K8q, K10q) must equal their fp kernels (K8,
+K10) bit for bit on inputs dequantized beforehand, and their plain versions within
 the fp kernels' tolerances; K13's fp32 output is held by row within 1e-5
 (exact widenings of its inputs, fp32 sums in another order), its slot-0
 rows exactly 0."""
@@ -308,13 +310,13 @@ def test_rope_flash_kernel_matches_plain(cuda, dtype, tol, h, d, rope_k):
     q, k, v, cos, sin = _rope_inputs(cuda, dtype, 2, 192, h, d)
     before = fra.rope_flash_fwd.launches
     got = fra.rope_flash_fwd(q, k, v, cos, sin, True, d ** -0.5, True,
-                             rope_k)
+                             rope_k)[0]
     ref = fra.rope_flash_plain(q, k, v, cos, sin, True, d ** -0.5, True,
-                               rope_k)
+                               rope_k)[0]
     cb, sb = cos[None, :, None, :], sin[None, :, None, :]
     kr = fra._apply_rope_ref(k, cb, sb) if rope_k else k
     k1 = fa.flash_fwd_sep(fra._apply_rope_ref(q, cb, sb), kr, v, True,
-                          d ** -0.5)
+                          d ** -0.5)[0]
     torch.cuda.synchronize()
     assert fra.rope_flash_fwd.launches == before + 1
     assert torch.equal(got, k1)
@@ -333,8 +335,8 @@ def test_flash_sep_kernel_matches_plain(cuda, dtype, tol, h, d, causal):
 
     q, k, v, _, _ = _rope_inputs(cuda, dtype, 2, 192, h, d, seed=9)
     before = fa.flash_fwd_sep.launches
-    got = fa.flash_fwd_sep(q, k, v, causal, d ** -0.5)
-    ref = fa.flash_sep_plain(q, k, v, causal, d ** -0.5)
+    got = fa.flash_fwd_sep(q, k, v, causal, d ** -0.5)[0]
+    ref = fa.flash_sep_plain(q, k, v, causal, d ** -0.5)[0]
     qkv = torch.cat([t.reshape(2, 192, h * d) for t in (q, k, v)], dim=-1)
     fused, _ = fa.flash_fwd(qkv, h, causal, d ** -0.5)
     torch.cuda.synchronize()
@@ -526,3 +528,47 @@ def test_serving_engine_runs_the_int8_and_lora_kernels(cuda):
     assert (ragged_paged_attention.launches - before[0],
             ragged_paged_attention_int8.launches - before[1],
             lora_matmul.launches - before[2]) == (0, 2 * n, 4 * n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3 * 2 ** -7)])
+@pytest.mark.parametrize("h,d,causal", [(4, 64, True), (2, 128, True),
+                                        (2, 128, False), (1, 256, True)])
+def test_split_flash_backward_matches_k2_and_plain(cuda, dtype, tol, h, d,
+                                                   causal):
+    """K3: in its fused-qkv mode bit-equal to K2; in its separate mode
+    within the tolerance of its plain version and equal to the fused mode
+    on the same q, k, v packed into one qkv."""
+    q, k, v, _, _ = _rope_inputs(cuda, dtype, 2, 192, h, d, seed=11)
+    do = torch.randn(q.shape, device=cuda).to(dtype)
+    qkv = torch.cat([t.reshape(2, 192, h * d) for t in (q, k, v)], dim=-1)
+    scale = d ** -0.5
+    o, lse = fa.flash_fwd(qkv, h, causal, scale)
+    before = (fa.flash_bwd.launches, fa.flash_bwd_split.launches,
+              fa.flash_bwd_sep.launches)
+    k2 = fa.flash_bwd(qkv, o, lse, do, h, causal, scale)
+    k3 = fa.flash_bwd_split(qkv, o, lse, do, h, causal, scale)
+    sep = fa.flash_bwd_sep(q, k, v, o, lse, do, causal, scale)
+    ref = fa.flash_bwd_sep_plain(q, k, v, o, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd.launches, fa.flash_bwd_split.launches,
+            fa.flash_bwd_sep.launches) == (before[0] + 1, before[1] + 2,
+                                           before[2] + 2)
+    assert torch.equal(k3, k2)
+    assert torch.equal(k3, torch.cat([t.reshape(2, 192, h * d)
+                                      for t in sep], dim=-1))
+    for got, want in zip(sep, ref):
+        assert _scaled(got, want) <= tol
+
+
+@pytest.mark.cuda
+def test_stochastic_round_unbiased_on_the_card(cuda):
+    from paddle_tpu_torch.parallel.train_step import _stochastic_round
+
+    x = torch.full((1 << 20,), 1.0 + 1.5e-3, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    out = _stochastic_round(x, torch.bfloat16, gen).float()
+    assert sorted(torch.unique(out).tolist()) == [1.0, 1.0078125]
+    assert abs(out.mean().item() - (1.0 + 1.5e-3)) < 5e-4
+    assert torch.equal(_stochastic_round(x, torch.float32, gen), x)

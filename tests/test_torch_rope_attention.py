@@ -80,9 +80,21 @@ def test_gate_follows_the_flash_flags():
 
 
 def test_backward_is_a_later_slice():
+    """The backward has come (K3 behind the rotary pullback): it runs and
+    equals autograd through the plain composition (apply_rope, then the
+    plain flash); tests/test_torch_llama_train.py holds it to jax.grad."""
     q, k, v, cos, sin = (torch.from_numpy(a) for a in
                          _operands(1, 1, 128, 1, 128))
-    q.requires_grad_(True)
-    o = tr.fused_rope_flash_attention(q, k, v, cos, sin)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        o.sum().backward()
+    grads = []
+    for fn in (tr.fused_rope_flash_attention, _composition):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = fn(*leaves, cos, sin)
+        grads.append(torch.autograd.grad((o * o).sum(), leaves))
+    for got, want in zip(*grads):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def _composition(q, k, v, cos, sin):
+    return tr.rope_flash_plain(q, k, v, cos, sin, True, q.shape[-1] ** -0.5,
+                               True, True)[0]

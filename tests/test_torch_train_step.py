@@ -15,7 +15,8 @@ equal to its fused path) and, where the JAX compiler runs (it needs
   per master leaf, sum |torch - JAX| at most 5% of sum |JAX's update|
   (measured at most 2.3%): a master left in place or moved the wrong way
   is off by 100% or more.
-- the paths of later slices raise.
+- the paths of later slices raise (``weights="sr-bf16"``, which has
+  come, in tests/test_torch_sr_bf16.py).
 """
 
 import dataclasses
@@ -162,8 +163,10 @@ def _check_trajectory(bf16, monkeypatch):
 
 def test_later_slices_raise():
     tc = tg.GPTConfig(**SMALL, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tts.make_train_step(tc, weights="sr-bf16", device="cpu")
+    # weights="sr-bf16" has come (tests/test_torch_sr_bf16.py); a mode of
+    # no slice is refused
+    with pytest.raises(ValueError):
+        tts.make_train_step(tc, weights="sr-fp8", device="cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
         tts.make_train_step(tc, n_microbatches=2, device="cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
