@@ -35,7 +35,12 @@ Phases, each failing loudly (any failure exits nonzero):
    at S 2048 against its plain version; in its separate mode at
    llama1b's training shape (B 2, S 2048, h 16, d 128) against its
    plain version and bit-equal to the fused mode on the same values;
-   small fp32 cases at head dims 64, 128 and 256, causal and not.
+   small fp32 cases at head dims 64, 128 and 256, causal and not. The
+   head-major flash (K17, forward and split backward on [B, h, S, d]):
+   bit-equal to K1-sep and K3-sep on the same values and held against
+   its plain version at gpt3-350m's attention (B 16, S 1024, h 16, d 64,
+   bf16; timed beside SDPA on the same head-major operands), at h 5
+   (odd heads, d 64) and in small fp32 cases.
 6. ``train``: ``make_train_step(gpt3-350m)`` at full width (24 layers,
    B 16, S 1024, bf16 moments, fp32 masters) on random weights drawn on
    the card, with the fusion compiler on (its default), 3 warm-up steps
@@ -45,7 +50,10 @@ Phases, each failing loudly (any failure exits nonzero):
    and K7 24 times, and the fusion report must list 49 applied
    ``layer_epilogue`` and 24 applied ``bias_gelu`` sites and no error.
    The same step then runs with ``use_auto_fusion`` off, and its step
-   time and peak memory are printed beside the fused step's.
+   time and peak memory are printed beside the fused step's; and a third
+   time, fusion on, under ``FLAGS_flash_attention_native_layout=0``: K17
+   forward 24 and dq + dk/dv 48 launches a step, no K1/K2, its first
+   loss (same weights and batch) within rtol 1e-3 of the native step's.
 7. ``train_cpu``: a small fp32 GPT trained 3 steps on the card and on the
    CPU from identical weights, fusion on for both; losses within rtol
    1e-4 and parameters within atol 1e-4 (TF32 off), every training kernel
@@ -115,6 +123,22 @@ Phases, each failing loudly (any failure exits nonzero):
    int8 decode entry (K10q). Streams are held by ``_serving_streams_agree``:
    equal, except from a token the reference engine's own logits hold
    within 1e-4 of the other pick.
+13. ``paged_kernels``: the incubate paged decode's kernels against their
+   plain versions: K15 (d-major k pages, GQA native; p rounded to bf16 as
+   the kernel does) at llama2-7b's width (32 heads of 128, page 128, 16
+   blocks) and llama3-8b's GQA (8 kv heads, 4 q heads each), K14
+   (token-major pages) and K16 (bit-equal to K14), with ragged lengths
+   (1, mid-page, a full table, 0) on a shuffled table, bf16 and fp32;
+   kernel, plain, SDPA on pre-gathered pages and the bound (the valid
+   tokens' k and v, q and o) at the paged phase's last step.
+14. ``paged``: ``block_multihead_attention`` at llama2-7b's attention
+   width: 32 PagedKVCaches (bf16, page 128, 2048 tokens, B 8), a
+   1024-token prefill (K1-sep 32 times) and 64 decode steps on d-major
+   pages (K15 32 times a step), then on token-major pages (K14 32 times
+   a step); layer 0 of every 16th step and every layer of the last held
+   against the plain version; K16 on the token-major caches, bit-equal to
+   K14; a GQA pass at llama3-8b's width through paged_decode_attention
+   (K15); a small fp32 cache on the card against the CPU.
 
 Prints the card's name and power limit, one JSON line ``{"kernels": ...}``
 and, last, ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -135,7 +159,8 @@ import torch
 
 PHASES = ("kernels", "engine", "int8", "cpu", "train_kernels", "train",
           "train_cpu", "train_13b", "llama_train", "decode_kernels",
-          "decode", "decode_cpu", "serving_kernels", "serving")
+          "decode", "decode_cpu", "serving_kernels", "serving",
+          "paged_kernels", "paged")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12         # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12          # fp32 outside the tensor cores (K6, K7)
@@ -908,6 +933,117 @@ def check_flash_split(dev) -> tuple[dict, dict]:
     return rec_f, rec_s
 
 
+def _hm(*ts):
+    """[B, S, h, d] -> contiguous head-major [B, h, S, d]."""
+    return [t.transpose(1, 2).contiguous() for t in ts]
+
+
+def _k17_equal_to_sep(fa, tag, q, k, v, do, causal, scale) -> tuple:
+    """K17 on head-major copies of separate q, k, v against K1-sep and
+    K3-sep on the originals: the same bodies with head strides, so
+    bit-equal (torch.equal). Returns K17's (o, lse, dq, dk, dv)."""
+    q_, k_, v_, do_ = _hm(q, k, v, do)
+    o, lse = fa.flash_fwd_hm(q_, k_, v_, causal, scale)
+    grads = fa.flash_bwd_hm(q_, k_, v_, o, lse, do_, causal, scale)
+    o_sep, lse_sep = fa.flash_fwd_sep(q, k, v, causal, scale)
+    sep = fa.flash_bwd_sep(q, k, v, o_sep, lse_sep, do, causal, scale)
+    torch.cuda.synchronize()
+    if not (torch.equal(o.transpose(1, 2), o_sep)
+            and torch.equal(lse, lse_sep)):
+        raise AssertionError(f"{tag}: K17 forward != K1-sep")
+    for name, a, b in zip("qkv", grads, sep):
+        if not torch.equal(a.transpose(1, 2), b):
+            raise AssertionError(f"{tag}: K17 d{name} != K3-sep")
+    return (o, lse, *grads)
+
+
+def check_flash_head_major(dev) -> tuple[dict, dict]:
+    """K17, the head-major flash forward and split backward ([B, h, S, d],
+    FLAGS_flash_attention_native_layout=0 and odd head counts at d 64):
+    bit-equal to K1-sep and K3-sep on the same values and within the
+    tolerance of its plain version, in small fp32 cases (head dims 64
+    with 5 heads, 128, 256; causal and not), at gpt3-350m's attention (B
+    16, S 1024, h 16, d 64, bf16; timed) and at h 5, d 64."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def case(B, S, h, d, dt):
+        return [torch.randn((B, S, h, d), generator=gen, device=dev).to(dt)
+                for _ in range(4)]
+
+    for h, d in ((5, 64), (2, 128), (1, 256)):
+        for causal in (True, False):
+            q, k, v, do = case(2, 256, h, d, torch.float32)
+            tag = f"K17 fp32 h{h} d{d} causal={causal}"
+            o, lse, *grads = _k17_equal_to_sep(fa, tag, q, k, v, do, causal,
+                                               d ** -0.5)
+            q_, k_, v_, do_ = _hm(q, k, v, do)
+            ro, rlse = fa.flash_fwd_hm_plain(q_, k_, v_, causal, d ** -0.5)
+            _hold(tag + " o", o, ro, FP32_TOL)
+            _hold(tag + " lse", lse, rlse, FP32_TOL)
+            ref = fa.flash_bwd_hm_plain(q_, k_, v_, o, lse, do_, causal,
+                                        d ** -0.5)
+            for name, a, b in zip("qkv", grads, ref):
+                _hold(f"{tag} d{name}", a, b, FP32_TOL)
+    bf = torch.bfloat16
+    err_f = err_b = 0.0
+    for B, S, h, d in ((16, 1024, 5, 64), (16, 1024, 16, 64)):
+        scale = d ** -0.5
+        q, k, v, do = case(B, S, h, d, bf)
+        tag = f"K17 bf16 B{B} S{S} h{h} d{d}"
+        o, lse, *grads = _k17_equal_to_sep(fa, tag, q, k, v, do, True, scale)
+        q_, k_, v_, do_ = _hm(q, k, v, do)
+        ro, _ = fa.flash_fwd_hm_plain(q_, k_, v_, True, scale)
+        err_f = max(err_f, _hold(tag + " o", o, ro, BF16_TOL))
+        del ro
+        ref = fa.flash_bwd_hm_plain(q_, k_, v_, o, lse, do_, True, scale)
+        for name, a, b in zip("qkv", grads, ref):
+            err_b = max(err_b, _hold(f"{tag} d{name}", a, b, BF16_TOL))
+        del ref, grads
+        torch.cuda.empty_cache()
+    # timed at gpt3-350m's attention, the flagged step's shape
+    fwd_ms = _time_ms(lambda: fa.flash_fwd_hm(q_, k_, v_, True, scale))
+    bwd_ms = _time_ms(lambda: fa.flash_bwd_hm(q_, k_, v_, o, lse, do_, True,
+                                              scale))
+    fwd_plain = _time_ms(lambda: fa.flash_fwd_hm_plain(q_, k_, v_, True,
+                                                       scale),
+                         iters=3, warmup=1)
+    bwd_plain = _time_ms(lambda: fa.flash_bwd_hm_plain(
+        q_, k_, v_, o, lse, do_, True, scale), iters=3, warmup=1)
+    # library yardstick: SDPA on the same head-major q, k, v
+    qh, kh, vh = (t.clone().requires_grad_(True) for t in (q_, k_, v_))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd = _time_ms(lambda: sdpa(qh, kh, vh, is_causal=True))
+    out = sdpa(qh, kh, vh, is_causal=True)
+    lib_bwd = _time_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), do_,
+                                                   retain_graph=True))
+    del out, qh, kh, vh
+    torch.cuda.empty_cache()
+    pairs = B * h * S * (S + 1) / 2          # causal (query, key) pairs
+    in_b, st_b = q.numel() * 2, B * h * S * 4
+    f_bound = _bound(3 * in_b + in_b + st_b, 4.0 * d * pairs)
+    # q, k, v, do and lse, delta read, dq, dk, dv written (K2's count)
+    b_bound = _bound(7 * in_b + 2 * st_b, 10.0 * d * pairs)
+    print(f"K17 fwd B{B} S{S} h{h} d{d}: kernel {fwd_ms:.4f} ms, plain "
+          f"{fwd_plain:.4f} ms, sdpa {lib_fwd:.4f} ms, bound "
+          f"{f_bound[0]:.4f} ms ({f_bound[1]})")
+    print(f"K17 bwd B{B} S{S} h{h} d{d}: kernel {bwd_ms:.4f} ms (dq + "
+          f"dk/dv), plain {bwd_plain:.4f} ms, sdpa bwd {lib_bwd:.4f} ms, "
+          f"bound {b_bound[0]:.4f} ms ({b_bound[1]})")
+    src = "paddle_tpu_torch/csrc/flash_attention.cu"
+    ref_py = "paddle_tpu/ops/pallas/flash_attention.py"
+    shape = f"B{B} S{S} h{h} d{d} causal, head-major, bf16"
+    return ({"name": "flash_fwd_hm", "route": "cuda", "source": src,
+             "replaces": ref_py + ":490", "max_abs_err": err_f,
+             "ms": fwd_ms, "plain_ms": fwd_plain, "bound_ms": f_bound[0],
+             "bound_by": f_bound[1], "library_ms": lib_fwd, "shape": shape},
+            {"name": "flash_bwd_hm", "route": "cuda", "source": src,
+             "replaces": ref_py + ":545,585", "max_abs_err": err_b,
+             "ms": bwd_ms, "plain_ms": bwd_plain, "bound_ms": b_bound[0],
+             "bound_by": b_bound[1], "library_ms": lib_bwd, "shape": shape})
+
+
 def check_ce(dev) -> tuple[dict, dict]:
     """K4 and K5 at the gpt3-350m loss shape (bf16, N 16384, H 1024,
     V 50304) and at a small case with ragged token and vocab tiles, fp32
@@ -1219,17 +1355,22 @@ def _template_counts(report) -> dict:
     return counts
 
 
-def run_train(dev, profile: bool = False, fused: bool = True):
+def run_train(dev, profile: bool = False, fused: bool = True,
+              native: bool = True):
     """gpt3-350m at full width, the reference bench's flagship step:
     B 16, S 1024, bf16 moments, fp32 masters; best of 3 windows of 4
     steps after 3 warm-up steps. ``fused`` sets ``use_auto_fusion`` (the
-    default, True, is the main path). Returns (launches of the timed
-    windows, {step_ms, tok_s, mfu, peak_gib})."""
+    default, True, is the main path); ``native`` False sets
+    ``flash_attention_native_layout`` off: the attention takes the
+    head-major K17 (forward L, dq and dk/dv 2L launches a step) in place
+    of K1/K2. Returns (launches of the timed windows, {step_ms, tok_s,
+    mfu, peak_gib, loss0})."""
     import dataclasses
 
     from paddle_tpu_torch import compiler
     from paddle_tpu_torch.core.flags import GLOBAL_FLAGS
     from paddle_tpu_torch.models.gpt import gpt_flops_per_token, gpt_presets
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import fused_ce as ce
     from paddle_tpu_torch.parallel.train_step import make_train_step
 
@@ -1238,6 +1379,7 @@ def run_train(dev, profile: bool = False, fused: bool = True):
     batch, warmup, windows, win = 16, 3, 3, 4
     was = GLOBAL_FLAGS.get("use_auto_fusion")
     GLOBAL_FLAGS.set("use_auto_fusion", fused)
+    GLOBAL_FLAGS.set("flash_attention_native_layout", native)
     try:
         torch.cuda.reset_peak_memory_stats()
         step, params, opt = make_train_step(cfg, lr=1e-4, seed=0,
@@ -1259,7 +1401,9 @@ def run_train(dev, profile: bool = False, fused: bool = True):
             _profile_train(step, params, opt, toks, labs,
                            "fusion on" if fused else "fusion off")
             return {}, {}
-        counters = _train_counters()
+        # the head-major kernels (K17) count too: 0 in the native layout
+        counters = {**_train_counters(), "flash_fwd_hm": fa.flash_fwd_hm,
+                    "flash_bwd_hm": fa.flash_bwd_hm}
         for fn in counters.values():
             fn.launches = 0
         best = float("inf")
@@ -1273,11 +1417,15 @@ def run_train(dev, profile: bool = False, fused: bool = True):
         report = compiler.last_report() if fused else None
     finally:
         GLOBAL_FLAGS.set("use_auto_fusion", was)
+        GLOBAL_FLAGS.set("flash_attention_native_layout", True)
     launches = {k: fn.launches for k, fn in counters.items()}
     steps = windows * win
     L = cfg.n_layers
     slabs = -(-cfg.vocab_size // ce.SLAB)
-    want = {"flash_fwd": L * steps, "flash_bwd": L * steps,
+    flash = L * steps if native else 0
+    want = {"flash_fwd": flash, "flash_bwd": flash,
+            "flash_fwd_hm": L * steps - flash,
+            "flash_bwd_hm": 2 * (L * steps - flash),
             "fused_ce_fwd": 2 * steps, "fused_ce_bwd": 3 * slabs * steps,
             "fused_norm_epilogue": (2 * L + 1) * steps if fused else 0,
             "fused_bias_act": L * steps if fused else 0}
@@ -1301,7 +1449,8 @@ def run_train(dev, profile: bool = False, fused: bool = True):
     tok_s = batch * cfg.seq_len / step_s
     mfu = gpt_flops_per_token(cfg) * tok_s / BF16_FLOP_PER_S
     peak = torch.cuda.max_memory_allocated() / 2**30
-    tag = "fusion on" if fused else "fusion off"
+    tag = ("fusion on" if fused else "fusion off") + \
+        ("" if native else ", head-major layout")
     print(f"train gpt3-350m B{batch} S{cfg.seq_len} ({tag}): step "
           f"{step_s * 1e3:.2f} ms, {tok_s:.1f} tokens/s, MFU {mfu:.4f} "
           f"(bf16 peak {BF16_FLOP_PER_S:.0e}), first step (trace "
@@ -1313,7 +1462,7 @@ def run_train(dev, profile: bool = False, fused: bool = True):
               f"{report.n_applied}/{report.n_sites} sites applied: "
               + ", ".join(f"{c} {t}" for (t, _), c in counts.items()))
     return launches, {"step_ms": step_s * 1e3, "tok_s": tok_s, "mfu": mfu,
-                      "peak_gib": peak}
+                      "peak_gib": peak, "loss0": losses[0]}
 
 
 def _train_cpu_case(dev, tag: str, **cfg_kw) -> dict:
@@ -2900,6 +3049,344 @@ def check_serving_cpu(dev) -> None:
               f"{st['spec_accepted_tokens']}, card launches {ln}")
 
 
+# llama2-7b's attention width (models/llama.py presets): 32 heads of 128,
+# 32 layers; the paged cache at bf16, page 128, 2048 tokens a sequence
+PAGED = dict(L=32, B=8, nh=32, d=128, bs=128, max_seq=2048, prompt=1024,
+             steps=64)
+
+
+def _paged_counters():
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    return {"paged_decode_attention_mxu": da.paged_decode_attention_mxu,
+            "paged_decode_attention_kernel": da.paged_decode_attention_kernel,
+            "paged_decode_attention_dma": da.paged_decode_attention_dma,
+            "flash_fwd_sep": fa.flash_fwd_sep}
+
+
+def _paged_case(gen, dev, dt, B, nkv, G, d, bs, mb, lens, d_major):
+    """q, pages (d-major k with ``d_major``), a shuffled table and
+    ``lens`` (clipped to the table) on ``dev``."""
+    P = B * mb + 5
+    q = torch.randn((B, nkv * G, d), generator=gen, device=dev).to(dt)
+    k = torch.randn((P, nkv, d, bs) if d_major else (P, nkv, bs, d),
+                    generator=gen, device=dev).to(dt)
+    v = torch.randn((P, nkv, bs, d), generator=gen, device=dev).to(dt)
+    perm = torch.randperm(P, generator=gen, device=dev)[:B * mb]
+    table = perm.reshape(B, mb).to(torch.int32)
+    lens = torch.tensor([min(n, mb * bs) for n in lens], dtype=torch.int32,
+                        device=dev)
+    return q, k, v, table, lens
+
+
+def _paged_timing(fn, plain, q, k, v, table, lens, d_major):
+    """(kernel ms, plain ms, SDPA ms on pre-gathered pages, bound): the
+    bound counts each valid token's k and v, q and o."""
+    B, nq, d = q.shape
+    nkv, bs = v.shape[1], v.shape[2]
+    mb = table.shape[1]
+    scale = d ** -0.5
+    args = (q, k, v, table, lens, scale)
+    ms = _time_ms(lambda: fn(*args))
+    plain_ms = _time_ms(lambda: plain(*args), iters=5, warmup=1)
+    t = table.long()
+    kg = k[t].transpose(3, 4) if d_major else k[t]   # [B, mb, nkv, bs, d]
+    kg, vg = (x.transpose(1, 2).reshape(B, nkv, mb * bs, d)
+              .repeat_interleave(nq // nkv, dim=1).contiguous()
+              for x in (kg, v[t]))
+    mask = (torch.arange(mb * bs, device=q.device)[None, :]
+            < lens[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh = q[:, :, None, :]
+    lib_ms = _time_ms(lambda: sdpa(qh, kg, vg, attn_mask=mask, scale=scale))
+    es = q.element_size()
+    n_tok = int(lens.sum().item())
+    nbytes = 2 * n_tok * nkv * d * es + 2 * q.numel() * es
+    return ms, plain_ms, lib_ms, _bound(nbytes, 4.0 * n_tok * nq * d)
+
+
+def check_paged(dev) -> tuple[dict, dict, dict]:
+    """K15, K14 and K16 against their plain versions: ragged lengths (1,
+    mid-page, a full table, 0) on a shuffled table, bf16 and fp32, at
+    llama2-7b's width (32 heads of 128, page 128, 16 blocks; K15 also at
+    llama3-8b's GQA, 8 kv heads of 4 q heads; K14/K16 at 8 heads in fp32,
+    where the reference's gate refuses 32); K16 bit-equal to K14.
+    Timed at the paged phase's last decode step (B 8, 1088 tokens a
+    sequence, bf16)."""
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    lens = [1, 700, 2048, 0, 129, 1088]
+    worst = {k: 0.0 for k in ("mxu", "tok")}
+    for dt in (torch.bfloat16, torch.float32):
+        tol = BF16_TOL if dt == torch.bfloat16 else FP32_TOL
+        for nkv, G in ((32, 1), (8, 4)):
+            q, kt, v, table, sl = _paged_case(gen, dev, dt, len(lens), nkv,
+                                              G, 128, 128, 16, lens, True)
+            got = da.paged_decode_attention_mxu(q, kt, v, table, sl,
+                                                128 ** -0.5)
+            ref = da.paged_decode_mxu_plain(q, kt, v, table, sl,
+                                            128 ** -0.5)
+            worst["mxu"] = max(worst["mxu"], _hold(
+                f"K15 {dt} nkv{nkv} G{G} lens {lens}", got, ref, tol))
+        # in fp32 the reference's 12 MiB gate takes 8 heads, not 32
+        nh = 32 if dt == torch.bfloat16 else 8
+        q, k, v, table, sl = _paged_case(gen, dev, dt, len(lens), nh, 1, 128,
+                                         128, 16, lens, False)
+        k14 = da.paged_decode_attention_kernel(q, k, v, table, sl,
+                                               128 ** -0.5)
+        k16 = da.paged_decode_attention_dma(q, k, v, table, sl, 128 ** -0.5)
+        ref = da.paged_decode_plain(q, k, v, table, sl, 128 ** -0.5)
+        torch.cuda.synchronize()
+        if not torch.equal(k14, k16):
+            raise AssertionError(f"K16 != K14 ({dt})")
+        worst["tok"] = max(worst["tok"], _hold(
+            f"K14 (== K16) {dt} nh{nh} lens {lens}", k14, ref, tol))
+    B, nh, d, bs = PAGED["B"], PAGED["nh"], PAGED["d"], PAGED["bs"]
+    mb = PAGED["max_seq"] // bs
+    n = PAGED["prompt"] + PAGED["steps"]
+    recs = []
+    src = "paddle_tpu_torch/csrc/paged_decode_attention.cu"
+    ref_py = "paddle_tpu/ops/pallas/decode_attention.py"
+    for name, line, fn, plain, d_major, err in (
+            ("paged_decode_attention_mxu", 327, da.paged_decode_attention_mxu,
+             da.paged_decode_mxu_plain, True, worst["mxu"]),
+            ("paged_decode_attention_kernel", 156,
+             da.paged_decode_attention_kernel, da.paged_decode_plain, False,
+             worst["tok"]),
+            ("paged_decode_attention_dma", 198,
+             da.paged_decode_attention_dma, da.paged_decode_plain, False,
+             worst["tok"])):
+        inputs = _paged_case(gen, dev, torch.bfloat16, B, nh, 1, d, bs, mb,
+                             [n] * B, d_major)
+        ms, plain_ms, lib_ms, bound = _paged_timing(fn, plain, *inputs,
+                                                    d_major)
+        shape = f"B{B} nh{nh} d{d} bs{bs} mb{mb} {n} tokens, bf16"
+        print(f"{name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, sdpa on pre-gathered pages {lib_ms:.4f} ms, bound "
+              f"{bound[0]:.4f} ms ({bound[1]})")
+        recs.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": f"{ref_py}:{line}", "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                     "bound_by": bound[1], "library_ms": lib_ms,
+                     "shape": shape})
+        del inputs
+    inputs = _paged_case(gen, dev, torch.bfloat16, B, 8, 4, d, bs, mb,
+                         [n] * B, True)
+    ms, plain_ms, lib_ms, bound = _paged_timing(
+        da.paged_decode_attention_mxu, da.paged_decode_mxu_plain, *inputs,
+        True)
+    print(f"K15 GQA (llama3-8b: nkv 8, G 4) B{B} {n} tokens bf16: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa on pre-gathered "
+          f"repeated pages {lib_ms:.4f} ms, bound {bound[0]:.4f} ms "
+          f"({bound[1]})")
+    torch.cuda.empty_cache()
+    return tuple(recs)
+
+
+def _paged_layout_pass(dev, layout: str, gen) -> tuple[dict, list, list]:
+    """block_multihead_attention over PAGED["L"] layers with ``layout``
+    pages: one prefill, then PAGED["steps"] decode steps. Layer 0 of
+    every 16th step and every layer of the last step are held against
+    the plain version of the kernel the route took. Returns (launches of
+    the decode loop, the caches, the last step's q per layer)."""
+    from paddle_tpu_torch.incubate.nn.functional import fused_transformer \
+        as ft
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    L, B, nh, d, bs = (PAGED[k] for k in ("L", "B", "nh", "d", "bs"))
+    S, steps = PAGED["prompt"], PAGED["steps"]
+    bf = torch.bfloat16
+    route, kernel, plain = (("mxu", "paged_decode_attention_mxu",
+                             da.paged_decode_mxu_plain)
+                            if layout == "d_major" else
+                            ("kernel", "paged_decode_attention_kernel",
+                             da.paged_decode_plain))
+    mb = PAGED["max_seq"] // bs
+    caches = [ft.PagedKVCache(B * mb, nh, bs, d, B, PAGED["max_seq"],
+                              dtype=bf, k_layout=layout, device=dev)
+              for _ in range(L)]
+
+    def prefill():
+        """Each layer's prompt qkv drawn, then its call timed alone;
+        returns (layer 0's qkv and output, the calls' seconds)."""
+        first, secs = None, 0.0
+        for c in caches:
+            qkv = torch.randn((B, S, 3, nh, d), generator=gen,
+                              device=dev).to(bf)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o = ft.block_multihead_attention(qkv, c)
+            torch.cuda.synchronize()
+            secs += time.perf_counter() - t0
+            first = first or (qkv, o)
+        return first, secs
+
+    before = ft.ROUTES["flash"]
+    ((qkv0, o0), secs), ln = _counted(prefill, _paged_counters)
+    prefill_ms = secs * 1e3
+    if ln["flash_fwd_sep"] != L or ft.ROUTES["flash"] - before != L:
+        raise AssertionError(f"paged {layout} prefill: K1-sep launched "
+                             f"{ln['flash_fwd_sep']} times, want {L}")
+    # layer 0's prefill attention against the plain flash (pages written)
+    ref = fa.flash_sep_plain(qkv0[:, :, 0], qkv0[:, :, 1], qkv0[:, :, 2],
+                             True, d ** -0.5)[0]
+    _hold(f"paged {layout} prefill layer 0 (K1-sep)", o0, ref, BF16_TOL)
+    del qkv0, o0, ref
+    torch.cuda.empty_cache()
+    scale = d ** -0.5
+    step_s, worst = [], 0.0
+    counters = _paged_counters()
+    for c in counters.values():
+        c.launches = 0
+    before = ft.ROUTES[route]
+    for step in range(steps):
+        qkvs = [torch.randn((B, 1, 3, nh, d), generator=gen,
+                            device=dev).to(bf) for _ in range(L)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [ft.block_multihead_attention(qkv, c)
+                for qkv, c in zip(qkvs, caches)]
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        held = range(L) if step == steps - 1 else \
+            (range(1) if step % 16 == 0 else ())
+        for i in held:             # the plain versions launch nothing
+            c = caches[i]
+            ref = plain(qkvs[i][:, 0, 0], c.k_pages, c.v_pages,
+                        c.block_table, c.seq_lens, scale)
+            err = _scaled_err(outs[i][:, 0], ref)[1]
+            if not err <= BF16_TOL:
+                raise AssertionError(f"paged {layout} step {step} layer {i}"
+                                     f": scaled error {err} > {BF16_TOL}")
+            worst = max(worst, err)
+    last_q = [qkv[:, 0, 0].contiguous() for qkv in qkvs]
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    want = L * steps
+    if launches[kernel] != want or ft.ROUTES[route] - before != want:
+        raise AssertionError(f"paged {layout}: {kernel} launched "
+                             f"{launches[kernel]} times (route {route} "
+                             f"{ft.ROUTES[route] - before}), want {want}")
+    print(f"paged llama2-7b {layout}: prefill {prefill_ms:.2f} ms (B{B} S{S}"
+          f", {L} layers, K1-sep {ln['flash_fwd_sep']}), decode "
+          f"{1e3 * sum(step_s) / steps:.3f} ms a step (best "
+          f"{1e3 * min(step_s):.3f}, {L} layers), {kernel} {launches[kernel]}"
+          f" launches over {steps} steps; layer 0 every 16th step and all "
+          f"{L} layers of the last step held to the plain version: worst "
+          f"scaled error {worst:.3e} (tol {BF16_TOL:.3e})")
+    return launches, caches, last_q
+
+
+def _paged_cpu_case(dev) -> None:
+    """A small fp32 paged cache on the card and on the CPU from the same
+    inputs, both layouts: prefill (K1-sep), 3 decode steps (K15 or K14)
+    and K16 on the token-major pages, held within FP32_TOL."""
+    from paddle_tpu_torch.incubate.nn.functional import fused_transformer \
+        as ft
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+
+    gen = torch.Generator().manual_seed(23)
+    B, nh, d, bs, S = 2, 8, 128, 128, 128
+    for layout in ("d_major", "token_major"):
+        caches = [ft.PagedKVCache(B * 3, nh, bs, d, B, 3 * bs,
+                                  dtype=torch.float32, k_layout=layout,
+                                  device=x) for x in (dev, "cpu")]
+        for T in (S, 1, 1, 1):
+            qkv = torch.randn((B, T, 3, nh, d), generator=gen)
+            got, want = (ft.block_multihead_attention(qkv.to(c.v_pages.device),
+                                                      c) for c in caches)
+            _hold(f"paged fp32 card vs CPU {layout} T{T}", got.cpu(), want,
+                  FP32_TOL)
+        if layout == "token_major":
+            q = torch.randn((B, nh, d), generator=gen)
+            c, cc = caches
+            got = da.paged_decode_attention_dma(
+                q.to(dev), c.k_pages, c.v_pages, c.block_table, c.seq_lens,
+                d ** -0.5)
+            want = da.paged_decode_attention_dma(
+                q, cc.k_pages, cc.v_pages, cc.block_table, cc.seq_lens,
+                d ** -0.5)
+            _hold("paged fp32 card vs CPU K16", got.cpu(), want, FP32_TOL)
+
+
+def run_paged(dev) -> dict:
+    """The incubate paged decode at llama2-7b's attention width: 32
+    PagedKVCaches (one a layer; bf16, page 128, 2048 tokens, B 8), a
+    1024-token prefill through block_multihead_attention (K1-sep 32
+    times) and 64 decode steps with d-major pages (K15 32 times a step),
+    then the same with token-major pages (K14 32 times a step); K16 on the
+    token-major caches (bit-equal to K14); one GQA pass at llama3-8b's
+    width (32 q heads, 8 kv heads) through paged_decode_attention (K15's
+    native GQA); a small fp32 case, card against CPU. Returns the
+    launches of K15 and K14 (decode loops) and K16 (its pass)."""
+    from paddle_tpu_torch.incubate.nn.functional import fused_transformer \
+        as ft
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    ln, caches, _ = _paged_layout_pass(dev, "d_major", gen)
+    launches = {"paged_decode_attention_mxu":
+                ln["paged_decode_attention_mxu"]}
+    del caches
+    torch.cuda.empty_cache()
+    ln, caches, last_q = _paged_layout_pass(dev, "token_major", gen)
+    launches["paged_decode_attention_kernel"] = \
+        ln["paged_decode_attention_kernel"]
+    print(f"paged: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          " GiB (32 layers x 128 pages x 2 x 1 MiB a layout)")
+    scale = PAGED["d"] ** -0.5
+
+    def dma_pass():
+        return [da.paged_decode_attention_dma(q, c.k_pages, c.v_pages,
+                                              c.block_table, c.seq_lens,
+                                              scale)
+                for q, c in zip(last_q, caches)]
+
+    k16, ln = _counted(dma_pass, _paged_counters)
+    launches["paged_decode_attention_dma"] = ln["paged_decode_attention_dma"]
+    for i, (q, c) in enumerate(zip(last_q, caches)):
+        k14 = da.paged_decode_attention_kernel(q, c.k_pages, c.v_pages,
+                                               c.block_table, c.seq_lens,
+                                               scale)
+        if not torch.equal(k14, k16[i]):
+            raise AssertionError(f"paged: K16 != K14 at layer {i}")
+    if launches["paged_decode_attention_dma"] != PAGED["L"]:
+        raise AssertionError(f"paged: K16 launched {ln}")
+    print(f"paged: K16 on the {PAGED['L']} token-major caches, bit-equal to "
+          f"K14 ({launches['paged_decode_attention_dma']} launches)")
+    del caches, last_q, k16
+    torch.cuda.empty_cache()
+    # GQA at llama3-8b's width: 8 kv heads, 32 q heads, d-major pages
+    B, bs, d, nkv, nq = PAGED["B"], PAGED["bs"], PAGED["d"], 8, 32
+    mb = PAGED["max_seq"] // bs
+    c = ft.PagedKVCache(B * mb, nkv, bs, d, B, PAGED["max_seq"],
+                        dtype=torch.bfloat16, device=dev)
+    k, v = (torch.randn((B, PAGED["prompt"], nkv, d), generator=gen,
+                        device=dev).to(torch.bfloat16) for _ in range(2))
+    c.write_prefill(k, v)
+    k, v = (torch.randn((B, 1, nkv, d), generator=gen,
+                        device=dev).to(torch.bfloat16) for _ in range(2))
+    c.write_decode(k, v)
+    q = torch.randn((B, 1, nq, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    before = ft.ROUTES["mxu"]
+    got = ft.paged_decode_attention(q, c.k_pages, c.v_pages, c.block_table,
+                                    c.seq_lens, k_layout="d_major")
+    if ft.ROUTES["mxu"] != before + 1:
+        raise AssertionError("paged GQA: K15 did not take the call")
+    ref = da.paged_decode_mxu_plain(q[:, 0], c.k_pages, c.v_pages,
+                                    c.block_table, c.seq_lens, scale)
+    _hold("paged GQA llama3-8b (K15, nkv 8, G 4)", got[:, 0], ref, BF16_TOL)
+    del c, k, v
+    torch.cuda.empty_cache()
+    _paged_cpu_case(dev)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2979,6 +3466,9 @@ def main(argv=None) -> int:
         kernels["flash_bwd_split"], kernels["flash_bwd_sep"] = \
             check_flash_split(dev)
         torch.cuda.empty_cache()
+        kernels["flash_fwd_hm"], kernels["flash_bwd_hm"] = \
+            check_flash_head_major(dev)
+        torch.cuda.empty_cache()
         kernels["fused_ce_fwd"], kernels["fused_ce_bwd"] = check_ce(dev)
         torch.cuda.empty_cache()
         kernels["fused_norm_epilogue"] = check_norm_epilogue(dev)
@@ -2994,6 +3484,17 @@ def main(argv=None) -> int:
         print("train fusion on vs off: step "
               f"{on['step_ms']:.2f} vs {off['step_ms']:.2f} ms, peak mem "
               f"{on['peak_gib']:.2f} vs {off['peak_gib']:.2f} GiB")
+        ln, hm = run_train(dev, native=False)
+        torch.cuda.empty_cache()
+        for name in ("flash_fwd_hm", "flash_bwd_hm"):
+            launches[name] = ln[name]
+        if not abs(hm["loss0"] - on["loss0"]) <= 1e-3 * abs(on["loss0"]):
+            raise AssertionError(f"train head-major: first loss "
+                                 f"{hm['loss0']} vs native {on['loss0']}")
+        print("train native vs head-major layout (K1/K2 vs K17): step "
+              f"{on['step_ms']:.2f} vs {hm['step_ms']:.2f} ms, peak mem "
+              f"{on['peak_gib']:.2f} vs {hm['peak_gib']:.2f} GiB, first "
+              f"loss {on['loss0']:.6f} vs {hm['loss0']:.6f}")
         done("train")
     if "train_profile" in phases:
         for fused in (True, False):
@@ -3033,6 +3534,14 @@ def main(argv=None) -> int:
     if "serving" in phases:
         launches.update(run_serving(dev))
         done("serving")
+    if "paged_kernels" in phases:
+        (kernels["paged_decode_attention_mxu"],
+         kernels["paged_decode_attention_kernel"],
+         kernels["paged_decode_attention_dma"]) = check_paged(dev)
+        done("paged_kernels")
+    if "paged" in phases:
+        launches.update(run_paged(dev))
+        done("paged")
     if set(phases) != set(PHASES):
         print(f"phases {phases} only: no result line")
         return 0

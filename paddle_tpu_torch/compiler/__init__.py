@@ -204,7 +204,7 @@ def _saved_ops(policy: str) -> frozenset:
 
     ops = torch.ops.paddle_tpu_torch
     flash = {ops.flash_qkv_fwd.default, ops.flash_fwd_sep.default,
-             ops.rope_flash_fwd.default}
+             ops.flash_fwd_hm.default, ops.rope_flash_fwd.default}
     if policy == "save_flash":
         return frozenset(flash)
     if policy == "save_dots_and_flash":

@@ -85,11 +85,14 @@ GLOBAL_FLAGS.define("use_auto_fusion", True)
 GLOBAL_FLAGS.define("use_fused_norm_epilogue", True)
 GLOBAL_FLAGS.define("use_fused_rope_attention", True)
 GLOBAL_FLAGS.define("use_fused_bias_act", True)
-# training paths of later slices (the XLA-expression flash backward, the
-# head-major kernels, a library kernel): moving one off its default is
-# refused by ops/kernels/flash_attention.py
-GLOBAL_FLAGS.define("flash_attention_kernel_bwd", True)
+# flash attention's layout: False sends flash_attention_raw to the
+# head-major kernels (K17) and turns the fused-qkv and rope entries off,
+# as the reference's
 GLOBAL_FLAGS.define("flash_attention_native_layout", True)
+# training paths of later slices (the XLA-expression flash backward, a
+# library kernel): moving one off its default is refused by
+# ops/kernels/flash_attention.py
+GLOBAL_FLAGS.define("flash_attention_kernel_bwd", True)
 GLOBAL_FLAGS.define("use_library_flash_attention", False)
 # the fused-qkv flash backward: True takes the merged kernel (K2) where the
 # reference's gate holds, False the split dq + dk/dv kernels (K3) always;

@@ -1,11 +1,14 @@
 // Causal flash attention for Hopper (sm_90a): the forward (K1), the merged
-// backward (K2) and the split backward (K3).
+// backward (K2), the split backward (K3) and the head-major forward and
+// split backward (K17).
 //
 // Replaces the Pallas TPU kernels
 //   paddle_tpu/ops/pallas/flash_attention.py::_flash_fwd_kernel_native
 //   paddle_tpu/ops/pallas/flash_attention.py::_flash_bwd_fused_kernel_native
 //   paddle_tpu/ops/pallas/flash_attention.py::_flash_bwd_dq_kernel_native
 //   paddle_tpu/ops/pallas/flash_attention.py::_flash_bwd_dkv_kernel_native
+//   paddle_tpu/ops/pallas/flash_attention.py::_flash_fwd_kernel,
+//     _flash_bwd_dq_kernel, _flash_bwd_dkv_kernel (head-major, K17)
 // The forward (flash_fwd.cuh) has two entries: flash_fwd on the fused qkv
 // projection [B, S, 3*h*d] (q, k and v at lane offsets 0, H and 2H, H = h*d,
 // head j at j*d, read in place; the entry flash_attention_qkv_raw), and
@@ -21,6 +24,14 @@
 // cast to the input dtype, dq = ds k * scale, dk = ds^T q * scale,
 // dv = cast(p)^T do. delta = rowsum(do * o) is computed by the caller in
 // fp32.
+//
+// K17 is the head-major layout the TPU reaches under
+// FLAGS_flash_attention_native_layout=0 or where its lane fusion fails (d 64
+// with an odd head count): q, k, v, do, o, dq, dk and dv [B, h, S, d]. The
+// TPU runs other kernel bodies there (head blocks of a [b, h, s, d] grid);
+// here the layout is only strides (row d, head S*d), so flash_fwd_hm,
+// flash_bwd_hm_dq and flash_bwd_hm_dkv run K1's and K3's bodies and give
+// their bits on the same values.
 //
 // Design. The TPU grid walks q blocks in order with the hp-heads lane
 // fusion and an 8-row lse packing, both artefacts of its (8, 128) tiling.
@@ -53,9 +64,10 @@
 
 namespace {
 
-// Backward operands of one launch. q, k, v (row stride row_in) and dq, dk,
-// dv (row stride row_out) each hold h heads of d values per sequence row,
-// head j at lane j*d; a batch is S rows. dout is [B, S, h, d].
+// Backward operands of one launch. q, k, v (strides *_in), dout (strides
+// *_do) and dq, dk, dv (strides *_out) each hold h heads of d values per
+// sequence row, placed by their row, head and batch strides (flash_fwd.cuh:
+// fused qkv, separate [B, S, h, d], or head-major [B, h, S, d]).
 struct BwdArgs {
   const void* q;
   const void* k;
@@ -66,7 +78,9 @@ struct BwdArgs {
   void* dq;
   void* dk;
   void* dv;
-  long long row_in, row_out;
+  long long row_in, head_in, batch_in;
+  long long row_do, head_do, batch_do;
+  long long row_out, head_out, batch_out;
   int S, h, causal;
   float scale;
 };
@@ -92,12 +106,14 @@ bwd_fma_kernel(const BwdArgs a) {
   const int i0 = blockIdx.x * kRows, hh = blockIdx.y, b = blockIdx.z;
   const int S = a.S, h = a.h, causal = a.causal;
   const float scale = a.scale;
-  const int H = h * D;
-  const size_t ri = a.row_in, ro = a.row_out;
-  const T* qb = static_cast<const T*>(a.q) + (size_t)b * S * ri + hh * D;
-  const T* kb = static_cast<const T*>(a.k) + (size_t)b * S * ri + hh * D;
-  const T* vb = static_cast<const T*>(a.v) + (size_t)b * S * ri + hh * D;
-  const T* dob = static_cast<const T*>(a.dout) + (size_t)b * S * H + hh * D;
+  const size_t ri = a.row_in, ro = a.row_out, rd = a.row_do;
+  const size_t in0 = b * a.batch_in + hh * a.head_in;
+  const size_t out0 = b * a.batch_out + hh * a.head_out;
+  const T* qb = static_cast<const T*>(a.q) + in0;
+  const T* kb = static_cast<const T*>(a.k) + in0;
+  const T* vb = static_cast<const T*>(a.v) + in0;
+  const T* dob = static_cast<const T*>(a.dout) + b * a.batch_do +
+                 hh * a.head_do;
   const float* lse_b = a.lse + ((size_t)b * h + hh) * S;
   const float* dlt_b = a.delta + ((size_t)b * h + hh) * S;
   const int tid = threadIdx.x;
@@ -105,9 +121,9 @@ bwd_fma_kernel(const BwdArgs a) {
 
   if (PART != kDkv) {
     // ---- dq for query rows i0.. over key tiles ----
-    T* dqb = static_cast<T*>(a.dq) + (size_t)b * S * ro + hh * D;
+    T* dqb = static_cast<T*>(a.dq) + out0;
     stage_rows<T, D, P>(a1, qb, ri, i0, kRows, tid, kFmaThreads);
-    stage_rows<T, D, P>(a2, dob, H, i0, kRows, tid, kFmaThreads);
+    stage_rows<T, D, P>(a2, dob, rd, i0, kRows, tid, kFmaThreads);
     for (int r = tid; r < kRows; r += kFmaThreads) {
       lse_s[r] = lse_b[i0 + r];
       dlt_s[r] = dlt_b[i0 + r];
@@ -157,8 +173,8 @@ bwd_fma_kernel(const BwdArgs a) {
 
   if (PART != kDq) {
     // ---- dk, dv for keys i0.. over query tiles ----
-    T* dkb = static_cast<T*>(a.dk) + (size_t)b * S * ro + hh * D;
-    T* dvb = static_cast<T*>(a.dv) + (size_t)b * S * ro + hh * D;
+    T* dkb = static_cast<T*>(a.dk) + out0;
+    T* dvb = static_cast<T*>(a.dv) + out0;
     stage_rows<T, D, P>(a1, kb, ri, i0, kRows, tid, kFmaThreads);
     stage_rows<T, D, P>(a2, vb, ri, i0, kRows, tid, kFmaThreads);
 #pragma unroll
@@ -167,7 +183,7 @@ bwd_fma_kernel(const BwdArgs a) {
     for (int qt = causal ? i0 / kFmaTile : 0; qt < S / kFmaTile; ++qt) {
       const int q0 = qt * kFmaTile;
       stage_rows<T, D, P>(t1, qb, ri, q0, kFmaTile, tid, kFmaThreads);
-      stage_rows<T, D, P>(t2, dob, H, q0, kFmaTile, tid, kFmaThreads);
+      stage_rows<T, D, P>(t2, dob, rd, q0, kFmaTile, tid, kFmaThreads);
       for (int c = tid; c < kFmaTile; c += kFmaThreads) {
         lse_s[c] = lse_b[q0 + c];
         dlt_s[c] = dlt_b[q0 + c];
@@ -242,16 +258,14 @@ bwd_tc_kernel(const BwdArgs a) {
   const int i0 = blockIdx.x * kRows, hh = blockIdx.y, b = blockIdx.z;
   const int S = a.S, h = a.h, causal = a.causal;
   const float scale = a.scale;
-  const int H = h * D;
-  const size_t ri = a.row_in, ro = a.row_out;
-  const uint16_t* qb =
-      static_cast<const uint16_t*>(a.q) + (size_t)b * S * ri + hh * D;
-  const uint16_t* kb =
-      static_cast<const uint16_t*>(a.k) + (size_t)b * S * ri + hh * D;
-  const uint16_t* vb =
-      static_cast<const uint16_t*>(a.v) + (size_t)b * S * ri + hh * D;
-  const uint16_t* dob =
-      static_cast<const uint16_t*>(a.dout) + (size_t)b * S * H + hh * D;
+  const size_t ri = a.row_in, ro = a.row_out, rd = a.row_do;
+  const size_t in0 = b * a.batch_in + hh * a.head_in;
+  const size_t out0 = b * a.batch_out + hh * a.head_out;
+  const uint16_t* qb = static_cast<const uint16_t*>(a.q) + in0;
+  const uint16_t* kb = static_cast<const uint16_t*>(a.k) + in0;
+  const uint16_t* vb = static_cast<const uint16_t*>(a.v) + in0;
+  const uint16_t* dob = static_cast<const uint16_t*>(a.dout) +
+                        b * a.batch_do + hh * a.head_do;
   const float* lse_b = a.lse + ((size_t)b * h + hh) * S;
   const float* dlt_b = a.delta + ((size_t)b * h + hh) * S;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -262,10 +276,10 @@ bwd_tc_kernel(const BwdArgs a) {
 
   if (PART != kDkv) {
     // ---- dq for query rows r_lo / r_hi over key tiles ----
-    uint16_t* dqb = static_cast<uint16_t*>(a.dq) + (size_t)b * S * ro + hh * D;
+    uint16_t* dqb = static_cast<uint16_t*>(a.dq) + out0;
     const int n_k = causal ? (i0 + kRows) / KT : S / KT;
     stage_tc<D, P>(a1, qb, ri, i0, kRows, tid);
-    stage_tc<D, P>(a2, dob, H, i0, kRows, tid);
+    stage_tc<D, P>(a2, dob, rd, i0, kRows, tid);
     stage_tc<D, P>(ring, kb, ri, 0, KT, tid);
     stage_tc<D, P>(ring + KT * P, vb, ri, 0, KT, tid);
     cp_commit();
@@ -315,13 +329,13 @@ bwd_tc_kernel(const BwdArgs a) {
 
   if (PART != kDq) {
     // ---- dk, dv for keys r_lo / r_hi over query tiles ----
-    uint16_t* dkb = static_cast<uint16_t*>(a.dk) + (size_t)b * S * ro + hh * D;
-    uint16_t* dvb = static_cast<uint16_t*>(a.dv) + (size_t)b * S * ro + hh * D;
+    uint16_t* dkb = static_cast<uint16_t*>(a.dk) + out0;
+    uint16_t* dvb = static_cast<uint16_t*>(a.dv) + out0;
     const int q_first = causal ? i0 / KT : 0;
     auto stage_q = [&](int buf, int q0) {
       uint16_t* dst = ring + buf * kStage;
       stage_tc<D, P>(dst, qb, ri, q0, KT, tid);
-      stage_tc<D, P>(dst + KT * P, dob, H, q0, KT, tid);
+      stage_tc<D, P>(dst + KT * P, dob, rd, q0, KT, tid);
       float* st = stats + buf * 2 * KT;
       for (int c = tid; c < KT / 4; c += kTcThreads) {
         cp_async16(st + c * 4, lse_b + q0 + c * 4);
@@ -418,6 +432,35 @@ int bwd_launch(const BwdArgs& a, int B, int d, int dtype, cudaStream_t st) {
 
 }  // namespace
 
+namespace {
+
+// Native-layout backward operands: q, k, v with row stride row_in and dq,
+// dk, dv with row stride row_out (heads at lane j*d, batches of S rows);
+// dout [B, S, h, d].
+BwdArgs native_bwd(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dq, void* dk, void* dv, long long row_in,
+                   long long row_out, int S, int h, int d, int causal,
+                   float scale) {
+  const long long H = (long long)h * d;
+  return BwdArgs{q, k, v, dout, lse, delta, dq, dk, dv,
+                 row_in, d, row_in * S, H, d, H * S,
+                 row_out, d, row_out * S, S, h, causal, scale};
+}
+
+// Head-major backward operands (K17): q, k, v, dout, dq, dk, dv all
+// [B, h, S, d].
+BwdArgs head_major_bwd(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* delta,
+                       void* dq, void* dk, void* dv, int S, int h, int d,
+                       int causal, float scale) {
+  const long long hs = (long long)S * d, bs = hs * h;
+  return BwdArgs{q, k, v, dout, lse, delta, dq, dk, dv,
+                 d, hs, bs, d, hs, bs, d, hs, bs, S, h, causal, scale};
+}
+
+}  // namespace
+
 // dtype: 0 = float32, 1 = bfloat16; S % 64 == 0, d in {64, 128, 256}.
 // Return cudaGetLastError() after the launch (cudaErrorInvalidValue for a
 // geometry the kernels do not take).
@@ -427,8 +470,8 @@ extern "C" int flash_fwd(const void* qkv, void* out, float* lse, int B, int S,
   const long long H = (long long)h * d, es = dtype == 1 ? 2 : 4;
   const char* base = static_cast<const char*>(qkv);
   FwdArgs a{base, base + H * es, base + 2 * H * es, 3 * H, 3 * H, 3 * H,
-            3 * H * S, 3 * H * S, 3 * H * S, out, lse, nullptr, nullptr,
-            S, h, causal, scale};
+            d, d, d, 3 * H * S, 3 * H * S, 3 * H * S, out, H, d, H * S, lse,
+            nullptr, nullptr, S, h, causal, scale};
   return flash_fwd_launch<false, false>(a, B, d, dtype,
                                         static_cast<cudaStream_t>(stream));
 }
@@ -440,8 +483,21 @@ extern "C" int flash_fwd_sep(const void* q, const void* k, const void* v,
                              int d, int causal, float scale, int dtype,
                              void* stream) {
   const long long H = (long long)h * d;
-  FwdArgs a{q, k, v, H, H, H, H * S, H * S, H * S, out, lse, nullptr,
-            nullptr, S, h, causal, scale};
+  FwdArgs a{q, k, v, H, H, H, d, d, d, H * S, H * S, H * S, out, H, d, H * S,
+            lse, nullptr, nullptr, S, h, causal, scale};
+  return flash_fwd_launch<false, false>(a, B, d, dtype,
+                                        static_cast<cudaStream_t>(stream));
+}
+
+// K17 forward: head-major q, k, v and o, each [B, h, S, d]; lse [B, h, S]
+// or null.
+extern "C" int flash_fwd_hm(const void* q, const void* k, const void* v,
+                            void* out, float* lse, int B, int S, int h, int d,
+                            int causal, float scale, int dtype,
+                            void* stream) {
+  const long long hs = (long long)S * d, bs = hs * h;
+  FwdArgs a{q, k, v, d, d, d, hs, hs, hs, bs, bs, bs, out, d, hs, bs, lse,
+            nullptr, nullptr, S, h, causal, scale};
   return flash_fwd_launch<false, false>(a, B, d, dtype,
                                         static_cast<cudaStream_t>(stream));
 }
@@ -454,9 +510,9 @@ extern "C" int flash_bwd(const void* qkv, const void* dout, const float* lse,
   const long long H = (long long)h * d, es = dtype == 1 ? 2 : 4;
   const char* in = static_cast<const char*>(qkv);
   char* out = static_cast<char*>(dqkv);
-  BwdArgs a{in, in + H * es, in + 2 * H * es, dout, lse, delta, out,
-            out + H * es, out + 2 * H * es, 3 * H, 3 * H, S, h, causal,
-            scale};
+  const BwdArgs a = native_bwd(in, in + H * es, in + 2 * H * es, dout, lse,
+                               delta, out, out + H * es, out + 2 * H * es,
+                               3 * H, 3 * H, S, h, d, causal, scale);
   return bwd_launch<kBoth>(a, B, d, dtype, static_cast<cudaStream_t>(stream));
 }
 
@@ -467,8 +523,9 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             int row_out, int B, int S, int h, int d,
                             int causal, float scale, int dtype,
                             void* stream) {
-  BwdArgs a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, row_in,
-            row_out, S, h, causal, scale};
+  const BwdArgs a = native_bwd(q, k, v, dout, lse, delta, dq, nullptr,
+                               nullptr, row_in, row_out, S, h, d, causal,
+                               scale);
   return bwd_launch<kDq>(a, B, d, dtype, static_cast<cudaStream_t>(stream));
 }
 
@@ -480,7 +537,29 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              int row_in, int row_out, int B, int S, int h,
                              int d, int causal, float scale, int dtype,
                              void* stream) {
-  BwdArgs a{q, k, v, dout, lse, delta, nullptr, dk, dv, row_in, row_out, S,
-            h, causal, scale};
+  const BwdArgs a = native_bwd(q, k, v, dout, lse, delta, nullptr, dk, dv,
+                               row_in, row_out, S, h, d, causal, scale);
+  return bwd_launch<kDkv>(a, B, d, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// K17, dq: head-major q, k, v, dout and dq, each [B, h, S, d].
+extern "C" int flash_bwd_hm_dq(const void* q, const void* k, const void* v,
+                               const void* dout, const float* lse,
+                               const float* delta, void* dq, int B, int S,
+                               int h, int d, int causal, float scale,
+                               int dtype, void* stream) {
+  const BwdArgs a = head_major_bwd(q, k, v, dout, lse, delta, dq, nullptr,
+                                   nullptr, S, h, d, causal, scale);
+  return bwd_launch<kDq>(a, B, d, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// K17, dk and dv: head-major operands, each [B, h, S, d].
+extern "C" int flash_bwd_hm_dkv(const void* q, const void* k, const void* v,
+                                const void* dout, const float* lse,
+                                const float* delta, void* dk, void* dv,
+                                int B, int S, int h, int d, int causal,
+                                float scale, int dtype, void* stream) {
+  const BwdArgs a = head_major_bwd(q, k, v, dout, lse, delta, nullptr, dk,
+                                   dv, S, h, d, causal, scale);
   return bwd_launch<kDkv>(a, B, d, dtype, static_cast<cudaStream_t>(stream));
 }

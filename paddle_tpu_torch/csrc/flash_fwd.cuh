@@ -10,10 +10,13 @@
 // in fp32, causal fill -1e30, p = exp(s - m), l summed over the fp32 p, p
 // cast to the input dtype before p v, o = acc / l and lse = m + log(l).
 //
-// Operands. q, k and v each have h heads of d values per sequence row, head
-// j at lane j*d, with their own row and batch strides: the fused qkv
-// projection is three views of one [B, S, 3*h*d] buffer (row stride 3hd),
-// separate [B, S, h, d] tensors have row stride hd.
+// Operands. q, k, v and o each have h heads of d values per sequence row,
+// with their own row, head and batch strides: the fused qkv projection is
+// three views of one [B, S, 3*h*d] buffer (row stride 3hd, head stride d),
+// separate [B, S, h, d] tensors have row stride hd and head stride d, and
+// head-major [B, h, S, d] tensors (K17) row stride d and head stride S*d.
+// The strides only place the rows: every layout runs the same tile loop,
+// so they give the same bits on the same values.
 //
 // Design. One thread block owns one (batch, head, 64-row block) and loops
 // over key tiles up to the causal bound (tiles wholly above the diagonal
@@ -71,8 +74,10 @@ struct FwdArgs {
   const void* k;
   const void* v;
   long long row_q, row_k, row_v;        // elements between sequence rows
+  long long head_q, head_k, head_v;     // elements between heads
   long long batch_q, batch_k, batch_v;  // elements between batches
-  void* out;                            // [B, S, h, d]
+  void* out;
+  long long row_o, head_o, batch_o;     // out's strides
   float* lse;                           // [B, h, S] fp32, or nullptr
   const float* cos_f;                   // [S, d] full-width tables (RoPE)
   const float* sin_f;
@@ -123,9 +128,9 @@ fwd_fma_kernel(const FwdArgs a) {
   const int q0 = blockIdx.x * kRows, hh = blockIdx.y, b = blockIdx.z;
   const int S = a.S, h = a.h, causal = a.causal;
   const float scale = a.scale;
-  const T* qb = static_cast<const T*>(a.q) + b * a.batch_q + hh * D;
-  const T* kb = static_cast<const T*>(a.k) + b * a.batch_k + hh * D;
-  const T* vb = static_cast<const T*>(a.v) + b * a.batch_v + hh * D;
+  const T* qb = static_cast<const T*>(a.q) + b * a.batch_q + hh * a.head_q;
+  const T* kb = static_cast<const T*>(a.k) + b * a.batch_k + hh * a.head_k;
+  const T* vb = static_cast<const T*>(a.v) + b * a.batch_v + hh * a.head_v;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   stage_rows<T, D, P, RQ>(qs, qb, a.row_q, q0, kRows, tid, kFmaThreads,
@@ -193,7 +198,7 @@ fwd_fma_kernel(const FwdArgs a) {
   for (int k = 0; k < kAcc; ++k) {
     const int e = tid + k * kFmaThreads;
     const int r = e / D, dd = e % D;
-    out[(((size_t)b * S + q0 + r) * h + hh) * D + dd] =
+    out[b * a.batch_o + (q0 + r) * a.row_o + hh * a.head_o + dd] =
         from_f<T>(acc[k] / l_s[r]);
   }
   if (a.lse != nullptr)
@@ -360,11 +365,11 @@ fwd_tc_kernel(const FwdArgs a) {
   const int S = a.S, h = a.h, causal = a.causal;
   const float scale = a.scale;
   const uint16_t* qb = static_cast<const uint16_t*>(a.q) + b * a.batch_q +
-                       hh * D;
+                       hh * a.head_q;
   const uint16_t* kb = static_cast<const uint16_t*>(a.k) + b * a.batch_k +
-                       hh * D;
+                       hh * a.head_k;
   const uint16_t* vb = static_cast<const uint16_t*>(a.v) + b * a.batch_v +
-                       hh * D;
+                       hh * a.head_v;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int wr = warp * 16;                  // the warp's rows in the block
@@ -447,9 +452,10 @@ fwd_tc_kernel(const FwdArgs a) {
     }
     acc_pv<D, P, NB>(o, sc, vs, lane);
   }
-  uint16_t* out = static_cast<uint16_t*>(a.out);
-  uint16_t* o_lo = out + (((size_t)b * S + r_lo) * h + hh) * D;
-  uint16_t* o_hi = out + (((size_t)b * S + r_hi) * h + hh) * D;
+  uint16_t* out = static_cast<uint16_t*>(a.out) + b * a.batch_o +
+                  hh * a.head_o;
+  uint16_t* o_lo = out + r_lo * a.row_o;
+  uint16_t* o_hi = out + r_hi * a.row_o;
 #pragma unroll
   for (int nd = 0; nd < ND; ++nd) {
     const int d = nd * 8 + t * 2;

@@ -35,8 +35,8 @@ extern "C" int rope_flash_fwd(const void* q, const void* k, const void* v,
                               int d, int causal, float scale, int rope_q,
                               int rope_k, int dtype, void* stream) {
   const long long H = (long long)h * d;
-  FwdArgs a{q, k, v, H, H, H, H * S, H * S, H * S, out, lse, cos_f, sin_f,
-            S, h, causal, scale};
+  FwdArgs a{q, k, v, H, H, H, d, d, d, H * S, H * S, H * S, out, H, d,
+            H * S, lse, cos_f, sin_f, S, h, causal, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (cos_f == nullptr || sin_f == nullptr) return (int)cudaErrorInvalidValue;
   if (rope_q && rope_k) return flash_fwd_launch<true, true>(a, B, d, dtype, st);

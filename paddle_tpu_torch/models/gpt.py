@@ -6,8 +6,12 @@ The parameter tree has the reference's names, shapes and dtypes, with
 reference is kept: LayerNorm computes in fp32 and casts back, matmuls
 take and return ``cfg.dtype``, the gelu is tanh-approximate and the
 logits are fp32. Attention on the fused qkv projection goes through the
-flash kernels (K1 forward, K2 or K3 backward) and the chunked loss
-through the vocab-streaming cross-entropy kernels (K4, K5) on CUDA.
+flash kernels (K1 forward, K2 or K3 backward); where that gate fails,
+through ``flash_attention_raw`` on the split q, k, v (K1-sep and K3-sep,
+or the head-major K17 under ``flash_attention_native_layout=0`` or with
+d 64 and an odd head count), as the reference's ``_attention``. The
+chunked loss goes through the vocab-streaming cross-entropy kernels (K4,
+K5) on CUDA.
 
 The model is written as the plain op-by-op composition
 (``_model_apply_unfused``); ``model_apply`` runs it through the fusion
@@ -32,7 +36,9 @@ from torch.utils.checkpoint import checkpoint
 from ..compiler import fused_call, remat_call
 from ..core.flags import GLOBAL_FLAGS
 from ..ops.kernels.flash_attention import (flash_attention_qkv,
-                                           flash_qkv_supported)
+                                           flash_attention_raw,
+                                           flash_qkv_supported,
+                                           flash_supported)
 from ..ops.kernels.fused_ce import fused_ce_supported, fused_softmax_ce
 
 __all__ = ["GPTConfig", "gpt_presets", "init_params", "block_apply",
@@ -154,8 +160,12 @@ def _mm(x, w, cfg: GPTConfig):
 
 
 def _attention(q, k, v, cfg: GPTConfig):
-    """Plain causal attention, [B, T, nH, dH], where the flash gate fails:
-    fp32 logits, fill -1e30, probabilities cast to q's dtype."""
+    """Causal attention on [B, T, nH, dH] where the fused-qkv gate fails,
+    as the reference's: ``flash_attention_raw`` (K1-sep, or the
+    head-major K17) where the flash gate holds, else plain attention
+    (fp32 logits, fill -1e30, probabilities cast to q's dtype)."""
+    if cfg.use_flash and flash_supported(q.shape, q.dtype):
+        return flash_attention_raw(q, k, v, causal=True)
     scale = 1.0 / math.sqrt(cfg.head_dim)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     T = q.shape[1]

@@ -18,6 +18,30 @@ On a CPU tensor the wrappers run the plain version, the masked dense
 expression of the reference's ``_decode_block`` fallback (on the
 dequantized cache for int8); on a CUDA tensor they launch
 ``csrc/decode_attention.cu`` or raise.
+
+The paged decode of ``incubate.nn.functional`` (the reference's
+``paged_decode_attention_*`` entries, ``csrc/paged_decode_attention.cu``):
+q [B, nq, d] in the page dtype, one token per sequence; block_table
+[B, mb] int32; seq_lens [B] int32; o [B, nq, d]. Per page, in table
+order, the reference's ``_online_softmax_page``: s = (q k^T) * scale in
+fp32, -1e30 added at positions >= seq_len, m, l and acc updated online,
+o = acc / max(l, 1e-30).
+
+- K15 ``paged_decode_attention_mxu``: d-major k pages [P, nkv, d, bs],
+  token-major v pages [P, nkv, bs, d], GQA native; p rounded to the page
+  dtype before the value product (l sums the unrounded p).
+- K14 ``paged_decode_attention_kernel``: token-major k and v pages
+  [P, nh, bs, d], nh == nq, fp32 products, p not rounded.
+- K16 ``paged_decode_attention_dma``: K14's function through the kernel
+  that copies its own pages (bit-equal to K14); raises where
+  ``paged_decode_supported`` fails, as the reference's does.
+
+Their gates are the reference's term for term (v5e VMEM caps that decide
+which kernel, or the gather expression, runs), so the port takes the
+reference's route. A sequence of length 0 attends to every row of its
+table's pages with equal weight (every score is -1e30), as the
+reference's kernels do. The plain versions walk the pages in the same
+order with the same online state, vectorised over sequences and heads.
 """
 
 from __future__ import annotations
@@ -30,7 +54,11 @@ from ..quant import dequantize_int8
 from . import _build
 
 __all__ = ["decode_attention", "decode_attention_int8",
-           "decode_attention_plain", "decode_attention_supported", "BLOCK_S"]
+           "decode_attention_plain", "decode_attention_supported", "BLOCK_S",
+           "paged_decode_supported", "paged_decode_mxu_supported",
+           "paged_decode_attention_mxu", "paged_decode_attention_kernel",
+           "paged_decode_attention_dma", "paged_decode_mxu_plain",
+           "paged_decode_plain"]
 
 BLOCK_S = 512
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -173,3 +201,237 @@ def decode_attention(q, cache_k, cache_v, pos, sm_scale: float,
 
 decode_attention.launches = 0
 decode_attention_int8.launches = 0
+
+
+# ---- the paged decode (K15, K14, K16) -------------------------------------
+
+_VMEM_CAP = 12 * 2 ** 20
+
+
+def paged_decode_supported(pages_shape, n_q_heads: int,
+                           max_blocks: int | None = None,
+                           itemsize: int = 2) -> bool:
+    """The reference's gate of the token-major kernels (K14, K16), term
+    for term: d in (64, 128, 256), bs % 8 == 0, nh == the q heads, and
+    the double-buffered k + v working set of ``k_per`` pages plus one
+    page's fp32 temporaries within 12 MiB (a v5e VMEM cap; mirrored so
+    that the port takes the reference's route)."""
+    _, nh, bs, d = pages_shape
+    page_bytes = nh * bs * d * itemsize
+    k_per = _paged_pages_per_program(max_blocks if max_blocks is not None
+                                     else 4, page_bytes)
+    est = 2 * 2 * k_per * page_bytes + 4 * page_bytes
+    if est > _VMEM_CAP:
+        return False
+    return (d in (64, 128, 256) and bs % 8 == 0
+            and nh == n_q_heads)
+
+
+def _paged_pages_per_program(max_blocks: int,
+                             page_bytes: int | None = None) -> int:
+    """The reference's pages per program: the largest of 4, 2, 1 that
+    divides ``max_blocks`` and, given ``page_bytes``, keeps 2 slots x 2
+    tensors x k pages within 12 MiB."""
+    for k in (4, 2, 1):
+        if max_blocks % k:
+            continue
+        if page_bytes is not None and 4 * k * page_bytes > _VMEM_CAP:
+            continue
+        return k
+    return 1
+
+
+def paged_decode_mxu_supported(kt_pages_shape, n_q_heads: int,
+                               max_blocks: int | None = None,
+                               itemsize: int = 2) -> bool:
+    """The reference's gate of K15, term for term: d-major k pages
+    [P, nkv, d, bs] with d in (128, 256), bs % 128 == 0, nq a multiple
+    of nkv, nq >= 8, and the k_per working set plus the block-diagonal q
+    within 12 MiB."""
+    _, nkv, d, bs = kt_pages_shape
+    page_bytes = nkv * bs * d * itemsize
+    k_per = _paged_pages_per_program(max_blocks if max_blocks is not None
+                                     else 4, page_bytes)
+    est = 2 * 2 * k_per * page_bytes + 2 * n_q_heads * nkv * d * itemsize
+    if est > _VMEM_CAP:
+        return False
+    return (d in (128, 256) and bs % 128 == 0 and n_q_heads % nkv == 0
+            and n_q_heads >= 8)
+
+
+def _paged_plain(q, k_pages, v_pages, block_table, seq_lens,
+                 sm_scale: float, d_major: bool,
+                 round_p: bool) -> torch.Tensor:
+    """Page by page in table order, every page of the table (as the
+    reference's kernels), vectorised over sequences and heads: fp32
+    scores of q against the page, -1e30 past seq_len, the online m, l,
+    acc; with ``round_p`` p is rounded to the page dtype before the
+    value product."""
+    B, nq, d = q.shape
+    nkv, bs = v_pages.shape[1], v_pages.shape[2]
+    G = nq // nkv
+    qf = q.float().reshape(B, nkv, G, d)
+    m = torch.full((B, nkv, G), -1e30, device=q.device)
+    l = torch.zeros((B, nkv, G), device=q.device)
+    acc = torch.zeros((B, nkv, G, d), device=q.device)
+    table = block_table.long()
+    lens = seq_lens.to(q.device)
+    for j in range(table.shape[1]):
+        kp = k_pages[table[:, j]].float()
+        s = torch.einsum("bkgd,bkdt->bkgt" if d_major else "bkgd,bktd->bkgt",
+                         qf, kp) * sm_scale
+        pos = j * bs + torch.arange(bs, device=q.device)
+        s = s + torch.where(pos[None, :] < lens[:, None], 0.0,
+                            -1e30)[:, None, None, :]
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        m = m_new
+        if round_p:
+            p = p.to(v_pages.dtype).float()
+        pv = torch.einsum("bkgt,bktd->bkgd", p,
+                          v_pages[table[:, j]].float())
+        acc = acc * alpha[..., None] + pv
+    o = acc / l.clamp_min(1e-30)[..., None]
+    return o.reshape(B, nq, d).to(q.dtype)
+
+
+def paged_decode_mxu_plain(q, kt_pages, v_pages, block_table, seq_lens,
+                           sm_scale: float) -> torch.Tensor:
+    """K15's function: d-major k pages, GQA, p rounded to the page
+    dtype before the value product."""
+    return _paged_plain(q, kt_pages, v_pages, block_table, seq_lens,
+                        sm_scale, d_major=True, round_p=True)
+
+
+def paged_decode_plain(q, k_pages, v_pages, block_table, seq_lens,
+                       sm_scale: float) -> torch.Tensor:
+    """K14's and K16's function: token-major pages, fp32 throughout."""
+    return _paged_plain(q, k_pages, v_pages, block_table, seq_lens,
+                        sm_scale, d_major=False, round_p=False)
+
+
+def _paged_fn(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_build.library("paged_decode_attention"), name)
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lead = [I] if name == "paged_decode_tok" else []
+        n_int = 6 if name == "paged_decode_mxu" else 5
+        fn.argtypes = lead + [P] * 6 + [I] * n_int + [ctypes.c_float, I, P]
+        fn.restype = I
+        _fns[name] = fn
+    return fn
+
+
+def _check_paged(q, k_pages, v_pages, block_table, seq_lens,
+                 d_major: bool) -> tuple[int, int, int, int, int]:
+    """The paged kernels' operand rules; returns (B, nkv, G, bs, mb)."""
+    if q.dtype not in _DTYPE_CODE or k_pages.dtype != q.dtype or \
+            v_pages.dtype != q.dtype:
+        raise TypeError(f"q {q.dtype} / pages {k_pages.dtype}, "
+                        f"{v_pages.dtype}: the kernels take float32 or "
+                        "bfloat16, q in the page dtype")
+    B, nq, d = q.shape
+    P, nkv, bs, dv = v_pages.shape
+    want_k = (P, nkv, d, bs) if d_major else (P, nkv, bs, d)
+    mb = block_table.shape[-1]
+    if (tuple(k_pages.shape) != want_k or dv != d or nq % nkv
+            or tuple(block_table.shape) != (B, mb)
+            or tuple(seq_lens.shape) != (B,)):
+        raise ValueError(f"q {tuple(q.shape)}, k pages "
+                         f"{tuple(k_pages.shape)}, v pages "
+                         f"{tuple(v_pages.shape)}, table "
+                         f"{tuple(block_table.shape)}, seq_lens "
+                         f"{tuple(seq_lens.shape)}: want k pages {want_k}")
+    if d not in (64, 128, 256) or bs % 8:
+        raise ValueError(f"d {d}, bs {bs}: the kernels take d in (64, 128, "
+                         "256) and bs % 8 == 0")
+    if block_table.dtype != torch.int32 or seq_lens.dtype != torch.int32:
+        raise TypeError("block_table and seq_lens must be int32")
+    for t in (q, k_pages, v_pages, block_table, seq_lens):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"operands must be contiguous and on {q.device}")
+        if t.data_ptr() % 16:
+            raise ValueError("the kernels copy 16-byte vectors: operands "
+                             "must be 16-byte aligned")
+    return B, nkv, nq // nkv, bs, mb
+
+
+def _launch_paged(name: str, dma, q, k_pages, v_pages, block_table,
+                  seq_lens, sm_scale: float, d_major: bool) -> torch.Tensor:
+    B, nkv, G, bs, mb = _check_paged(q, k_pages, v_pages, block_table,
+                                     seq_lens, d_major)
+    d = q.shape[2]
+    o = torch.empty_like(q)
+    ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_table.data_ptr(), seq_lens.data_ptr(), o.data_ptr())
+    heads = (nkv, G) if d_major else (nkv,)
+    err = _paged_fn(name)(*dma, *ptrs, B, *heads, d, bs, mb,
+                          float(sm_scale), _DTYPE_CODE[q.dtype],
+                          torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, name)
+    return o
+
+
+def paged_decode_attention_mxu(q, kt_pages, v_pages, block_table, seq_lens,
+                               sm_scale: float) -> torch.Tensor:
+    """K15: o [B, nq, d] over d-major k pages, GQA native. Counts its
+    CUDA launches in ``paged_decode_attention_mxu.launches``."""
+    if q.device.type == "cpu":
+        return paged_decode_mxu_plain(q, kt_pages, v_pages, block_table,
+                                      seq_lens, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    o = _launch_paged("paged_decode_mxu", (), q, kt_pages, v_pages,
+                      block_table, seq_lens, sm_scale, d_major=True)
+    paged_decode_attention_mxu.launches += 1
+    return o
+
+
+def paged_decode_attention_kernel(q, k_pages, v_pages, block_table,
+                                  seq_lens, sm_scale: float) -> torch.Tensor:
+    """K14: o [B, nh, d] over token-major pages (nh == nq). Counts its
+    CUDA launches in ``paged_decode_attention_kernel.launches``."""
+    if q.device.type == "cpu":
+        return paged_decode_plain(q, k_pages, v_pages, block_table, seq_lens,
+                                  sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.shape[1] != k_pages.shape[1]:
+        raise ValueError(f"{q.shape[1]} q heads over {k_pages.shape[1]} "
+                         "page heads: the token-major kernels take nh == nq")
+    o = _launch_paged("paged_decode_tok", (0,), q, k_pages, v_pages,
+                      block_table, seq_lens, sm_scale, d_major=False)
+    paged_decode_attention_kernel.launches += 1
+    return o
+
+
+def paged_decode_attention_dma(q, k_pages, v_pages, block_table, seq_lens,
+                               sm_scale: float) -> torch.Tensor:
+    """K16: K14's function through the kernel that copies its own pages
+    (bit-equal to K14). Raises where ``paged_decode_supported`` fails, on
+    any device, as the reference's entry does. Counts its CUDA launches
+    in ``paged_decode_attention_dma.launches``."""
+    if not paged_decode_supported(k_pages.shape, q.shape[1],
+                                  max_blocks=block_table.shape[1],
+                                  itemsize=k_pages.element_size()):
+        raise ValueError(
+            f"paged_decode_attention_dma: pages {tuple(k_pages.shape)} "
+            f"with {q.shape[1]} q heads unsupported; gate with "
+            "paged_decode_supported()")
+    if q.device.type == "cpu":
+        return paged_decode_plain(q, k_pages, v_pages, block_table, seq_lens,
+                                  sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    o = _launch_paged("paged_decode_tok", (1,), q, k_pages, v_pages,
+                      block_table, seq_lens, sm_scale, d_major=False)
+    paged_decode_attention_dma.launches += 1
+    return o
+
+
+paged_decode_attention_mxu.launches = 0
+paged_decode_attention_kernel.launches = 0
+paged_decode_attention_dma.launches = 0

@@ -10,10 +10,18 @@ entries:
   ``fused_dqkv_ok`` holds and the flag ``flash_attention_fused_dqkv`` is
   on, else the split ``_flash_bwd_dq_kernel_native`` +
   ``_flash_bwd_dkv_kernel_native`` (K3), as the reference chooses;
-- ``flash_attention_raw`` on separate q, k, v [B, S, h, d] (LLaMA): the
-  same forward kernel given three base pointers and row strides (K1's
-  separate-input mode, ``flash_fwd_sep``), backward K3 in its
-  separate mode (``flash_bwd_sep``).
+- ``flash_attention_raw`` on separate q, k, v [B, S, h, d] (LLaMA, and
+  GPT where the fused gate fails): the same forward kernel given three
+  base pointers and row strides (K1's separate-input mode,
+  ``flash_fwd_sep``), backward K3 in its separate mode
+  (``flash_bwd_sep``). Under ``flash_attention_native_layout=0``, or
+  where the reference's lane fusion fails (``_native_supported``: d 64
+  with an odd head count), it takes the head-major route instead, as the
+  reference does: q, k, v transposed to [B, h, S, d], forward
+  ``flash_fwd_hm`` and split backward ``flash_bwd_hm`` (K17,
+  ``_flash_fwd_kernel`` / ``_flash_bwd_dq_kernel`` /
+  ``_flash_bwd_dkv_kernel``), the same CUDA bodies with head strides, so
+  bit-equal to K1-sep and K3-sep on the same values.
 
 - qkv [B, S, 3*h*d]: q, k and v at lane offsets 0, h*d and 2*h*d, head
   j at j*d inside each; read in place, never split into copies.
@@ -34,10 +42,12 @@ entry ``flash_attention_qkv`` is the registered operator pair
 forward's registered backward, chosen when the backward runs; every
 choice is counted in ``BWD_ROUTES`` on any device), and
 ``flash_attention_raw`` the registered operator
-``paddle_tpu_torch::flash_fwd_sep`` (o and lse; K3 as its backward), so
-that the fusion compiler's trace records each as one node, with
-shape-only fake implementations (the ``rope_attention`` template finds
-the separate entry by its operator).
+``paddle_tpu_torch::flash_fwd_sep`` (o and lse; K3 as its backward) or,
+head-major, ``paddle_tpu_torch::flash_fwd_hm`` (K17), so that the fusion
+compiler's trace records each as one node, with shape-only fake
+implementations (the ``rope_attention`` template finds the separate
+entry by its operator; the remat policies save every flash operator's o
+and lse).
 """
 
 from __future__ import annotations
@@ -53,7 +63,9 @@ __all__ = ["flash_attention_qkv", "flash_qkv_supported", "flash_fwd",
            "flash_bwd", "flash_fwd_plain", "flash_bwd_plain",
            "flash_attention_raw", "flash_supported", "flash_fwd_sep",
            "flash_sep_plain", "flash_bwd_split", "flash_bwd_sep",
-           "flash_bwd_sep_plain", "fused_dqkv_ok", "BWD_ROUTES"]
+           "flash_bwd_sep_plain", "fused_dqkv_ok", "BWD_ROUTES",
+           "RAW_ROUTES", "flash_fwd_hm", "flash_bwd_hm", "flash_fwd_hm_plain",
+           "flash_bwd_hm_plain"]
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -64,40 +76,60 @@ _fns = {}
 # the fused-qkv backward's route, counted on every device: "merged" (K2)
 # or "split" (K3)
 BWD_ROUTES = {"merged": 0, "split": 0}
+# flash_attention_raw's forward layout, counted on every device where the
+# operator runs (not while a trace records it): "native" (K1-sep) or
+# "head_major" (K17)
+RAW_ROUTES = {"native": 0, "head_major": 0}
 _MIN_BLOCK, _MAX_BLOCK = 128, 512
 
 
 def _check_flags() -> None:
-    """The XLA-expression backward, the head-major kernels and a library
-    kernel are paths of a later slice: refuse them rather than run this
-    one under their names."""
+    """The XLA-expression backward and a library kernel are paths of a
+    later slice: refuse them rather than run this one under their
+    names. ``flash_attention_native_layout=0`` is honoured (K17)."""
     for name, default in _FLAG_DEFAULTS:
-        if GLOBAL_FLAGS.get(name) != default:
+        if name != "flash_attention_native_layout" and \
+                GLOBAL_FLAGS.get(name) != default:
             raise NotImplementedError(
                 f"later slice: FLAGS_{name}={GLOBAL_FLAGS.get(name)} (only "
                 f"{default} is ported)")
 
 
+def _heads_per_program(h: int, d: int) -> int:
+    """The reference's lane fusion: heads a TPU program takes so that
+    its block's lane width hp*d is a 128-multiple (d 64 -> 2)."""
+    return max(1, 128 // d)
+
+
+def _native_supported(h: int, d: int) -> bool:
+    """The reference's native-layout gate: h a multiple of hp and hp*d
+    a 128-multiple; where it fails the head-major kernels (K17) run."""
+    hp = _heads_per_program(h, d)
+    return h % hp == 0 and (hp * d) % 128 == 0
+
+
 def flash_qkv_supported(shape, n_heads: int, dtype) -> bool:
-    """The reference's gate for the fused entry: [B, S, 3*h*d] with S a
-    multiple of 128, d in (64, 128, 256) and h even for d 64 (its
-    128-lane head pairs), and fp32 or bf16, the dtypes the kernels
-    take. Raises while a flash flag is off its default."""
+    """The reference's gate for the fused entry: the native layout on,
+    [B, S, 3*h*d] with S a multiple of 128, d in (64, 128, 256) and h
+    even for d 64 (its 128-lane head pairs), and fp32 or bf16, the
+    dtypes the kernels take. Raises while a refused flash flag is off
+    its default."""
     _check_flags()
+    if not GLOBAL_FLAGS.get("flash_attention_native_layout"):
+        return False
     if len(shape) != 3 or shape[2] % (3 * n_heads):
         return False
     d = shape[2] // (3 * n_heads)
-    hp = max(1, 128 // d)
     return (shape[1] % 128 == 0 and shape[1] >= 128
-            and d in SUPPORTED_HEAD_DIMS and n_heads % hp == 0
+            and d in SUPPORTED_HEAD_DIMS and _native_supported(n_heads, d)
             and dtype in _DTYPE_CODE)
 
 
 def flash_supported(shape, dtype) -> bool:
     """The reference's gate for the separate entry (``supported``): [B, S,
     h, d] with S a multiple of 128 and d in (64, 128, 256), and fp32 or
-    bf16, the dtypes the kernel takes. Raises while a flash flag is off
-    its default."""
+    bf16, the dtypes the kernel takes. Raises while a refused flash flag
+    is off its default."""
     _check_flags()
     return (len(shape) == 4 and shape[1] % 128 == 0 and shape[1] >= 128
             and shape[3] in SUPPORTED_HEAD_DIMS and dtype in _DTYPE_CODE)
@@ -199,10 +231,28 @@ def flash_bwd_sep_plain(q, k, v, o, lse, do, causal: bool,
     return tuple(t.to(q.dtype) for t in grads)
 
 
+def flash_fwd_hm_plain(q, k, v, causal: bool, sm_scale: float):
+    """(o [B, h, S, d], lse [B, h, S] fp32) of head-major q, k, v (K17's
+    function: K1-sep's on the transposed operands)."""
+    o, lse = flash_sep_plain(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), causal, sm_scale)
+    return o.transpose(1, 2).contiguous(), lse
+
+
+def flash_bwd_hm_plain(q, k, v, o, lse, do, causal: bool, sm_scale: float):
+    """(dq, dk, dv) [B, h, S, d] in q's dtype of head-major operands."""
+    grads = flash_bwd_sep_plain(*(t.transpose(1, 2)
+                                  for t in (q, k, v, o)), lse,
+                                do.transpose(1, 2), causal, sm_scale)
+    return tuple(t.transpose(1, 2).contiguous() for t in grads)
+
+
 # (pointers, ints) before the common (B, S, h, d, causal, scale, dtype,
 # stream) of each C entry
 _ARGS = {"flash_fwd": (3, 0), "flash_fwd_sep": (5, 0), "flash_bwd": (5, 0),
-         "flash_bwd_dq": (7, 2), "flash_bwd_dkv": (8, 2)}
+         "flash_bwd_dq": (7, 2), "flash_bwd_dkv": (8, 2),
+         "flash_fwd_hm": (5, 0), "flash_bwd_hm_dq": (7, 0),
+         "flash_bwd_hm_dkv": (8, 0)}
 
 
 def _kernel(name: str):
@@ -258,18 +308,22 @@ def flash_fwd(qkv, n_heads: int, causal: bool, sm_scale: float):
     return o, lse
 
 
-def _bwd_operands(o, lse, do, dtype, shape):
+def _bwd_operands(o, lse, do, dtype, shape, head_major: bool = False):
     """(delta [B, h, S] fp32, do in ``dtype``), both contiguous, after
-    checking o, do [B, S, h, d] and lse [B, h, S] fp32 against
-    ``shape`` = (B, S, h, d)."""
+    checking o, do and lse [B, h, S] fp32 against ``shape`` = (B, S, h,
+    d); o and do are [B, S, h, d], or [B, h, S, d] with ``head_major``.
+    delta is the fp32 row sum of do * o over d in either layout."""
     B, S, h, d = shape
-    if o.shape != shape or do.shape != shape or \
+    want = (B, h, S, d) if head_major else shape
+    if o.shape != want or do.shape != want or \
             lse.shape != (B, h, S) or lse.dtype != torch.float32:
         raise ValueError(f"o {tuple(o.shape)} / do {tuple(do.shape)} / lse "
                          f"{tuple(lse.shape)} {lse.dtype} do not match "
-                         f"[B, S, h, d] = {shape}")
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    return delta, do.to(dtype).contiguous()
+                         f"{want}")
+    delta = (do.float() * o.float()).sum(-1)
+    if not head_major:
+        delta = delta.transpose(1, 2)
+    return delta.contiguous(), do.to(dtype).contiguous()
 
 
 def _stream(t):
@@ -378,16 +432,21 @@ def flash_fwd_sep(q, k, v, causal: bool, sm_scale: float):
     return o, lse
 
 
-def _check_sep(q, k, v) -> tuple[int, int, int, int]:
-    """The separate-input kernels' operand rules (shared with K11)."""
+def _check_sep(q, k, v, head_major: bool = False
+               ) -> tuple[int, int, int, int]:
+    """The separate-input kernels' operand rules (shared with K11 and,
+    head-major [B, h, S, d], K17); returns (B, S, h, d)."""
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or \
             v.dtype != q.dtype:
         raise TypeError(f"q {q.dtype} / k {k.dtype} / v {v.dtype}: the "
                         "kernels take float32 or bfloat16, all alike")
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
-                         f"{tuple(v.shape)}: want three [B, S, h, d]")
+                         f"{tuple(v.shape)}: want three "
+                         + ("[B, h, S, d]" if head_major else "[B, S, h, d]"))
     B, S, h, d = q.shape
+    if head_major:
+        S, h = h, S
     if d not in SUPPORTED_HEAD_DIMS or S % 64:
         raise ValueError(f"head dim {d} / seq {S}: the kernels take d in "
                          f"{SUPPORTED_HEAD_DIMS} and S % 64 == 0")
@@ -400,11 +459,59 @@ def _check_sep(q, k, v) -> tuple[int, int, int, int]:
     return B, S, h, d
 
 
+def flash_fwd_hm(q, k, v, causal: bool, sm_scale: float):
+    """K17 forward: (o [B, h, S, d], lse [B, h, S] fp32) of head-major q,
+    k, v. Counts its CUDA launches in ``flash_fwd_hm.launches``."""
+    if q.device.type == "cpu":
+        return flash_fwd_hm_plain(q, k, v, causal, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    B, S, h, d = _check_sep(q, k, v, head_major=True)
+    o = torch.empty_like(q)
+    lse = torch.empty((B, h, S), dtype=torch.float32, device=q.device)
+    err = _kernel("flash_fwd_hm")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), B, S, h, d, int(causal), float(sm_scale),
+        _DTYPE_CODE[q.dtype], _stream(q))
+    _build.check(err, "flash_fwd_hm")
+    flash_fwd_hm.launches += 1
+    return o, lse
+
+
+def flash_bwd_hm(q, k, v, o, lse, do, causal: bool, sm_scale: float):
+    """K17 backward, the dq then the dk/dv kernel: (dq, dk, dv)
+    [B, h, S, d] of head-major operands (do cast to q's dtype, delta from
+    the fp32 do * o). Counts its CUDA launches (two a call) in
+    ``flash_bwd_hm.launches``."""
+    if q.device.type == "cpu":
+        return flash_bwd_hm_plain(q, k, v, o, lse, do, causal, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    shape = _check_sep(q, k, v, head_major=True)
+    delta, do_ = _bwd_operands(o, lse, do, q.dtype, shape, head_major=True)
+    if lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous and on {q.device}")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    tail = (*shape, int(causal), float(sm_scale), _DTYPE_CODE[q.dtype],
+            _stream(q))
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do_.data_ptr(),
+           lse.data_ptr(), delta.data_ptr())
+    err = _kernel("flash_bwd_hm_dq")(*ins, dq.data_ptr(), *tail)
+    _build.check(err, "flash_bwd_hm_dq")
+    err = _kernel("flash_bwd_hm_dkv")(*ins, dk.data_ptr(), dv.data_ptr(),
+                                      *tail)
+    _build.check(err, "flash_bwd_hm_dkv")
+    flash_bwd_hm.launches += 2
+    return dq, dk, dv
+
+
 flash_fwd.launches = 0
 flash_bwd.launches = 0
 flash_fwd_sep.launches = 0
 flash_bwd_split.launches = 0
 flash_bwd_sep.launches = 0
+flash_fwd_hm.launches = 0
+flash_bwd_hm.launches = 0
 
 
 # The fused-qkv entry is a pair of registered operators, so that the
@@ -456,7 +563,7 @@ def _flash_qkv_backward(ctx, do, _dlse):
     qkv, o, lse = ctx.saved_tensors
     n_heads = ctx.args[0]
     d = qkv.shape[-1] // (3 * n_heads)
-    hd = max(1, 128 // d) * d              # the reference's hp heads a lane
+    hd = _heads_per_program(n_heads, d) * d
     merged = bool(GLOBAL_FLAGS.get("flash_attention_fused_dqkv")) and \
         fused_dqkv_ok(qkv.shape[1], hd, qkv.element_size())
     BWD_ROUTES["merged" if merged else "split"] += 1
@@ -485,6 +592,7 @@ def flash_attention_qkv(qkv, n_heads: int, causal: bool = True,
 def _flash_sep_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool, sm_scale: float
                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    RAW_ROUTES["native"] += 1
     o, lse = flash_fwd_sep(q, k, v, causal, sm_scale)
     return o.contiguous(), lse.contiguous()
 
@@ -513,14 +621,49 @@ _flash_sep_op.register_autograd(_flash_sep_backward,
                                 setup_context=_flash_sep_setup)
 
 
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd_hm", mutates_args=())
+def _flash_hm_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool, sm_scale: float
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    RAW_ROUTES["head_major"] += 1
+    o, lse = flash_fwd_hm(q, k, v, causal, sm_scale)
+    return o.contiguous(), lse.contiguous()
+
+
+@_flash_hm_op.register_fake
+def _(q, k, v, causal, sm_scale):
+    B, h, S, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((B, h, S), dtype=torch.float32))
+
+
+def _flash_hm_backward(ctx, do, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    return (*flash_bwd_hm(q, k, v, o, lse, do, *ctx.args), None, None)
+
+
+# the setup is the separate entry's: both save q, k, v, o and lse
+_flash_hm_op.register_autograd(_flash_hm_backward,
+                               setup_context=_flash_sep_setup)
+
+
 def flash_attention_raw(q, k, v, causal: bool = False,
                         sm_scale: float | None = None) -> torch.Tensor:
-    """Differentiable attention on separate q, k, v [B, S, h, d] in the
-    native layout: K1's separate-input mode forward and K3's separate
-    mode backward on CUDA, their plain versions on the CPU."""
+    """Differentiable attention on separate q, k, v [B, S, h, d]. In the
+    native layout K1's separate-input mode forward and K3's separate
+    mode backward; with ``flash_attention_native_layout`` off, or where
+    ``_native_supported`` fails, the head-major K17 on the transposed
+    operands, o transposed back (the reference's ``swapaxes``). Plain
+    versions on the CPU."""
     if not flash_supported(q.shape, q.dtype):
         raise ValueError(f"flash_attention_raw: shape {tuple(q.shape)} "
                          f"{q.dtype} is not supported")
-    scale = sm_scale if sm_scale is not None else 1.0 / q.shape[-1] ** 0.5
-    return _flash_sep_op(q.contiguous(), k.contiguous(), v.contiguous(),
-                         bool(causal), float(scale))[0]
+    _, _, h, d = q.shape
+    scale = sm_scale if sm_scale is not None else 1.0 / d ** 0.5
+    if GLOBAL_FLAGS.get("flash_attention_native_layout") and \
+            _native_supported(h, d):
+        return _flash_sep_op(q.contiguous(), k.contiguous(), v.contiguous(),
+                             bool(causal), float(scale))[0]
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    return _flash_hm_op(qt, kt, vt, bool(causal), float(scale))[0] \
+        .transpose(1, 2)

@@ -5,7 +5,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "opt_state_from_jax"]
+__all__ = ["params_from_jax", "opt_state_from_jax", "paged_cache_from_jax"]
 
 _NP_TO_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "float16": torch.float16, "int8": torch.int8,
@@ -48,3 +48,21 @@ def opt_state_from_jax(state, device):
     ``{"qm", "qs"}`` dicts), the 0-d step ``t`` and, in master mode, the
     fp32 ``master`` tree (absent with ``weights="sr-bf16"``)."""
     return {k: params_from_jax(v, device) for k, v in state.items()}
+
+
+def paged_cache_from_jax(cache, device):
+    """The port's ``PagedKVCache`` holding a reference cache's state: its
+    pages (either k layout), block table and ``seq_lens``, read as numpy,
+    on ``device``; so that both packages decode from the same state."""
+    from ..incubate.nn.functional.fused_transformer import PagedKVCache
+
+    out = PagedKVCache.__new__(PagedKVCache)
+    out.block_size = int(cache.block_size)
+    out.k_layout = cache.k_layout
+    out.max_blocks = int(cache.max_blocks)
+    out.k_pages = _leaf(cache.k_pages, device, None)
+    out.v_pages = _leaf(cache.v_pages, device, None)
+    out.block_table = _leaf(np.asarray(cache.block_table, np.int32), device,
+                            None)
+    out.seq_lens = _leaf(np.asarray(cache.seq_lens, np.int32), device, None)
+    return out

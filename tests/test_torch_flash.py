@@ -91,10 +91,18 @@ def test_supported_gate_matches_reference():
                                         ("use_library_flash_attention",
                                          True)])
 def test_later_slice_flags_raise(name, value):
+    """The XLA-expression backward and the library kernel are refused;
+    the head-major layout is ported (K17), and under it the fused-qkv
+    gate is off, as the reference's (tests/test_flash_native_layout.py:
+    135-146)."""
     old = GLOBAL_FLAGS.get(name)
     GLOBAL_FLAGS.set(name, value)
     try:
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tfa.flash_qkv_supported((2, 256, 768), 4, torch.float32)
+        if name == "flash_attention_native_layout":
+            assert not tfa.flash_qkv_supported((2, 256, 768), 4,
+                                               torch.float32)
+        else:
+            with pytest.raises(NotImplementedError, match="later slice"):
+                tfa.flash_qkv_supported((2, 256, 768), 4, torch.float32)
     finally:
         GLOBAL_FLAGS.set(name, old)

@@ -48,7 +48,12 @@ def test_port_imports_without_jax_or_reference():
             "paddle_tpu_torch.ops.kernels.lora_matmul",
             "paddle_tpu_torch.inference.speculative",
             "paddle_tpu_torch.inference.multitenant.lora",
-            "paddle_tpu_torch.inference.multitenant.constrain"} <= mods
+            "paddle_tpu_torch.inference.multitenant.constrain",
+            "paddle_tpu_torch.incubate",
+            "paddle_tpu_torch.incubate.nn",
+            "paddle_tpu_torch.incubate.nn.functional",
+            "paddle_tpu_torch.incubate.nn.functional.fused_transformer"
+            } <= mods
 
 
 def test_no_silent_cpu_fallback():
@@ -112,6 +117,35 @@ def test_split_flash_backward_does_not_fall_back():
         fa.flash_bwd_split(qkv, o, lse, do, h, True, 0.125)
     with pytest.raises(ValueError, match="unsupported device"):
         fa.flash_bwd_sep(o, o, o, o, lse, do, True, 0.125)
+
+
+def test_paged_and_head_major_kernels_do_not_fall_back():
+    """K15, K14, K16 and K17 take their plain versions for CPU tensors
+    only; a tensor elsewhere launches the kernel (CUDA) or raises, and a
+    paged cache asked for no device needs a card."""
+    from paddle_tpu_torch.incubate.nn.functional import fused_transformer
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    meta = dict(device="meta")
+    q = torch.empty((2, 8, 128), **meta)
+    pages = torch.empty((8, 8, 128, 128), **meta)
+    table = torch.empty((2, 4), dtype=torch.int32, **meta)
+    lens = torch.empty((2,), dtype=torch.int32, **meta)
+    for fn in (da.paged_decode_attention_mxu,
+               da.paged_decode_attention_kernel,
+               da.paged_decode_attention_dma):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(q, pages, pages, table, lens, 0.125)
+    t = torch.empty((1, 2, 128, 64), **meta)
+    lse = torch.empty((1, 2, 128), **meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_fwd_hm(t, t, t, True, 0.125)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_bwd_hm(t, t, t, t, lse, t, True, 0.125)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device=.cpu."):
+            fused_transformer.PagedKVCache(8, 2, 16, 64, 2, 64)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

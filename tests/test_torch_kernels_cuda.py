@@ -23,7 +23,11 @@ values; the int8 kernels (K8q, K10q) must equal their fp kernels (K8,
 K10) bit for bit on inputs dequantized beforehand, and their plain versions within
 the fp kernels' tolerances; K13's fp32 output is held by row within 1e-5
 (exact widenings of its inputs, fp32 sums in another order), its slot-0
-rows exactly 0."""
+rows exactly 0. The head-major flash (K17) must equal K1-sep and K3-sep
+bit for bit on the same values; the paged decode kernels (K15, K14) are
+held by row to their plain versions at the training tolerances above
+(K15's plain version rounds p to the page dtype as the kernel does), and
+K16 must equal K14 bit for bit."""
 
 import numpy as np
 import pytest
@@ -572,3 +576,97 @@ def test_stochastic_round_unbiased_on_the_card(cuda):
     assert sorted(torch.unique(out).tolist()) == [1.0, 1.0078125]
     assert abs(out.mean().item() - (1.0 + 1.5e-3)) < 5e-4
     assert torch.equal(_stochastic_round(x, torch.float32, gen), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3 * 2 ** -7)])
+@pytest.mark.parametrize("h,d,causal", [(5, 64, True), (4, 64, False),
+                                        (2, 128, True), (1, 256, True)])
+def test_head_major_flash_equals_k1_and_k3_sep(cuda, dtype, tol, h, d,
+                                               causal):
+    """K17 (head-major [B, h, S, d]): bit-equal to K1-sep forward and
+    K3-sep backward on the same values, and within the tolerance of its
+    plain version."""
+    q, k, v, _, _ = _rope_inputs(cuda, dtype, 2, 192, h, d, seed=12)
+    do = torch.randn(q.shape, device=cuda).to(dtype)
+    q_, k_, v_, do_ = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    scale = d ** -0.5
+    before = (fa.flash_fwd_hm.launches, fa.flash_bwd_hm.launches)
+    o, lse = fa.flash_fwd_hm(q_, k_, v_, causal, scale)
+    grads = fa.flash_bwd_hm(q_, k_, v_, o, lse, do_, causal, scale)
+    o_sep, lse_sep = fa.flash_fwd_sep(q, k, v, causal, scale)
+    sep = fa.flash_bwd_sep(q, k, v, o_sep, lse_sep, do, causal, scale)
+    ref_o, _ = fa.flash_fwd_hm_plain(q_, k_, v_, causal, scale)
+    ref = fa.flash_bwd_hm_plain(q_, k_, v_, o, lse, do_, causal, scale)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd_hm.launches, fa.flash_bwd_hm.launches) == \
+        (before[0] + 1, before[1] + 2)
+    assert torch.equal(o.transpose(1, 2), o_sep) and torch.equal(lse,
+                                                                  lse_sep)
+    for a, b in zip(grads, sep):
+        assert torch.equal(a.transpose(1, 2), b)
+    assert _scaled(o, ref_o) <= tol
+    for got, want in zip(grads, ref):
+        assert _scaled(got, want) <= tol
+
+
+def _paged_inputs(cuda, dtype, nkv, G, d, bs, lens, d_major, seed):
+    rng = np.random.default_rng(seed)
+    B, mb = len(lens), 4
+    P = B * mb + 3
+    q = rng.normal(size=(B, nkv * G, d)).astype(np.float32)
+    k = rng.normal(size=(P, nkv, d, bs) if d_major else
+                   (P, nkv, bs, d)).astype(np.float32)
+    v = rng.normal(size=(P, nkv, bs, d)).astype(np.float32)
+    table = rng.permutation(P)[:B * mb].reshape(B, mb).astype(np.int32)
+    lens = np.minimum(np.asarray(lens), mb * bs).astype(np.int32)
+    return ([torch.from_numpy(a).to(cuda, dtype) for a in (q, k, v)]
+            + [torch.from_numpy(a).to(cuda) for a in (table, lens)])
+
+
+PAGED_LENS = [1, 0, 200, 10 ** 6, 129]          # 10**6: a full table
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3 * 2 ** -7)])
+@pytest.mark.parametrize("nkv,G,d,bs", [(2, 4, 128, 128), (8, 1, 128, 128),
+                                        (1, 12, 256, 128), (2, 4, 128, 256)])
+def test_paged_mxu_kernel_matches_plain(cuda, dtype, tol, nkv, G, d, bs):
+    """K15 over d-major pages, GQA, ragged lengths (a length-0 sequence
+    among them) on a shuffled table."""
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+
+    q, kt, v, table, lens = _paged_inputs(cuda, dtype, nkv, G, d, bs,
+                                          PAGED_LENS, True, seed=13)
+    before = da.paged_decode_attention_mxu.launches
+    got = da.paged_decode_attention_mxu(q, kt, v, table, lens, d ** -0.5)
+    ref = da.paged_decode_mxu_plain(q, kt, v, table, lens, d ** -0.5)
+    torch.cuda.synchronize()
+    assert da.paged_decode_attention_mxu.launches == before + 1
+    assert _scaled(got, ref) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3 * 2 ** -7)])
+@pytest.mark.parametrize("nh,d,bs", [(8, 64, 16), (4, 128, 128),
+                                     (2, 256, 128), (4, 128, 40)])
+def test_paged_token_major_kernels_match_plain(cuda, dtype, tol, nh, d, bs):
+    """K14 against its plain version, K16 bit-equal to K14."""
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+
+    q, k, v, table, lens = _paged_inputs(cuda, dtype, nh, 1, d, bs,
+                                         PAGED_LENS, False, seed=14)
+    before = (da.paged_decode_attention_kernel.launches,
+              da.paged_decode_attention_dma.launches)
+    k14 = da.paged_decode_attention_kernel(q, k, v, table, lens, d ** -0.5)
+    k16 = da.paged_decode_attention_dma(q, k, v, table, lens, d ** -0.5)
+    ref = da.paged_decode_plain(q, k, v, table, lens, d ** -0.5)
+    torch.cuda.synchronize()
+    assert (da.paged_decode_attention_kernel.launches,
+            da.paged_decode_attention_dma.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    assert torch.equal(k14, k16)
+    assert _scaled(k14, ref) <= tol
