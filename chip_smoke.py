@@ -13,7 +13,8 @@ Phases, each failing loudly (any failure exits nonzero):
    eight requests (half share a 256-token prefix, greedy and sampled);
    the attention kernel's launch count must equal layers x steps.
 3. ``int8``: the same traffic through the weight-only int8 engine; the
-   int8 matmul kernel's launch count must equal (7 x layers + 1) x steps.
+   int8 matmul kernel's launch count must equal (7 x layers + 1) x steps,
+   every one through its TMA + wgmma variant.
 4. ``cpu``: a small fp32 config (head dim 128) on the card and on the
    CPU with identical weights; greedy streams must be equal except where
    the CPU's top-2 logit margin is under 1e-4.
@@ -197,6 +198,24 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _graph_ms(fn, iters: int = 20) -> float:
+    """Device time of one call: ``iters`` calls captured in a CUDA graph
+    and replayed, so that the host's share (the wrapper, the launch)
+    drops out of the reading."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return _time_ms(graph.replay, iters=5, warmup=1) / iters
 
 
 def _bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
@@ -432,24 +451,43 @@ def check_lora(dev) -> dict:
 QMM_SHAPES = (  # (M, K, N): the layer matmuls at C*qb = 512, the head at C
     (512, 4096, 4096), (512, 4096, 1024), (512, 4096, 14336),
     (512, 14336, 4096), (32, 4096, 128256))
+# K9 launches of one llama3-8b engine step by shape: per layer wq and wo,
+# wk and wv, w1 and w3, w2; the head once
+QMM_STEP_WEIGHTS = (2 * 32, 2 * 32, 2 * 32, 32, 1)
+
+
+def _int8pack_mm_on_card() -> bool:
+    """Whether PyTorch has a CUDA kernel for aten::_weight_int8pack_mm
+    (a yardstick only: the port never calls it)."""
+    dump = torch._C._dispatch_dump("aten::_weight_int8pack_mm")
+    return any(line.startswith("CUDA") for line in dump.splitlines())
 
 
 def check_qmm(dev) -> dict:
-    """K9 at every matmul shape of the int8 engine step; the entry kept
-    for the kernels line is the FFN up-projection, the largest."""
+    """K9 at every matmul shape of the int8 engine step, with the variant
+    and tile ``qmm_plan`` gave it; the launch-weighted total of one engine
+    step; the entry kept for the kernels line is the FFN up-projection,
+    the largest."""
     from paddle_tpu_torch.ops.kernels import quant_matmul as qmm
     from paddle_tpu_torch.ops.quant import absmax_quantize_int8
 
     gen = torch.Generator(device=dev).manual_seed(2)
     main = None
-    for M, K, N in QMM_SHAPES:
+    int8pack = _int8pack_mm_on_card()
+    step = {"ms": 0.0, "library_ms": 0.0, "int8pack_ms": 0.0,
+            "bound_ms": 0.0, "graph_ms": 0.0, "graph_library_ms": 0.0}
+    for (M, K, N), n in zip(QMM_SHAPES, QMM_STEP_WEIGHTS):
         x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
         w = (torch.randn((K, N), generator=gen, device=dev) * 0.02).to(
             torch.bfloat16)
         wq, s = absmax_quantize_int8(w, axis=-2, scale_dtype=torch.bfloat16)
+        plan = qmm.qmm_plan(M, K, N)
+        before = qmm.quant_matmul.launches_wgmma
         got = qmm.quant_matmul(x, wq, s)
         ref = qmm.quant_matmul_plain(x, wq, s)
         torch.cuda.synchronize()
+        if qmm.quant_matmul.launches_wgmma != before + 1:
+            raise AssertionError(f"qmm {M}x{K}x{N}: not the wgmma variant")
         err = (got - ref).abs().max().item()
         if not err <= QMM_ATOL:
             raise AssertionError(f"qmm {M}x{K}x{N}: max_abs_err {err}")
@@ -457,21 +495,51 @@ def check_qmm(dev) -> dict:
         plain_ms = _time_ms(lambda: qmm.quant_matmul_plain(x, wq, s))
         wb = w.contiguous()
         library_ms = _time_ms(lambda: torch.matmul(x, wb))
+        graph_ms = _graph_ms(lambda: qmm.quant_matmul(x, wq, s))
+        graph_lib_ms = _graph_ms(lambda: torch.matmul(x, wb))
+        pack_ms = None
+        if int8pack:
+            wt = wq.t().contiguous()                    # [N, K]
+            sf = s.reshape(N).to(torch.bfloat16)
+            pack_ms = _time_ms(
+                lambda: torch._weight_int8pack_mm(x, wt, sf))
+            step["int8pack_ms"] += n * pack_ms
+            del wt
         nbytes = M * K * 2 + K * N + N * 2 + M * N * 4
         bound_ms, bound_by = _bound(nbytes, 2.0 * M * K * N)
-        print(f"qmm M{M} K{K} N{N}: max_abs_err {err:.3e} (atol "
-              f"{QMM_ATOL}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bf16 matmul {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by})")
+        for k, v in (("ms", ms), ("library_ms", library_ms),
+                     ("bound_ms", bound_ms), ("graph_ms", graph_ms),
+                     ("graph_library_ms", graph_lib_ms)):
+            step[k] += n * v
+        tile = {k: plan[k] for k in ("bm", "bn", "tiles", "splits",
+                                     "stages")}
+        pack = "none on this card" if pack_ms is None else f"{pack_ms:.4f} ms"
+        print(f"qmm M{M} K{K} N{N} ({plan['variant']} {tile}): max_abs_err "
+              f"{err:.3e} (atol {QMM_ATOL}), kernel {ms:.4f} ms (device "
+              f"{graph_ms:.4f} in a CUDA graph), plain {plain_ms:.4f} ms, "
+              f"bf16 matmul {library_ms:.4f} ms (device {graph_lib_ms:.4f}), "
+              f"_weight_int8pack_mm {pack}, bound {bound_ms:.4f} ms "
+              f"({bound_by}), {n} a step")
         rec = {"name": "quant_matmul", "route": "cuda",
                "source": "paddle_tpu_torch/csrc/quant_matmul.cu",
                "replaces": "paddle_tpu/ops/pallas/quant_matmul.py:53",
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": library_ms, "shape": f"M{M} K{K} N{N}"}
+               "library_ms": library_ms, "int8pack_ms": pack_ms,
+               "graph_ms": graph_ms, "graph_library_ms": graph_lib_ms,
+               "shape": f"M{M} K{K} N{N}", "variant": plan["variant"]}
         if N == 14336:
             main = rec
         del x, w, wq, s, wb, got, ref
+    print(f"qmm one llama3-8b engine step ({sum(QMM_STEP_WEIGHTS)} K9 "
+          f"launches): kernel {step['ms']:.3f} ms (device "
+          f"{step['graph_ms']:.3f}), bf16 matmul {step['library_ms']:.3f} ms "
+          f"(device {step['graph_library_ms']:.3f}), _weight_int8pack_mm "
+          f"{step['int8pack_ms']:.3f} ms (never called by the port), "
+          f"bound {step['bound_ms']:.3f} ms")
+    main["engine_step_ms"] = step["ms"]
+    main["engine_step_library_ms"] = step["library_ms"]
+    main["engine_step_graph_ms"] = step["graph_ms"]
     return main
 
 
@@ -508,9 +576,19 @@ def run_engine(cfg, params, dev, weight_only_int8: bool,
                         max_seq=2048, weight_only_int8=weight_only_int8,
                         device=dev)
     reqs = _requests(Request, cfg.vocab_size)
+    step_s = []                   # host seconds of each step() call
+    step = eng.step
+
+    def timed_step(*args, **kw):
+        t = time.perf_counter()
+        out = step(*args, **kw)
+        step_s.append(time.perf_counter() - t)
+        return out
+
+    eng.step = timed_step
     torch.cuda.synchronize()
     ragged_paged_attention.launches = 0
-    quant_matmul.launches = 0
+    quant_matmul.launches = quant_matmul.launches_wgmma = 0
     if profile:
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
@@ -522,7 +600,8 @@ def run_engine(cfg, params, dev, weight_only_int8: bool,
         stats = eng.run(reqs)
     torch.cuda.synchronize()
     launches = {"ragged_paged_attention": ragged_paged_attention.launches,
-                "quant_matmul": quant_matmul.launches}
+                "quant_matmul": quant_matmul.launches,
+                "quant_matmul_wgmma": quant_matmul.launches_wgmma}
     steps = stats["unified_steps"]
     for r in reqs:
         if len(r.out_tokens) != r.max_new_tokens or r.t_done is None:
@@ -539,13 +618,16 @@ def run_engine(cfg, params, dev, weight_only_int8: bool,
         raise AssertionError(f"attention launches {launches} != {L} x "
                              f"{steps} steps")
     want_qmm = (7 * L + 1) * steps if weight_only_int8 else 0
-    if launches["quant_matmul"] != want_qmm:
+    if launches["quant_matmul"] != want_qmm or \
+            launches["quant_matmul_wgmma"] != want_qmm:
         raise AssertionError(f"int8 matmul launches {launches} != "
                              f"{want_qmm}")
     tag = "int8" if weight_only_int8 else "bf16"
     print(f"engine {tag}{' (profiled)' if profile else ''}: {len(reqs)} "
           f"requests, {steps} steps, "
-          f"{stats['wall_s'] / steps * 1e3:.1f} ms/step, "
+          f"{stats['wall_s'] / steps * 1e3:.1f} ms/step (step() median "
+          f"{1e3 * float(np.median(step_s)):.1f} ms, first "
+          f"{1e3 * step_s[0]:.1f} ms), "
           f"{stats['total_new_tokens']} tokens, "
           f"{stats['throughput_tok_s']:.1f} tok/s, ttft p50 "
           f"{stats['ttft_p50_s'] * 1e3:.1f} ms, prefix hits "

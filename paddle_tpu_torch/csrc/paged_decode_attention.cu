@@ -1,6 +1,6 @@
 // One-token decode attention over a paged KV cache, for Hopper (sm_90a):
-// K15 (d-major k pages, GQA), K14 (token-major pages) and K16 (K14's
-// function with its own double-buffered copies).
+// K15 (d-major k pages, GQA), K14 (token-major pages, a bulk-copy ring)
+// and K16 (K14's function over a two-stage cp.async ring).
 //
 // Replaces the Pallas TPU kernels
 //   paddle_tpu/ops/pallas/decode_attention.py::_paged_decode_mxu_kernel (K15)
@@ -28,33 +28,46 @@
 // for it every page is read.
 //
 // Design. The TPU grid walks (sequence, page group) in order, all heads of
-// a page vectorised in one program. Here one block of 128 threads owns one
-// (kv head, sequence) and walks its pages with the online state in shared
-// memory and registers. K15 reads its d-major k page coalesced along the
-// page's tokens (a thread per token, the loop over d) and the token-major
-// v page along d (a thread per element of d, the loop over tokens): fp32
-// FMAs, never TF32, G query heads eight at a time. K14 and K16 share one
-// per-page function (score_rows, page_softmax, value_rows): a warp per
-// token for the scores, one warp for the page's max and sum, a thread per
-// element of d for the values, each sum in a fixed order. K14 calls it on
-// the pages in device memory; K16 on tiles of 32 (or 16, 8) rows that it
-// copies itself into a two-stage cp.async ring in shared memory, the next
-// tile's copy in flight while this one computes. The TPU's DMA variant
-// copies groups of gk whole pages of all heads (gk =
+// a page vectorised in one program. Here one block owns one (kv head,
+// sequence) and walks its pages in table order with the online state in
+// shared memory and registers; a sequence is never split across blocks
+// (a split-K combine would change the softmax's sums). K15 (128 threads)
+// reads its d-major k page coalesced along the page's tokens (a thread per
+// token, the loop over d) and the token-major v page along d (a thread per
+// element of d, the loop over tokens): fp32 FMAs, never TF32, G query
+// heads eight at a time. K14 and K16 share one per-page function
+// (score_rows, page_softmax, value_rows): a warp per token for the scores,
+// one warp for the page's max and sum, a thread per element of d for the
+// values, each sum in a fixed order that does not depend on how the rows
+// are tiled. They differ in how rows reach shared memory:
+// - K14 (paged_ring_kernel, 4 computing warps + 1 producer warp): in the
+//   token-major pages one head's page is bs * d contiguous values, so a
+//   tile of its rows is one contiguous run. One producer thread issues a
+//   1-D bulk copy (cp.async.bulk, completing on an mbarrier: no tensor
+//   map) per tile into a ring of 3-16 stages and runs ahead across pages,
+//   so the next page's k tiles and this page's v tiles are in flight while
+//   scores and values are computed. A stage is 64, 32, 16 or 8 rows (at
+//   most 16 KB), and the ring as deep as leaves two blocks on an SM
+//   (decode_attention.py::paged_ring_geometry): at llama2-7b's width 6
+//   stages of 64 rows, ~96 KB in flight a block, for the grid of nh x B =
+//   256 blocks over 132 SMs in one wave.
+// - K16 (paged_dma_kernel, 128 threads): tiles of 32 (or 16, 8) rows that
+//   every thread copies with cp.async into a two-stage ring, the next
+//   tile's copy in flight while this one computes.
+// The TPU's DMA variant copies groups of gk whole pages of all heads (gk =
 // _paged_pages_per_program); at llama2-7b's width a page of all heads is
-// 1 MiB, beyond the 227 KB of a block's shared memory, so the ring's unit
-// here is a tile of one head's page. Since both kernels run the same
-// function on the same rows in the same order, K16 gives K14's bits.
+// 1 MiB, beyond the 227 KB of a block's shared memory, so the unit here
+// is a tile of one head's page. Since both kernels run the same function
+// on the same rows in the same order, K14 gives K16's bits.
 //
 // Bound on the H100: bytes. A decode step reads the valid tokens' k and v,
 // 2 * seq_len * nkv * d values per sequence, and does 4 * nq * seq_len * d
 // flop: G flop per byte in bf16 (4 at llama3-8b), far under the ~295 the
 // tensor cores need. At llama2-7b (B 8, 32 heads of 128, bf16) with 1088
-// tokens a sequence that is 143 MB per layer, 0.043 ms at 3.35 TB/s. K14
-// and K15 read each page with plain loads, a few bytes in flight per
-// thread; K16's copy ring keeps a tile in flight per block and is the
-// fastest of the three (PERF.md). TMA page rings for all three are the
-// later work that closes the gap.
+// tokens a sequence that is 143 MB per layer, 0.043 ms at 3.35 TB/s. What
+// decides the time is the bytes in flight: K15 reads each page with plain
+// loads, a few bytes in flight per thread; K16 keeps one tile in flight a
+// block; K14's ring keeps up to a page and a half (PERF.md).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -203,8 +216,8 @@ paged_mxu_kernel(const T* __restrict__ q, const T* __restrict__ kt,
 
 // ---- K14 / K16: token-major pages, one head -------------------------------
 //
-// The per-page function, in three steps. Rows are [n][D] with row stride D,
-// in device memory (K14) or shared memory (K16).
+// The per-page function, in three steps, on rows [n][D] with row stride D
+// in shared memory (a stage of either kernel's ring).
 
 // s[t0 + t] = (q . row t) * scale + mask for the n rows: a warp per row,
 // the lanes over d, a fixed shuffle tree.
@@ -292,44 +305,143 @@ __device__ __forceinline__ void store_out(
   }
 }
 
-// smem: q [D], s [bs], state (m, l, alpha).
+// ---- K14: the per-page function over a ring of 1-D bulk copies ------------
+//
+// Warps 0-3 compute (the per-page function above, which reads threadIdx.x
+// in 0..127 and synchronises with named barrier 1 of 128 threads); warp 4
+// is the producer, of which one thread issues the copies. full[s] counts
+// the producer's arrival and the stage's bytes; empty[s] the four
+// computing warps' releases.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+// One contiguous run of ``bytes`` (a multiple of 16, both ends 16-byte
+// aligned) from device memory into shared memory, completing on ``bar``.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void compute_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(kThreads) : "memory");
+}
+
+constexpr int kRingThreads = kThreads + 32;   // + the producer warp
+constexpr int kMaxStages = 16;
+
+// smem: full[kMaxStages], empty[kMaxStages] (256 B), the ring: stages x
+// [tile][D] T (from byte 256), then q [D], s [bs], state (m, l, alpha).
+// The walk is K16's: per page its k tiles, then its v tiles.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-paged_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-             const T* __restrict__ vp, const int* __restrict__ table,
-             const int* __restrict__ seq_lens, T* __restrict__ out, int nh,
-             int bs, int mb, float scale) {
+__global__ void __launch_bounds__(kRingThreads)
+paged_ring_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+                  const T* __restrict__ vp, const int* __restrict__ table,
+                  const int* __restrict__ seq_lens, T* __restrict__ out,
+                  int nh, int bs, int mb, int tile, int stages, float scale) {
   constexpr int NK = (D + kThreads - 1) / kThreads;
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);
+  uint64_t* empty = full + kMaxStages;
+  T* ring = reinterpret_cast<T*>(smem_raw + 256);
+  float* q_s = reinterpret_cast<float*>(ring + (size_t)stages * tile * D);
   float* s_s = q_s + D;
   float* st = s_s + bs;
   const int hh = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const T* qb = q + ((size_t)b * nh + hh) * D;
-  for (int e = tid; e < D; e += kThreads) q_s[e] = to_f(qb[e]);
-  if (tid == 0) {
-    st[0] = kMaskFill;
-    st[1] = 0.f;
-  }
-  float acc[NK];
-#pragma unroll
-  for (int k = 0; k < NK; ++k) acc[k] = 0.f;
   const int seq_len = seq_lens[b];
   const int n_pages = pages_to_read(seq_len, bs, mb);
+  const int per_page = 2 * (bs / tile);     // k tiles, then v tiles
+  const int half = per_page / 2;
+  const int n_tiles = n_pages * per_page;
+  if (tid < kThreads) {
+    const T* qb = q + ((size_t)b * nh + hh) * D;
+    for (int e = tid; e < D; e += kThreads) q_s[e] = to_f(qb[e]);
+    if (tid == 0) {
+      st[0] = kMaskFill;
+      st[1] = 0.f;
+    }
+  } else if (tid == kThreads) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  for (int j = 0; j < n_pages; ++j) {
-    const size_t page = (size_t)table[(size_t)b * mb + j];
-    const size_t off = (page * nh + hh) * (size_t)bs * D;
-    score_rows<T, D>(q_s, kp + off, bs, 0, j * bs, seq_len, scale, s_s);
-    __syncthreads();
-    page_softmax(s_s, bs, st);
-    __syncthreads();
-    float pv[NK];
+
+  if (tid >= kThreads) {                     // producer
+    if (tid != kThreads) return;
+    const uint32_t bytes = (uint32_t)(tile * D * sizeof(T));
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % stages;
+      mbar_wait(&empty[s], ((i / stages) & 1) ^ 1);
+      const int j = i / per_page, r = i % per_page;
+      const size_t page = (size_t)table[(size_t)b * mb + j];
+      const T* src = (r < half ? kp : vp) +
+                     ((page * nh + hh) * (size_t)bs +
+                      (size_t)(r % half) * tile) * D;
+      mbar_expect_tx(&full[s], bytes);
+      bulk_copy(ring + (size_t)s * tile * D, src, bytes, &full[s]);
+    }
+    return;
+  }
+
+  float acc[NK], pv[NK];
 #pragma unroll
-    for (int k = 0; k < NK; ++k) pv[k] = 0.f;
-    value_rows<T, D>(s_s, vp + off, bs, 0, pv);
-    update_acc<D>(acc, pv, st[2]);
-    __syncthreads();
+  for (int k = 0; k < NK; ++k) acc[k] = pv[k] = 0.f;
+  const int lane = tid % 32;
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % stages;
+    mbar_wait(&full[s], (i / stages) & 1);
+    const int j = i / per_page, r = i % per_page;
+    const T* rows = ring + (size_t)s * tile * D;
+    if (r < half) {
+      score_rows<T, D>(q_s, rows, tile, r * tile, j * bs, seq_len, scale,
+                       s_s);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      if (r == half - 1) {
+        compute_sync();
+        page_softmax(s_s, bs, st);
+        compute_sync();
+      }
+    } else {
+      value_rows<T, D>(s_s, rows, tile, (r - half) * tile, pv);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      if (r == per_page - 1) {
+        update_acc<D>(acc, pv, st[2]);
+#pragma unroll
+        for (int k = 0; k < NK; ++k) pv[k] = 0.f;
+        compute_sync();        // s and alpha read before the next page
+      }
+    }
   }
   store_out<T, D>(out + ((size_t)b * nh + hh) * D, acc, st[1]);
 }
@@ -443,25 +555,37 @@ int launch_mxu(const void* q, const void* kt, const void* vp, const int* tb,
   return (int)cudaGetLastError();
 }
 
+// K14's ring geometry, as decode_attention.py::paged_ring_geometry sizes
+// it: the bytes of shared memory, or 0 for a geometry the ring refuses.
+size_t ring_smem(int d, int bs, int tile, int stages, size_t itemsize) {
+  if (tile < 8 || tile % 8 || bs % tile || stages < 3 || stages > kMaxStages)
+    return 0;
+  return 256 + (size_t)stages * tile * d * itemsize +
+         sizeof(float) * ((size_t)d + bs + 4);
+}
+
 template <typename T, int D>
 int launch_tok(bool dma, const void* q, const void* kp, const void* vp,
                const int* tb, const int* sl, void* out, int B, int nh,
-               int bs, int mb, float scale, cudaStream_t st) {
-  size_t smem = sizeof(float) * ((size_t)D + bs + 4);
+               int bs, int mb, int tile, int stages, float scale,
+               cudaStream_t st) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(kp);
   const T* vt = static_cast<const T*>(vp);
   T* ot = static_cast<T*>(out);
   const dim3 grid(nh, B);
   if (!dma) {
-    cudaError_t err = set_smem(paged_kernel<T, D>, smem);
+    const size_t smem = ring_smem(D, bs, tile, stages, sizeof(T));
+    if (smem == 0 || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+    cudaError_t err = set_smem(paged_ring_kernel<T, D>, smem);
     if (err != cudaSuccess) return (int)err;
-    paged_kernel<T, D><<<grid, kThreads, smem, st>>>(qt, kt, vt, tb, sl, ot,
-                                                     nh, bs, mb, scale);
+    paged_ring_kernel<T, D><<<grid, kRingThreads, smem, st>>>(
+        qt, kt, vt, tb, sl, ot, nh, bs, mb, tile, stages, scale);
     return (int)cudaGetLastError();
   }
-  const int tile = bs % 32 == 0 ? 32 : bs % 16 == 0 ? 16 : 8;
-  smem += sizeof(T) * 2 * (size_t)tile * D;
+  tile = bs % 32 == 0 ? 32 : bs % 16 == 0 ? 16 : 8;
+  const size_t smem = sizeof(float) * ((size_t)D + bs + 4) +
+                      sizeof(T) * 2 * (size_t)tile * D;
   cudaError_t err = set_smem(paged_dma_kernel<T, D>, smem);
   if (err != cudaSuccess) return (int)err;
   paged_dma_kernel<T, D><<<grid, kThreads, smem, st>>>(
@@ -502,16 +626,18 @@ extern "C" int paged_decode_mxu(const void* q, const void* kt, const void* v,
 }
 
 // K14 (dma = 0) and K16 (dma = 1): q [B, nh, d], k and v [P, nh, bs, d].
+// tile and stages are K14's ring (rows a stage, stages); K16 sizes its own.
 extern "C" int paged_decode_tok(int dma, const void* q, const void* k,
                                 const void* v, const int* table,
                                 const int* seq_lens, void* out, int B, int nh,
-                                int d, int bs, int mb, float scale, int dtype,
-                                void* stream) {
+                                int d, int bs, int mb, int tile, int stages,
+                                float scale, int dtype, void* stream) {
   if (!geometry_ok(B, nh, d, bs, mb, dtype))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool m = dma != 0;
-#define ARGS m, q, k, v, table, seq_lens, out, B, nh, bs, mb, scale, st
+#define ARGS m, q, k, v, table, seq_lens, out, B, nh, bs, mb, tile, stages, \
+    scale, st
   if (dtype == 1) {
     if (d == 64) return launch_tok<__nv_bfloat16, 64>(ARGS);
     if (d == 128) return launch_tok<__nv_bfloat16, 128>(ARGS);

@@ -4,27 +4,61 @@
 // Replaces the Pallas TPU kernel
 //   paddle_tpu/ops/pallas/quant_matmul.py::_qmm_kernel
 // (launched by quant_matmul_kernel): y[M, N] = (x[M, K] @ W[K, N]) * s[N],
-// x bf16 or fp32, W int8, s fp32, y fp32. Per-output-column scales commute
-// with the contraction, so the int8 tile is converted exactly (|w| <= 127)
-// and the scale multiplies the fp32 accumulator once, at the end.
+// x bf16 or fp32, W int8 in the reference's row-major [K, N], s fp32, y
+// fp32. Per-output-column scales commute with the contraction, so the
+// int8 values are converted exactly (|w| <= 127) and the scale multiplies
+// the fp32 accumulator once, at the end. No repacked copy of W is kept.
 //
-// Design. bf16 x (the engine's case) takes the tensor cores: one 256-thread
-// block per 64 x 128 output tile, 8 warps of 32 x 32, a K loop that stages
-// a 64 x 32 tile of x and a 32 x 128 tile of W (16-byte loads, int8
-// converted exactly to bf16) through shared memory, mma.sync m16n8k16 bf16
-// with fp32 accumulators in registers, and the next tile's loads in flight
-// during this tile's products. fp32 x takes a CUDA-core kernel: 64 x 64
-// tiles, 16-deep K steps, a 4 x 4 FMA sub-tile per thread. Ragged M, N and
-// K edges are masked with zeros in both.
+// Bound on the H100. At the engine's M = 512 the function does 2 * M =
+// 1024 flop per weight byte, above the ~295 flop/byte of the bf16 tensor
+// cores: operation-bound. At the head's M = 32 it is byte-bound (W, 525
+// MB at llama3-8b's vocabulary).
 //
-// Bound on the H100. The weight bytes (K * N, int8) are the traffic that
-// matters: at the head's M = 32 the function is byte-bound; at the layers'
-// M = 512 it does 2 * M = 1024 flop per weight byte, above the ~295
-// flop/byte of the bf16 tensor cores, so it is operation-bound there. The
-// mma.sync loop here, with one tile of register prefetch, stays far below
-// the wgmma rate; wgmma with TMA-fed int8 tiles is
-// the later PR that closes that.
+// Design of the main variant (bf16 x, K % 8 == 0, N % 16 == 0: the
+// alignments TMA needs), qmm_wgmma_kernel. The operands are swapped:
+// y^T = W^T x^T, so W is wgmma's A operand, read from registers, and x is
+// its B operand, read from shared memory through a descriptor. That way
+// the int8 tile is converted in the registers that feed the tensor cores
+// (no bf16 copy of W is written back to shared memory, no proxy fence),
+// and x's M, 32 at the head, is the instruction's N, which may be as
+// small as 8, while W's N takes the instruction's 64 rows. Three
+// warpgroups:
+// - warpgroup 2 is the producer: one thread keeps a ring of 5-8 stages
+//   full with TMA loads, each stage x's [BM, 64] bf16 tile (K-major,
+//   128-byte swizzle: wgmma's canonical B layout) and W's [64, 128 SL]
+//   int8 tile (row-major, 128-byte swizzle, as stored), on full/empty
+//   mbarriers; TMA writes zeros past the tensor's edges;
+// - warpgroups 0 and 1 each own SL 64-row A slices, SL x 64 columns of
+//   y. A thread's 2 SL A rows are adjacent columns of W, so one 16-bit
+//   (SL 1) or 32-bit (SL 2) shared load of a swizzled k row gives a value
+//   for each (conflict-free: the swizzle spreads the 4 k rows a warp
+//   reads over distinct banks). int8 -> bf16 is exact: a byte permute
+//   into the mantissa of 2^23, a subtraction of 2^23 + 128, and a permute
+//   that packs the two upper halves (the integers have at most 8
+//   significant bits); no conversion instruction;
+// - wgmma.mma_async m64nBMk16, fp32 accumulators, a K step of 64 (4 k16
+//   x SL products) committed as one group; the next step's tile is
+//   converted into a second register set while the group runs, and a
+//   stage is released once its group has finished;
+// - epilogue: for each x row m a thread's accumulators are 2 SL adjacent
+//   columns: times s[n..], one 8- or 16-byte store.
+// quant_matmul.py::qmm_plan picks the tile from (M, K, N): BM 256 x 128
+// columns (SL 1, n256 products: half the conversions a product of SL 2)
+// for the engine's M 512; BM 32 or 64 x 256 columns (SL 2) for small M,
+// the head's byte-bound case; shapes with too few tiles for 132 SMs (N
+// 1024 and 4096 at M 512) split K across blocks into fp32 partials that
+// a second kernel sums in split order and scales. At M 512 it stays
+// above the bf16 product's time: a warpgroup's next products wait for its
+// own conversion, and 224 tiles take two waves of 132 SMs (PERF.md).
+//
+// The other variants: shapes TMA cannot take (unaligned K or N) keep the
+// mma.sync m16n8k16 kernel (qmm_tc_kernel: 64 x 128 tiles, a register
+// prefetch of the next K step); fp32 x takes a CUDA-core kernel
+// (qmm_kernel). Both mask the ragged edges.
 
+#include <cuda.h>           // CUtensorMap and its enums only:
+                            // cuTensorMapEncodeTiled is looked up at run
+                            // time (encode_tiled), not linked
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -214,6 +248,506 @@ qmm_tc_kernel(const uint16_t* __restrict__ x, const int8_t* __restrict__ w,
       }
 }
 
+// ---- the main variant: TMA ring, int8 converted in registers, wgmma ----
+
+constexpr int kWSlice = 64;           // columns of y a 64-row A slice
+constexpr int kWgBK = 64;             // K a stage: a 128-byte row of x
+constexpr int kWgThreads = 384;       // 2 consumer warpgroups, 1 producer
+constexpr int kRegsAtEntry = 168;     // 65536 / 384, what ptxas gives
+constexpr int kRegsProducer = 40;     // setmaxnreg after the role split:
+constexpr int kRegsConsumer = 232;    // 128 x 40 + 256 x 232 <= 384 x 168
+static_assert(128 * kRegsProducer + 256 * kRegsConsumer <=
+              kWgThreads * kRegsAtEntry, "setmaxnreg over the block's pool");
+constexpr int kWBox = kWgBK * 128;    // a [64 k, 128 n] int8 tile of W
+constexpr int kWgMaxStages = 8;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+// The box of ``map`` at (c0 innermost, c1) into shared memory at ``dst``,
+// completing on ``bar``; past the tensor's edge TMA writes zeros.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma's shared-memory descriptor of a K-major tile with 128-byte rows
+// in the 128-byte swizzle (8-row groups 1024 bytes apart), from a
+// 1024-byte aligned base plus the k16 step's 32-byte offset.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d += A (registers, 64 x 16) B (shared memory, 16 x 256).
+__device__ __forceinline__ void wgmma_n256(float (&d)[128],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// d += A (registers, 64 x 16) B (shared memory, 16 x 128).
+__device__ __forceinline__ void wgmma_n128(float (&d)[64],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// d += A (registers, 64 x 16) B (shared memory, 16 x 64).
+__device__ __forceinline__ void wgmma_n64(float (&d)[32],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// d += A (registers, 64 x 16) B (shared memory, 16 x 32).
+__device__ __forceinline__ void wgmma_n32(float (&d)[16],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <int BM>
+__device__ __forceinline__ void wgmma_bm(float (&d)[BM / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  if constexpr (BM == 256) wgmma_n256(d, a, desc);
+  else if constexpr (BM == 128) wgmma_n128(d, a, desc);
+  else if constexpr (BM == 64) wgmma_n64(d, a, desc);
+  else wgmma_n32(d, a, desc);
+}
+
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// Byte j of a word of int8 values already offset by 128 (xor 0x80): the
+// exact float, 2^23 + (w + 128) put together bitwise, minus 2^23 + 128.
+// With the pair packing below, 2.5 integer or fp32 instructions a value
+// and no conversion instruction.
+__device__ __forceinline__ float i8_at(uint32_t wu, int j) {
+  return __uint_as_float(__byte_perm(wu, 0x4B000000u, 0x7540 | j)) -
+         8388736.f;
+}
+// bf16 pair (byte j of lo, byte j of hi), lo in the low half: the upper
+// halves of the two floats, exact since an integer of magnitude <= 128
+// has at most 8 significant bits.
+__device__ __forceinline__ uint32_t bf16_pair(uint32_t lo, uint32_t hi,
+                                              int j) {
+  return __byte_perm(__float_as_uint(i8_at(lo, j)),
+                     __float_as_uint(i8_at(hi, j)), 0x7632);
+}
+
+// The 4 (SL 2) or 2 (SL 1) int8 of k row r at byte ``byte`` of 16-byte
+// unit ``chunk`` of a swizzled [64, 128] tile, offset by 128 (xor 0x80).
+template <int SL>
+__device__ __forceinline__ uint32_t w_bytes(const unsigned char* tile,
+                                            int r, int chunk, int byte) {
+  const unsigned char* p = tile + r * 128 + ((chunk ^ (r & 7)) << 4) + byte;
+  if constexpr (SL == 2)
+    return *reinterpret_cast<const uint32_t*>(p) ^ 0x80808080u;
+  else
+    return (uint32_t)*reinterpret_cast<const uint16_t*>(p) ^ 0x8080u;
+}
+
+// smem: the ring, stages x [x tile BM x 128 B | SL W tiles 64 x 128 B]
+// from a 1024-byte aligned base, then full[8] and empty[8]. Each of the
+// two consumer warpgroups owns SL 64-row A slices (SL x 64 columns of
+// y); block (mt, nt, z): rows [mt BM, +BM), columns [nt 128 SL, +128 SL),
+// K steps [z per, (z+1) per); with gridDim.z > 1 it writes its fp32
+// partial (unscaled) at z M N.
+template <int BM, int SL>
+__global__ void __launch_bounds__(kWgThreads, 1)
+qmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                 const __grid_constant__ CUtensorMap wmap,
+                 const float* __restrict__ scale, float* __restrict__ out,
+                 int M, int K, int N, int stages, int kb_per_split) {
+  constexpr int NA = BM / 2;          // accumulators of one slice
+  constexpr int kCols = 2 * SL * kWSlice;
+  constexpr int kXBytes = BM * 128;
+  constexpr int kStage = kXBytes + SL * kWBox;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + (size_t)stages * kStage);
+  uint64_t* empty = full + kWgMaxStages;
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * kCols;
+  const int kb_total = (K + kWgBK - 1) / kWgBK;
+  const int kb0 = blockIdx.z * kb_per_split;
+  const int nkb = max(0, min(kb_total, kb0 + kb_per_split) - kb0);
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);          // the consumers' eight warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 256) {                     // producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kRegsProducer));
+    if (tid == 256) {
+      for (int i = 0; i < nkb; ++i) {
+        const int s = i % stages;
+        mbar_wait(&empty[s], ((i / stages) & 1) ^ 1);
+        const uint32_t dst = base + (uint32_t)(s * kStage);
+        const int k0 = (kb0 + i) * kWgBK;
+        mbar_expect_tx(&full[s], kStage);
+        tma_load_2d(dst, &xmap, k0, m0, &full[s]);
+#pragma unroll
+        for (int c = 0; c < SL; ++c)
+          tma_load_2d(dst + kXBytes + c * kWBox, &wmap, n0 + 128 * c, k0,
+                      &full[s]);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(kRegsConsumer));
+  const int wg = tid / 128, w = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  // this thread's A rows (slice h, row 16 w + g + 8 e) are 2 SL adjacent
+  // columns, n0 + col + 2 h + e with col = 64 SL wg + SL (16 w + 2 g): one
+  // word (SL 2) or pair (SL 1) of a k row of W tile col / 128
+  const int col = 64 * SL * wg + SL * (16 * w + 2 * g);
+  const int chunk = (col % 128) / 16, byte = col % 16;
+  float acc[SL][NA];
+#pragma unroll
+  for (int h = 0; h < SL; ++h)
+#pragma unroll
+    for (int i = 0; i < NA; ++i) acc[h][i] = 0.f;
+
+  // A fragments of one K step (4 k16 x SL slices), converted from stage s
+  auto convert = [&](int s, uint32_t (&a)[4][SL][4]) {
+    const unsigned char* wt =
+        sm + (size_t)s * kStage + kXBytes + (col / 128) * kWBox;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const int r = 16 * ks + 2 * t;
+      const uint32_t w0 = w_bytes<SL>(wt, r, chunk, byte);
+      const uint32_t w1 = w_bytes<SL>(wt, r + 1, chunk, byte);
+      const uint32_t w2 = w_bytes<SL>(wt, r + 8, chunk, byte);
+      const uint32_t w3 = w_bytes<SL>(wt, r + 9, chunk, byte);
+#pragma unroll
+      for (int h = 0; h < SL; ++h) {
+        a[ks][h][0] = bf16_pair(w0, w1, 2 * h);
+        a[ks][h][1] = bf16_pair(w0, w1, 2 * h + 1);
+        a[ks][h][2] = bf16_pair(w2, w3, 2 * h);
+        a[ks][h][3] = bf16_pair(w2, w3, 2 * h + 1);
+      }
+    }
+  };
+  auto fence_acc = [&]() {
+#pragma unroll
+    for (int h = 0; h < SL; ++h) fence_operands(acc[h]);
+  };
+  // K step i: its products from ``cur`` are issued; once step i - 1's
+  // have finished, its stage is freed and step i + 1's stage is awaited
+  // and converted into ``nxt`` (step i - 1's registers) while step i's
+  // products run.
+  auto step = [&](int i, const uint32_t (&cur)[4][SL][4],
+                  uint32_t (&nxt)[4][SL][4]) {
+    const int s = i % stages;
+    const uint64_t dx = sw128_desc(base + (uint32_t)(s * kStage));
+    fence_acc();
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int h = 0; h < SL; ++h)     // + 32 bytes a k16
+        wgmma_bm<BM>(acc[h], cur[ks][h], dx + 2 * ks);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    fence_acc();
+    if (i > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(i - 1) % stages]);
+    }
+    if (i + 1 < nkb) {
+      mbar_wait(&full[(i + 1) % stages], ((i + 1) / stages) & 1);
+      convert((i + 1) % stages, nxt);
+    }
+  };
+  uint32_t a0[4][SL][4], a1[4][SL][4];
+  if (nkb > 0) {
+    mbar_wait(&full[0], 0);
+    convert(0, a0);
+  }
+  for (int i = 0; i < nkb; i += 2) {
+    step(i, a0, a1);
+    if (i + 1 < nkb) step(i + 1, a1, a0);
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc();
+
+  // accumulator i of slice h: A row g + 8 e (e = (i / 2) % 2), column
+  // n + 2 h + e; x row m = 8 (i / 4) + 2 t + i % 2
+  const int n = n0 + col;
+  if (n >= N) return;
+  const bool whole = gridDim.z == 1;
+  float sc[2 * SL];
+#pragma unroll
+  for (int j = 0; j < 2 * SL; ++j) sc[j] = whole ? scale[n + j] : 1.f;
+  float* ob = out + (size_t)blockIdx.z * M * N;
+#pragma unroll
+  for (int i = 0; i < BM / 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int m = m0 + 8 * i + 2 * t + c;
+      if (m >= M) continue;
+      float* dst = ob + (size_t)m * N + n;
+      if constexpr (SL == 2) {
+        *reinterpret_cast<float4*>(dst) = make_float4(
+            acc[0][4 * i + c] * sc[0], acc[0][4 * i + 2 + c] * sc[1],
+            acc[1][4 * i + c] * sc[2], acc[1][4 * i + 2 + c] * sc[3]);
+      } else {
+        *reinterpret_cast<float2*>(dst) = make_float2(
+            acc[0][4 * i + c] * sc[0], acc[0][4 * i + 2 + c] * sc[1]);
+      }
+    }
+}
+
+// y = (sum of the split-K partials, in split order) * s, 4 columns a
+// thread.
+__global__ void qmm_splitk_sum(const float4* __restrict__ part,
+                               const float* __restrict__ scale,
+                               float4* __restrict__ y, int M, int N,
+                               int splits) {
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t n4 = (size_t)M * N / 4;
+  if (e >= n4) return;
+  float4 a = part[e];
+  for (int z = 1; z < splits; ++z) {
+    const float4 b = part[z * n4 + e];
+    a.x += b.x;
+    a.y += b.y;
+    a.z += b.z;
+    a.w += b.w;
+  }
+  const float4 sc =
+      reinterpret_cast<const float4*>(scale)[(e * 4 % (size_t)N) / 4];
+  y[e] = make_float4(a.x * sc.x, a.y * sc.y, a.z * sc.z, a.w * sc.w);
+}
+
+typedef CUresult (*EncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2-D row-major map (rows of ``row_bytes``) with 128-byte swizzled
+// boxes of box_inner x box_outer elements.
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+              uint64_t inner, uint64_t outer, uint64_t row_bytes,
+              uint32_t box_inner, uint32_t box_outer) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint64_t dims[2] = {inner, outer};
+  cuuint64_t strides[1] = {row_bytes};
+  cuuint32_t box[2] = {box_inner, box_outer};
+  cuuint32_t elem[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BM, int SL>
+int launch_wgmma(const void* x, const void* w, const float* scale, float* y,
+                 float* part, int M, int K, int N, int splits, int stages,
+                 cudaStream_t st) {
+  CUtensorMap xmap, wmap;
+  if (!make_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M,
+                (uint64_t)K * 2, kWgBK, BM) ||
+      !make_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K, N, 128,
+                kWgBK))
+    return (int)cudaErrorNotSupported;
+  const size_t smem = (size_t)stages * (BM * 128 + SL * kWBox) + 1024 +
+                      16 * kWgMaxStages;
+  static size_t smem_set = 0;        // the attribute only ever grows
+  if (smem_set == 0) {
+    // setmaxnreg moves registers between the roles within what the block
+    // got at launch: were it less, the consumers' increase would wait
+    // forever, so refuse the launch instead
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, qmm_wgmma_kernel<BM, SL>);
+    if (err != cudaSuccess) return (int)err;
+    if (attr.numRegs < kRegsAtEntry)
+      return (int)cudaErrorInvalidConfiguration;
+  }
+  if (smem > smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        qmm_wgmma_kernel<BM, SL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
+  const int kb_total = (K + kWgBK - 1) / kWgBK;
+  const int per = (kb_total + splits - 1) / splits;
+  const int bn = 2 * SL * kWSlice;
+  const dim3 grid((M + BM - 1) / BM, (N + bn - 1) / bn, splits);
+  qmm_wgmma_kernel<BM, SL><<<grid, kWgThreads, smem, st>>>(
+      xmap, wmap, scale, splits > 1 ? part : y, M, K, N, stages, per);
+  if (splits > 1) {
+    const size_t n4 = (size_t)M * N / 4;
+    qmm_splitk_sum<<<(unsigned)((n4 + 255) / 256), 256, 0, st>>>(
+        reinterpret_cast<const float4*>(part), scale,
+        reinterpret_cast<float4*>(y), M, N, splits);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype of x: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after
@@ -234,4 +768,35 @@ extern "C" int qmm_forward(const void* x, const void* w, const float* scale,
   } else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// The main variant: bf16 x [M, K] with K % 8 == 0, int8 W [K, N] with
+// N % 16 == 0, all pointers 16-byte aligned; bm in {32, 64, 128, 256}
+// rows a block, splits >= 1 (with part, [splits, M, N] fp32, when > 1), stages
+// in [2, 8]. Returns cudaGetLastError() after the launches
+// (cudaErrorInvalidValue for what it does not take, cudaErrorNotSupported
+// when no tensor map could be made).
+extern "C" int qmm_forward_wgmma(const void* x, const void* w,
+                                 const float* scale, float* y, float* part,
+                                 int M, int K, int N, int bm, int splits,
+                                 int stages, void* stream) {
+  const bool aligned = ((reinterpret_cast<uintptr_t>(x) |
+                         reinterpret_cast<uintptr_t>(w) |
+                         reinterpret_cast<uintptr_t>(scale) |
+                         reinterpret_cast<uintptr_t>(y) |
+                         reinterpret_cast<uintptr_t>(part)) % 16) == 0;
+  if (M < 1 || K < 8 || K % 8 || N < 16 || N % 16 || splits < 1 ||
+      (splits > 1 && part == nullptr) || stages < 2 ||
+      stages > kWgMaxStages || !aligned)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define ARGS x, w, scale, y, part, M, K, N, splits, stages, st
+  // two slices a warpgroup (256 columns a block) for small M, where the
+  // block's W tile is all the work; one (128) with n256 products for large
+  if (bm == 256) return launch_wgmma<256, 1>(ARGS);
+  if (bm == 128) return launch_wgmma<128, 1>(ARGS);
+  if (bm == 64) return launch_wgmma<64, 2>(ARGS);
+  if (bm == 32) return launch_wgmma<32, 2>(ARGS);
+#undef ARGS
+  return (int)cudaErrorInvalidValue;
 }

@@ -31,7 +31,9 @@ o = acc / max(l, 1e-30).
   token-major v pages [P, nkv, bs, d], GQA native; p rounded to the page
   dtype before the value product (l sums the unrounded p).
 - K14 ``paged_decode_attention_kernel``: token-major k and v pages
-  [P, nh, bs, d], nh == nq, fp32 products, p not rounded.
+  [P, nh, bs, d], nh == nq, fp32 products, p not rounded. One thread
+  streams the rows through a ring of 1-D bulk copies that
+  ``paged_ring_geometry`` sizes.
 - K16 ``paged_decode_attention_dma``: K14's function through the kernel
   that copies its own pages (bit-equal to K14); raises where
   ``paged_decode_supported`` fails, as the reference's does.
@@ -58,7 +60,7 @@ __all__ = ["decode_attention", "decode_attention_int8",
            "paged_decode_supported", "paged_decode_mxu_supported",
            "paged_decode_attention_mxu", "paged_decode_attention_kernel",
            "paged_decode_attention_dma", "paged_decode_mxu_plain",
-           "paged_decode_plain"]
+           "paged_decode_plain", "paged_ring_geometry"]
 
 BLOCK_S = 512
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -312,13 +314,41 @@ def paged_decode_plain(q, k_pages, v_pages, block_table, seq_lens,
                         sm_scale, d_major=False, round_p=False)
 
 
+SM_SMEM_BYTES = 233472       # shared memory of an H100 SM (228 KB)
+BLOCK_SMEM_MAX = 232448      # what one block may take (227 KB)
+BLOCK_SMEM_RESERVED = 1024   # held back by the card for every block
+RING_BLOCKS_PER_SM = 2       # nh x B = 256 blocks over 132 SMs: one wave
+RING_TILE_BYTES = 16384      # a stage at most
+RING_MAX_STAGES = 16         # kMaxStages in the source
+
+
+def paged_ring_geometry(d: int, bs: int, itemsize: int) -> tuple[int, int,
+                                                                int]:
+    """K14's ring: (rows a stage, stages, shared bytes a block). A stage
+    is the largest of 64, 32, 16, 8 rows that divides the page and fits
+    16 KB; as many stages (3 to 16) as leave ``RING_BLOCKS_PER_SM``
+    blocks room on an SM beside the fixed part (barriers, q, s, state),
+    as the kernel lays it out. A page too long for that (s holds bs
+    floats) gets a block's whole shared memory."""
+    row = d * itemsize
+    tile = next(t for t in (64, 32, 16, 8)
+                if bs % t == 0 and t * row <= RING_TILE_BYTES)
+    fixed = 256 + 4 * (d + bs + 4)
+    for room in (SM_SMEM_BYTES // RING_BLOCKS_PER_SM - BLOCK_SMEM_RESERVED,
+                 BLOCK_SMEM_MAX):
+        stages = min(RING_MAX_STAGES, (room - fixed) // (tile * row))
+        if stages >= 3:
+            return tile, stages, fixed + stages * tile * row
+    raise ValueError(f"d {d}, bs {bs}: no 3-stage ring fits")
+
+
 def _paged_fn(name: str):
     fn = _fns.get(name)
     if fn is None:
         fn = getattr(_build.library("paged_decode_attention"), name)
         P, I = ctypes.c_void_p, ctypes.c_int
         lead = [I] if name == "paged_decode_tok" else []
-        n_int = 6 if name == "paged_decode_mxu" else 5
+        n_int = 6 if name == "paged_decode_mxu" else 7
         fn.argtypes = lead + [P] * 6 + [I] * n_int + [ctypes.c_float, I, P]
         fn.restype = I
         _fns[name] = fn
@@ -367,9 +397,14 @@ def _launch_paged(name: str, dma, q, k_pages, v_pages, block_table,
     o = torch.empty_like(q)
     ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_table.data_ptr(), seq_lens.data_ptr(), o.data_ptr())
-    heads = (nkv, G) if d_major else (nkv,)
-    err = _paged_fn(name)(*dma, *ptrs, B, *heads, d, bs, mb,
-                          float(sm_scale), _DTYPE_CODE[q.dtype],
+    if d_major:
+        geo = (nkv, G, d, bs, mb)
+    else:   # K16 sizes its own tiles and ignores the ring
+        ring = paged_ring_geometry(d, bs, q.element_size())[:2] \
+            if dma == (0,) else (0, 0)
+        geo = (nkv, d, bs, mb, *ring)
+    err = _paged_fn(name)(*dma, *ptrs, B, *geo, float(sm_scale),
+                          _DTYPE_CODE[q.dtype],
                           torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, name)
     return o

@@ -27,7 +27,11 @@ rows exactly 0. The head-major flash (K17) must equal K1-sep and K3-sep
 bit for bit on the same values; the paged decode kernels (K15, K14) are
 held by row to their plain versions at the training tolerances above
 (K15's plain version rounds p to the page dtype as the kernel does), and
-K16 must equal K14 bit for bit."""
+K16 must equal K14 bit for bit. K9 runs in three variants: each case
+asserts which variant's counter moved (``qmm_plan``); K14's ring
+(``paged_ring_geometry``) is held at its edges: a length that ends on a
+stage, one that ends on the ring's last stage, one inside a stage, 0 and
+a full table."""
 
 import numpy as np
 import pytest
@@ -81,23 +85,62 @@ def test_rpa_kernel_matches_plain(cuda, dtype, atol, G, d, bs):
                                rtol=atol)
 
 
+def _qmm_case(cuda, dtype, M, K, N, seed=1):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((M, K), generator=gen, device=cuda).to(dtype)
+    wq = torch.randint(-127, 128, (K, N), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    s = torch.rand((1, N), generator=gen, device=cuda) * 1e-2
+    return x, wq, s
+
+
+def _qmm_held(cuda, dtype, M, K, N):
+    """K9 against its plain version; returns the variant that ran."""
+    from paddle_tpu_torch.ops.kernels.quant_matmul import qmm_plan
+
+    x, wq, s = _qmm_case(cuda, dtype, M, K, N)
+    variant = qmm_plan(M, K, N, dtype)["variant"]
+    counter = "launches_" + variant
+    before = (quant_matmul.launches, getattr(quant_matmul, counter))
+    got = quant_matmul(x, wq, s)
+    ref = quant_matmul_plain(x, wq, s)
+    torch.cuda.synchronize()
+    assert (quant_matmul.launches,
+            getattr(quant_matmul, counter)) == (before[0] + 1, before[1] + 1)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               atol=1e-3, rtol=1e-4)
+    return variant
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M,K,N", [(16, 256, 384), (33, 100, 70),
                                    (512, 4096, 1024), (32, 4096, 1000)])
 def test_quant_matmul_kernel_matches_plain(cuda, dtype, M, K, N):
-    rng = np.random.default_rng(1)
-    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32))
-    wq = torch.from_numpy(rng.integers(-127, 128, size=(K, N)).astype(np.int8))
-    s = torch.from_numpy((rng.random(size=(1, N)) * 1e-2).astype(np.float32))
-    xt, wt, st = x.to(cuda, dtype), wq.to(cuda), s.to(cuda)
-    before = quant_matmul.launches
-    got = quant_matmul(xt, wt, st)
-    ref = quant_matmul_plain(xt, wt, st)
-    torch.cuda.synchronize()
-    assert quant_matmul.launches == before + 1
-    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
-                               atol=1e-3, rtol=1e-4)
+    want = {torch.float32: "fma"}.get(
+        dtype, "mma" if K % 8 or N % 16 else "wgmma")
+    assert _qmm_held(cuda, dtype, M, K, N) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [
+    (512, 4096, 4096), (512, 4096, 1024), (512, 4096, 14336),
+    (512, 14336, 4096), (32, 4096, 128256),        # the engine's five
+    (1, 4096, 1024), (63, 4096, 1024), (65, 4096, 4096), (511, 4096, 1024),
+    (512, 200, 4096), (65, 4104, 1024), (33, 1000, 128256)])
+def test_quant_matmul_wgmma_variant(cuda, M, K, N):
+    """The TMA + wgmma variant at the engine's shapes and the tiles'
+    edges: M 1, 63, 65, 511 (rows past M), K 200 and 4104 (a partial
+    last K step), N 1024 (split K) and 128256 (501 tiles)."""
+    assert _qmm_held(cuda, torch.bfloat16, M, K, N) == "wgmma"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(512, 4096, 1000), (64, 4100, 1024),
+                                   (1, 64, 24)])
+def test_quant_matmul_unaligned_takes_mma(cuda, M, K, N):
+    """Shapes TMA cannot take (N % 16, K % 8) go to the mma.sync kernel."""
+    assert _qmm_held(cuda, torch.bfloat16, M, K, N) == "mma"
 
 
 @pytest.mark.cuda
@@ -668,5 +711,30 @@ def test_paged_token_major_kernels_match_plain(cuda, dtype, tol, nh, d, bs):
     assert (da.paged_decode_attention_kernel.launches,
             da.paged_decode_attention_dma.launches) == (before[0] + 1,
                                                         before[1] + 1)
+    assert torch.equal(k14, k16)
+    assert _scaled(k14, ref) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3 * 2 ** -7)])
+@pytest.mark.parametrize("nh,d,bs", [(4, 128, 128), (2, 256, 128),
+                                     (4, 64, 40), (8, 64, 16), (2, 256, 40)])
+def test_paged_ring_edges(cuda, dtype, tol, nh, d, bs):
+    """K14 at its ring's edges, bit-equal to K16 and held to the plain
+    version: lengths ending on a stage, on the ring's last stage, inside
+    a stage, 0, and a full table."""
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+
+    tile, stages, _ = da.paged_ring_geometry(d, bs, dtype.itemsize)
+    lens = [tile, tile * stages, tile + 3, 0, 10 ** 6, bs + 1]
+    q, k, v, table, lens = _paged_inputs(cuda, dtype, nh, 1, d, bs, lens,
+                                         False, seed=15)
+    before = da.paged_decode_attention_kernel.launches
+    k14 = da.paged_decode_attention_kernel(q, k, v, table, lens, d ** -0.5)
+    k16 = da.paged_decode_attention_dma(q, k, v, table, lens, d ** -0.5)
+    ref = da.paged_decode_plain(q, k, v, table, lens, d ** -0.5)
+    torch.cuda.synchronize()
+    assert da.paged_decode_attention_kernel.launches == before + 1
     assert torch.equal(k14, k16)
     assert _scaled(k14, ref) <= tol
