@@ -36,7 +36,8 @@ Phases, each failing loudly (any failure exits nonzero):
    at S 2048 against its plain version; in its separate mode at
    llama1b's training shape (B 2, S 2048, h 16, d 128) against its
    plain version and bit-equal to the fused mode on the same values;
-   small fp32 cases at head dims 64, 128 and 256, causal and not. The
+   small fp32 cases at head dims 64, 128 and 256, causal and not; K3's
+   (and K2's) device time in a CUDA graph beside the eager one. The
    head-major flash (K17, forward and split backward on [B, h, S, d]):
    bit-equal to K1-sep and K3-sep on the same values and held against
    its plain version at gpt3-350m's attention (B 16, S 1024, h 16, d 64,
@@ -85,7 +86,9 @@ Phases, each failing loudly (any failure exits nonzero):
 8. ``decode_kernels``: the LLaMA engine's kernels against their plain
    versions at the llama1b shapes: dense GQA decode attention (K10) at
    B 1, 8, 16 and five cache positions, flash with RoPE in the tile (K11,
-   bit-equal to K1 on apply_rope'd inputs), K1's separate-input mode and
+   bit-equal to K1 on apply_rope'd inputs; device times in a CUDA graph,
+   beside SDPA on rotated q/k and apply_rope + SDPA, the composition K11
+   replaces), K1's separate-input mode and
    swiglu (K12, also at llama3-8b's width), each with kernel, plain,
    library time and bound; and K6 in the rms form at the prefill's rows
    and width (residual and norm-only, r bit-equal, y by row).
@@ -141,6 +144,12 @@ Phases, each failing loudly (any failure exits nonzero):
    K14; a GQA pass at llama3-8b's width through paged_decode_attention
    (K15); a small fp32 cache on the card against the CPU.
 
+After each of the phases train, train_13b, llama_train, decode and paged
+every bf16 flash launch at head dim 64 or 128 must have taken the TMA +
+wgmma variant, as the C launchers report what they launched
+(``flash_attention.LAUNCHES_BY_PLAN``), and at every shape launched the
+C launchers' plan must be ``flash_plan``'s.
+
 Prints the card's name and power limit, one JSON line ``{"kernels": ...}``
 and, last, ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -148,6 +157,7 @@ and, last, ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import math
@@ -221,6 +231,42 @@ def _graph_ms(fn, iters: int = 20) -> float:
 def _bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
     tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / flop_rate * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+# phases whose every bf16 flash launch at head dim 64 or 128 must take the
+# TMA + wgmma variant (flash_attention.flash_plan)
+FLASH_WGMMA_PHASES = ("train", "train_13b", "llama_train", "decode", "paged")
+
+
+def _flash_launch_counts() -> collections.Counter:
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    return collections.Counter(fa.LAUNCHES_BY_PLAN)
+
+
+def _check_flash_variants(tag: str, before: collections.Counter) -> None:
+    """The flash launches since ``before``, by (variant as the C launcher
+    reported it, dtype, head dim, S, part, (batch, head) pairs): every
+    bf16 one at head dim 64 or 128 took "wgmma", at least one did, and at
+    every shape launched the C launchers' plan (``flash_plan_c``) is
+    flash_plan's."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    diff = fa.LAUNCHES_BY_PLAN - before
+    for (variant, dt, d, S, part, bh), n in sorted(diff.items()):
+        dtype = getattr(torch, dt)
+        plan = fa.flash_plan(S, d, dtype, part, bh=bh)
+        if fa.flash_plan_c(S, d, dtype, part, bh=bh) != plan:
+            raise AssertionError(f"{tag}: flash_plan_c {S} {d} {dt} {part} "
+                                 f"!= flash_plan {plan}")
+        if dt == "bfloat16" and d in (64, 128) and variant != "wgmma":
+            raise AssertionError(f"{tag}: {n} bf16 d{d} flash {part} "
+                                 f"launches took {variant}")
+    wg = sum(n for key, n in diff.items() if key[0] == "wgmma")
+    print(f"{tag}: flash launches by (variant, dtype, d, S, part, bh): "
+          + ", ".join(f"{k}: {n}" for k, n in sorted(diff.items())))
+    if wg == 0:
+        raise AssertionError(f"{tag}: no flash launch took the wgmma variant")
 
 
 RPA_SHAPE = (32, 16, 32, 8, 128, 128, 16, 129)  # C qb nH nKV d bs mb P
@@ -861,28 +907,31 @@ def _hold_long_dqkv(name: str, got, ref) -> float:
 
 
 def _split_timing(fa, inputs, sep: bool, B, S, h, d, plain_iters=3):
-    """(K3 ms, K2 ms or None, plain ms, SDPA backward ms, bound) of K3 in
-    one mode at one shape: kernel, the merged K2 on the same inputs
-    (fused mode), the plain version and the library yardstick (the
-    backward of causal SDPA on contiguous head-major q, k, v)."""
+    """(K3 ms, K2 ms or None, plain ms, SDPA backward ms, bound, K3
+    device ms) of K3 in one mode at one shape: kernel, the merged K2 on
+    the same inputs (fused mode), the plain version and the library
+    yardstick (the backward of causal SDPA on contiguous head-major q, k,
+    v); K3's device time (and K2's) in a CUDA graph of 5 calls."""
     scale = d ** -0.5
     if sep:
         q, k, v, o, lse, do = inputs
-        ms = _time_ms(lambda: fa.flash_bwd_sep(q, k, v, o, lse, do, True,
-                                               scale))
-        k2_ms = None
+        k3 = lambda: fa.flash_bwd_sep(q, k, v, o, lse, do, True, scale)
+        ms = _time_ms(k3)
+        k2_ms = k2_dev = None
         plain_ms = _time_ms(lambda: fa.flash_bwd_sep_plain(
             q, k, v, o, lse, do, True, scale), iters=plain_iters, warmup=1)
         heads = (q, k, v)
     else:
         qkv, o, lse, do = inputs
-        ms = _time_ms(lambda: fa.flash_bwd_split(qkv, o, lse, do, h, True,
-                                                 scale))
-        k2_ms = _time_ms(lambda: fa.flash_bwd(qkv, o, lse, do, h, True,
-                                              scale))
+        k3 = lambda: fa.flash_bwd_split(qkv, o, lse, do, h, True, scale)
+        ms = _time_ms(k3)
+        k2 = lambda: fa.flash_bwd(qkv, o, lse, do, h, True, scale)
+        k2_ms = _time_ms(k2)
+        k2_dev = _graph_ms(k2, iters=5)
         plain_ms = _time_ms(lambda: fa.flash_bwd_plain(
             qkv, o, lse, do, h, True, scale), iters=plain_iters, warmup=1)
         heads = qkv.split(h * d, dim=-1)
+    dev_ms = _graph_ms(k3, iters=5)
     torch.cuda.empty_cache()
     qh, kh, vh = (t.reshape(B, S, h, d).transpose(1, 2).contiguous()
                   .requires_grad_(True) for t in heads)
@@ -898,7 +947,9 @@ def _split_timing(fa, inputs, sep: bool, B, S, h, d, plain_iters=3):
     # the function needs 5 products of 2d flop a pair (s, dp, dq, dk, dv),
     # as K2's bound counts; the dq kernel's second s and dp are K3's cost
     bound = _bound(2 * qkv_b + o_b + 2 * st_b, 10.0 * d * pairs)
-    return ms, k2_ms, plain_ms, lib_ms, bound
+    print(f"  device times (CUDA graph): K3 {dev_ms:.4f} ms"
+          + ("" if k2_dev is None else f", K2 {k2_dev:.4f} ms"))
+    return ms, k2_ms, plain_ms, lib_ms, bound, dev_ms
 
 
 def check_flash_split(dev) -> tuple[dict, dict]:
@@ -944,7 +995,7 @@ def check_flash_split(dev) -> tuple[dict, dict]:
           BF16_TOL)
     del got, ref
     torch.cuda.empty_cache()
-    ms, k2_ms, plain_ms, lib_ms, bound = _split_timing(
+    ms, k2_ms, plain_ms, lib_ms, bound, _ = _split_timing(
         fa, (qkv, o, lse, do), False, B, S, h, d)
     print(f"flash split bwd B{B} S{S} h{h} d{d}: K3 {ms:.4f} ms, K2 "
           f"{k2_ms:.4f} ms on the same inputs, plain {plain_ms:.4f} ms, "
@@ -968,7 +1019,7 @@ def check_flash_split(dev) -> tuple[dict, dict]:
                             _heads(ref, h))
     del got, again, k2, ref
     torch.cuda.empty_cache()
-    ms, k2_ms, plain_ms, lib_ms, bound = _split_timing(
+    ms, k2_ms, plain_ms, lib_ms, bound, dev_f = _split_timing(
         fa, (qkv, o, lse, do), False, B, S, h, d, plain_iters=2)
     print(f"flash split bwd B{B} S{S} h{h} d{d}: K3 {ms:.4f} ms, K2 "
           f"{k2_ms:.4f} ms on the same inputs, plain {plain_ms:.4f} ms, "
@@ -978,8 +1029,8 @@ def check_flash_split(dev) -> tuple[dict, dict]:
     ref_py = "paddle_tpu/ops/pallas/flash_attention.py"
     rec_f = {"name": "flash_bwd_split", "route": "cuda", "source": src,
              "replaces": ref_py + ":195,236", "max_abs_err": err_f,
-             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-             "bound_by": bound[1], "library_ms": lib_ms,
+             "ms": ms, "device_ms": dev_f, "plain_ms": plain_ms,
+             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib_ms,
              "k2_ms": k2_ms, "shape": f"B{B} S{S} h{h} d{d} causal fused"}
     del qkv, do, o, lse
     torch.cuda.empty_cache()
@@ -1002,15 +1053,15 @@ def check_flash_split(dev) -> tuple[dict, dict]:
                              "inputs")
     del qkv, fused, sep, ref
     torch.cuda.empty_cache()
-    ms, _, plain_ms, lib_ms, bound = _split_timing(
+    ms, _, plain_ms, lib_ms, bound, dev_s = _split_timing(
         fa, (q, k, v, o, lse, do), True, B, S, h, d)
     print(f"flash sep bwd B{B} S{S} h{h} d{d}: K3 {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} ms, bound "
           f"{bound[0]:.4f} ms ({bound[1]})")
     rec_s = {"name": "flash_bwd_sep", "route": "cuda", "source": src,
              "replaces": ref_py + ":195,236", "max_abs_err": err_s,
-             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-             "bound_by": bound[1], "library_ms": lib_ms,
+             "ms": ms, "device_ms": dev_s, "plain_ms": plain_ms,
+             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib_ms,
              "shape": f"B{B} S{S} h{h} d{d} causal separate"}
     return rec_f, rec_s
 
@@ -1369,7 +1420,7 @@ def _train_counters():
 
 TRAIN_CATEGORIES = (
     ("K4/K5 cross-entropy", ("ce_gemm_kernel", "ce_stats_reduce")),
-    ("K1/K2 flash attention", ("fwd_tc_kernel", "bwd_tc_kernel",
+    ("K1/K2 flash attention", ("fwd_wg_kernel", "bwd_wg_kernel",
                                "fwd_fma_kernel", "bwd_fma_kernel")),
     ("K6/K7 norm epilogue, bias gelu", ("norm_epilogue_kernel",
                                         "bias_gelu_kernel")),
@@ -2270,39 +2321,61 @@ def check_rope_flash(dev) -> tuple[dict, dict]:
             fra._apply_rope_ref(q, cb, sb), fra._apply_rope_ref(k, cb, sb),
             v))
         lib = _time_ms(lambda: sdpa(qh, kh, vh, is_causal=True))
+        lib_dev = _graph_ms(lambda: sdpa(qh, kh, vh, is_causal=True))
         pairs = B * 16 * 512 * 513 / 2
         bound = _bound(4 * q.numel() * 2, 4.0 * 128 * pairs)
-        return q, k, v, cos, sin, lib, bound
+        return q, k, v, cos, sin, lib, lib_dev, bound
 
-    q, k, v, cos, sin, lib_rope, b_rope = timings(16)
-    ms_rope = _time_ms(lambda: fra.rope_flash_fwd(q, k, v, cos, sin, True,
-                                                  scale, True, False))
+    def rope_then_sdpa(q, k, v, cos, sin):
+        """The composition K11 fuses, q rotated alone: apply_rope on q,
+        then SDPA on head-major operands (k, v already rotated)."""
+        cb, sb = cos[None, :, None, :], sin[None, :, None, :]
+        qh = fra._apply_rope_ref(q, cb, sb).transpose(1, 2)
+        return sdpa(qh, k.transpose(1, 2), v.transpose(1, 2), is_causal=True)
+
+    q, k, v, cos, sin, lib_rope, lib_rope_dev, b_rope = timings(16)
+    k11 = lambda: fra.rope_flash_fwd(q, k, v, cos, sin, True, scale, True,
+                                     False)
+    ms_rope = _time_ms(k11)
+    dev_rope = _graph_ms(k11)
+    comp_ms = _time_ms(lambda: rope_then_sdpa(q, k, v, cos, sin))
+    comp_dev = _graph_ms(lambda: rope_then_sdpa(q, k, v, cos, sin))
     plain_rope = _time_ms(lambda: fra.rope_flash_plain(
         q, k, v, cos, sin, True, scale, True, False), iters=5, warmup=1)
-    print(f"K11 bf16 [16, 512, 16, 128] q only: kernel {ms_rope:.4f} ms, "
-          f"plain {plain_rope:.4f} ms, sdpa on rotated q/k "
-          f"{lib_rope:.4f} ms, bound {b_rope[0]:.4f} ms ({b_rope[1]})")
-    q, k, v, cos, sin, lib_sep, b_sep = timings(1)
+    # the same tile loop without the rotation: K1-sep on q rotated before
+    qr = fra._apply_rope_ref(q, cos[None, :, None, :], sin[None, :, None, :])
+    unrot_dev = _graph_ms(lambda: fa.flash_fwd_sep(qr, k, v, True, scale))
+    print(f"K11 bf16 [16, 512, 16, 128] q only: kernel {ms_rope:.4f} ms "
+          f"(device {dev_rope:.4f}), plain {plain_rope:.4f} ms, sdpa on "
+          f"rotated q/k {lib_rope:.4f} ms (device {lib_rope_dev:.4f}), "
+          f"apply_rope + sdpa {comp_ms:.4f} ms (device {comp_dev:.4f}), "
+          f"K1-sep on the rotated q (the loop without the rotation) device "
+          f"{unrot_dev:.4f} ms, bound {b_rope[0]:.4f} ms ({b_rope[1]})")
+    q, k, v, cos, sin, lib_sep, lib_sep_dev, b_sep = timings(1)
     ms_sep = _time_ms(lambda: fa.flash_fwd_sep(q, k, v, True, scale))
+    dev_sep = _graph_ms(lambda: fa.flash_fwd_sep(q, k, v, True, scale))
     plain_sep = _time_ms(lambda: fa.flash_sep_plain(q, k, v, True, scale),
                          iters=5, warmup=1)
-    print(f"K1-separate bf16 [1, 512, 16, 128]: kernel {ms_sep:.4f} ms, "
-          f"plain {plain_sep:.4f} ms, sdpa {lib_sep:.4f} ms, bound "
+    print(f"K1-separate bf16 [1, 512, 16, 128]: kernel {ms_sep:.4f} ms "
+          f"(device {dev_sep:.4f}), plain {plain_sep:.4f} ms, sdpa "
+          f"{lib_sep:.4f} ms (device {lib_sep_dev:.4f}), bound "
           f"{b_sep[0]:.4f} ms ({b_sep[1]})")
     return ({"name": "rope_flash_fwd", "route": "cuda",
              "source": "paddle_tpu_torch/csrc/fused_rope_attention.cu",
              "replaces": "paddle_tpu/ops/pallas/fused_rope_attention.py:116",
              "max_abs_err": worst[torch.bfloat16],
              "max_abs_err_fp32": worst[torch.float32], "ms": ms_rope,
-             "plain_ms": plain_rope, "bound_ms": b_rope[0],
-             "bound_by": b_rope[1], "library_ms": lib_rope,
+             "device_ms": dev_rope, "plain_ms": plain_rope,
+             "bound_ms": b_rope[0], "bound_by": b_rope[1],
+             "library_ms": lib_rope, "library_device_ms": lib_rope_dev,
+             "rope_then_sdpa_ms": comp_ms, "unrotated_device_ms": unrot_dev,
              "shape": "B16 S512 h16 d128 causal, q rotated, bf16"},
             {"name": "flash_fwd_sep", "route": "cuda",
              "source": "paddle_tpu_torch/csrc/flash_attention.cu",
              "replaces": "paddle_tpu/ops/pallas/flash_attention.py:139",
-             "max_abs_err": err_sep, "ms": ms_sep, "plain_ms": plain_sep,
-             "bound_ms": b_sep[0], "bound_by": b_sep[1],
-             "library_ms": lib_sep,
+             "max_abs_err": err_sep, "ms": ms_sep, "device_ms": dev_sep,
+             "plain_ms": plain_sep, "bound_ms": b_sep[0],
+             "bound_by": b_sep[1], "library_ms": lib_sep,
              "shape": "B1 S512 h16 d128 causal, separate q/k/v, bf16"})
 
 
@@ -3362,6 +3435,27 @@ def _paged_layout_pass(dev, layout: str, gen) -> tuple[dict, list, list]:
     return launches, caches, last_q
 
 
+def _hold_first_cpu_prefill(ft, qkv, fresh_cache, got, tag: str) -> None:
+    """Hold the process's first CPU prefill of the case, on a fresh cache,
+    to the card's output ``got`` at FP32_TOL, as the compared one is: the
+    case's CPU reference once read 2.4e-4 on the first CPU prefill of a
+    process that had run the card phases (ROADMAP Queue 3, open). Where
+    its bits differ from a second call's, both calls' errors against a
+    float64 evaluation of the same attention are printed first."""
+    first = ft.block_multihead_attention(qkv, fresh_cache())
+    second = ft.block_multihead_attention(qkv, fresh_cache())
+    if not torch.equal(first, second):
+        q, k, v = (qkv[:, :, i].double() for i in range(3))
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k) * q.shape[-1] ** -0.5
+        mask = torch.ones(s.shape[-1], s.shape[-1], dtype=torch.bool).tril()
+        p = torch.softmax(torch.where(mask, s, float("-inf")), -1)
+        ref = torch.einsum("bhqk,bkhd->bqhd", p, v)
+        print(f"{tag}: first CPU prefill != second; scaled error against "
+              f"float64 {_scaled_err(first, ref)[1]:.3e} (first), "
+              f"{_scaled_err(second, ref)[1]:.3e} (second)")
+    _hold(tag + " (first CPU call)", got, first, FP32_TOL)
+
+
 def _paged_cpu_case(dev) -> None:
     """A small fp32 paged cache on the card and on the CPU from the same
     inputs, both layouts: prefill (K1-sep), 3 decode steps (K15 or K14)
@@ -3372,16 +3466,23 @@ def _paged_cpu_case(dev) -> None:
 
     gen = torch.Generator().manual_seed(23)
     B, nh, d, bs, S = 2, 8, 128, 128, 128
+
+    def cache(layout, device):
+        return ft.PagedKVCache(B * 3, nh, bs, d, B, 3 * bs,
+                               dtype=torch.float32, k_layout=layout,
+                               device=device)
+
     for layout in ("d_major", "token_major"):
-        caches = [ft.PagedKVCache(B * 3, nh, bs, d, B, 3 * bs,
-                                  dtype=torch.float32, k_layout=layout,
-                                  device=x) for x in (dev, "cpu")]
+        caches = [cache(layout, x) for x in (dev, "cpu")]
         for T in (S, 1, 1, 1):
             qkv = torch.randn((B, T, 3, nh, d), generator=gen)
-            got, want = (ft.block_multihead_attention(qkv.to(c.v_pages.device),
-                                                      c) for c in caches)
-            _hold(f"paged fp32 card vs CPU {layout} T{T}", got.cpu(), want,
-                  FP32_TOL)
+            got = ft.block_multihead_attention(qkv.to(dev), caches[0]).cpu()
+            tag = f"paged fp32 card vs CPU {layout} T{T}"
+            if T > 1:   # the prefill
+                _hold_first_cpu_prefill(ft, qkv, lambda: cache(layout, "cpu"),
+                                        got, tag)
+            want = ft.block_multihead_attention(qkv, caches[1])
+            _hold(tag, got, want, FP32_TOL)
         if layout == "token_major":
             q = torch.randn((B, nh, d), generator=gen)
             c, cc = caches
@@ -3500,10 +3601,14 @@ def main(argv=None) -> int:
           f"{_build.last_build_seconds:.1f} s")
     kernels = {}
     t0 = time.perf_counter()
+    flash_before = _flash_launch_counts()
 
     def done(phase: str) -> None:
-        nonlocal t0
+        nonlocal t0, flash_before
         now = time.perf_counter()
+        if phase in FLASH_WGMMA_PHASES:
+            _check_flash_variants(phase, flash_before)
+        flash_before = _flash_launch_counts()
         print(f"phase {phase}: {now - t0:.1f} s")
         t0 = now
 

@@ -22,8 +22,9 @@
 // separate [B, S, h, d] tensors. All compute, from the saved lse,
 // p = exp(s * scale - lse) masked to 0, dp = do v^T, ds = p (dp - delta)
 // cast to the input dtype, dq = ds k * scale, dk = ds^T q * scale,
-// dv = cast(p)^T do. delta = rowsum(do * o) is computed by the caller in
-// fp32.
+// dv = cast(p)^T do, with delta = rowsum(do * o) in fp32 given by the
+// caller (the reference's XLA reduction,
+// paddle_tpu/ops/pallas/flash_attention.py:794).
 //
 // K17 is the head-major layout the TPU reaches under
 // FLAGS_flash_attention_native_layout=0 or where its lane fusion fails (d 64
@@ -35,30 +36,35 @@
 //
 // Design. The TPU grid walks q blocks in order with the hp-heads lane
 // fusion and an 8-row lse packing, both artefacts of its (8, 128) tiling.
-// Here one thread block owns one (batch, head, 64-row block) (the forward:
-// flash_fwd.cuh). One kernel body serves both backwards, its PART template
-// argument choosing the loops it runs: the dq loop over key tiles 0..i for
-// the block's 64 query rows, the dk/dv loop over query tiles i..S/64 for
-// its 64 keys, or (K2) the first and then the second in one block. The two
-// loops are complementary under causality, so a K2 block does S/64 + 1
-// tiles; a K3 dq block does i + 1 and a dk/dv block S/64 - i. Each output
-// element is summed by one thread in a fixed order: no atomics,
-// bitwise-reproducible gradients, and K3 gives K2's bits, since the loops
-// are the same code with the same tiles. bf16 with head dim 64 or 128 runs
-// every product on the tensor cores (mma.sync m16n8k16, fp32 accumulators,
-// 4 warps of 16 rows); fp32, and bf16 at head dim 256, run CUDA-core
-// kernels with fp32 FMAs and the same cast points.
+// Here one kernel body serves both backwards, its PART template argument
+// choosing the loops it runs: the dq loop over key tiles for the block's
+// query rows, the dk/dv loop over query tiles for its keys, or (K2) the
+// first and then the second in one block. The two loops are
+// complementary under causality, so a K2 block's work is the same for
+// every row block; K3's dq blocks grow with the row block (launched
+// heaviest first) and its dk/dv blocks shrink (launched from the first).
+// Each output element is summed by one thread in a fixed order: no
+// atomics, bitwise-reproducible gradients, and K3 gives K2's bits, since
+// the loops are the same code with the same tiles. bf16 with head dim 64
+// or 128 runs the TMA + wgmma body (bwd_wg_kernel: blocks of 128 rows, two
+// consumer warpgroups of 64 and a producer warpgroup keeping a ring of
+// 64-row tiles in flight; flash_fwd.cuh describes the tile layout); fp32,
+// and bf16 at head dim 256, run CUDA-core kernels with fp32 FMAs and the
+// same cast points.
 //
 // Bound on the H100. At the GPT-3 350M shape (B 16, S 1024, h 16, d 64)
 // the forward moves ~134 MB and does ~34 GFLOP causal: byte-bound at
 // ~0.04 ms, operation-bound close behind; the backward does ~86 GFLOP. At
 // GPT-3 1.3B's long context (B 1, S 8192, h 16, d 128) the split backward
-// does ~960 GFLOP over ~234 MB: operation-bound at ~0.97 ms. Here key
-// (query) tiles stream through a 2-stage cp.async ring and the products
-// are mma.sync fed by ldmatrix, with 64-row blocks of 4 warps; wgmma on
-// 128-row tiles fed by TMA, as FlashAttention-3 does, and a better balance
-// of K3's dq blocks across the causal triangle are the later work that
-// closes the gap to those bounds.
+// does ~960 GFLOP over ~234 MB (7 products of 2 d flop a causal pair:
+// the dq loop's s, dp and dq, the dk/dv loop's s^T, dp^T, dv and dk):
+// operation-bound at ~0.97 ms. So the design is the tensor cores' rate:
+// wgmma on 128-row blocks, operands brought by TMA while the last tile's
+// products run, the two consumer warpgroups taking turns to issue their
+// products (one's element-wise work runs while the other's products do),
+// and in the dq loop the next tile's products issued before the last
+// one's dq product is waited for (FlashAttention-3's shape, without its
+// atomic dq, which would give up determinism).
 
 #include "flash_fwd.cuh"
 
@@ -234,163 +240,332 @@ constexpr size_t bwd_fma_smem() {
                           2 * kRows * kFmaTile + 2 * kRows);
 }
 
-template <int D> struct BwdTile { static constexpr int KT = 64; };
-template <> struct BwdTile<128> { static constexpr int KT = 32; };
+// The backward's shared memory: the block's own 128-row tiles (q and do
+// for the dq loop, k and v for the dk/dv loop), stages of 64-row (k, v)
+// or (q, do) tiles, and each stage's lse and delta (the dk/dv loop's
+// query tile).
+template <int D, int PART> struct BwdWg {
+  static constexpr int kOwnTile = tile_bytes(kWgRows, D);
+  static constexpr int kOwn =
+      kOwnTile * ((PART != kDkv ? 2 : 0) + (PART != kDq ? 2 : 0));
+  static constexpr int kTile = tile_bytes(kBwdTile, D);
+  static constexpr int kStats = 2 * kBwdTile * 4;
+  static constexpr int kStage = 2 * kTile + kStats;
+  static constexpr int kStages = min_int(
+      kMaxStages, (kSmemMax - kSmemFixed - kOwn) / kStage);
+  static constexpr int kSmem = kSmemFixed + kOwn + kStages * kStage;
+};
 
-template <int D>
-constexpr size_t bwd_tc_smem() {
-  return sizeof(uint16_t) * (2 * kRows + 4 * BwdTile<D>::KT) * (D + 8) +
-         sizeof(float) * 4 * BwdTile<D>::KT;
-}
-
+// The dq loop (PART != kDkv): the block's 128 query rows (64 a consumer
+// warpgroup) over 64-key tiles up to the causal bound. Per tile s = q k^T
+// and dp = do v^T (shared operands), p = 2^(s scale log2 e - lse log2 e)
+// masked to 0, ds = p (dp - delta) rounded to bf16 into register A, and
+// dq += ds k with k MN-major; the next tile's s and dp are issued before
+// this product is waited for. The dk/dv loop (PART != kDq): the block's
+// 128 keys over 64-query tiles from the diagonal, with the keys as the
+// products' rows, so p^T and ds^T land in register A's layout: s^T = k
+// q^T, dp^T = v do^T, dv += cast(p^T) do, dk += ds^T q (q, do MN-major).
+// Tiles wholly masked for a warpgroup are only released, and a
+// warpgroup whose rows lie past S (S % 128 == 64) computes nothing;
+// gradients go out by TMA stores, which clip rows past S. Each output
+// element is one thread's accumulator, summed in tile order: no atomics,
+// and the dq of K2 (kBoth) and K3 (kDq) is the same code on the same
+// tiles.
 template <int D, int PART>
-__global__ void __launch_bounds__(kTcThreads)
-bwd_tc_kernel(const BwdArgs a) {
-  constexpr int KT = BwdTile<D>::KT, NB = KT / 8, ND = D / 8, P = D + 8;
-  constexpr int kStage = 2 * KT * P;   // one (t1, t2) pair of the ring
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* a1 = reinterpret_cast<uint16_t*>(smem_raw);  // q, then k (own)
-  uint16_t* a2 = a1 + kRows * P;                          // do, then v (own)
-  uint16_t* ring = a2 + kRows * P;     // 2 x (k, v), then 2 x (q, do) tiles
-  float* stats = reinterpret_cast<float*>(ring + 2 * kStage);  // 2 x (lse,
-                                                                // delta)[KT]
+__global__ void __launch_bounds__(kWgThreads, 1)
+bwd_wg_kernel(const __grid_constant__ CUtensorMap qmap,
+              const __grid_constant__ CUtensorMap kmap,
+              const __grid_constant__ CUtensorMap vmap,
+              const __grid_constant__ CUtensorMap domap,
+              const __grid_constant__ CUtensorMap dqmap,
+              const __grid_constant__ CUtensorMap dkmap,
+              const __grid_constant__ CUtensorMap dvmap, const BwdArgs a,
+              int chunk) {
+  static_assert(D == 64 || D == 128, "head dim");
+  using Plan = BwdWg<D, PART>;
+  constexpr int NC = D / 64, ST = Plan::kStages;
+  constexpr int kOwnChunk = kWgRows * 128, kTileChunk = kBwdTile * 128;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  const uint32_t qo = base, doo = base + Plan::kOwnTile;   // dq loop
+  const uint32_t ko = base + (PART == kBoth ? 2 * Plan::kOwnTile : 0);
+  const uint32_t vo = ko + Plan::kOwnTile;                 // dk/dv loop
+  const uint32_t ring = base + Plan::kOwn;
+  float* stats = reinterpret_cast<float*>(sm + Plan::kOwn +
+                                          ST * 2 * Plan::kTile);
+  uint64_t* own_dq = reinterpret_cast<uint64_t*>(sm + Plan::kOwn +
+                                                 ST * Plan::kStage);
+  uint64_t* own_dkv = own_dq + 1;
+  uint64_t* full = own_dq + 2;
+  uint64_t* empty = full + ST;
+  const int S = a.S, causal = a.causal, tid = threadIdx.x;
+  const int nrb = (S + kWgRows - 1) / kWgRows;
+  int rb, hh, b;
+  block_place(blockIdx.x, nrb, a.h, gridDim.x / nrb, chunk,
+              causal && PART == kDq, rb, hh, b);
+  const int i0 = rb * kWgRows;
+  const int n_k = (causal ? min_int(i0 + kWgRows, S) : S) / kBwdTile;
+  const int q_first = causal ? i0 / kBwdTile : 0;
+  const int n_q = S / kBwdTile - q_first;
+  const float* lse_b = a.lse + ((size_t)b * a.h + hh) * S;
+  const float* dlt_b = a.delta + ((size_t)b * a.h + hh) * S;
+  if (tid == 0) {
+    mbar_init(own_dq, 1);
+    mbar_init(own_dkv, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);          // the consumers' eight warps
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  const int i0 = blockIdx.x * kRows, hh = blockIdx.y, b = blockIdx.z;
-  const int S = a.S, h = a.h, causal = a.causal;
-  const float scale = a.scale;
-  const size_t ri = a.row_in, ro = a.row_out, rd = a.row_do;
-  const size_t in0 = b * a.batch_in + hh * a.head_in;
-  const size_t out0 = b * a.batch_out + hh * a.head_out;
-  const uint16_t* qb = static_cast<const uint16_t*>(a.q) + in0;
-  const uint16_t* kb = static_cast<const uint16_t*>(a.k) + in0;
-  const uint16_t* vb = static_cast<const uint16_t*>(a.v) + in0;
-  const uint16_t* dob = static_cast<const uint16_t*>(a.dout) +
-                        b * a.batch_do + hh * a.head_do;
-  const float* lse_b = a.lse + ((size_t)b * h + hh) * S;
-  const float* dlt_b = a.delta + ((size_t)b * h + hh) * S;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wr = warp * 16;
-  const int r_lo = i0 + wr + g, r_hi = r_lo + 8;
-  float acc[ND][4];
+  if (tid >= 256) {                     // producer warpgroup
+    setmaxnreg_dec<kRegsProducer>();
+    if (tid == 256) {
+      auto own = [&](uint32_t dst, const CUtensorMap* map, uint64_t* bar) {
+        for (int c = 0; c < NC; ++c)
+          for (int r = 0; r < kWgRows; r += kBoxRows)
+            tma_load_4d(dst + c * kOwnChunk + r * 128, map, c * 64, i0 + r,
+                        hh, b, bar);
+      };
+      auto tile = [&](uint32_t dst, const CUtensorMap* map, int r0,
+                      uint64_t* bar) {
+        for (int c = 0; c < NC; ++c)
+          tma_load_4d(dst + c * kTileChunk, map, c * 64, r0, hh, b, bar);
+      };
+      if (PART != kDkv) {
+        mbar_expect_tx(own_dq, 2 * Plan::kOwnTile);
+        own(qo, &qmap, own_dq);
+        own(doo, &domap, own_dq);
+      }
+      if (PART != kDq) {
+        mbar_expect_tx(own_dkv, 2 * Plan::kOwnTile);
+        own(ko, &kmap, own_dkv);
+        own(vo, &vmap, own_dkv);
+      }
+      int i = 0;
+      if (PART != kDkv)
+        for (int kt = 0; kt < n_k; ++kt, ++i) {
+          const int s = i % ST;
+          mbar_wait(&empty[s], ((i / ST) & 1) ^ 1);
+          const uint32_t dst = ring + s * 2 * Plan::kTile;
+          mbar_expect_tx(&full[s], 2 * Plan::kTile);
+          tile(dst, &kmap, kt * kBwdTile, &full[s]);
+          tile(dst + Plan::kTile, &vmap, kt * kBwdTile, &full[s]);
+        }
+      if (PART != kDq)
+        for (int qt = 0; qt < n_q; ++qt, ++i) {
+          const int s = i % ST, q0 = (q_first + qt) * kBwdTile;
+          mbar_wait(&empty[s], ((i / ST) & 1) ^ 1);
+          const uint32_t dst = ring + s * 2 * Plan::kTile;
+          const uint32_t st = smem_u32(stats + s * 2 * kBwdTile);
+          mbar_expect_tx(&full[s], 2 * Plan::kTile + Plan::kStats);
+          tile(dst, &qmap, q0, &full[s]);
+          tile(dst + Plan::kTile, &domap, q0, &full[s]);
+          bulk_load(st, lse_b + q0, kBwdTile * 4, &full[s]);
+          bulk_load(st + kBwdTile * 4, dlt_b + q0, kBwdTile * 4, &full[s]);
+        }
+    }
+    return;
+  }
+  setmaxnreg_inc<kRegsConsumer>();
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int t = lane & 3;
+  const int row0 = i0 + 64 * wg;        // the warpgroup's first query / key
+  const int r_lo = row0 + 16 * warp + (lane >> 2), r_hi = r_lo + 8;
+  const bool idle = row0 >= S;          // past S: nothing to compute
+  const float scale = a.scale, scale_log2 = scale * kLog2e;
+  const int wrow = 64 * wg + 16 * warp + (lane >> 2);   // row in the tile
+  // the warpgroup's 64 rows of an own tile (gradients staged in it once
+  // its loop is done: only this warpgroup's products read them) out by
+  // one thread's TMA stores, which clip rows past S
+  auto store_rows = [&](uint32_t tile, const CUtensorMap* map) {
+    fence_proxy_async();
+    named_barrier(2 + wg, 128);
+    if ((tid & 127) == 0) {
+      for (int c = 0; c < NC; ++c)
+        tma_store_4d(map, tile + c * kOwnChunk + wg * 64 * 128, c * 64,
+                     row0, hh, b);
+      bulk_commit();
+      bulk_wait_read();
+    }
+  };
+  // The two warpgroups take turns issuing their products (named barriers
+  // 4 and 5, warpgroup 0 first): while one does its element-wise work
+  // the other's products run. Both pass the same number of turns, two a
+  // tile (a skipped tile too); the last one is not handed on.
+  int turns = 2 * ((PART != kDkv ? n_k : 0) + (PART != kDq ? n_q : 0));
+  auto my_turn = [&]() { named_barrier(4 + wg, 256); };
+  auto your_turn = [&]() {
+    if (--turns > 0 || wg == 0) named_arrive(5 - wg, 256);
+  };
+  auto skip_turns = [&]() {
+    my_turn();
+    your_turn();
+    my_turn();
+    your_turn();
+  };
+  if (wg == 1) named_arrive(4, 256);
+  int i = 0;                            // ring position, as the producer's
 
   if (PART != kDkv) {
     // ---- dq for query rows r_lo / r_hi over key tiles ----
-    uint16_t* dqb = static_cast<uint16_t*>(a.dq) + out0;
-    const int n_k = causal ? (i0 + kRows) / KT : S / KT;
-    stage_tc<D, P>(a1, qb, ri, i0, kRows, tid);
-    stage_tc<D, P>(a2, dob, rd, i0, kRows, tid);
-    stage_tc<D, P>(ring, kb, ri, 0, KT, tid);
-    stage_tc<D, P>(ring + KT * P, vb, ri, 0, KT, tid);
-    cp_commit();
-    const float lse_lo = lse_b[r_lo], lse_hi = lse_b[r_hi];
-    const float dl_lo = dlt_b[r_lo], dl_hi = dlt_b[r_hi];
+    const float lse_lo = r_lo < S ? lse_b[r_lo] * kLog2e : 0.f;
+    const float lse_hi = r_hi < S ? lse_b[r_hi] * kLog2e : 0.f;
+    const float dl_lo = r_lo < S ? dlt_b[r_lo] : 0.f;
+    const float dl_hi = r_hi < S ? dlt_b[r_hi] : 0.f;
+    float acc[D / 2];
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
+    for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+    // the key tiles this warpgroup computes: all up to its last row, the
+    // rest (wholly above its rows) only released
+    const int n_run = idle ? 0 : causal ? min_int(n_k, row0 / kBwdTile + 1)
+                                        : n_k;
+    mbar_wait(own_dq, 0);
+    const uint32_t qa = qo + wg * 64 * 128, da = doo + wg * 64 * 128;
+    int kt = 0;
+    for (; kt < n_run; ++kt, ++i) {
+      const int s = i % ST, k0 = kt * kBwdTile;
+      const uint32_t kt_s = ring + s * 2 * Plan::kTile;
+      const uint32_t vt_s = kt_s + Plan::kTile;
+      mbar_wait(&full[s], (i / ST) & 1);
+      float sc[kBwdTile / 2], dp[kBwdTile / 2];
+      my_turn();
+      wgmma_fence();
 #pragma unroll
-      for (int r = 0; r < 4; ++r) acc[nd][r] = 0.f;
-    for (int kt = 0; kt < n_k; ++kt) {
-      const int k0 = kt * KT;
-      cp_wait_all();
-      __syncthreads();
-      if (kt + 1 < n_k) {
-        uint16_t* nxt = ring + ((kt + 1) % 2) * kStage;
-        stage_tc<D, P>(nxt, kb, ri, k0 + KT, KT, tid);
-        stage_tc<D, P>(nxt + KT * P, vb, ri, k0 + KT, KT, tid);
-        cp_commit();
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<kBwdTile>(
+            sc, sw128_desc(qa + (kk >> 2) * kOwnChunk + (kk & 3) * 32),
+            sw128_desc(kt_s + (kk >> 2) * kTileChunk + (kk & 3) * 32),
+            kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<kBwdTile>(
+            dp, sw128_desc(da + (kk >> 2) * kOwnChunk + (kk & 3) * 32),
+            sw128_desc(vt_s + (kk >> 2) * kTileChunk + (kk & 3) * 32),
+            kk > 0);
+      wgmma_commit();
+      your_turn();
+      wgmma_wait<1>();                  // the last tile's dq product
+      fence_operands(acc);
+      if (kt > 0) release(&empty[(i - 1) % ST]);
+      wgmma_wait<0>();
+      fence_operands(sc);
+      fence_operands(dp);
+      const bool edge = causal && k0 + 63 > row0;
+#pragma unroll
+      for (int e = 0; e < kBwdTile / 2; ++e) {
+        const bool hi = e & 2;
+        float p = ex2(fmaf(sc[e], scale_log2, -(hi ? lse_hi : lse_lo)));
+        if (edge && k0 + acc_col(e, t) > (hi ? r_hi : r_lo)) p = 0.f;
+        sc[e] = __fmul_rn(p, __fsub_rn(dp[e], hi ? dl_hi : dl_lo));   // ds
       }
-      const uint16_t* t1 = ring + (kt % 2) * kStage;
-      const uint16_t* t2 = t1 + KT * P;
-      float sc[NB][4], dp[NB][4];
-      dot_rows<D, P, NB>(sc, a1, wr, t1, lane);
-      dot_rows<D, P, NB>(dp, a2, wr, t2, lane);
+      uint32_t dsa[4][4];
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb)
+      for (int kk = 0; kk < 4; ++kk) acc_to_a(dsa[kk], sc, kk);
+      my_turn();
+      wgmma_fence();
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const bool lo = r < 2;
-          const int kpos = k0 + nb * 8 + t * 2 + (r & 1);
-          float p = expf(sc[nb][r] * scale - (lo ? lse_lo : lse_hi));
-          if (causal && kpos > (lo ? r_lo : r_hi)) p = 0.f;
-          sc[nb][r] = p * (dp[nb][r] - (lo ? dl_lo : dl_hi));  // ds
-        }
-      acc_pv<D, P, NB>(acc, sc, t1, lane);                       // ds . k
+      for (int kk = 0; kk < 4; ++kk)    // keys 16 kk.. of k, MN-major
+        wgmma_rs<D, 1>(acc, dsa[kk], sw128_mn_desc(kt_s + kk * 2048,
+                                                   kTileChunk));
+      wgmma_commit();
+      your_turn();
     }
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      const int d = nd * 8 + t * 2;
-      *reinterpret_cast<uint32_t*>(dqb + (size_t)r_lo * ro + d) =
-          pack2(bf16_bits(acc[nd][0] * scale), bf16_bits(acc[nd][1] * scale));
-      *reinterpret_cast<uint32_t*>(dqb + (size_t)r_hi * ro + d) =
-          pack2(bf16_bits(acc[nd][2] * scale), bf16_bits(acc[nd][3] * scale));
+    wgmma_wait<0>();
+    fence_operands(acc);
+    if (n_run > 0) release(&empty[(i - 1) % ST]);
+    for (; kt < n_k; ++kt, ++i) {
+      mbar_wait(&full[i % ST], (i / ST) & 1);
+      release(&empty[i % ST]);
+      skip_turns();
     }
+    stage_acc<kWgRows>(sm + (qo - base), acc, scale, scale, wrow, t);
+    store_rows(qo, &dqmap);
   }
-  if (PART == kBoth) __syncthreads();
 
   if (PART != kDq) {
     // ---- dk, dv for keys r_lo / r_hi over query tiles ----
-    uint16_t* dkb = static_cast<uint16_t*>(a.dk) + out0;
-    uint16_t* dvb = static_cast<uint16_t*>(a.dv) + out0;
-    const int q_first = causal ? i0 / KT : 0;
-    auto stage_q = [&](int buf, int q0) {
-      uint16_t* dst = ring + buf * kStage;
-      stage_tc<D, P>(dst, qb, ri, q0, KT, tid);
-      stage_tc<D, P>(dst + KT * P, dob, rd, q0, KT, tid);
-      float* st = stats + buf * 2 * KT;
-      for (int c = tid; c < KT / 4; c += kTcThreads) {
-        cp_async16(st + c * 4, lse_b + q0 + c * 4);
-        cp_async16(st + KT + c * 4, dlt_b + q0 + c * 4);
-      }
-    };
-    stage_tc<D, P>(a1, kb, ri, i0, kRows, tid);
-    stage_tc<D, P>(a2, vb, ri, i0, kRows, tid);
-    stage_q(0, q_first * KT);
-    cp_commit();
-    float acc2[ND][4];
+    const uint32_t ka = ko + wg * 64 * 128, va = vo + wg * 64 * 128;
+    float dk[D / 2], dv[D / 2];
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[nd][r] = acc2[nd][r] = 0.f;
-    for (int qt = q_first; qt < S / KT; ++qt) {
-      const int q0 = qt * KT, buf = (qt - q_first) % 2;
-      cp_wait_all();
-      __syncthreads();
-      if (qt + 1 < S / KT) {
-        stage_q(1 - buf, q0 + KT);
-        cp_commit();
-      }
-      const uint16_t* t1 = ring + buf * kStage;
-      const uint16_t* t2 = t1 + KT * P;
-      const float* lse_t = stats + buf * 2 * KT;
-      const float* dlt_t = lse_t + KT;
-      float sc[NB][4], dp[NB][4];
-      dot_rows<D, P, NB>(sc, a1, wr, t1, lane);    // k . q^T
-      dot_rows<D, P, NB>(dp, a2, wr, t2, lane);    // v . do^T
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int qc = nb * 8 + t * 2 + (r & 1);
-          float p = expf(sc[nb][r] * scale - lse_t[qc]);
-          if (causal && q0 + qc < (r < 2 ? r_lo : r_hi)) p = 0.f;
-          sc[nb][r] = p;
-          dp[nb][r] = p * (dp[nb][r] - dlt_t[qc]);   // ds^T
-        }
-      acc_pv<D, P, NB>(acc2, sc, t2, lane);          // p^T . do
-      acc_pv<D, P, NB>(acc, dp, t1, lane);           // ds^T . q
+    for (int e = 0; e < D / 2; ++e) dk[e] = dv[e] = 0.f;
+    // the query tiles wholly before this warpgroup's keys (causal) are
+    // only released, and all of them past S
+    const int n_skip = idle ? n_q : causal ? (row0 - i0) / kBwdTile : 0;
+    mbar_wait(own_dkv, 0);
+    int qt = 0;
+    for (; qt < n_skip; ++qt, ++i) {
+      mbar_wait(&full[i % ST], (i / ST) & 1);
+      release(&empty[i % ST]);
+      skip_turns();
     }
+    for (; qt < n_q; ++qt, ++i) {
+      const int s = i % ST, q0 = (q_first + qt) * kBwdTile;
+      const uint32_t qt_s = ring + s * 2 * Plan::kTile;
+      const uint32_t dt_s = qt_s + Plan::kTile;
+      const float* lse_t = stats + s * 2 * kBwdTile;
+      const float* dlt_t = lse_t + kBwdTile;
+      mbar_wait(&full[s], (i / ST) & 1);
+      float st[kBwdTile / 2], dpt[kBwdTile / 2];
+      my_turn();
+      wgmma_fence();
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      const int d = nd * 8 + t * 2;
-      *reinterpret_cast<uint32_t*>(dkb + (size_t)r_lo * ro + d) =
-          pack2(bf16_bits(acc[nd][0] * scale), bf16_bits(acc[nd][1] * scale));
-      *reinterpret_cast<uint32_t*>(dkb + (size_t)r_hi * ro + d) =
-          pack2(bf16_bits(acc[nd][2] * scale), bf16_bits(acc[nd][3] * scale));
-      *reinterpret_cast<uint32_t*>(dvb + (size_t)r_lo * ro + d) =
-          pack2(bf16_bits(acc2[nd][0]), bf16_bits(acc2[nd][1]));
-      *reinterpret_cast<uint32_t*>(dvb + (size_t)r_hi * ro + d) =
-          pack2(bf16_bits(acc2[nd][2]), bf16_bits(acc2[nd][3]));
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<kBwdTile>(
+            st, sw128_desc(ka + (kk >> 2) * kOwnChunk + (kk & 3) * 32),
+            sw128_desc(qt_s + (kk >> 2) * kTileChunk + (kk & 3) * 32),
+            kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<kBwdTile>(
+            dpt, sw128_desc(va + (kk >> 2) * kOwnChunk + (kk & 3) * 32),
+            sw128_desc(dt_s + (kk >> 2) * kTileChunk + (kk & 3) * 32),
+            kk > 0);
+      wgmma_commit();
+      your_turn();
+      wgmma_wait<0>();
+      fence_operands(st);
+      fence_operands(dpt);
+      const bool edge = causal && q0 < row0 + 63;
+#pragma unroll
+      for (int e = 0; e < kBwdTile / 2; ++e) {
+        const int qc = acc_col(e, t);
+        float p = ex2(fmaf(st[e], scale_log2, -(lse_t[qc] * kLog2e)));
+        if (edge && q0 + qc < ((e & 2) ? r_hi : r_lo)) p = 0.f;
+        st[e] = p;
+        dpt[e] = __fmul_rn(p, __fsub_rn(dpt[e], dlt_t[qc]));         // ds^T
+      }
+      uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        acc_to_a(pa[kk], st, kk);
+        acc_to_a(dsa[kk], dpt, kk);
+      }
+      my_turn();
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)    // queries 16 kk.. of do, MN-major
+        wgmma_rs<D, 1>(dv, pa[kk], sw128_mn_desc(dt_s + kk * 2048,
+                                                 kTileChunk));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)    // queries 16 kk.. of q, MN-major
+        wgmma_rs<D, 1>(dk, dsa[kk], sw128_mn_desc(qt_s + kk * 2048,
+                                                  kTileChunk));
+      wgmma_commit();
+      your_turn();
+      wgmma_wait<0>();
+      fence_operands(dk);
+      fence_operands(dv);
+      release(&empty[s]);
     }
+    stage_acc<kWgRows>(sm + (ko - base), dk, scale, scale, wrow, t);
+    stage_acc<kWgRows>(sm + (vo - base), dv, 1.f, 1.f, wrow, t);
+    store_rows(ko, &dkmap);
+    store_rows(vo, &dvmap);
   }
 }
 
@@ -404,25 +579,51 @@ cudaError_t bwd_fma(const BwdArgs& a, dim3 grid, cudaStream_t st) {
 }
 
 template <int D, int PART>
-cudaError_t bwd_tc(const BwdArgs& a, dim3 grid, cudaStream_t st) {
-  const size_t smem = bwd_tc_smem<D>();
-  cudaError_t err = set_smem(bwd_tc_kernel<D, PART>, smem);
+cudaError_t bwd_wg(const BwdArgs& a, int B, cudaStream_t st) {
+  using Plan = BwdWg<D, PART>;
+  CUtensorMap qm, km, vm, dm, g[3];
+  if (!head_map(&qm, a.q, D, a.S, a.h, B, a.row_in, a.head_in, a.batch_in) ||
+      !head_map(&km, a.k, D, a.S, a.h, B, a.row_in, a.head_in, a.batch_in) ||
+      !head_map(&vm, a.v, D, a.S, a.h, B, a.row_in, a.head_in, a.batch_in) ||
+      !head_map(&dm, a.dout, D, a.S, a.h, B, a.row_do, a.head_do,
+                a.batch_do))
+    return cudaErrorNotSupported;
+  void* outs[3] = {a.dq, a.dk, a.dv};   // the ones this part writes
+  for (int j = 0; j < 3; ++j)
+    if (outs[j] == nullptr) g[j] = qm;
+    else if (!head_map(&g[j], outs[j], D, a.S, a.h, B, a.row_out,
+                       a.head_out, a.batch_out))
+      return cudaErrorNotSupported;
+  static bool ready = false;
+  cudaError_t err = wg_ready(bwd_wg_kernel<D, PART>, Plan::kSmem, ready);
   if (err != cudaSuccess) return err;
-  bwd_tc_kernel<D, PART><<<grid, kTcThreads, smem, st>>>(a);
+  const int nrb = (a.S + kWgRows - 1) / kWgRows;
+  bwd_wg_kernel<D, PART><<<nrb * a.h * B, kWgThreads, Plan::kSmem, st>>>(
+      qm, km, vm, dm, g[0], g[1], g[2], a, l2_chunk(a.S, D, a.h * B));
   return cudaGetLastError();
 }
 
-// One backward launch over a B x h x S/64 grid (see flash_bwd for the
-// geometry it takes).
+// One backward launch (see flash_bwd for the geometry it takes), its
+// variant chosen by wg_variant as flash_plan_c's and written to *variant
+// (1: TMA + wgmma, 0: FMA): bf16 at d 64 and 128 takes the TMA + wgmma
+// kernel (a 1-D grid of S/128 x h x B blocks of 128 rows; K3's dq blocks
+// heaviest first when causal, its dk/dv blocks from the first, which is
+// the heaviest), the rest the FMA kernel (a B x h x S/64 grid).
 template <int PART>
-int bwd_launch(const BwdArgs& a, int B, int d, int dtype, cudaStream_t st) {
-  if (a.S % kRows || a.S <= 0) return (int)cudaErrorInvalidValue;
+int bwd_launch(const BwdArgs& a, int B, int d, int dtype, cudaStream_t st,
+               int* variant) {
+  if (a.S % kRows || a.S <= 0 || variant == nullptr)
+    return (int)cudaErrorInvalidValue;
   const dim3 grid(a.S / kRows, a.h, B);
-  if (dtype == 1) {
-    if (d == 64) return (int)bwd_tc<64, PART>(a, grid, st);
-    if (d == 128) return (int)bwd_tc<128, PART>(a, grid, st);
-    if (d == 256) return (int)bwd_fma<__nv_bfloat16, 256, PART>(a, grid, st);
-  } else if (dtype == 0) {
+  if (wg_variant(d, dtype)) {
+    *variant = 1;
+    return (int)(d == 64 ? bwd_wg<64, PART>(a, B, st)
+                         : bwd_wg<128, PART>(a, B, st));
+  }
+  *variant = 0;
+  if (dtype == 1 && d == 256)
+    return (int)bwd_fma<__nv_bfloat16, 256, PART>(a, grid, st);
+  if (dtype == 0) {
     if (d == 64) return (int)bwd_fma<float, 64, PART>(a, grid, st);
     if (d == 128) return (int)bwd_fma<float, 128, PART>(a, grid, st);
     if (d == 256) return (int)bwd_fma<float, 256, PART>(a, grid, st);
@@ -462,18 +663,22 @@ BwdArgs head_major_bwd(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; S % 64 == 0, d in {64, 128, 256}.
-// Return cudaGetLastError() after the launch (cudaErrorInvalidValue for a
-// geometry the kernels do not take).
+// The forwards take ``sched``, two ints of scheduling scratch that are 0
+// before the launch and left 0 by it; launches that may run at the same
+// time need scratch of their own (the caller keeps one per stream). Each
+// entry writes the variant it launched to *variant (1: TMA + wgmma, 0:
+// FMA) and returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a geometry the kernels do not take).
 extern "C" int flash_fwd(const void* qkv, void* out, float* lse, int B, int S,
                          int h, int d, int causal, float scale, int dtype,
-                         void* stream) {
+                         int* sched, void* stream, int* variant) {
   const long long H = (long long)h * d, es = dtype == 1 ? 2 : 4;
   const char* base = static_cast<const char*>(qkv);
   FwdArgs a{base, base + H * es, base + 2 * H * es, 3 * H, 3 * H, 3 * H,
             d, d, d, 3 * H * S, 3 * H * S, 3 * H * S, out, H, d, H * S, lse,
             nullptr, nullptr, S, h, causal, scale};
-  return flash_fwd_launch<false, false>(a, B, d, dtype,
-                                        static_cast<cudaStream_t>(stream));
+  return flash_fwd_launch<false, false>(
+      a, B, d, dtype, sched, static_cast<cudaStream_t>(stream), variant);
 }
 
 // Separate q, k, v, each [B, S, h, d] with rows of h*d; o [B, S, h, d];
@@ -481,39 +686,40 @@ extern "C" int flash_fwd(const void* qkv, void* out, float* lse, int B, int S,
 extern "C" int flash_fwd_sep(const void* q, const void* k, const void* v,
                              void* out, float* lse, int B, int S, int h,
                              int d, int causal, float scale, int dtype,
-                             void* stream) {
+                             int* sched, void* stream, int* variant) {
   const long long H = (long long)h * d;
   FwdArgs a{q, k, v, H, H, H, d, d, d, H * S, H * S, H * S, out, H, d, H * S,
             lse, nullptr, nullptr, S, h, causal, scale};
-  return flash_fwd_launch<false, false>(a, B, d, dtype,
-                                        static_cast<cudaStream_t>(stream));
+  return flash_fwd_launch<false, false>(
+      a, B, d, dtype, sched, static_cast<cudaStream_t>(stream), variant);
 }
 
 // K17 forward: head-major q, k, v and o, each [B, h, S, d]; lse [B, h, S]
 // or null.
 extern "C" int flash_fwd_hm(const void* q, const void* k, const void* v,
                             void* out, float* lse, int B, int S, int h, int d,
-                            int causal, float scale, int dtype,
-                            void* stream) {
+                            int causal, float scale, int dtype, int* sched,
+                            void* stream, int* variant) {
   const long long hs = (long long)S * d, bs = hs * h;
   FwdArgs a{q, k, v, d, d, d, hs, hs, hs, bs, bs, bs, out, d, hs, bs, lse,
             nullptr, nullptr, S, h, causal, scale};
-  return flash_fwd_launch<false, false>(a, B, d, dtype,
-                                        static_cast<cudaStream_t>(stream));
+  return flash_fwd_launch<false, false>(
+      a, B, d, dtype, sched, static_cast<cudaStream_t>(stream), variant);
 }
 
 // K2: dqkv [B, S, 3H] of the fused qkv [B, S, 3H] in one launch.
 extern "C" int flash_bwd(const void* qkv, const void* dout, const float* lse,
                          const float* delta, void* dqkv, int B, int S, int h,
                          int d, int causal, float scale, int dtype,
-                         void* stream) {
+                         void* stream, int* variant) {
   const long long H = (long long)h * d, es = dtype == 1 ? 2 : 4;
   const char* in = static_cast<const char*>(qkv);
   char* out = static_cast<char*>(dqkv);
   const BwdArgs a = native_bwd(in, in + H * es, in + 2 * H * es, dout, lse,
                                delta, out, out + H * es, out + 2 * H * es,
                                3 * H, 3 * H, S, h, d, causal, scale);
-  return bwd_launch<kBoth>(a, B, d, dtype, static_cast<cudaStream_t>(stream));
+  return bwd_launch<kBoth>(a, B, d, dtype, static_cast<cudaStream_t>(stream),
+                           variant);
 }
 
 // K3, dq: q, k, v with row stride row_in, dq with row stride row_out.
@@ -522,11 +728,12 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const float* delta, void* dq, int row_in,
                             int row_out, int B, int S, int h, int d,
                             int causal, float scale, int dtype,
-                            void* stream) {
+                            void* stream, int* variant) {
   const BwdArgs a = native_bwd(q, k, v, dout, lse, delta, dq, nullptr,
                                nullptr, row_in, row_out, S, h, d, causal,
                                scale);
-  return bwd_launch<kDq>(a, B, d, dtype, static_cast<cudaStream_t>(stream));
+  return bwd_launch<kDq>(a, B, d, dtype, static_cast<cudaStream_t>(stream),
+                         variant);
 }
 
 // K3, dk and dv: q, k, v with row stride row_in, dk and dv with row stride
@@ -536,10 +743,11 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const float* delta, void* dk, void* dv,
                              int row_in, int row_out, int B, int S, int h,
                              int d, int causal, float scale, int dtype,
-                             void* stream) {
+                             void* stream, int* variant) {
   const BwdArgs a = native_bwd(q, k, v, dout, lse, delta, nullptr, dk, dv,
                                row_in, row_out, S, h, d, causal, scale);
-  return bwd_launch<kDkv>(a, B, d, dtype, static_cast<cudaStream_t>(stream));
+  return bwd_launch<kDkv>(a, B, d, dtype, static_cast<cudaStream_t>(stream),
+                          variant);
 }
 
 // K17, dq: head-major q, k, v, dout and dq, each [B, h, S, d].
@@ -547,10 +755,11 @@ extern "C" int flash_bwd_hm_dq(const void* q, const void* k, const void* v,
                                const void* dout, const float* lse,
                                const float* delta, void* dq, int B, int S,
                                int h, int d, int causal, float scale,
-                               int dtype, void* stream) {
+                               int dtype, void* stream, int* variant) {
   const BwdArgs a = head_major_bwd(q, k, v, dout, lse, delta, dq, nullptr,
                                    nullptr, S, h, d, causal, scale);
-  return bwd_launch<kDq>(a, B, d, dtype, static_cast<cudaStream_t>(stream));
+  return bwd_launch<kDq>(a, B, d, dtype, static_cast<cudaStream_t>(stream),
+                         variant);
 }
 
 // K17, dk and dv: head-major operands, each [B, h, S, d].
@@ -558,8 +767,50 @@ extern "C" int flash_bwd_hm_dkv(const void* q, const void* k, const void* v,
                                 const void* dout, const float* lse,
                                 const float* delta, void* dk, void* dv,
                                 int B, int S, int h, int d, int causal,
-                                float scale, int dtype, void* stream) {
+                                float scale, int dtype, void* stream,
+                                int* variant) {
   const BwdArgs a = head_major_bwd(q, k, v, dout, lse, delta, nullptr, dk,
                                    dv, S, h, d, causal, scale);
-  return bwd_launch<kDkv>(a, B, d, dtype, static_cast<cudaStream_t>(stream));
+  return bwd_launch<kDkv>(a, B, d, dtype, static_cast<cudaStream_t>(stream),
+                          variant);
+}
+
+template <int PART>
+void bwd_plan(int d, int& stages, int& smem) {
+  stages = d == 64 ? BwdWg<64, PART>::kStages : BwdWg<128, PART>::kStages;
+  smem = d == 64 ? BwdWg<64, PART>::kSmem : BwdWg<128, PART>::kSmem;
+}
+
+// The plan the launchers follow, for the Python side's flash_plan to be
+// held against on the card: out = {variant (1: TMA + wgmma, 0: FMA), rows
+// a block, rows a ring tile, stages (the forward: of its k ring), shared
+// bytes, heaviest-first reversal of the row blocks (1) or ascending order
+// (0), (batch, head) pairs an L2 chunk of the order holds (bh pairs in
+// all), the forward's v ring stages (0 for the backward)}. part: 0 the
+// forward, 1 + kBoth, kDq or kDkv the backward. Returns 0, or
+// cudaErrorInvalidValue.
+extern "C" int flash_plan_c(int S, int d, int dtype, int part, int causal,
+                            int bh, int* out) {
+  if (S % kRows || S <= 0 || part < 0 || part > 3 || bh < 1)
+    return (int)cudaErrorInvalidValue;
+  if (!wg_variant(d, dtype)) {
+    const int o[8] = {0, kRows, kFmaTile, 0, 0, 0, 0, 0};
+    for (int j = 0; j < 8; ++j) out[j] = o[j];
+    return 0;
+  }
+  int stages, v_stages = 0, smem;
+  if (part == 0) {
+    stages = d == 64 ? FwdWg<64>::kStages : FwdWg<128>::kStages;
+    v_stages = d == 64 ? FwdWg<64>::kVStages : FwdWg<128>::kVStages;
+    smem = d == 64 ? FwdWg<64>::kSmem : FwdWg<128>::kSmem;
+  } else {
+    if (part - 1 == kBoth) bwd_plan<kBoth>(d, stages, smem);
+    else if (part - 1 == kDq) bwd_plan<kDq>(d, stages, smem);
+    else bwd_plan<kDkv>(d, stages, smem);
+  }
+  const int o[8] = {1, kWgRows, part == 0 ? kFwdKeys : kBwdTile, stages,
+                    smem, causal && (part == 0 || part - 1 == kDq),
+                    l2_chunk(S, d, bh), v_stages};
+  for (int j = 0; j < 8; ++j) out[j] = o[j];
+  return 0;
 }

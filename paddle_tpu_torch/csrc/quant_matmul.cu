@@ -56,12 +56,11 @@
 // prefetch of the next K step); fp32 x takes a CUDA-core kernel
 // (qmm_kernel). Both mask the ragged edges.
 
-#include <cuda.h>           // CUtensorMap and its enums only:
-                            // cuTensorMapEncodeTiled is looked up at run
-                            // time (encode_tiled), not linked
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "hopper.cuh"   // mbarriers, TMA, wgmma, tensor maps, setmaxnreg
 
 namespace {
 
@@ -261,196 +260,6 @@ static_assert(128 * kRegsProducer + 256 * kRegsConsumer <=
 constexpr int kWBox = kWgBK * 128;    // a [64 k, 128 n] int8 tile of W
 constexpr int kWgMaxStages = 8;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-// The box of ``map`` at (c0 innermost, c1) into shared memory at ``dst``,
-// completing on ``bar``; past the tensor's edge TMA writes zeros.
-__device__ __forceinline__ void tma_load_2d(uint32_t dst,
-                                            const CUtensorMap* map, int c0,
-                                            int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-         "r"(smem_u32(bar))
-      : "memory");
-}
-
-// wgmma's shared-memory descriptor of a K-major tile with 128-byte rows
-// in the 128-byte swizzle (8-row groups 1024 bytes apart), from a
-// 1024-byte aligned base plus the k16 step's 32-byte offset.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// d += A (registers, 64 x 16) B (shared memory, 16 x 256).
-__device__ __forceinline__ void wgmma_n256(float (&d)[128],
-                                          const uint32_t (&a)[4],
-                                          uint64_t desc) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
-      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
-      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
-      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
-      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
-      "%127}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
-        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-// d += A (registers, 64 x 16) B (shared memory, 16 x 128).
-__device__ __forceinline__ void wgmma_n128(float (&d)[64],
-                                          const uint32_t (&a)[4],
-                                          uint64_t desc) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-// d += A (registers, 64 x 16) B (shared memory, 16 x 64).
-__device__ __forceinline__ void wgmma_n64(float (&d)[32],
-                                          const uint32_t (&a)[4],
-                                          uint64_t desc) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-// d += A (registers, 64 x 16) B (shared memory, 16 x 32).
-__device__ __forceinline__ void wgmma_n32(float (&d)[16],
-                                          const uint32_t (&a)[4],
-                                          uint64_t desc) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-template <int BM>
-__device__ __forceinline__ void wgmma_bm(float (&d)[BM / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t desc) {
-  if constexpr (BM == 256) wgmma_n256(d, a, desc);
-  else if constexpr (BM == 128) wgmma_n128(d, a, desc);
-  else if constexpr (BM == 64) wgmma_n64(d, a, desc);
-  else wgmma_n32(d, a, desc);
-}
-
-template <int N>
-__device__ __forceinline__ void fence_operands(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
 // Byte j of a word of int8 values already offset by 128 (xor 0x80): the
 // exact float, 2^23 + (w + 128) put together bitwise, minus 2^23 + 128.
 // With the pair packing below, 2.5 integer or fp32 instructions a value
@@ -512,13 +321,12 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 8);          // the consumers' eight warps
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
   if (tid >= 256) {                     // producer warpgroup
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
-                 :: "n"(kRegsProducer));
+    setmaxnreg_dec<kRegsProducer>();
     if (tid == 256) {
       for (int i = 0; i < nkb; ++i) {
         const int s = i % stages;
@@ -535,8 +343,7 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     }
     return;
   }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
-               :: "n"(kRegsConsumer));
+  setmaxnreg_inc<kRegsConsumer>();
   const int wg = tid / 128, w = (tid % 128) / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   // this thread's A rows (slice h, row 16 w + g + 8 e) are 2 SL adjacent
@@ -583,14 +390,14 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     const int s = i % stages;
     const uint64_t dx = sw128_desc(base + (uint32_t)(s * kStage));
     fence_acc();
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
       for (int h = 0; h < SL; ++h)     // + 32 bytes a k16
-        wgmma_bm<BM>(acc[h], cur[ks][h], dx + 2 * ks);
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        wgmma_rs<BM, 0>(acc[h], cur[ks][h], dx + 2 * ks);
+    wgmma_commit();
+    wgmma_wait<1>();
     fence_acc();
     if (i > 0) {
       __syncwarp();
@@ -610,7 +417,7 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     step(i, a0, a1);
     if (i + 1 < nkb) step(i + 1, a1, a0);
   }
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  wgmma_wait<0>();
   fence_acc();
 
   // accumulator i of slice h: A row g + 8 e (e = (i / 2) % 2), column
@@ -662,47 +469,6 @@ __global__ void qmm_splitk_sum(const float4* __restrict__ part,
   y[e] = make_float4(a.x * sc.x, a.y * sc.y, a.z * sc.z, a.w * sc.w);
 }
 
-typedef CUresult (*EncodeTiled)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 2-D row-major map (rows of ``row_bytes``) with 128-byte swizzled
-// boxes of box_inner x box_outer elements.
-bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
-              uint64_t inner, uint64_t outer, uint64_t row_bytes,
-              uint32_t box_inner, uint32_t box_outer) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  cuuint64_t dims[2] = {inner, outer};
-  cuuint64_t strides[1] = {row_bytes};
-  cuuint32_t box[2] = {box_inner, box_outer};
-  cuuint32_t elem[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int BM, int SL>
 int launch_wgmma(const void* x, const void* w, const float* scale, float* y,
                  float* part, int M, int K, int N, int splits, int stages,
@@ -717,14 +483,10 @@ int launch_wgmma(const void* x, const void* w, const float* scale, float* y,
                       16 * kWgMaxStages;
   static size_t smem_set = 0;        // the attribute only ever grows
   if (smem_set == 0) {
-    // setmaxnreg moves registers between the roles within what the block
-    // got at launch: were it less, the consumers' increase would wait
-    // forever, so refuse the launch instead
-    cudaFuncAttributes attr;
-    cudaError_t err = cudaFuncGetAttributes(&attr, qmm_wgmma_kernel<BM, SL>);
+    // the roles' setmaxnreg must fit what the block got at launch
+    cudaError_t err = check_entry_regs(qmm_wgmma_kernel<BM, SL>,
+                                       kRegsAtEntry);
     if (err != cudaSuccess) return (int)err;
-    if (attr.numRegs < kRegsAtEntry)
-      return (int)cudaErrorInvalidConfiguration;
   }
   if (smem > smem_set) {
     cudaError_t err = cudaFuncSetAttribute(

@@ -32,11 +32,19 @@ entries:
 - backward: dqkv [B, S, 3*h*d] (or dq, dk, dv [B, S, h, d]).
   p = exp(s - lse) (masked 0), dp = do v^T, ds = p (dp - delta) cast to
   the input dtype, dq = ds k * scale, dk = ds^T q * scale, dv = p^T do
-  with p cast; delta = rowsum(do * o) in fp32 is computed here, outside
-  the kernel. K2 and K3 compute the same function, bit for bit.
+  with p cast; delta = rowsum(do * o) in fp32 is the torch expression
+  here before K2, K3 or K17's backward (the reference's XLA reduction).
+  K2 and K3 compute the same function, bit for bit.
 
 On a CPU tensor the wrappers run the plain versions; on a CUDA tensor
-they launch ``csrc/flash_attention.cu`` or raise. The differentiable
+they launch ``csrc/flash_attention.cu`` or raise. ``flash_plan`` is the
+kernels' choice of variant and tiles for a shape, the one the C
+launchers make: bf16 at head dim 64 or 128 takes the TMA + wgmma bodies
+(128-row blocks, a ring of TMA tiles, heaviest blocks first), fp32 and
+head dim 256 the CUDA-core ones. Every entry counts its launches by the
+variant the C launcher reports it launched (``launches_wgmma``,
+``launches_fma``; ``launches`` is their sum) and by shape in
+``LAUNCHES_BY_PLAN``. The differentiable
 entry ``flash_attention_qkv`` is the registered operator pair
 ``paddle_tpu_torch::flash_qkv_fwd`` / ``flash_qkv_bwd`` (K2 or K3 as the
 forward's registered backward, chosen when the backward runs; every
@@ -52,6 +60,7 @@ and lse).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -65,10 +74,11 @@ __all__ = ["flash_attention_qkv", "flash_qkv_supported", "flash_fwd",
            "flash_sep_plain", "flash_bwd_split", "flash_bwd_sep",
            "flash_bwd_sep_plain", "fused_dqkv_ok", "BWD_ROUTES",
            "RAW_ROUTES", "flash_fwd_hm", "flash_bwd_hm", "flash_fwd_hm_plain",
-           "flash_bwd_hm_plain"]
+           "flash_bwd_hm_plain", "flash_plan", "LAUNCHES_BY_PLAN"]
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 _FLAG_DEFAULTS = (("flash_attention_kernel_bwd", True),
                   ("flash_attention_native_layout", True),
                   ("use_library_flash_attention", False))
@@ -81,6 +91,123 @@ BWD_ROUTES = {"merged": 0, "split": 0}
 # "head_major" (K17)
 RAW_ROUTES = {"native": 0, "head_major": 0}
 _MIN_BLOCK, _MAX_BLOCK = 128, 512
+# launches on CUDA tensors by (variant, dtype, head dim, S, part, bh), the
+# variant as the C launcher reports it, part "fwd", "both" (K2), "dq" or
+# "dkv" (K3, K17's backward), bh the (batch, head) pairs: every flash
+# entry's, K11's too
+LAUNCHES_BY_PLAN: collections.Counter = collections.Counter()
+
+# the tile loops' geometry (csrc/flash_fwd.cuh)
+FLASH_ROWS = 128            # rows a block: two consumer warpgroups of 64
+FLASH_FWD_KEYS = 128        # keys a forward ring tile
+FLASH_BWD_TILE = 64         # keys (dq) or queries (dk/dv) a backward tile
+FLASH_MAX_STAGES = 4
+FLASH_SMEM = 232448         # shared memory a block may take (227 KB)
+FLASH_SMEM_FIXED = 1024 + 256   # base alignment, mbarriers
+FLASH_L2_CHUNK = 16 << 20       # L2 bytes a chunk of the work order reads
+FMA_ROWS, FMA_TILE = 64, 32     # the CUDA-core kernels' block and tile
+_PARTS = ("fwd", "both", "dq", "dkv")
+_VARIANTS = ("fma", "wgmma")    # the C entries' *variant codes 0 and 1
+
+
+def _variant(d: int, dtype) -> str:
+    return "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "fma"
+
+
+def flash_plan(S: int, d: int, dtype=torch.bfloat16, part: str = "fwd",
+               causal: bool = True, bh: int = 1) -> dict:
+    """The kernel variant and tiles for a flash launch at sequence S and
+    head dim d over ``bh`` (batch, head) pairs; ``part`` is "fwd" (K1,
+    K1-sep, K11, K17's forward), "both" (K2) or "dq" / "dkv" (K3's two
+    launches, K17's backward).
+
+    ``variant``: "wgmma" for bf16 at d 64 or 128, else "fma". For
+    "wgmma": ``rows`` a work item (128: two consumer warpgroups of 64; at
+    S % 128 == 64 the last row block's second half lies past S, where TMA
+    reads zeros and nothing is stored), ``tile`` rows a ring stage (128
+    keys in the forward, 64 keys or queries in the backward), ``stages``
+    of the TMA ring (as many as 227 KB holds beside the item's own tiles,
+    up to 4; the forward has a k ring of ``stages`` and a v ring of
+    ``v_stages`` beside two q buffers) and the ``smem`` bytes, as the
+    source lays them out. The work order: the (batch, head) pairs in
+    ``chunk``s whose two streamed operands (S x d bf16 each: k and v, or
+    q and do) fit in 16 MiB of L2;
+    within a chunk the row blocks in ``order``, each taken by every pair
+    of the chunk before the next: heaviest first, descending for the
+    causal forward and dq (block i has i + 1 tiles), ascending for dk/dv
+    (block i has S / 64 - 2 i) and K2 (equal work). For "fma": 64-row
+    blocks of 32-row tiles in grid order."""
+    if part not in _PARTS:
+        raise ValueError(f"part {part!r} not in {_PARTS}")
+    if S <= 0 or S % 64:
+        raise ValueError(f"S {S}: the kernels take S % 64 == 0")
+    if _variant(d, dtype) == "fma":
+        return {"variant": "fma", "rows": FMA_ROWS, "tile": FMA_TILE,
+                "stages": 0, "v_stages": 0, "smem": 0,
+                "order": list(range(S // FMA_ROWS)), "chunk": 0}
+    own_tile = FLASH_ROWS * d * 2
+    room = FLASH_SMEM - FLASH_SMEM_FIXED
+    if part == "fwd":     # two q buffers, then k and v rings of tiles
+        tile = FLASH_FWD_KEYS
+        slots = (room - 2 * own_tile) // (tile * d * 2)
+        v_stages = min(FLASH_MAX_STAGES, (slots + 1) // 2)
+        stages = min(FLASH_MAX_STAGES, slots - v_stages)
+        smem = 2 * own_tile + (stages + v_stages) * tile * d * 2
+    else:                 # the own tiles, then stages of two tiles + stats
+        tile = FLASH_BWD_TILE
+        own = own_tile * (4 if part == "both" else 2)
+        stage = 2 * tile * d * 2 + 2 * tile * 4      # + lse, delta
+        stages = min(FLASH_MAX_STAGES, (room - own) // stage)
+        v_stages, smem = 0, own + stages * stage
+    blocks = list(range(-(-S // FLASH_ROWS)))
+    if causal and part in ("fwd", "dq"):
+        blocks.reverse()
+    chunk = max(1, min(bh, FLASH_L2_CHUNK // (2 * S * d * 2)))
+    return {"variant": "wgmma", "rows": FLASH_ROWS, "tile": tile,
+            "stages": stages, "v_stages": v_stages,
+            "smem": FLASH_SMEM_FIXED + smem, "order": blocks,
+            "chunk": chunk}
+
+
+def flash_plan_c(S: int, d: int, dtype, part: str = "fwd",
+                 causal: bool = True, bh: int = 1) -> dict:
+    """The plan the C launchers follow (``flash_plan_c`` in the library),
+    in flash_plan's keys: built on first use, for holding flash_plan to
+    the source on the card."""
+    fn = _fns.get("flash_plan_c")
+    if fn is None:
+        fn = _build.library("flash_attention").flash_plan_c
+        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns["flash_plan_c"] = fn
+    out = (ctypes.c_int * 8)()
+    _build.check(fn(S, d, _DTYPE_CODE[dtype], _PARTS.index(part),
+                    int(causal), bh, ctypes.addressof(out)), "flash_plan_c")
+    variant, rows, tile, stages, smem, reverse, chunk, v_stages = out
+    blocks = list(range(S // rows if variant == 0 else -(-S // rows)))
+    if reverse:
+        blocks.reverse()
+    return {"variant": "wgmma" if variant else "fma", "rows": rows,
+            "tile": tile, "stages": stages, "v_stages": v_stages,
+            "smem": smem, "order": blocks, "chunk": chunk}
+
+
+def _launch(c_fn, name: str, *args) -> str:
+    """Call C entry ``c_fn`` (named ``name`` in errors) with ``args`` and
+    its trailing *variant out-parameter; raise on a CUDA error, else
+    return the variant it launched ("wgmma" or "fma")."""
+    variant = ctypes.c_int(-1)
+    _build.check(c_fn(*args, ctypes.byref(variant)), name)
+    return _VARIANTS[variant.value]
+
+
+def _count(fn, shape, dtype, part: str, variant: str) -> None:
+    """Count a CUDA launch of entry ``fn`` at (B, S, h, d) by the variant
+    the launcher reported and by shape."""
+    B, S, h, d = shape
+    setattr(fn, "launches_" + variant, getattr(fn, "launches_" + variant) + 1)
+    LAUNCHES_BY_PLAN[(variant, _DTYPE_NAME[dtype], d, S, part, B * h)] += 1
+    fn.launches += 1
 
 
 def _check_flags() -> None:
@@ -248,11 +375,12 @@ def flash_bwd_hm_plain(q, k, v, o, lse, do, causal: bool, sm_scale: float):
 
 
 # (pointers, ints) before the common (B, S, h, d, causal, scale, dtype,
-# stream) of each C entry
+# [sched,] stream, variant) of each C entry
 _ARGS = {"flash_fwd": (3, 0), "flash_fwd_sep": (5, 0), "flash_bwd": (5, 0),
          "flash_bwd_dq": (7, 2), "flash_bwd_dkv": (8, 2),
          "flash_fwd_hm": (5, 0), "flash_bwd_hm_dq": (7, 0),
          "flash_bwd_hm_dkv": (8, 0)}
+_FWD = ("flash_fwd", "flash_fwd_sep", "flash_fwd_hm")
 
 
 def _kernel(name: str):
@@ -261,11 +389,44 @@ def _kernel(name: str):
         fn = getattr(_build.library("flash_attention"), name)
         P, I = ctypes.c_void_p, ctypes.c_int
         n_ptr, n_int = _ARGS[name]
-        fn.argtypes = [P] * n_ptr + [I] * (n_int + 5) + [ctypes.c_float, I,
-                                                         P]
+        fn.argtypes = ([P] * n_ptr + [I] * (n_int + 5)
+                       + [ctypes.c_float, I] + [P] * (2 if name in _FWD
+                                                      else 1)
+                       + [ctypes.POINTER(I)])
         fn.restype = I
         _fns[name] = fn
     return fn
+
+
+_SCHED: dict = {}           # (device, stream) -> the stream's scratch
+_CAPTURE_SLOTS = 1024
+_CAPTURED: dict = {}        # device -> [zeroed slots, next free slot]
+
+
+def sched_scratch(t: torch.Tensor, stream: int) -> torch.Tensor:
+    """Scheduling scratch for a persistent forward on ``t``'s device and
+    ``stream`` (the current one's handle): two int32, zero before the
+    launch, which leaves them zero. Launches on one stream run one after
+    another, so eager ones share a buffer a stream. A launch that a CUDA
+    graph captures owns a slot of its own for good (from slots zeroed by
+    the first eager launch on the device, or else a fresh buffer zeroed
+    by a captured fill), so that no replay shares a counter with another
+    launch. Keep the tensor until the launch is queued."""
+    if torch.cuda.is_current_stream_capturing():
+        slots = _CAPTURED.get(t.device)
+        if slots is None or slots[1] == _CAPTURE_SLOTS:
+            return torch.zeros(2, dtype=torch.int32, device=t.device)
+        slots[1] += 1
+        return slots[0][slots[1] - 1]
+    key = (t.device, stream)
+    buf = _SCHED.get(key)
+    if buf is None:
+        buf = _SCHED[key] = torch.zeros(2, dtype=torch.int32,
+                                        device=t.device)
+        if t.device not in _CAPTURED:
+            _CAPTURED[t.device] = [torch.zeros(
+                (_CAPTURE_SLOTS, 2), dtype=torch.int32, device=t.device), 0]
+    return buf
 
 
 def _check_cuda(qkv, n_heads: int, *others) -> tuple[int, int, int, int]:
@@ -291,7 +452,8 @@ def _check_cuda(qkv, n_heads: int, *others) -> tuple[int, int, int, int]:
 
 
 def flash_fwd(qkv, n_heads: int, causal: bool, sm_scale: float):
-    """K1: (o, lse). Counts its CUDA launches in ``flash_fwd.launches``."""
+    """K1: (o, lse). Counts its CUDA launches in ``flash_fwd.launches``
+    (by variant: ``launches_wgmma``, ``launches_fma``)."""
     if qkv.device.type == "cpu":
         return flash_fwd_plain(qkv, n_heads, causal, sm_scale)
     if qkv.device.type != "cuda":
@@ -299,12 +461,13 @@ def flash_fwd(qkv, n_heads: int, causal: bool, sm_scale: float):
     B, S, h, d = _check_cuda(qkv, n_heads)
     o = torch.empty((B, S, h, d), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((B, h, S), dtype=torch.float32, device=qkv.device)
-    err = _kernel("flash_fwd")(
-        qkv.data_ptr(), o.data_ptr(), lse.data_ptr(), B, S, h, d,
-        int(causal), float(sm_scale), _DTYPE_CODE[qkv.dtype],
-        torch.cuda.current_stream(qkv.device).cuda_stream)
-    _build.check(err, "flash_fwd")
-    flash_fwd.launches += 1
+    stream = _stream(qkv)
+    sched = sched_scratch(qkv, stream)
+    variant = _launch(
+        _kernel("flash_fwd"), "flash_fwd", qkv.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), B, S, h, d, int(causal), float(sm_scale),
+        _DTYPE_CODE[qkv.dtype], sched.data_ptr(), stream)
+    _count(flash_fwd, (B, S, h, d), qkv.dtype, "fwd", variant)
     return o, lse
 
 
@@ -312,7 +475,9 @@ def _bwd_operands(o, lse, do, dtype, shape, head_major: bool = False):
     """(delta [B, h, S] fp32, do in ``dtype``), both contiguous, after
     checking o, do and lse [B, h, S] fp32 against ``shape`` = (B, S, h,
     d); o and do are [B, S, h, d], or [B, h, S, d] with ``head_major``.
-    delta is the fp32 row sum of do * o over d in either layout."""
+    delta is the fp32 row sum of do * o over d (the reference's XLA
+    reduction before its kernels), the same expression as the plain
+    versions' on every dtype."""
     B, S, h, d = shape
     want = (B, h, S, d) if head_major else shape
     if o.shape != want or do.shape != want or \
@@ -342,31 +507,28 @@ def flash_bwd(qkv, o, lse, do, n_heads: int, causal: bool,
     delta, do_ = _bwd_operands(o, lse, do, qkv.dtype, (B, S, h, d))
     _check_cuda(qkv, n_heads, do_, delta)
     dqkv = torch.empty_like(qkv)
-    err = _kernel("flash_bwd")(
-        qkv.data_ptr(), do_.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dqkv.data_ptr(), B, S, h, d, int(causal), float(sm_scale),
-        _DTYPE_CODE[qkv.dtype], _stream(qkv))
-    _build.check(err, "flash_bwd")
-    flash_bwd.launches += 1
+    variant = _launch(
+        _kernel("flash_bwd"), "flash_bwd", qkv.data_ptr(), do_.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), B, S, h, d,
+        int(causal), float(sm_scale), _DTYPE_CODE[qkv.dtype], _stream(qkv))
+    _count(flash_bwd, (B, S, h, d), qkv.dtype, "both", variant)
     return dqkv
 
 
-def _launch_split(q, k, v, do_, lse, delta, dq, dk, dv, row_in: int,
+def _launch_split(entry, q, k, v, do_, lse, delta, dq, dk, dv, row_in: int,
                   row_out: int, shape, causal: bool, sm_scale: float,
-                  dtype) -> int:
-    """K3's two launches, dq then dk/dv; returns the launch count (2)."""
+                  dtype) -> None:
+    """K3's two launches, dq then dk/dv, counted on ``entry``."""
     B, S, h, d = shape
     tail = (B, S, h, d, int(causal), float(sm_scale), _DTYPE_CODE[dtype],
             _stream(do_))
-    err = _kernel("flash_bwd_dq")(q, k, v, do_.data_ptr(), lse.data_ptr(),
-                                  delta.data_ptr(), dq, row_in, row_out,
-                                  *tail)
-    _build.check(err, "flash_bwd_dq")
-    err = _kernel("flash_bwd_dkv")(q, k, v, do_.data_ptr(), lse.data_ptr(),
-                                   delta.data_ptr(), dk, dv, row_in,
-                                   row_out, *tail)
-    _build.check(err, "flash_bwd_dkv")
-    return 2
+    ins = (q, k, v, do_.data_ptr(), lse.data_ptr(), delta.data_ptr())
+    variant = _launch(_kernel("flash_bwd_dq"), "flash_bwd_dq", *ins, dq,
+                      row_in, row_out, *tail)
+    _count(entry, shape, dtype, "dq", variant)
+    variant = _launch(_kernel("flash_bwd_dkv"), "flash_bwd_dkv", *ins, dk,
+                      dv, row_in, row_out, *tail)
+    _count(entry, shape, dtype, "dkv", variant)
 
 
 def flash_bwd_split(qkv, o, lse, do, n_heads: int, causal: bool,
@@ -385,10 +547,10 @@ def flash_bwd_split(qkv, o, lse, do, n_heads: int, causal: bool,
     dqkv = torch.empty_like(qkv)
     H, es = h * d, qkv.element_size()
     src, dst = qkv.data_ptr(), dqkv.data_ptr()
-    flash_bwd_split.launches += _launch_split(
-        src, src + H * es, src + 2 * H * es, do_, lse, delta, dst,
-        dst + H * es, dst + 2 * H * es, 3 * H, 3 * H, (B, S, h, d), causal,
-        sm_scale, qkv.dtype)
+    _launch_split(
+        flash_bwd_split, src, src + H * es, src + 2 * H * es, do_, lse,
+        delta, dst, dst + H * es, dst + 2 * H * es, 3 * H, 3 * H,
+        (B, S, h, d), causal, sm_scale, qkv.dtype)
     return dqkv
 
 
@@ -406,10 +568,10 @@ def flash_bwd_sep(q, k, v, o, lse, do, causal: bool, sm_scale: float):
         raise ValueError(f"lse must be contiguous and on {q.device}")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     H = shape[2] * shape[3]
-    flash_bwd_sep.launches += _launch_split(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do_, lse, delta,
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), H, H, shape, causal,
-        sm_scale, q.dtype)
+    _launch_split(
+        flash_bwd_sep, q.data_ptr(), k.data_ptr(), v.data_ptr(), do_, lse,
+        delta, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), H, H, shape,
+        causal, sm_scale, q.dtype)
     return dq, dk, dv
 
 
@@ -423,12 +585,13 @@ def flash_fwd_sep(q, k, v, causal: bool, sm_scale: float):
     B, S, h, d = _check_sep(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((B, h, S), dtype=torch.float32, device=q.device)
-    err = _kernel("flash_fwd_sep")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), B, S, h, d, int(causal),
-        float(sm_scale), _DTYPE_CODE[q.dtype], _stream(q))
-    _build.check(err, "flash_fwd_sep")
-    flash_fwd_sep.launches += 1
+    stream = _stream(q)
+    sched = sched_scratch(q, stream)
+    variant = _launch(
+        _kernel("flash_fwd_sep"), "flash_fwd_sep", q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, S, h, d, int(causal),
+        float(sm_scale), _DTYPE_CODE[q.dtype], sched.data_ptr(), stream)
+    _count(flash_fwd_sep, (B, S, h, d), q.dtype, "fwd", variant)
     return o, lse
 
 
@@ -469,12 +632,13 @@ def flash_fwd_hm(q, k, v, causal: bool, sm_scale: float):
     B, S, h, d = _check_sep(q, k, v, head_major=True)
     o = torch.empty_like(q)
     lse = torch.empty((B, h, S), dtype=torch.float32, device=q.device)
-    err = _kernel("flash_fwd_hm")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), B, S, h, d, int(causal), float(sm_scale),
-        _DTYPE_CODE[q.dtype], _stream(q))
-    _build.check(err, "flash_fwd_hm")
-    flash_fwd_hm.launches += 1
+    stream = _stream(q)
+    sched = sched_scratch(q, stream)
+    variant = _launch(
+        _kernel("flash_fwd_hm"), "flash_fwd_hm", q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, S, h, d, int(causal),
+        float(sm_scale), _DTYPE_CODE[q.dtype], sched.data_ptr(), stream)
+    _count(flash_fwd_hm, (B, S, h, d), q.dtype, "fwd", variant)
     return o, lse
 
 
@@ -496,22 +660,18 @@ def flash_bwd_hm(q, k, v, o, lse, do, causal: bool, sm_scale: float):
             _stream(q))
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do_.data_ptr(),
            lse.data_ptr(), delta.data_ptr())
-    err = _kernel("flash_bwd_hm_dq")(*ins, dq.data_ptr(), *tail)
-    _build.check(err, "flash_bwd_hm_dq")
-    err = _kernel("flash_bwd_hm_dkv")(*ins, dk.data_ptr(), dv.data_ptr(),
-                                      *tail)
-    _build.check(err, "flash_bwd_hm_dkv")
-    flash_bwd_hm.launches += 2
+    variant = _launch(_kernel("flash_bwd_hm_dq"), "flash_bwd_hm_dq", *ins,
+                      dq.data_ptr(), *tail)
+    _count(flash_bwd_hm, shape, q.dtype, "dq", variant)
+    variant = _launch(_kernel("flash_bwd_hm_dkv"), "flash_bwd_hm_dkv", *ins,
+                      dk.data_ptr(), dv.data_ptr(), *tail)
+    _count(flash_bwd_hm, shape, q.dtype, "dkv", variant)
     return dq, dk, dv
 
 
-flash_fwd.launches = 0
-flash_bwd.launches = 0
-flash_fwd_sep.launches = 0
-flash_bwd_split.launches = 0
-flash_bwd_sep.launches = 0
-flash_fwd_hm.launches = 0
-flash_bwd_hm.launches = 0
+for _entry in (flash_fwd, flash_bwd, flash_fwd_sep, flash_bwd_split,
+               flash_bwd_sep, flash_fwd_hm, flash_bwd_hm):
+    _entry.launches = _entry.launches_wgmma = _entry.launches_fma = 0
 
 
 # The fused-qkv entry is a pair of registered operators, so that the

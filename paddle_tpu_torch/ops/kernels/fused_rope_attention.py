@@ -10,10 +10,12 @@ which side the kernel rotates: LLaMA's GQA prefill passes the repeated,
 already rotated k with ``rope_k=False`` (its rotated k escapes into the
 cache and through the repeat); an MHA model rotates both.
 
-The kernel rotates with the full-width tables of :func:`rope_tables`,
-``x * C + swap(x) * S``, rounding as the eager ``apply_rope`` does, so the
-rotated tiles are bit for bit the composition's; the plain version is that
-composition: ``apply_rope`` on the chosen sides, then the plain flash.
+The kernel rotates with the half-width tables as the eager
+``apply_rope`` does, ``[x1 cos - x2 sin, x2 cos + x1 sin]`` with the same
+roundings, so the rotated tiles are bit for bit the composition's; the
+plain version is that composition: ``apply_rope`` on the chosen sides,
+then the plain flash. (The backward's rotation and pullback use the
+full-width tables of :func:`rope_tables`.)
 
 The backward is the reference's (``_fused_bwd``): q and k, saved
 unrotated, are rotated again in fp32 and cast back, K3 in its separate
@@ -22,7 +24,8 @@ saved o and lse, and the rotary pullback ``dx = dy * C - swap(dy) * S``
 carries dq and dk back to the unrotated inputs; cos and sin get no
 gradient. The compiler's ``rope_attention`` template places this
 function. On a CPU tensor the wrappers run the plain versions; on a CUDA
-tensor they launch ``csrc/fused_rope_attention.cu`` (and K3) or raise.
+tensor they launch ``csrc/fused_rope_attention.cu`` (and K3) or raise;
+the kernel's variant is ``flash_attention.flash_plan``'s.
 """
 
 from __future__ import annotations
@@ -34,8 +37,9 @@ import torch
 from ...core.flags import GLOBAL_FLAGS
 from . import _build
 from .flash_attention import (_DTYPE_CODE, _FLAG_DEFAULTS, _check_sep,
-                              flash_bwd_sep, flash_sep_plain,
-                              flash_supported)
+                              _count, _launch, flash_bwd_sep,
+                              flash_sep_plain, flash_supported,
+                              sched_scratch)
 
 __all__ = ["fused_rope_flash_attention", "fused_rope_supported",
            "rope_tables", "rope_flash_fwd", "rope_flash_plain"]
@@ -105,7 +109,8 @@ def _kernel_fn():
     if _fn is None:
         fn = _build.library("fused_rope_attention").rope_flash_fwd
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 7 + [I] * 5 + [ctypes.c_float, I, I, I, P]
+        fn.argtypes = ([P] * 7 + [I] * 5 + [ctypes.c_float, I, I, I, P, P]
+                       + [ctypes.POINTER(I)])
         fn.restype = I
         _fn = fn
     return _fn
@@ -114,7 +119,9 @@ def _kernel_fn():
 def rope_flash_fwd(q, k, v, cos, sin, causal: bool, sm_scale: float,
                    rope_q: bool, rope_k: bool):
     """K11: (o, lse [B, h, S] fp32). Counts its CUDA launches in
-    ``rope_flash_fwd.launches``."""
+    ``rope_flash_fwd.launches`` (by the variant the launcher reports:
+    ``launches_wgmma`` for bf16 at head dim 128, ``launches_fma`` else,
+    as ``flash_plan`` says)."""
     if q.device.type == "cpu":
         return rope_flash_plain(q, k, v, cos, sin, causal, sm_scale, rope_q,
                                 rope_k)
@@ -125,24 +132,28 @@ def rope_flash_fwd(q, k, v, cos, sin, causal: bool, sm_scale: float,
     B, S, h, d = _check_sep(q, k, v)
     if d not in (128, 256):
         raise ValueError(f"head dim {d}: the kernel takes 128 or 256")
-    cos_f, sin_f = (t.contiguous() for t in rope_tables(
-        *_half_tables(cos, sin, S, d), d))
-    if cos_f.device != q.device:
-        raise ValueError(f"tables on {cos_f.device}, q on {q.device}")
+    cos_h, sin_h = (t.contiguous() for t in _half_tables(cos, sin, S, d))
+    if cos_h.device != q.device:
+        raise ValueError(f"tables on {cos_h.device}, q on {q.device}")
+    # the kernel reads the tables as 16-byte vectors
+    cos_h, sin_h = (t.clone() if t.data_ptr() % 16 else t
+                    for t in (cos_h, sin_h))
     o = torch.empty_like(q)
     lse = torch.empty((B, h, S), dtype=torch.float32, device=q.device)
-    err = _kernel_fn()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), cos_f.data_ptr(),
-        sin_f.data_ptr(), o.data_ptr(), lse.data_ptr(), B, S, h, d,
-        int(causal), float(sm_scale), int(rope_q), int(rope_k),
-        _DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "rope_flash_fwd")
-    rope_flash_fwd.launches += 1
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    sched = sched_scratch(q, stream)
+    variant = _launch(
+        _kernel_fn(), "rope_flash_fwd", q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), cos_h.data_ptr(), sin_h.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), B, S, h, d, int(causal), float(sm_scale),
+        int(rope_q), int(rope_k), _DTYPE_CODE[q.dtype], sched.data_ptr(),
+        stream)
+    _count(rope_flash_fwd, (B, S, h, d), q.dtype, "fwd", variant)
     return o, lse
 
 
 rope_flash_fwd.launches = 0
+rope_flash_fwd.launches_wgmma = rope_flash_fwd.launches_fma = 0
 
 
 @torch.library.custom_op("paddle_tpu_torch::rope_flash_fwd", mutates_args=())

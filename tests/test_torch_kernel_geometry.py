@@ -8,12 +8,24 @@ shared memory and every split keeps K steps. K14
 (``decode_attention.paged_ring_geometry``): for every geometry the
 token-major gate admits (d 64, 128, 256; bs a multiple of 8; fp32 and
 bf16) the ring fits 227 KB, leaves room for two blocks on an SM, and its
-stages tile the page."""
+stages tile the page. The flash tile loops (K1, K11, K17 forward; K2,
+K3, K17 backward; ``flash_attention.flash_plan``): bf16 at head dim 64
+and 128 takes the TMA + wgmma variant at every S the kernels take
+(S % 128 == 64 too), fp32 and head dim 256 the FMA one; every plan fits
+227 KB; the work order covers every causal tile once, heaviest first
+within each L2 chunk; the plan's constants are the source's. The flash
+launch counters take the variant the C launcher reports, not the plan's.
+"""
+
+import collections
+import re
+from pathlib import Path
 
 import pytest
 import torch
 
 from paddle_tpu_torch.ops.kernels import decode_attention as da
+from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import quant_matmul as qmm
 
 ENGINE_SHAPES = [(512, 4096, 4096), (512, 4096, 1024), (512, 4096, 14336),
@@ -98,3 +110,157 @@ def test_int8_to_bf16_bits_are_exact(lo):
         upper = torch.tensor([bits >> 16], dtype=torch.int16).view(
             torch.bfloat16)
         assert upper.item() == w
+
+
+FLASH_S = [512, 1024, 2048, 4096, 8192, 64, 192, 320, 8256]
+FLASH_PARTS = ("fwd", "both", "dq", "dkv")
+
+
+@pytest.mark.parametrize("part", FLASH_PARTS)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("S", FLASH_S)
+def test_flash_plan_bf16_takes_wgmma_and_fits(S, d, part):
+    plan = fa.flash_plan(S, d, torch.bfloat16, part)
+    assert plan["variant"] == "wgmma"
+    assert plan["rows"] == 128
+    assert plan["tile"] == (128 if part == "fwd" else 64)
+    assert 2 <= plan["stages"] <= fa.FLASH_MAX_STAGES
+    assert plan["smem"] <= fa.FLASH_SMEM
+    tile = plan["tile"] * d * 2
+    own = 128 * d * 2
+    if part == "fwd":     # two q buffers, a k ring, a deeper v ring
+        assert plan["v_stages"] >= plan["stages"]
+        assert plan["smem"] == (fa.FLASH_SMEM_FIXED + 2 * own
+                                + (plan["stages"] + plan["v_stages"]) * tile)
+    else:
+        n_own = 4 if part == "both" else 2
+        assert plan["smem"] == (fa.FLASH_SMEM_FIXED + n_own * own
+                                + plan["stages"] * (2 * tile + 512))
+    # one more stage would not fit (the ring is as deep as 227 KB allows,
+    # up to the cap)
+    if plan["stages"] < fa.FLASH_MAX_STAGES and part != "fwd":
+        assert plan["smem"] + 2 * tile + 512 > fa.FLASH_SMEM
+
+
+@pytest.mark.parametrize("part", FLASH_PARTS)
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
+                                     (torch.float32, 128),
+                                     (torch.float32, 256),
+                                     (torch.bfloat16, 256)])
+def test_flash_plan_fp32_and_d256_take_fma(dtype, d, part):
+    plan = fa.flash_plan(1024, d, dtype, part)
+    assert plan["variant"] == "fma"
+    assert plan["rows"] == fa.FMA_ROWS
+    assert plan["order"] == list(range(1024 // fa.FMA_ROWS))
+
+
+def _items(plan, bh):
+    """The work items (row block, (batch, head) pair) of a "wgmma" plan
+    over ``bh`` pairs in the kernels' order (csrc/flash_fwd.cuh,
+    block_place): the pairs in chunks, within a chunk the row blocks in
+    the plan's order, each taken by every pair of the chunk."""
+    order, chunk = plan["order"], plan["chunk"]
+    items = []
+    for c0 in range(0, bh, chunk):
+        pairs = range(c0, min(bh, c0 + chunk))
+        items += [(rb, p) for rb in order for p in pairs]
+    return items
+
+
+def _item_tiles(part, S, rb, causal):
+    """The (query 64-block, key 64-block) pairs a work item of row block
+    rb visits, and how many ring tiles that is (its work)."""
+    rows = [r for r in (2 * rb, 2 * rb + 1) if r < S // 64]
+    pairs, n = [], 0
+    if part in ("fwd", "dq", "both"):         # query rows over key tiles
+        keys = 2 * rb + 2 if causal else -(-S // 64)
+        keys = min(keys, S // 64)
+        pairs += [(q, k) for q in rows for k in range(keys)
+                  if not causal or k <= q]
+        n += -(-keys // 2) if part == "fwd" else keys
+    if part in ("dkv", "both"):               # keys over query tiles
+        first = 2 * rb if causal else 0
+        pairs += [(q, k) for k in rows for q in range(first, S // 64)
+                  if not causal or k <= q]
+        n += S // 64 - first
+    return pairs, n
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("part", FLASH_PARTS)
+@pytest.mark.parametrize("S,d,bh", [(512, 128, 256), (1024, 64, 256),
+                                    (8192, 128, 16), (2048, 128, 32),
+                                    (192, 64, 6), (8256, 128, 3)])
+def test_flash_order_covers_every_causal_tile_once(S, d, bh, part, causal):
+    plan = fa.flash_plan(S, d, torch.bfloat16, part, causal=causal, bh=bh)
+    nrb = -(-S // 128)
+    items = _items(plan, bh)
+    assert sorted(items) == [(rb, p) for rb in range(nrb) for p in range(bh)]
+    assert plan["chunk"] >= 1 and (plan["chunk"] == bh
+                                   or plan["chunk"] * 4 * S * d
+                                   <= fa.FLASH_L2_CHUNK)
+    loops = ("dq", "dkv") if part == "both" else (part,)
+    for loop in loops:
+        seen = {}
+        for rb, p in items:
+            for pair in _item_tiles(loop, S, rb, causal)[0]:
+                seen[(p, pair)] = seen.get((p, pair), 0) + 1
+        want = {(p, (q, k)) for p in range(bh) for q in range(S // 64)
+                for k in range(S // 64) if not causal or k <= q}
+        assert set(seen) == want and set(seen.values()) == {1}
+    # heaviest first within each chunk (equal work for K2 and non-causal)
+    per = nrb * plan["chunk"]
+    for c0 in range(0, len(items), per):
+        work = [_item_tiles(part, S, rb, causal)[1]
+                for rb, _ in items[c0:c0 + per]]
+        assert work == sorted(work, reverse=True)
+
+
+def test_flash_plan_constants_are_the_sources():
+    src = (Path(fa.__file__).resolve().parents[2] / "csrc"
+           / "flash_fwd.cuh").read_text()
+    for name, value in (("kWgRows", fa.FLASH_ROWS),
+                        ("kFwdKeys", fa.FLASH_FWD_KEYS),
+                        ("kBwdTile", fa.FLASH_BWD_TILE),
+                        ("kMaxStages", fa.FLASH_MAX_STAGES),
+                        ("kSmemMax", fa.FLASH_SMEM)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    assert "constexpr int kSmemFixed = 1024 + 256;" in src
+    assert "constexpr long long kL2Chunk = 16ll << 20;" in src
+    assert fa.FLASH_SMEM_FIXED == 1024 + 256
+    assert fa.FLASH_L2_CHUNK == 16 << 20
+
+
+def _reporting_entry(code: int, err: int = 0):
+    """A stand-in for a flash C entry: writes ``code`` to its trailing
+    *variant out-parameter and returns ``err``."""
+    def c_fn(*args):
+        args[-1]._obj.value = code
+        return err
+    return c_fn
+
+
+def test_flash_counters_take_the_launched_variant():
+    """A launch is counted under the variant its launcher reported: a bf16
+    d 64 launch reported as the FMA kernel counts as "fma" (which
+    chip_smoke's per-phase check then refuses), and an error raises
+    before anything is counted."""
+    def entry():
+        pass
+
+    entry.launches = entry.launches_wgmma = entry.launches_fma = 0
+    before = collections.Counter(fa.LAUNCHES_BY_PLAN)
+    try:
+        for code in (1, 0, 1):
+            variant = fa._launch(_reporting_entry(code), "entry", 7, 8)
+            fa._count(entry, (2, 512, 4, 64), torch.bfloat16, "fwd", variant)
+        with pytest.raises(RuntimeError, match="entry: CUDA error 9"):
+            fa._launch(_reporting_entry(1, err=9), "entry", 7)
+        diff = fa.LAUNCHES_BY_PLAN - before
+    finally:
+        fa.LAUNCHES_BY_PLAN.clear()
+        fa.LAUNCHES_BY_PLAN.update(before)
+    assert (entry.launches, entry.launches_wgmma, entry.launches_fma) == \
+        (3, 2, 1)
+    assert diff == {("wgmma", "bfloat16", 64, 512, "fwd", 8): 2,
+                    ("fma", "bfloat16", 64, 512, "fwd", 8): 1}

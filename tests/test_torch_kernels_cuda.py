@@ -31,7 +31,16 @@ K16 must equal K14 bit for bit. K9 runs in three variants: each case
 asserts which variant's counter moved (``qmm_plan``); K14's ring
 (``paged_ring_geometry``) is held at its edges: a length that ends on a
 stage, one that ends on the ring's last stage, one inside a stage, 0 and
-a full table."""
+a full table. The flash tile loops (TMA + wgmma for bf16 at head dim 64
+and 128): the C launchers' plan is ``flash_plan``'s; at several row
+blocks per (batch, head) (the persistent forward's items, the backward's
+ordered blocks) K1, K1-sep and K17's forward agree bit for bit, K2, K3,
+K3 again, K3's separate mode and K17's backward too, K11 equals K1-sep
+on rotated inputs, each within its tolerance of its plain version, and
+every launch is counted as the wgmma variant (the launchers report what
+they launched); the forward's scheduling counters are back at 0 after
+each launch, each stream has its own, and a launch captured in a CUDA
+graph owns one."""
 
 import numpy as np
 import pytest
@@ -738,3 +747,129 @@ def test_paged_ring_edges(cuda, dtype, tol, nh, d, bs):
     assert da.paged_decode_attention_kernel.launches == before + 1
     assert torch.equal(k14, k16)
     assert _scaled(k14, ref) <= tol
+
+
+PLAN_PARTS = ("fwd", "both", "dq", "dkv")
+
+
+@pytest.mark.cuda
+def test_flash_plan_c_is_flash_plan(cuda):
+    """The C launchers' choice (flash_plan_c) is flash_plan's: variant,
+    tiles, stages, shared bytes, block order and L2 chunk."""
+    for S in (64, 192, 512, 1024, 8192, 8256):
+        for d in (64, 128, 256):
+            for dtype in (torch.bfloat16, torch.float32):
+                for part in PLAN_PARTS:
+                    for bh in (1, 16, 256):
+                        for causal in (True, False):
+                            args = (S, d, dtype, part, causal, bh)
+                            assert fa.flash_plan_c(*args) == \
+                                fa.flash_plan(*args), args
+
+
+def _wgmma_counts():
+    return {f.__name__: f.launches_wgmma for f in (
+        fa.flash_fwd, fa.flash_fwd_sep, fa.flash_fwd_hm, fa.flash_bwd,
+        fa.flash_bwd_split, fa.flash_bwd_sep, fa.flash_bwd_hm)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,h,d,causal", [(1024, 4, 64, True),
+                                          (320, 3, 128, True),
+                                          (320, 2, 128, False),
+                                          (2048, 16, 128, True),
+                                          (1088, 5, 64, False)])
+def test_wgmma_flash_bodies_agree(cuda, S, h, d, causal):
+    rng = np.random.default_rng(S + h)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(2, S, h, d)).astype(
+        np.float32)).to(cuda, torch.bfloat16) for _ in range(4))
+    qkv = torch.cat([t.reshape(2, S, h * d) for t in (q, k, v)], dim=-1)
+    scale, tol = d ** -0.5, 3 * 2 ** -7
+    before = _wgmma_counts()
+    o, lse = fa.flash_fwd(qkv, h, causal, scale)
+    o_sep, lse_sep = fa.flash_fwd_sep(q, k, v, causal, scale)
+    q_, k_, v_, do_ = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    o_hm, lse_hm = fa.flash_fwd_hm(q_, k_, v_, causal, scale)
+    k2 = fa.flash_bwd(qkv, o, lse, do, h, causal, scale)
+    k3 = fa.flash_bwd_split(qkv, o, lse, do, h, causal, scale)
+    k3_again = fa.flash_bwd_split(qkv, o, lse, do, h, causal, scale)
+    sep = fa.flash_bwd_sep(q, k, v, o, lse, do, causal, scale)
+    hm = fa.flash_bwd_hm(q_, k_, v_, o_hm, lse_hm, do_, causal, scale)
+    ro, rlse = fa.flash_sep_plain(q, k, v, causal, scale)
+    ref = fa.flash_bwd_sep_plain(q, k, v, o, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    after = _wgmma_counts()
+    assert {n: after[n] - before[n] for n in after} == {
+        "flash_fwd": 1, "flash_fwd_sep": 1, "flash_fwd_hm": 1,
+        "flash_bwd": 1, "flash_bwd_split": 4, "flash_bwd_sep": 2,
+        "flash_bwd_hm": 2}
+    assert torch.equal(o, o_sep) and torch.equal(lse, lse_sep)
+    assert torch.equal(o_hm.transpose(1, 2), o_sep)
+    assert torch.equal(lse_hm, lse_sep)
+    assert _scaled(o, ro) <= tol and _scaled(lse, rlse) <= 1e-4
+    assert torch.equal(k3, k2) and torch.equal(k3, k3_again)
+    assert torch.equal(k3, torch.cat([t.reshape(2, S, h * d) for t in sep],
+                                     dim=-1))
+    for a, b, want in zip(hm, sep, ref):
+        assert torch.equal(a.transpose(1, 2), b)
+        assert _scaled(b, want) <= tol
+    assert all(int(buf.abs().sum()) == 0 for buf in fa._SCHED.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [320, 1024])
+@pytest.mark.parametrize("rope_k", [False, True])
+def test_rope_flash_wgmma_at_several_row_blocks(cuda, S, rope_k):
+    """K11 (the producer warpgroup rotates q, and k under rope_k, in the
+    swizzled tiles) equals K1-sep on apply_rope'd inputs bit for bit at
+    several row blocks per (batch, head), and holds its plain version."""
+    from paddle_tpu_torch.ops.kernels import fused_rope_attention as fra
+
+    q, k, v, cos, sin = _rope_inputs(cuda, torch.bfloat16, 2, S, 4, 128,
+                                     seed=S)
+    before = fra.rope_flash_fwd.launches_wgmma
+    got = fra.rope_flash_fwd(q, k, v, cos, sin, True, 128 ** -0.5, True,
+                             rope_k)[0]
+    cb, sb = cos[None, :, None, :], sin[None, :, None, :]
+    kr = fra._apply_rope_ref(k, cb, sb) if rope_k else k
+    k1 = fa.flash_fwd_sep(fra._apply_rope_ref(q, cb, sb), kr, v, True,
+                          128 ** -0.5)[0]
+    ref = fra.rope_flash_plain(q, k, v, cos, sin, True, 128 ** -0.5, True,
+                               rope_k)[0]
+    torch.cuda.synchronize()
+    assert fra.rope_flash_fwd.launches_wgmma == before + 1
+    assert torch.equal(got, k1)
+    assert _scaled(got, ref) <= 3 * 2 ** -7
+
+
+@pytest.mark.cuda
+def test_sched_scratch_by_stream_and_capture(cuda):
+    """The persistent forward's scheduling scratch: one buffer a stream,
+    reused on it and left zero by each launch; a launch that a CUDA graph
+    captures owns a slot of its own, and the graph's replays give the
+    eager launch's bits while an eager launch on another stream runs."""
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 1024, 4, 64)).astype(
+        np.float32)).to(cuda, torch.bfloat16) for _ in range(3))
+    want = fa.flash_fwd_sep(q, k, v, True, 0.125)[0]
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(cuda)
+    default = torch.cuda.default_stream(cuda).cuda_stream
+    assert fa.sched_scratch(q, side.cuda_stream) is \
+        fa.sched_scratch(q, side.cuda_stream)
+    assert fa.sched_scratch(q, side.cuda_stream) is not \
+        fa.sched_scratch(q, default)
+    graph, out = torch.cuda.CUDAGraph(), None
+    used = fa._CAPTURED[q.device][1]
+    with torch.cuda.graph(graph):
+        out = fa.flash_fwd_sep(q, k, v, True, 0.125)[0]
+    assert fa._CAPTURED[q.device][1] == used + 1
+    for _ in range(3):
+        graph.replay()
+        with torch.cuda.stream(side):
+            other = fa.flash_fwd_sep(q, k, v, True, 0.125)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(out, want) and torch.equal(other, want)
+    assert all(int(buf.abs().sum()) == 0 for buf in fa._SCHED.values())
+    assert all(int(slots.abs().sum()) == 0
+               for slots, _ in fa._CAPTURED.values())
