@@ -85,7 +85,9 @@ Phases, each failing loudly (any failure exits nonzero):
    memory printed.
 8. ``decode_kernels``: the LLaMA engine's kernels against their plain
    versions at the llama1b shapes: dense GQA decode attention (K10) at
-   B 1, 8, 16 and five cache positions, flash with RoPE in the tile (K11,
+   B 1, 8, 16 and five cache positions (one allocation a call, the
+   output; the C launcher's cluster plan ``decode_plan``'s; eager and
+   CUDA-graph device times beside SDPA's), flash with RoPE in the tile (K11,
    bit-equal to K1 on apply_rope'd inputs; device times in a CUDA graph,
    beside SDPA on rotated q/k and apply_rope + SDPA, the composition K11
    replaces), K1's separate-input mode and
@@ -114,7 +116,8 @@ Phases, each failing loudly (any failure exits nonzero):
    (int8 dense cache) at K10's shapes, each bit-equal to its fp kernel on
    the inputs dequantized beforehand; K13 (grouped LoRA BGMV) at the
    step's q and v projections, within 1e-5 of its fp32 plain version,
-   slot-0 rows exactly 0; kernel, plain, library time and bound.
+   slot-0 rows exactly 0; kernel, plain, library time and bound (K10q
+   also on the device, and one allocation a call).
 12. ``serving``: llama3-8b serving (random bf16 weights from seed 0):
    (a) int8 KV pages against bf16 (K8q L per step, 65552 KV bytes per
    token); (b) speculative decode, k 3, with the n-gram proposer and with
@@ -132,9 +135,10 @@ Phases, each failing loudly (any failure exits nonzero):
    the kernel does) at llama2-7b's width (32 heads of 128, page 128, 16
    blocks) and llama3-8b's GQA (8 kv heads, 4 q heads each), K14
    (token-major pages) and K16 (bit-equal to K14), with ragged lengths
-   (1, mid-page, a full table, 0) on a shuffled table, bf16 and fp32;
-   kernel, plain, SDPA on pre-gathered pages and the bound (the valid
-   tokens' k and v, q and o) at the paged phase's last step.
+   (1, mid-page, a full table, 0) on a shuffled table, bf16 and fp32
+   (K15's C ring plan ``paged_mxu_plan``'s); kernel and SDPA on
+   pre-gathered pages, eager and on the device, plain and the bound (the
+   valid tokens' k and v, q and o) at the paged phase's last step.
 14. ``paged``: ``block_multihead_attention`` at llama2-7b's attention
    width: 32 PagedKVCaches (bf16, page 128, 2048 tokens, B 8), a
    1024-token prefill (K1-sep 32 times) and 64 decode steps on d-major
@@ -2144,6 +2148,28 @@ def _counted(fn, counters_of=_decode_counters):
     return out, {k: c.launches for k, c in counters.items()}
 
 
+def _allocations(fn):
+    """(fn(), the caching allocator's allocations during it)."""
+    key = "allocation.all.allocated"
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()[key]
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.memory_stats()[key] - before
+
+
+def _check_decode_plan(B, nKV, G, S, d, pos, dtype, quant) -> None:
+    """K10's C launcher plans the launch as decode_plan does."""
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+
+    want = da.decode_plan(B, nKV, G, d, pos, dtype, quant)
+    got = da.decode_plan_c(B, nKV, G, S, d, pos, dtype, quant)
+    if got != want:
+        raise AssertionError(f"decode_plan_c {got} != decode_plan {want} "
+                             f"at B{B} nKV{nKV} G{G} d{d} pos {pos} {dtype} "
+                             f"quant {quant}")
+
+
 def check_decode_attention(dev) -> dict:
     """K10 at the llama1b decode shapes: B 1, 8, 16, nKV 4, G 4, S 2048,
     d 128, bf16, pos 0 (the first chunk alone), 100 (a ragged chunk), 511
@@ -2161,7 +2187,12 @@ def check_decode_attention(dev) -> dict:
         ck = torch.randn((B, nKV, S, d), generator=gen, device=dev).to(dt)
         cv = torch.randn((B, nKV, S, d), generator=gen, device=dev).to(dt)
         for pos in (0, 100, 511, 639, 2047):
-            got = da.decode_attention(q, ck, cv, pos, scale)
+            _check_decode_plan(B, nKV, G, S, d, pos, dt, False)
+            got, n_alloc = _allocations(
+                lambda: da.decode_attention(q, ck, cv, pos, scale))
+            if n_alloc != 1:
+                raise AssertionError(f"K10 B{B} pos {pos}: {n_alloc} "
+                                     "allocations a call, want the output's")
             ref = da.decode_attention_plain(q, ck, cv, pos, scale)
             again = da.decode_attention(q, ck, cv, pos, scale)
             torch.cuda.synchronize()
@@ -2177,7 +2208,8 @@ def check_decode_attention(dev) -> dict:
         torch.bfloat16)
     cv = torch.randn((B, nKV, S, d), generator=gen, device=dev).to(
         torch.bfloat16)
-    ms = _time_ms(lambda: da.decode_attention(q, ck, cv, pos, scale))
+    fn = lambda: da.decode_attention(q, ck, cv, pos, scale)  # noqa: E731
+    ms, device_ms = _time_ms(fn), _graph_ms(fn)
     plain_ms = _time_ms(lambda: da.decode_attention_plain(q, ck, cv, pos,
                                                           scale))
     # library yardstick: SDPA on the repeated cache cut at pos
@@ -2185,19 +2217,23 @@ def check_decode_attention(dev) -> dict:
     kr = ck[:, :, :pos + 1].repeat_interleave(G, dim=1)
     vr = cv[:, :, :pos + 1].repeat_interleave(G, dim=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = _time_ms(lambda: sdpa(qh, kr, vr, scale=scale))
+    lib = lambda: sdpa(qh, kr, vr, scale=scale)  # noqa: E731
+    library_ms, library_device_ms = _time_ms(lib), _graph_ms(lib)
     nbytes = 2 * B * nKV * (pos + 1) * d * 2 + 2 * q.numel() * 2
     bound_ms, bound_by = _bound(nbytes, 4.0 * B * nKV * G * (pos + 1) * d)
-    print(f"K10 bf16 B{B} pos {pos}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+    print(f"K10 bf16 B{B} pos {pos}: kernel {ms:.4f} ms (device "
+          f"{device_ms:.4f}), plain {plain_ms:.4f} ms, sdpa "
+          f"{library_ms:.4f} ms (device {library_device_ms:.4f}), bound "
           f"{bound_ms:.4f} ms ({bound_by})")
     return {"name": "decode_attention", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/decode_attention.cu",
             "replaces": "paddle_tpu/ops/pallas/decode_attention.py:74",
             "max_abs_err": worst[torch.bfloat16],
             "max_abs_err_fp32": worst[torch.float32], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
+            "library_device_ms": library_device_ms,
             "shape": f"B{B} nKV{nKV} G{G} S{S} d{d} pos {pos} bf16"}
 
 
@@ -2224,7 +2260,12 @@ def check_decode_int8(dev) -> dict:
         tol = BF16_TOL if dt == torch.bfloat16 else FP32_TOL
         worst[dt] = 0.0
         for pos in (0, 100, 511, 639, 2047):
-            got = da.decode_attention_int8(q, kq, vq, ks, vs, pos, scale)
+            _check_decode_plan(B, nKV, G, S, d, pos, dt, True)
+            got, n_alloc = _allocations(lambda: da.decode_attention_int8(
+                q, kq, vq, ks, vs, pos, scale))
+            if n_alloc != 1:
+                raise AssertionError(f"K10q pos {pos}: {n_alloc} "
+                                     "allocations a call, want the output's")
             k10 = da.decode_attention(q, kd, vd, pos, scale)
             ref = da.decode_attention_plain(q, kq, vq, pos, scale, ks, vs)
             torch.cuda.synchronize()
@@ -2234,28 +2275,33 @@ def check_decode_int8(dev) -> dict:
             worst[dt] = max(worst[dt], _hold(f"K10q {dt} pos {pos}", got,
                                              ref, tol))
     pos = DECODE_PROMPT + DECODE_NEW - 1
-    ms = _time_ms(lambda: da.decode_attention_int8(q, kq, vq, ks, vs, pos,
-                                                   scale))
+    fn = lambda: da.decode_attention_int8(  # noqa: E731
+        q, kq, vq, ks, vs, pos, scale)
+    ms, device_ms = _time_ms(fn), _graph_ms(fn)
     plain_ms = _time_ms(lambda: da.decode_attention_plain(
         q, kq, vq, pos, scale, ks, vs))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     kr = kd[:, :, :pos + 1].repeat_interleave(G, dim=1)
     vr = vd[:, :, :pos + 1].repeat_interleave(G, dim=1)
     qh = q[:, :, None, :]
-    library_ms = _time_ms(lambda: sdpa(qh, kr, vr, scale=scale))
+    lib = lambda: sdpa(qh, kr, vr, scale=scale)  # noqa: E731
+    library_ms, library_device_ms = _time_ms(lib), _graph_ms(lib)
     nbytes = 2 * B * nKV * (pos + 1) * (d + 4) + 2 * q.numel() * 2
     bound_ms, bound_by = _bound(nbytes, 4.0 * B * nKV * G * (pos + 1) * d)
     print(f"K10q bf16 B{B} pos {pos}: equal to K10 on dequantized caches; "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa on the "
-          f"dequantized repeated cache {library_ms:.4f} ms, bound "
+          f"kernel {ms:.4f} ms (device {device_ms:.4f}), plain "
+          f"{plain_ms:.4f} ms, sdpa on the dequantized repeated cache "
+          f"{library_ms:.4f} ms (device {library_device_ms:.4f}), bound "
           f"{bound_ms:.4f} ms ({bound_by})")
     return {"name": "decode_attention_int8", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/decode_attention.cu",
             "replaces": "paddle_tpu/ops/pallas/decode_attention.py:74",
             "max_abs_err": worst[torch.bfloat16],
             "max_abs_err_fp32": worst[torch.float32], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
+            "library_device_ms": library_device_ms,
             "shape": f"B{B} nKV{nKV} G{G} S{S} d{d} pos {pos} int8"}
 
 
@@ -3236,14 +3282,15 @@ def _paged_case(gen, dev, dt, B, nkv, G, d, bs, mb, lens, d_major):
 
 
 def _paged_timing(fn, plain, q, k, v, table, lens, d_major):
-    """(kernel ms, plain ms, SDPA ms on pre-gathered pages, bound): the
+    """(kernel ms, its device ms, plain ms, SDPA ms on pre-gathered pages,
+    its device ms, bound): device times from CUDA graphs of 20 calls; the
     bound counts each valid token's k and v, q and o."""
     B, nq, d = q.shape
     nkv, bs = v.shape[1], v.shape[2]
     mb = table.shape[1]
     scale = d ** -0.5
     args = (q, k, v, table, lens, scale)
-    ms = _time_ms(lambda: fn(*args))
+    ms, device_ms = _time_ms(lambda: fn(*args)), _graph_ms(lambda: fn(*args))
     plain_ms = _time_ms(lambda: plain(*args), iters=5, warmup=1)
     t = table.long()
     kg = k[t].transpose(3, 4) if d_major else k[t]   # [B, mb, nkv, bs, d]
@@ -3254,11 +3301,25 @@ def _paged_timing(fn, plain, q, k, v, table, lens, d_major):
             < lens[:, None])[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qh = q[:, :, None, :]
-    lib_ms = _time_ms(lambda: sdpa(qh, kg, vg, attn_mask=mask, scale=scale))
+    lib = lambda: sdpa(qh, kg, vg, attn_mask=mask, scale=scale)  # noqa
+    lib_ms, lib_device_ms = _time_ms(lib), _graph_ms(lib)
     es = q.element_size()
     n_tok = int(lens.sum().item())
     nbytes = 2 * n_tok * nkv * d * es + 2 * q.numel() * es
-    return ms, plain_ms, lib_ms, _bound(nbytes, 4.0 * n_tok * nq * d)
+    return (ms, device_ms, plain_ms, lib_ms, lib_device_ms,
+            _bound(nbytes, 4.0 * n_tok * nq * d))
+
+
+def _check_mxu_plan(d, bs, G, dtype) -> None:
+    """K15's C launcher plans its ring as paged_mxu_plan does."""
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+
+    es = torch.empty((), dtype=dtype).element_size()
+    want, got = da.paged_mxu_plan(d, bs, G, es), \
+        da.paged_mxu_plan_c(d, bs, G, es)
+    if got != want:
+        raise AssertionError(f"paged_mxu_plan_c {got} != paged_mxu_plan "
+                             f"{want} at d{d} bs{bs} G{G} {dtype}")
 
 
 def check_paged(dev) -> tuple[dict, dict, dict]:
@@ -3279,6 +3340,7 @@ def check_paged(dev) -> tuple[dict, dict, dict]:
         for nkv, G in ((32, 1), (8, 4)):
             q, kt, v, table, sl = _paged_case(gen, dev, dt, len(lens), nkv,
                                               G, 128, 128, 16, lens, True)
+            _check_mxu_plan(128, 128, G, dt)
             got = da.paged_decode_attention_mxu(q, kt, v, table, sl,
                                                 128 ** -0.5)
             ref = da.paged_decode_mxu_plain(q, kt, v, table, sl,
@@ -3315,27 +3377,29 @@ def check_paged(dev) -> tuple[dict, dict, dict]:
              worst["tok"])):
         inputs = _paged_case(gen, dev, torch.bfloat16, B, nh, 1, d, bs, mb,
                              [n] * B, d_major)
-        ms, plain_ms, lib_ms, bound = _paged_timing(fn, plain, *inputs,
-                                                    d_major)
+        ms, dev_ms, plain_ms, lib_ms, lib_dev_ms, bound = _paged_timing(
+            fn, plain, *inputs, d_major)
         shape = f"B{B} nh{nh} d{d} bs{bs} mb{mb} {n} tokens, bf16"
-        print(f"{name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, sdpa on pre-gathered pages {lib_ms:.4f} ms, bound "
+        print(f"{name} {shape}: kernel {ms:.4f} ms (device {dev_ms:.4f}), "
+              f"plain {plain_ms:.4f} ms, sdpa on pre-gathered pages "
+              f"{lib_ms:.4f} ms (device {lib_dev_ms:.4f}), bound "
               f"{bound[0]:.4f} ms ({bound[1]})")
         recs.append({"name": name, "route": "cuda", "source": src,
                      "replaces": f"{ref_py}:{line}", "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-                     "bound_by": bound[1], "library_ms": lib_ms,
+                     "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound[0], "bound_by": bound[1],
+                     "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
                      "shape": shape})
         del inputs
     inputs = _paged_case(gen, dev, torch.bfloat16, B, 8, 4, d, bs, mb,
                          [n] * B, True)
-    ms, plain_ms, lib_ms, bound = _paged_timing(
+    ms, dev_ms, plain_ms, lib_ms, lib_dev_ms, bound = _paged_timing(
         da.paged_decode_attention_mxu, da.paged_decode_mxu_plain, *inputs,
         True)
     print(f"K15 GQA (llama3-8b: nkv 8, G 4) B{B} {n} tokens bf16: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa on pre-gathered "
-          f"repeated pages {lib_ms:.4f} ms, bound {bound[0]:.4f} ms "
-          f"({bound[1]})")
+          f"{ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms, "
+          f"sdpa on pre-gathered repeated pages {lib_ms:.4f} ms (device "
+          f"{lib_dev_ms:.4f}), bound {bound[0]:.4f} ms ({bound[1]})")
     torch.cuda.empty_cache()
     return tuple(recs)
 
@@ -3421,6 +3485,8 @@ def _paged_layout_pass(dev, layout: str, gen) -> tuple[dict, list, list]:
     torch.cuda.synchronize()
     launches = {k: c.launches for k, c in counters.items()}
     want = L * steps
+    if layout == "d_major":
+        _check_mxu_plan(d, bs, 1, bf)
     if launches[kernel] != want or ft.ROUTES[route] - before != want:
         raise AssertionError(f"paged {layout}: {kernel} launched "
                              f"{launches[kernel]} times (route {route} "
@@ -3557,6 +3623,7 @@ def run_paged(dev) -> dict:
     q = torch.randn((B, 1, nq, d), generator=gen, device=dev).to(
         torch.bfloat16)
     before = ft.ROUTES["mxu"]
+    _check_mxu_plan(d, bs, nq // nkv, torch.bfloat16)
     got = ft.paged_decode_attention(q, c.k_pages, c.v_pages, c.block_table,
                                     c.seq_lens, k_layout="d_major")
     if ft.ROUTES["mxu"] != before + 1:

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels: K9
 // (quant_matmul.cu) and the flash tile loops (flash_fwd.cuh,
-// flash_attention.cu).
+// flash_attention.cu); and by the decode kernels' copy rings (K15, K14,
+// K16 in paged_decode_attention.cu, K10 in decode_attention.cu).
 //
 // - mbarriers: init, arrive, arrive with an expected byte count, wait on
-//   a phase parity;
+//   a phase parity; per-thread cp.async copies and their groups;
 // - TMA: 2-D and 4-D tiled loads (a tensor map, zeros past the tensor's
 //   edges) and 1-D bulk copies, each completing on an mbarrier, and 4-D
 //   tiled stores (clipped at the edges) in bulk groups; tensor
@@ -113,6 +114,24 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
          "r"(smem_u32(bar))
       : "memory");
+}
+
+// Per-thread asynchronous copies into shared memory (cp.async): 16 bytes
+// (both addresses 16-byte aligned, L2 only) or 4 bytes; commit_group
+// closes a group, wait_all waits for every group this thread committed.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // wgmma's shared-memory descriptor of a K-major tile with 128-byte rows

@@ -31,26 +31,35 @@
 // a page vectorised in one program. Here one block owns one (kv head,
 // sequence) and walks its pages in table order with the online state in
 // shared memory and registers; a sequence is never split across blocks
-// (a split-K combine would change the softmax's sums). K15 (128 threads)
-// reads its d-major k page coalesced along the page's tokens (a thread per
-// token, the loop over d) and the token-major v page along d (a thread per
-// element of d, the loop over tokens): fp32 FMAs, never TF32, G query
-// heads eight at a time. K14 and K16 share one per-page function
-// (score_rows, page_softmax, value_rows): a warp per token for the scores,
-// one warp for the page's max and sum, a thread per element of d for the
-// values, each sum in a fixed order that does not depend on how the rows
-// are tiled. They differ in how rows reach shared memory:
-// - K14 (paged_ring_kernel, 4 computing warps + 1 producer warp): in the
-//   token-major pages one head's page is bs * d contiguous values, so a
-//   tile of its rows is one contiguous run. One producer thread issues a
-//   1-D bulk copy (cp.async.bulk, completing on an mbarrier: no tensor
-//   map) per tile into a ring of 3-16 stages and runs ahead across pages,
-//   so the next page's k tiles and this page's v tiles are in flight while
-//   scores and values are computed. A stage is 64, 32, 16 or 8 rows (at
-//   most 16 KB), and the ring as deep as leaves two blocks on an SM
-//   (decode_attention.py::paged_ring_geometry): at llama2-7b's width 6
-//   stages of 64 rows, ~96 KB in flight a block, for the grid of nh x B =
-//   256 blocks over 132 SMs in one wave.
+// (a split-K combine would change the softmax's sums). All three kernels
+// keep pages flowing into shared memory while they compute:
+// - K15 (paged_mxu_kernel, 4 computing warps + 1 producer warp): one
+//   kv head's d-major k page is d * bs contiguous values, a run of d-rows
+//   of it one contiguous run, and so is a run of tokens of its v page.
+//   One producer thread issues a 1-D bulk copy (cp.async.bulk, completing
+//   on an mbarrier: no tensor map) per stage into a ring of 2-16 slots
+//   and runs ahead across pages: a page's k stages (64 d-rows of 128
+//   tokens at bf16 and llama2-7b's page), then its v stages (64 tokens),
+//   at most 16 KB each, the ring as deep as leaves two blocks on an SM
+//   (decode_attention.py::paged_mxu_plan: 6 slots, ~96 KB in flight a
+//   block). The scores: a thread per token, the loop over d, the partial
+//   dot products carried from one k stage to the next; the values: a
+//   thread per element of d, the loop over tokens, carried likewise;
+//   fp32 FMAs, never TF32, G query heads up to eight at a time (a pass of
+//   1, 2, 4 or 8, the launcher's choice by G). Each sum runs in the order
+//   of a walk over the whole page, so the ring changes no bit of the
+//   output.
+// K14 and K16 share one per-page function (score_rows, page_softmax,
+// value_rows): a warp per token for the scores, one warp for the page's
+// max and sum, a thread per element of d for the values, each sum in a
+// fixed order that does not depend on how the rows are tiled. They
+// differ in how rows reach shared memory:
+// - K14 (paged_ring_kernel, K15's warps and ring): in the token-major
+//   pages one head's page is bs * d contiguous values, so a tile of its
+//   rows is one contiguous run, copied into a ring of 3-16 stages of 64,
+//   32, 16 or 8 rows (at most 16 KB; decode_attention.py::
+//   paged_ring_geometry): at llama2-7b's width 6 stages of 64 rows, for
+//   the grid of nh x B = 256 blocks over 132 SMs in one wave.
 // - K16 (paged_dma_kernel, 128 threads): tiles of 32 (or 16, 8) rows that
 //   every thread copies with cp.async into a two-stage ring, the next
 //   tile's copy in flight while this one computes.
@@ -65,14 +74,17 @@
 // flop: G flop per byte in bf16 (4 at llama3-8b), far under the ~295 the
 // tensor cores need. At llama2-7b (B 8, 32 heads of 128, bf16) with 1088
 // tokens a sequence that is 143 MB per layer, 0.043 ms at 3.35 TB/s. What
-// decides the time is the bytes in flight: K15 reads each page with plain
-// loads, a few bytes in flight per thread; K16 keeps one tile in flight a
-// block; K14's ring keeps up to a page and a half (PERF.md).
+// decides the time is the bytes in flight: K16 keeps one tile in flight a
+// block; the rings of K15 and K14 up to a page and a half (PERF.md).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -102,112 +114,214 @@ __device__ __forceinline__ int pages_to_read(int seq_len, int bs, int mb) {
   return seq_len > 0 ? min((seq_len + bs - 1) / bs, mb) : mb;
 }
 
-// ---- K15: d-major k pages, GQA ------------------------------------------
+// ---- K15: d-major k pages, GQA, over a ring of 1-D bulk copies ----------
+//
+// Warps 0-3 compute; warp 4 is the producer, one thread of which issues
+// the copies (as K14's). A page's stages in the order the producer issues
+// them: its k stages (k_rows d-rows of bs tokens each, a contiguous run of
+// the d-major page), then its v stages (v_rows tokens of d values each).
+// Every sum keeps the order of a walk over the whole page: a score sums
+// over dd = 0..D-1 and a value sum over the page's tokens in order, the
+// partial carried from one stage to the next through shared memory (each
+// partial is written and read again by the same thread).
 
-// smem: q [G][D], s [G][bs], m [G], l [G], alpha [G], acc [G][D].
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+// s[g][t] for this stage's rows dd0 .. dd0 + n - 1 (rows [n][bs]): a
+// thread per token, HC query heads at a time; on the page's last k stage
+// the score is scaled and masked.
+template <typename T, int D, int HC>
+__device__ __forceinline__ void mxu_score_stage(const float* q_s,
+                                                const T* rows, int n,
+                                                int dd0, int bs, int G,
+                                                bool first, bool last,
+                                                int base, int seq_len,
+                                                float scale, float* s_s) {
+  for (int t = threadIdx.x; t < bs; t += kThreads) {
+    const float mask = base + t < seq_len ? 0.f : kMaskFill;
+    for (int g0 = 0; g0 < G; g0 += HC) {
+      float s[HC];
+#pragma unroll
+      for (int c = 0; c < HC; ++c)
+        s[c] = first || g0 + c >= G ? 0.f : s_s[(g0 + c) * bs + t];
+#pragma unroll 8
+      for (int r = 0; r < n; ++r) {
+        const float kv = to_f(rows[(size_t)r * bs + t]);
+#pragma unroll
+        for (int c = 0; c < HC; ++c)
+          if (g0 + c < G) s[c] = fmaf(q_s[(g0 + c) * D + dd0 + r], kv, s[c]);
+      }
+#pragma unroll
+      for (int c = 0; c < HC; ++c)
+        if (g0 + c < G) s_s[(g0 + c) * bs + t] = last ? s[c] * scale + mask
+                                                       : s[c];
+    }
+  }
+}
+
+// The page's max and sum: a warp per query head; p in place, rounded to
+// the page dtype before p v, while l sums the unrounded p.
+template <typename T>
+__device__ __forceinline__ void mxu_softmax(float* s_s, int bs, int G,
+                                            float* m_s, float* l_s,
+                                            float* a_s) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int g = warp; g < G; g += kWarps) {
+    float* row = s_s + g * bs;
+    float mx = kMaskFill;
+    for (int t = lane; t < bs; t += 32) mx = fmaxf(mx, row[t]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    const float m_prev = m_s[g];
+    const float m_new = fmaxf(m_prev, mx);
+    float sum = 0.f;
+    for (int t = lane; t < bs; t += 32) {
+      const float p = expf(row[t] - m_new);
+      sum += p;
+      row[t] = round_to<T>(p);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (lane == 0) {
+      const float alpha = expf(m_prev - m_new);
+      l_s[g] = l_s[g] * alpha + sum;
+      m_s[g] = m_new;
+      a_s[g] = alpha;
+    }
+  }
+}
+
+// pv[g][dd] over this stage's tokens t0 .. t0 + n - 1 (rows [n][D]): a
+// thread per element of d, HC query heads at a time; on the page's last
+// v stage acc = acc alpha + pv.
+template <typename T, int D, int HC>
+__device__ __forceinline__ void mxu_value_stage(const float* p_s,
+                                                const T* rows, int n,
+                                                int t0, int bs, int G,
+                                                bool first, bool last,
+                                                const float* a_s,
+                                                float* pv_s, float* acc_s) {
+  for (int dd = threadIdx.x; dd < D; dd += kThreads) {
+    for (int g0 = 0; g0 < G; g0 += HC) {
+      float pv[HC];
+#pragma unroll
+      for (int c = 0; c < HC; ++c)
+        pv[c] = first || g0 + c >= G ? 0.f : pv_s[(g0 + c) * D + dd];
+#pragma unroll 4
+      for (int t = 0; t < n; ++t) {
+        const float vv = to_f(rows[(size_t)t * D + dd]);
+#pragma unroll
+        for (int c = 0; c < HC; ++c)
+          if (g0 + c < G)
+            pv[c] = fmaf(p_s[(g0 + c) * bs + t0 + t], vv, pv[c]);
+      }
+#pragma unroll
+      for (int c = 0; c < HC; ++c)
+        if (g0 + c < G) {
+          const int e = (g0 + c) * D + dd;
+          if (last) acc_s[e] = acc_s[e] * a_s[g0 + c] + pv[c];
+          else pv_s[e] = pv[c];
+        }
+    }
+  }
+}
+
+constexpr int kRingThreads = kThreads + 32;   // + the producer warp
+constexpr int kMaxStages = 16;
+
+__device__ __forceinline__ void compute_sync() { named_barrier(1, kThreads); }
+
+// smem: full[kMaxStages], empty[kMaxStages] (256 B), the ring: stages x
+// slot T (from byte 256), then fp32 q [G][D], s [G][bs], pv [G][D],
+// acc [G][D], m [G], l [G], alpha [G] (mxu_plan's layout).
+template <typename T, int D, int HC>
+__global__ void __launch_bounds__(kRingThreads)
 paged_mxu_kernel(const T* __restrict__ q, const T* __restrict__ kt,
                  const T* __restrict__ vp, const int* __restrict__ table,
                  const int* __restrict__ seq_lens, T* __restrict__ out,
-                 int nkv, int G, int bs, int mb, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                 // [G][D]
-  float* s_s = q_s + G * D;          // [G][bs]
-  float* m_s = s_s + G * bs;         // [G]
+                 int nkv, int G, int bs, int mb, int k_rows, int v_rows,
+                 int stages, int slot, float scale) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);
+  uint64_t* empty = full + kMaxStages;
+  T* ring = reinterpret_cast<T*>(smem_raw + 256);
+  float* q_s = reinterpret_cast<float*>(ring + (size_t)stages * slot);
+  float* s_s = q_s + G * D;
+  float* pv_s = s_s + G * bs;
+  float* acc_s = pv_s + G * D;
+  float* m_s = acc_s + G * D;
   float* l_s = m_s + G;
   float* a_s = l_s + G;
-  float* acc_s = a_s + G;            // [G][D]
-  const int kh = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int kh = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int nq = nkv * G;
-  const T* qb = q + ((size_t)b * nq + (size_t)kh * G) * D;
-  for (int e = tid; e < G * D; e += kThreads) {
-    q_s[e] = to_f(qb[e]);
-    acc_s[e] = 0.f;
-  }
-  for (int g = tid; g < G; g += kThreads) {
-    m_s[g] = kMaskFill;
-    l_s[g] = 0.f;
-  }
   const int seq_len = seq_lens[b];
   const int n_pages = pages_to_read(seq_len, bs, mb);
+  const int nk = D / k_rows, per_page = nk + bs / v_rows;
+  const int n_stages = n_pages * per_page;
+  if (tid < kThreads) {
+    const T* qb = q + ((size_t)b * nq + (size_t)kh * G) * D;
+    for (int e = tid; e < G * D; e += kThreads) {
+      q_s[e] = to_f(qb[e]);
+      acc_s[e] = 0.f;
+    }
+    for (int g = tid; g < G; g += kThreads) {
+      m_s[g] = kMaskFill;
+      l_s[g] = 0.f;
+    }
+  } else if (tid == kThreads) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWarps);
+    }
+    mbar_init_fence();
+  }
   __syncthreads();
 
-  for (int j = 0; j < n_pages; ++j) {
-    const size_t page = (size_t)table[(size_t)b * mb + j];
-    const T* kpg = kt + (page * nkv + kh) * (size_t)D * bs;   // [D][bs]
-    const T* vpg = vp + (page * nkv + kh) * (size_t)bs * D;   // [bs][D]
-    const int base = j * bs;
-    // scores: a thread per token, the loop over d (coalesced along bs)
-    for (int t = tid; t < bs; t += kThreads) {
-      const float mask = base + t < seq_len ? 0.f : kMaskFill;
-      for (int g0 = 0; g0 < G; g0 += kGc) {
-        float s[kGc];
-#pragma unroll
-        for (int c = 0; c < kGc; ++c) s[c] = 0.f;
-#pragma unroll 8
-        for (int dd = 0; dd < D; ++dd) {
-          const float kv = to_f(kpg[(size_t)dd * bs + t]);
-#pragma unroll
-          for (int c = 0; c < kGc; ++c)
-            if (g0 + c < G) s[c] = fmaf(q_s[(g0 + c) * D + dd], kv, s[c]);
-        }
-#pragma unroll
-        for (int c = 0; c < kGc; ++c)
-          if (g0 + c < G) s_s[(g0 + c) * bs + t] = s[c] * scale + mask;
+  if (tid >= kThreads) {                     // producer
+    if (tid != kThreads) return;
+    for (int i = 0; i < n_stages; ++i) {
+      const int s = i % stages;
+      mbar_wait(&empty[s], ((i / stages) & 1) ^ 1);
+      const int j = i / per_page, r = i % per_page;
+      const size_t page = (size_t)table[(size_t)b * mb + j];
+      const T* src;
+      uint32_t bytes;
+      if (r < nk) {                          // d-rows r * k_rows ..
+        src = kt + ((page * nkv + kh) * D + (size_t)r * k_rows) * bs;
+        bytes = (uint32_t)(k_rows * bs * sizeof(T));
+      } else {                               // tokens (r - nk) * v_rows ..
+        src = vp + ((page * nkv + kh) * bs + (size_t)(r - nk) * v_rows) * D;
+        bytes = (uint32_t)(v_rows * D * sizeof(T));
       }
+      mbar_expect_tx(&full[s], bytes);
+      bulk_load(smem_u32(ring + (size_t)s * slot), src, bytes, &full[s]);
     }
-    __syncthreads();
-    // the page's max and sum: a warp per query head
-    for (int g = warp; g < G; g += kWarps) {
-      float* row = s_s + g * bs;
-      float mx = kMaskFill;
-      for (int t = lane; t < bs; t += 32) mx = fmaxf(mx, row[t]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int t = lane; t < bs; t += 32) {
-        const float p = expf(row[t] - m_new);
-        sum += p;
-        row[t] = round_to<T>(p);           // p in the page dtype before p v
+    return;
+  }
+
+  const int lane = tid % 32;
+  for (int i = 0; i < n_stages; ++i) {
+    const int s = i % stages;
+    mbar_wait(&full[s], (i / stages) & 1);
+    const int j = i / per_page, r = i % per_page;
+    const T* rows = ring + (size_t)s * slot;
+    if (r < nk) {
+      mxu_score_stage<T, D, HC>(q_s, rows, k_rows, r * k_rows, bs, G, r == 0,
+                                r == nk - 1, j * bs, seq_len, scale, s_s);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      if (r == nk - 1) {
+        compute_sync();
+        mxu_softmax<T>(s_s, bs, G, m_s, l_s, a_s);
+        compute_sync();
       }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-        a_s[g] = alpha;
-      }
+    } else {
+      mxu_value_stage<T, D, HC>(s_s, rows, v_rows, (r - nk) * v_rows, bs, G,
+                                r == nk, r == per_page - 1, a_s, pv_s, acc_s);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      if (r == per_page - 1) compute_sync();   // p, alpha, acc read
     }
-    __syncthreads();
-    // values: a thread per element of d, the loop over tokens
-    for (int dd = tid; dd < D; dd += kThreads) {
-      for (int g0 = 0; g0 < G; g0 += kGc) {
-        float pv[kGc];
-#pragma unroll
-        for (int c = 0; c < kGc; ++c) pv[c] = 0.f;
-#pragma unroll 4
-        for (int t = 0; t < bs; ++t) {
-          const float vv = to_f(vpg[(size_t)t * D + dd]);
-#pragma unroll
-          for (int c = 0; c < kGc; ++c)
-            if (g0 + c < G) pv[c] = fmaf(s_s[(g0 + c) * bs + t], vv, pv[c]);
-        }
-#pragma unroll
-        for (int c = 0; c < kGc; ++c)
-          if (g0 + c < G) {
-            const int e = (g0 + c) * D + dd;
-            acc_s[e] = acc_s[e] * a_s[g0 + c] + pv[c];
-          }
-      }
-    }
-    __syncthreads();
   }
   T* ob = out + ((size_t)b * nq + (size_t)kh * G) * D;
   for (int e = tid; e < G * D; e += kThreads)
@@ -313,49 +427,6 @@ __device__ __forceinline__ void store_out(
 // the producer's arrival and the stage's bytes; empty[s] the four
 // computing warps' releases.
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-// One contiguous run of ``bytes`` (a multiple of 16, both ends 16-byte
-// aligned) from device memory into shared memory, completing on ``bar``.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-__device__ __forceinline__ void compute_sync() {
-  asm volatile("bar.sync 1, %0;\n" :: "n"(kThreads) : "memory");
-}
-
-constexpr int kRingThreads = kThreads + 32;   // + the producer warp
-constexpr int kMaxStages = 16;
-
 // smem: full[kMaxStages], empty[kMaxStages] (256 B), the ring: stages x
 // [tile][D] T (from byte 256), then q [D], s [bs], state (m, l, alpha).
 // The walk is K16's: per page its k tiles, then its v tiles.
@@ -391,7 +462,7 @@ paged_ring_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], kWarps);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -407,7 +478,7 @@ paged_ring_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                      ((page * nh + hh) * (size_t)bs +
                       (size_t)(r % half) * tile) * D;
       mbar_expect_tx(&full[s], bytes);
-      bulk_copy(ring + (size_t)s * tile * D, src, bytes, &full[s]);
+      bulk_load(smem_u32(ring + (size_t)s * tile * D), src, bytes, &full[s]);
     }
     return;
   }
@@ -444,18 +515,6 @@ paged_ring_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     }
   }
   store_out<T, D>(out + ((size_t)b * nh + hh) * D, acc, st[1]);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(s), "l"(src));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
 // smem: q [D], s [bs], state (m, l, alpha), then the ring: 2 x [tile][D] T.
@@ -538,21 +597,79 @@ cudaError_t set_smem(K kernel, size_t bytes) {
 }
 
 constexpr size_t kMaxSmem = 227 * 1024;
+constexpr size_t kSmSmem = 233472;        // an H100 SM's shared memory
+constexpr size_t kBlockReserved = 1024;   // held back by the card a block
+constexpr size_t kStageBytes = 16384;     // a ring stage at most
+
+// K15's ring, as decode_attention.py::paged_mxu_plan sizes it: d-rows a k
+// stage (the most of 64, 32, .., 1 within 16 KB), tokens a v stage (the
+// most of 64, 32, 16, 8 that divides the page within 16 KB), stages (2 to
+// 16, as many as leave two blocks on an SM beside the fixed part, else a
+// block's whole shared memory) and the shared bytes; false where no
+// two-stage ring fits.
+struct MxuPlan {
+  int k_rows, v_rows, stages;
+  size_t smem;
+};
+bool mxu_plan(int D, int bs, int G, size_t itemsize, MxuPlan& p) {
+  p.k_rows = 1;
+  for (int r = 64; r > 1; r /= 2)
+    if ((size_t)r * bs * itemsize <= kStageBytes) {
+      p.k_rows = r;
+      break;
+    }
+  p.v_rows = 0;
+  for (int r = 64; r >= 8; r /= 2)
+    if (bs % r == 0 && (size_t)r * D * itemsize <= kStageBytes) {
+      p.v_rows = r;
+      break;
+    }
+  if (p.v_rows == 0 || G < 1) return false;
+  const size_t slot = (size_t)std::max(p.k_rows * bs, p.v_rows * D) * itemsize;
+  const size_t fixed = 256 + sizeof(float) * ((size_t)3 * G * D +
+                                              (size_t)G * bs + 3 * (size_t)G);
+  const size_t rooms[2] = {kSmSmem / 2 - kBlockReserved, kMaxSmem};
+  for (size_t room : rooms) {
+    if (room <= fixed) continue;
+    p.stages = (int)std::min((size_t)kMaxStages, (room - fixed) / slot);
+    if (p.stages >= 2) {
+      p.smem = fixed + (size_t)p.stages * slot;
+      return true;
+    }
+  }
+  return false;
+}
+
+// One launch of K15 with HC query heads a pass. The kernel's limit on
+// dynamic shared memory is raised once, to a block's whole 227 KB.
+template <typename T, int D, int HC>
+int launch_mxu_hc(const void* q, const void* kt, const void* vp,
+                  const int* tb, const int* sl, void* out, int B, int nkv,
+                  int G, int bs, int mb, float scale, const MxuPlan& p,
+                  cudaStream_t st) {
+  static const cudaError_t attr =
+      set_smem(paged_mxu_kernel<T, D, HC>, kMaxSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  paged_mxu_kernel<T, D, HC><<<dim3(nkv, B), kRingThreads, p.smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kt),
+      static_cast<const T*>(vp), tb, sl, static_cast<T*>(out), nkv, G, bs,
+      mb, p.k_rows, p.v_rows, p.stages, std::max(p.k_rows * bs, p.v_rows * D),
+      scale);
+  return (int)cudaGetLastError();
+}
 
 template <typename T, int D>
 int launch_mxu(const void* q, const void* kt, const void* vp, const int* tb,
                const int* sl, void* out, int B, int nkv, int G, int bs,
                int mb, float scale, cudaStream_t st) {
-  const size_t smem = sizeof(float) * ((size_t)2 * G * D + (size_t)G * bs +
-                                       3 * (size_t)G);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t err = set_smem(paged_mxu_kernel<T, D>, smem);
-  if (err != cudaSuccess) return (int)err;
-  paged_mxu_kernel<T, D><<<dim3(nkv, B), kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kt),
-      static_cast<const T*>(vp), tb, sl, static_cast<T*>(out), nkv, G, bs,
-      mb, scale);
-  return (int)cudaGetLastError();
+  MxuPlan p;
+  if (!mxu_plan(D, bs, G, sizeof(T), p)) return (int)cudaErrorInvalidValue;
+#define ARGS q, kt, vp, tb, sl, out, B, nkv, G, bs, mb, scale, p, st
+  if (G == 1) return launch_mxu_hc<T, D, 1>(ARGS);
+  if (G == 2) return launch_mxu_hc<T, D, 2>(ARGS);
+  if (G <= 4) return launch_mxu_hc<T, D, 4>(ARGS);
+  return launch_mxu_hc<T, D, 8>(ARGS);
+#undef ARGS
 }
 
 // K14's ring geometry, as decode_attention.py::paged_ring_geometry sizes
@@ -623,6 +740,21 @@ extern "C" int paged_decode_mxu(const void* q, const void* kt, const void* v,
   if (d == 128) return launch_mxu<float, 128>(ARGS);
   return launch_mxu<float, 256>(ARGS);
 #undef ARGS
+}
+
+// K15's ring as its launcher plans it (mxu_plan): out = {d-rows a k
+// stage, tokens a v stage, stages, shared bytes}; cudaErrorInvalidValue
+// where no ring fits.
+extern "C" int paged_mxu_plan_c(int d, int bs, int G, int itemsize,
+                                int* out) {
+  MxuPlan p;
+  if (!mxu_plan(d, bs, G, (size_t)itemsize, p))
+    return (int)cudaErrorInvalidValue;
+  out[0] = p.k_rows;
+  out[1] = p.v_rows;
+  out[2] = p.stages;
+  out[3] = (int)p.smem;
+  return 0;
 }
 
 // K14 (dma = 0) and K16 (dma = 1): q [B, nh, d], k and v [P, nh, bs, d].

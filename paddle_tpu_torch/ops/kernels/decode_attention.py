@@ -6,12 +6,16 @@ Port of paddle_tpu/ops/pallas/decode_attention.py, kernel
 (the step's token), cache_k / cache_v [B, nKV, S, d] in the engine's
 kv-head-major layout, ``pos`` the last valid cache index; o [B, nH, d].
 The G = nH / nKV query heads of a kv head are served together (no
-repeated cache) and positions past ``pos`` are never read.
+repeated cache) and positions past ``pos`` are never read. One launch a
+call and nothing allocated but the output: a thread-block cluster a
+(b, kv head) walks the cache in 32-position chunks and combines its
+blocks' partial softmax states through distributed shared memory
+(``decode_plan``).
 
 K10q is the kernel's int8 arm (``quant=True``): int8 caches with fp32
 per-position scales ``k_scale`` / ``v_scale`` [B, nKV, S], dequantized as
 ``ops/quant.py::dequantize_int8`` does (fp32 multiply, cast to q's dtype)
-where the chunk is staged. As in the reference, no engine calls it: it is
+where a row is read. As in the reference, no engine calls it: it is
 reached through ``decode_attention(..., k_scale=, v_scale=)``.
 
 On a CPU tensor the wrappers run the plain version, the masked dense
@@ -29,7 +33,9 @@ o = acc / max(l, 1e-30).
 
 - K15 ``paged_decode_attention_mxu``: d-major k pages [P, nkv, d, bs],
   token-major v pages [P, nkv, bs, d], GQA native; p rounded to the page
-  dtype before the value product (l sums the unrounded p).
+  dtype before the value product (l sums the unrounded p). One thread
+  streams runs of d-rows (k) and of tokens (v) through a ring of 1-D
+  bulk copies that ``paged_mxu_plan`` sizes.
 - K14 ``paged_decode_attention_kernel``: token-major k and v pages
   [P, nh, bs, d], nh == nq, fp32 products, p not rounded. One thread
   streams the rows through a ring of 1-D bulk copies that
@@ -57,10 +63,12 @@ from . import _build
 
 __all__ = ["decode_attention", "decode_attention_int8",
            "decode_attention_plain", "decode_attention_supported", "BLOCK_S",
+           "decode_plan", "decode_plan_c",
            "paged_decode_supported", "paged_decode_mxu_supported",
            "paged_decode_attention_mxu", "paged_decode_attention_kernel",
            "paged_decode_attention_dma", "paged_decode_mxu_plain",
-           "paged_decode_plain", "paged_ring_geometry"]
+           "paged_decode_plain", "paged_ring_geometry", "paged_mxu_plan",
+           "paged_mxu_plan_c"]
 
 BLOCK_S = 512
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -106,15 +114,70 @@ def _kernel_fn(name: str):
     if fn is None:
         fn = getattr(_build.library("decode_attention"), name)
         P, I = ctypes.c_void_p, ctypes.c_int
-        if name in ("decode_attention", "decode_attention_int8"):
-            n_ptr = 5 if name == "decode_attention" else 7
-            fn.argtypes = [P] * n_ptr + [I] * 6 + [ctypes.c_float, I, P]
-            fn.restype = I
+        if name == "decode_plan_c":
+            fn.argtypes = [I] * 8 + [P]
         else:
-            fn.argtypes = [I] * 5
-            fn.restype = ctypes.c_longlong
+            n_ptr = 4 if name == "decode_attention" else 6
+            fn.argtypes = [P] * n_ptr + [I] * 6 + [ctypes.c_float, I, P]
+        fn.restype = I
         _fns[name] = fn
     return fn
+
+
+DECODE_CHUNK = 32            # kChunk: cache positions a chunk
+DECODE_MAX_CLUSTER = 8       # kMaxCluster: a portable cluster
+DECODE_TARGET_BLOCKS = 528   # kTargetBlocks: four blocks on each of 132 SMs
+DECODE_MAX_G = 16
+
+
+def _decode_block_smem(d: int, G: int, cbytes: int, chunk: int,
+                       quant: bool) -> int:
+    """A K10 block's shared bytes, as the kernel lays them out: two
+    stages of k rows (padded so that the rows one shared-memory phase
+    reads lie in other banks), v rows and, int8, both scales; then fp32
+    q [G][d], s [G][chunk], p [chunk][G rounded up to 4], acc [G][d] and
+    m, l, alpha [G]."""
+    k_row = d * cbytes + (32 * cbytes) % 128
+    stage = chunk * (k_row + d * cbytes) + (8 * chunk if quant else 0)
+    g4 = -(-G // 4) * 4
+    return 2 * stage + 4 * (2 * G * d + G * chunk + chunk * g4 + 3 * G)
+
+
+def decode_plan(B: int, nKV: int, G: int, d: int, pos: int,
+                dtype=torch.bfloat16, quant: bool = False) -> tuple[
+                    int, int, int, int]:
+    """K10's launch, as ``csrc/decode_attention.cu::decode_plan`` makes
+    it: (positions a chunk, chunks, blocks a cluster, shared bytes a
+    block). The cache is cut into chunks of 32 positions (K10q walks
+    K10's chunks, so that it gives K10's bits); one cluster serves a (b,
+    kv head), with the most blocks, a power of two, at most 8 and at
+    most the chunks, that keeps the B x nKV clusters within
+    ``DECODE_TARGET_BLOCKS`` (one wave of four ~42 KB blocks an SM at
+    llama1b's width). Block r of a cluster of c walks chunks
+    [r n / c, (r + 1) n / c) of the n, so its ranks are in chunk
+    order."""
+    chunk = DECODE_CHUNK
+    cbytes = 1 if quant else torch.empty((), dtype=dtype).element_size()
+    smem = _decode_block_smem(d, G, cbytes, chunk, quant)
+    if smem > BLOCK_SMEM_MAX:
+        raise ValueError(f"d {d}, G {G}: no K10 stage fits")
+    n_chunks = -(-(pos + 1) // chunk)
+    cluster = 1
+    while (cluster * 2 <= min(DECODE_MAX_CLUSTER, n_chunks)
+           and B * nKV * cluster * 2 <= DECODE_TARGET_BLOCKS):
+        cluster *= 2
+    return chunk, n_chunks, cluster, smem
+
+
+def decode_plan_c(B: int, nKV: int, G: int, S: int, d: int, pos: int,
+                  dtype=torch.bfloat16, quant: bool = False) -> tuple:
+    """The plan K10's C launcher follows (``decode_plan_c`` in the
+    library), to hold ``decode_plan`` to it on the card."""
+    out = (ctypes.c_int * 4)()
+    _build.check(_kernel_fn("decode_plan_c")(
+        B, nKV, G, S, d, pos, _DTYPE_CODE[dtype], int(quant),
+        ctypes.addressof(out)), "decode_plan_c")
+    return tuple(out)
 
 
 def _check(q, cache_k, cache_v, pos: int, cache_dtype) -> None:
@@ -130,28 +193,29 @@ def _check(q, cache_k, cache_v, pos: int, cache_dtype) -> None:
                          f"/ {tuple(cache_v.shape)}: want [B, nKV*G, d] and "
                          "two [B, nKV, S, d]")
     G = q.shape[1] // nKV
-    if d not in (64, 128, 256) or not 1 <= G <= 16 or not 0 <= pos < S:
+    if d not in (64, 128, 256) or not 1 <= G <= DECODE_MAX_G \
+            or not 0 <= pos < S:
         raise ValueError(f"d {d}, G {G}, pos {pos} of S {S}: the kernel "
                          "takes d in (64, 128, 256), G <= 16, 0 <= pos < S")
     for t in (q, cache_k, cache_v):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"q and the caches must be contiguous and on "
                              f"{q.device}")
+        if t.data_ptr() % 16:
+            raise ValueError("the kernel copies 16-byte vectors: q and the "
+                             "caches must be 16-byte aligned")
 
 
 def _launch(name, q, cache_k, cache_v, scales, pos: int,
             sm_scale: float) -> torch.Tensor:
+    """One ctypes call, one kernel launch; nothing allocated but o."""
     B, nKV, S, d = cache_k.shape
-    G = q.shape[1] // nKV
-    n = _kernel_fn("decode_attention_scratch")(B, nKV, G, d, pos)
-    part = torch.empty((n,), dtype=torch.float32, device=q.device)
     o = torch.empty_like(q)
-    err = _kernel_fn(name)(
+    _build.check(_kernel_fn(name)(
         q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-        *(t.data_ptr() for t in scales), part.data_ptr(), o.data_ptr(), B,
-        nKV, G, S, d, pos, float(sm_scale), _DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, name)
+        *(t.data_ptr() for t in scales), o.data_ptr(), B, nKV,
+        q.shape[1] // nKV, S, d, pos, float(sm_scale), _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream), name)
     return o
 
 
@@ -342,14 +406,56 @@ def paged_ring_geometry(d: int, bs: int, itemsize: int) -> tuple[int, int,
     raise ValueError(f"d {d}, bs {bs}: no 3-stage ring fits")
 
 
+def paged_mxu_plan(d: int, bs: int, G: int, itemsize: int) -> tuple[
+        int, int, int, int]:
+    """K15's ring, as ``csrc/paged_decode_attention.cu::mxu_plan`` sizes
+    it: (d-rows a k stage, tokens a v stage, stages, shared bytes a
+    block). A k stage is a run of d-rows of one d-major k page (each bs
+    tokens long), the most of 64, 32, .., 1 within 16 KB; a v stage a run
+    of tokens of one token-major v page, the most of 64, 32, 16, 8 that
+    divides the page within 16 KB; a ring slot holds the larger. As many
+    stages (2 to 16) as leave ``RING_BLOCKS_PER_SM`` blocks room on an SM
+    beside the fixed part (barriers; fp32 q, pv and acc [G][d], s
+    [G][bs], m, l, alpha [G]), else a block's whole shared memory."""
+    k_rows = next((r for r in (64, 32, 16, 8, 4, 2)
+                   if r * bs * itemsize <= RING_TILE_BYTES), 1)
+    v_rows = next((r for r in (64, 32, 16, 8)
+                   if bs % r == 0 and r * d * itemsize <= RING_TILE_BYTES),
+                  None)
+    if v_rows is None or G < 1:
+        raise ValueError(f"d {d}, bs {bs}, G {G}: no K15 ring")
+    slot = max(k_rows * bs, v_rows * d) * itemsize
+    fixed = 256 + 4 * (3 * G * d + G * bs + 3 * G)
+    for room in (SM_SMEM_BYTES // RING_BLOCKS_PER_SM - BLOCK_SMEM_RESERVED,
+                 BLOCK_SMEM_MAX):
+        stages = min(RING_MAX_STAGES, max(room - fixed, 0) // slot)
+        if stages >= 2:
+            return k_rows, v_rows, stages, fixed + stages * slot
+    raise ValueError(f"d {d}, bs {bs}, G {G}: no two-stage K15 ring fits")
+
+
+def paged_mxu_plan_c(d: int, bs: int, G: int, itemsize: int) -> tuple:
+    """The ring K15's C launcher plans (``paged_mxu_plan_c`` in the
+    library), to hold ``paged_mxu_plan`` to it on the card."""
+    out = (ctypes.c_int * 4)()
+    _build.check(_paged_fn("paged_mxu_plan_c")(d, bs, G, itemsize,
+                                                ctypes.addressof(out)),
+                 "paged_mxu_plan_c")
+    return tuple(out)
+
+
 def _paged_fn(name: str):
     fn = _fns.get(name)
     if fn is None:
         fn = getattr(_build.library("paged_decode_attention"), name)
         P, I = ctypes.c_void_p, ctypes.c_int
-        lead = [I] if name == "paged_decode_tok" else []
-        n_int = 6 if name == "paged_decode_mxu" else 7
-        fn.argtypes = lead + [P] * 6 + [I] * n_int + [ctypes.c_float, I, P]
+        if name == "paged_mxu_plan_c":
+            fn.argtypes = [I] * 4 + [P]
+        else:
+            lead = [I] if name == "paged_decode_tok" else []
+            n_int = 6 if name == "paged_decode_mxu" else 7
+            fn.argtypes = lead + [P] * 6 + [I] * n_int + [ctypes.c_float, I,
+                                                          P]
         fn.restype = I
         _fns[name] = fn
     return fn

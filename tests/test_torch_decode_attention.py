@@ -43,6 +43,33 @@ def test_plain_arm_matches_reference_kernel(G, S):
                                    err_msg=f"pos {pos}")
 
 
+@pytest.mark.parametrize("pos", [63, 191, 639])
+def test_plain_arm_at_chunk_ends(pos):
+    """pos = 64k - 1, where the kernel's last 64-position chunk is full
+    (639: llama1b's last decode step of a 128-token generation after a
+    512-token prompt), fp and int8 caches."""
+    B, nKV, G, S, d = 2, 2, 4, 1024, 64
+    q, ck, cv = _inputs(pos, B, nKV, G, S, d)
+    scale = 1.0 / math.sqrt(d)
+    want = np.asarray(jd.decode_attention(
+        jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv), pos, scale))
+    got = td.decode_attention(torch.from_numpy(q), torch.from_numpy(ck),
+                              torch.from_numpy(cv), pos, scale)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    rng = np.random.RandomState(pos)
+    kq, vq = (rng.randint(-127, 128, size=(B, nKV, S, d)).astype(np.int8)
+              for _ in range(2))
+    ks, vs = (rng.uniform(0.005, 0.02, size=(B, nKV, S)).astype(np.float32)
+              for _ in range(2))
+    want = np.asarray(jd.decode_attention(
+        *map(jnp.asarray, (q, kq, vq)), pos, scale, block_s=512,
+        k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs)))
+    got = td.decode_attention(*map(torch.from_numpy, (q, kq, vq)), pos,
+                              scale, k_scale=torch.from_numpy(ks),
+                              v_scale=torch.from_numpy(vs))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
 def test_positions_past_pos_do_not_count():
     """Other values past pos change nothing, bit for bit."""
     q, ck, cv = _inputs(0, 1, 2, 2, 256, 64)

@@ -8,7 +8,13 @@ shared memory and every split keeps K steps. K14
 (``decode_attention.paged_ring_geometry``): for every geometry the
 token-major gate admits (d 64, 128, 256; bs a multiple of 8; fp32 and
 bf16) the ring fits 227 KB, leaves room for two blocks on an SM, and its
-stages tile the page. The flash tile loops (K1, K11, K17 forward; K2,
+stages tile the page. K15 (``decode_attention.paged_mxu_plan``): at every
+d, dtype, page of 16-256 tokens and G the ring fits 227 KB, at
+llama2-7b's width with two blocks an SM, and its stages copy every
+d-row and token of every page once, in order. K10
+(``decode_attention.decode_plan``): every shape the gate admits fits, a
+cluster is a power of two up to 8 that fills one wave, and its ranks walk
+every chunk once, in order. The flash tile loops (K1, K11, K17 forward; K2,
 K3, K17 backward; ``flash_attention.flash_plan``): bf16 at head dim 64
 and 128 takes the TMA + wgmma variant at every S the kernels take
 (S % 128 == 64 too), fp32 and head dim 256 the FMA one; every plan fits
@@ -93,6 +99,146 @@ def test_paged_ring_long_page_takes_one_block():
     tile, stages, smem = da.paged_ring_geometry(256, 40000, 4)
     assert stages >= 3 and smem <= da.BLOCK_SMEM_MAX
 
+
+
+MXU_BS = [16, 24, 40, 64, 128, 192, 256]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("bs", MXU_BS)
+@pytest.mark.parametrize("G", [1, 4, 16])
+def test_paged_mxu_plan_fits(itemsize, d, bs, G):
+    """K15's ring fits a block's 227 KB at every page of 16-256 tokens:
+    a k stage is whole d-rows that tile d, a v stage whole tokens that
+    tile the page, each within 16 KB, 2-16 slots of the larger."""
+    k_rows, v_rows, stages, smem = da.paged_mxu_plan(d, bs, G, itemsize)
+    assert d % k_rows == 0 and bs % v_rows == 0 and v_rows % 8 == 0
+    assert k_rows * bs * itemsize <= da.RING_TILE_BYTES
+    assert v_rows * d * itemsize <= da.RING_TILE_BYTES
+    assert 2 <= stages <= da.RING_MAX_STAGES
+    slot = max(k_rows * bs, v_rows * d) * itemsize
+    fixed = 256 + 4 * (3 * G * d + G * bs + 3 * G)
+    assert smem == fixed + stages * slot <= da.BLOCK_SMEM_MAX
+
+
+def test_paged_mxu_plan_at_llama2_7b_keeps_two_blocks_an_sm():
+    """bf16, d 128, page 128: 64 d-rows (16 KB) a k stage, 64 tokens a v
+    stage, 6 slots, and two blocks on an SM; llama3-8b's G 4 too."""
+    for G in (1, 4):
+        k_rows, v_rows, stages, smem = da.paged_mxu_plan(128, 128, G, 2)
+        assert (k_rows, v_rows, stages) == (64, 64, 6)
+        assert da.RING_BLOCKS_PER_SM * (smem + da.BLOCK_SMEM_RESERVED) <= \
+            da.SM_SMEM_BYTES
+
+
+def _mxu_stages(d, bs, G, itemsize, n_pages):
+    """The stages K15's producer issues, in order: (page, "k", first
+    d-row, d-rows) for the page's k stages, then (page, "v", first token,
+    tokens) for its v stages (paged_mxu_kernel's walk)."""
+    k_rows, v_rows, _, _ = da.paged_mxu_plan(d, bs, G, itemsize)
+    out = []
+    for j in range(n_pages):
+        out += [(j, "k", r * k_rows, k_rows) for r in range(d // k_rows)]
+        out += [(j, "v", r * v_rows, v_rows) for r in range(bs // v_rows)]
+    return out
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("d,bs", [(128, 128), (64, 16), (256, 40),
+                                  (128, 256), (256, 128)])
+def test_paged_mxu_stages_cover_every_page_once_in_order(itemsize, d, bs):
+    """Each page's d-rows and tokens are copied exactly once, in order,
+    and the pages in table order: every sum runs in the order of a walk
+    over the whole page."""
+    stages = _mxu_stages(d, bs, 4, itemsize, 3)
+    for j in range(3):
+        for kind, n in (("k", d), ("v", bs)):
+            rows = [r for page, what, r0, nr in stages
+                    if page == j and what == kind
+                    for r in range(r0, r0 + nr)]
+            assert rows == list(range(n))
+    pages = [page for page, _, _, _ in stages]
+    assert pages == sorted(pages)
+    kinds = [what for page, what, _, _ in stages if page == 0]
+    assert kinds == sorted(kinds)                  # k stages, then v
+
+
+def test_paged_mxu_plan_constants_are_the_source():
+    src = (Path(da.__file__).resolve().parents[2] / "csrc"
+           / "paged_decode_attention.cu").read_text()
+    assert f"constexpr size_t kStageBytes = {da.RING_TILE_BYTES};" in src
+    assert f"constexpr int kMaxStages = {da.RING_MAX_STAGES};" in src
+    assert f"constexpr size_t kSmSmem = {da.SM_SMEM_BYTES};" in src
+    assert f"constexpr size_t kBlockReserved = {da.BLOCK_SMEM_RESERVED};" \
+        in src
+    assert da.BLOCK_SMEM_MAX == 227 * 1024
+    assert "constexpr size_t kMaxSmem = 227 * 1024;" in src
+
+
+DECODE_SHAPES = [(B, 4, 4, 128, pos) for B in (1, 8, 16)
+                 for pos in (0, 63, 64, 100, 511, 639, 2047)] + [
+    (3, 2, 16, 256, 511), (2, 2, 8, 64, 255), (64, 8, 4, 128, 4095),
+    (200, 4, 1, 64, 1000)]
+
+
+@pytest.mark.parametrize("B,nKV,G,d,pos", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype,quant", [(torch.bfloat16, False),
+                                         (torch.float32, False),
+                                         (torch.bfloat16, True),
+                                         (torch.float32, True)])
+def test_decode_plan_covers_every_chunk_once_in_order(B, nKV, G, d, pos,
+                                                      dtype, quant):
+    """K10's cluster: a power of two up to 8 and up to the chunks, one
+    wave of B x nKV clusters where it can; its ranks walk every chunk
+    exactly once, in order, none idle; the block fits 227 KB."""
+    chunk, n_chunks, cluster, smem = da.decode_plan(B, nKV, G, d, pos, dtype,
+                                                    quant)
+    assert chunk == 32 and n_chunks == -(-(pos + 1) // chunk)
+    assert cluster in (1, 2, 4, 8) and cluster <= n_chunks
+    assert B * nKV * cluster <= da.DECODE_TARGET_BLOCKS or cluster == 1
+    if cluster * 2 <= min(8, n_chunks):    # the next power of two overfills
+        assert B * nKV * cluster * 2 > da.DECODE_TARGET_BLOCKS
+    ranks = [range(r * n_chunks // cluster, (r + 1) * n_chunks // cluster)
+             for r in range(cluster)]       # decode_kernel's c_first, c_end
+    assert [c for r in ranks for c in r] == list(range(n_chunks))
+    assert all(len(r) >= 1 for r in ranks)
+    assert smem <= da.BLOCK_SMEM_MAX
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("G", range(1, 17))
+@pytest.mark.parametrize("dtype,quant", [(torch.bfloat16, False),
+                                         (torch.float32, False),
+                                         (torch.float32, True)])
+def test_decode_plan_fits_every_gate_shape(d, G, dtype, quant):
+    """Every shape K10's gate admits (d 64/128/256, G <= 16) has a block
+    that fits; chunks of 32 positions, the same for K10q as for
+    K10."""
+    chunk, _, _, smem = da.decode_plan(1, 1, G, d, 100, dtype, quant)
+    assert smem <= da.BLOCK_SMEM_MAX
+    # K10q walks K10's chunks (those of the dequantized cache)
+    assert chunk == da.DECODE_CHUNK == \
+        da.decode_plan(1, 1, G, d, 100, dtype, not quant)[0]
+
+
+def test_decode_plan_at_llama1b():
+    """llama1b's decode (nKV 4, G 4, d 128, bf16) at pos 639: clusters of
+    8 at B 1, 8 and 16 (512 blocks of ~42 KB at B 16: one wave of four an
+    SM), of 4 at B 32."""
+    plans = [da.decode_plan(B, 4, 4, 128, 639) for B in (1, 8, 16, 32)]
+    assert [p[2] for p in plans] == [8, 8, 8, 4]
+    assert 4 * (plans[0][3] + da.BLOCK_SMEM_RESERVED) <= da.SM_SMEM_BYTES
+
+
+def test_decode_plan_constants_are_the_source():
+    src = (Path(da.__file__).resolve().parents[2] / "csrc"
+           / "decode_attention.cu").read_text()
+    for name, value in (("kChunk", da.DECODE_CHUNK),
+                        ("kMaxCluster", da.DECODE_MAX_CLUSTER),
+                        ("kTargetBlocks", da.DECODE_TARGET_BLOCKS),
+                        ("kMaxG", da.DECODE_MAX_G)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
 
 
 @pytest.mark.parametrize("lo", range(-128, 128, 16))

@@ -29,9 +29,13 @@ held by row to their plain versions at the training tolerances above
 (K15's plain version rounds p to the page dtype as the kernel does), and
 K16 must equal K14 bit for bit. K9 runs in three variants: each case
 asserts which variant's counter moved (``qmm_plan``); K14's ring
-(``paged_ring_geometry``) is held at its edges: a length that ends on a
+(``paged_ring_geometry``) and K15's (``paged_mxu_plan``, whose C plan
+must be the Python one) are held at their edges: a length that ends on a
 stage, one that ends on the ring's last stage, one inside a stage, 0 and
-a full table. The flash tile loops (TMA + wgmma for bf16 at head dim 64
+a full table. K10 and K10q at llama1b's decode (B 1, 8, 16): one kernel
+launch a call (the kernel nodes of a CUDA graph that captured one call)
+and one allocation, the output; the C launcher's cluster plan
+``decode_plan``'s; deterministic. The flash tile loops (TMA + wgmma for bf16 at head dim 64
 and 128): the C launchers' plan is ``flash_plan``'s; at several row
 blocks per (batch, head) (the persistent forward's items, the backward's
 ordered blocks) K1, K1-sep and K17's forward agree bit for bit, K2, K3,
@@ -554,6 +558,90 @@ def test_decode_attention_int8_kernel_matches_k10_and_plain(cuda, dtype, tol,
         assert _scaled(got, ref) <= tol, pos
 
 
+def _kernel_nodes(fn, tmp_path):
+    """(kernel launches of one call of ``fn``, the graph's DOT text): the
+    kernel nodes of a CUDA graph that captured the call, each a record
+    whose label starts with KERNEL and names the function."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    path = tmp_path / "call.dot"
+    graph.debug_dump(str(path))
+    text = path.read_text()
+    return text.count('label="{KERNEL'), text
+
+
+def _allocations(fn):
+    """(fn(), the caching allocator's allocations during it)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.memory_stats()["allocation.all.allocated"] - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 8, 16])
+def test_decode_attention_one_launch_at_llama1b(cuda, B, tmp_path):
+    """K10 and K10q at llama1b's decode (nKV 4, G 4, S 2048, d 128, bf16)
+    at every cache position check_decode_attention holds: one kernel
+    launch and one allocation (the output) a call, the C launcher's plan
+    decode_plan's, deterministic, K10q equal to K10 on the caches
+    dequantized beforehand, both held to the plain version."""
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.ops.quant import dequantize_int8
+
+    rng = np.random.default_rng(B)
+    nkv, G, S, d, dt = 4, 4, 2048, 128, torch.bfloat16
+    q, ck, cv = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        cuda, dt) for s in ((B, nkv * G, d), (B, nkv, S, d), (B, nkv, S, d)))
+    kq, vq = (_int8(rng, (B, nkv, S, d)).to(cuda) for _ in range(2))
+    ks, vs = (torch.from_numpy(rng.uniform(0.005, 0.02, size=(B, nkv, S))
+                               .astype(np.float32)).to(cuda)
+              for _ in range(2))
+    kd, vd = (dequantize_int8(x, sc[..., None], dt)
+              for x, sc in ((kq, ks), (vq, vs)))
+    for pos in (0, 100, 511, 639, 2047):
+        for quant in (False, True):
+            assert da.decode_plan_c(B, nkv, G, S, d, pos, dt, quant) == \
+                da.decode_plan(B, nkv, G, d, pos, dt, quant)
+        got, n = _allocations(lambda: da.decode_attention(q, ck, cv, pos,
+                                                          d ** -0.5))
+        assert n == 1, pos
+        assert torch.equal(got, da.decode_attention(q, ck, cv, pos,
+                                                    d ** -0.5)), pos
+        ref = da.decode_attention_plain(q, ck, cv, pos, d ** -0.5)
+        assert _scaled(got, ref) <= 3 * 2 ** -7, pos
+        got, n = _allocations(lambda: da.decode_attention(
+            q, kq, vq, pos, d ** -0.5, k_scale=ks, v_scale=vs))
+        assert n == 1, pos
+        assert torch.equal(got, da.decode_attention(q, kd, vd, pos,
+                                                    d ** -0.5)), pos
+    for fn in (lambda: da.decode_attention(q, ck, cv, 639, d ** -0.5),
+               lambda: da.decode_attention(q, kq, vq, 639, d ** -0.5,
+                                           k_scale=ks, v_scale=vs)):
+        n, text = _kernel_nodes(fn, tmp_path)
+        assert n == 1 and text.count("decode_kernel") == 1, text
+
+
+@pytest.mark.cuda
+def test_decode_plan_c_is_decode_plan(cuda):
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+
+    for B, nkv in ((1, 4), (16, 4), (3, 2), (100, 8)):
+        for G in (1, 3, 4, 16):
+            for d in (64, 128, 256):
+                for pos in (0, 63, 64, 639, 4095):
+                    for dt in (torch.bfloat16, torch.float32):
+                        for quant in (False, True):
+                            args = (B, nkv, G, d, pos, dt, quant)
+                            assert da.decode_plan_c(
+                                B, nkv, G, 4096, d, pos, dt, quant) == \
+                                da.decode_plan(*args), args
+
+
 @pytest.mark.cuda
 def test_serving_engine_runs_the_int8_and_lora_kernels(cuda):
     """A small bf16 engine with int8 KV pages and LoRA on the card: K8q
@@ -747,6 +835,37 @@ def test_paged_ring_edges(cuda, dtype, tol, nh, d, bs):
     assert da.paged_decode_attention_kernel.launches == before + 1
     assert torch.equal(k14, k16)
     assert _scaled(k14, ref) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3 * 2 ** -7)])
+@pytest.mark.parametrize("nkv,G,d,bs", [(2, 4, 128, 128), (8, 1, 128, 128),
+                                        (1, 12, 256, 128), (2, 3, 64, 40),
+                                        (4, 2, 128, 256)])
+def test_paged_mxu_ring_edges(cuda, dtype, tol, nkv, G, d, bs):
+    """K15 at its ring's edges (paged_mxu_plan): lengths ending on a v
+    stage, on a page, a stage into the next page, on the ring's last
+    slot, 0 and a full table; the C launcher's plan paged_mxu_plan's;
+    deterministic; held to the plain version."""
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+
+    es = dtype.itemsize
+    k_rows, v_rows, stages, _ = da.paged_mxu_plan(d, bs, G, es)
+    assert da.paged_mxu_plan_c(d, bs, G, es) == (k_rows, v_rows, stages,
+                                                 da.paged_mxu_plan(
+                                                     d, bs, G, es)[3])
+    lens = [v_rows, bs, bs + v_rows, stages * v_rows, 0, 10 ** 6, bs - 1]
+    q, kt, v, table, lens = _paged_inputs(cuda, dtype, nkv, G, d, bs, lens,
+                                          True, seed=16)
+    before = da.paged_decode_attention_mxu.launches
+    got = da.paged_decode_attention_mxu(q, kt, v, table, lens, d ** -0.5)
+    again = da.paged_decode_attention_mxu(q, kt, v, table, lens, d ** -0.5)
+    ref = da.paged_decode_mxu_plain(q, kt, v, table, lens, d ** -0.5)
+    torch.cuda.synchronize()
+    assert da.paged_decode_attention_mxu.launches == before + 2
+    assert torch.equal(got, again)
+    assert _scaled(got, ref) <= tol
 
 
 PLAN_PARTS = ("fwd", "both", "dq", "dkv")

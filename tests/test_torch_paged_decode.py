@@ -10,7 +10,8 @@ reference's own fp32 tolerances: 2e-5 for K14 and K16
 (tests/test_parity_ops.py); the error reached is far under (~2e-7).
 Cases hold ragged lengths on a shuffled table, a sequence of length 0
 (which attends to every row of its table's pages with equal weight) and,
-for K15, GQA. In bf16 K15's plain version rounds p to bf16 as the kernel
+for K15, GQA and lengths that end on its ring's stages (32 tokens a v
+stage in fp32, 64 in bf16, at pages of 128). In bf16 K15's plain version rounds p to bf16 as the kernel
 does and is held at 2e-2, the port's bf16 attention tolerance.
 """
 
@@ -144,7 +145,8 @@ def _mxu_case(seed, G, lens, nkv=2, d=128, bs=128, mb=3):
 
 
 @pytest.mark.parametrize("G,lens", [(4, [300, 0]), (4, [1, 384]),
-                                    (8, [128, 129]), (1, [17, 0])])
+                                    (8, [128, 129]), (1, [17, 0]),
+                                    (4, [32, 256]), (1, [64, 160])])
 def test_k15_plain_matches_interpret_kernel(G, lens):
     nkv = 2 if G > 1 else 8
     q, kt, vp, table, sl, scale = _mxu_case(6, G, lens, nkv=nkv)
@@ -158,6 +160,23 @@ def test_k15_plain_matches_interpret_kernel(G, lens):
     err = np.abs(got - want).max()
     assert err < 1e-5, err                 # reached: ~1e-7
     np.testing.assert_allclose(got, want, rtol=K15_TOL, atol=K15_TOL)
+
+
+def test_k15_stage_edges_in_bf16():
+    """Lengths that end on the bf16 kernel's ring stages at this shape
+    (paged_mxu_plan: 64 tokens a v stage, pages of 128): a stage, a
+    page, a stage into the next page, a token past a page."""
+    assert tda.paged_mxu_plan(128, 128, 4, 2)[1] == 64
+    q, kt, vp, table, sl, scale = _mxu_case(8, 4, [64, 128, 192, 129])
+    qb, kb, vb = (jnp.asarray(a, jnp.bfloat16) for a in (q, kt, vp))
+    want = np.asarray(jda.paged_decode_attention_mxu(
+        qb, kb, vb, jnp.asarray(table), jnp.asarray(sl), scale)
+        .astype(jnp.float32))
+    got = tda.paged_decode_attention_mxu(
+        _t(qb), _t(kb), _t(vb), torch.from_numpy(table),
+        torch.from_numpy(sl), scale)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=BF16_TOL,
+                               atol=BF16_TOL)
 
 
 def test_k15_bf16_rounds_p_as_the_kernel():
