@@ -23,14 +23,20 @@ Phases, each failing loudly (any failure exits nonzero):
    attention shape and a small fp32 case at head dim 64 and 128 (K2 run
    twice, bitwise equal), and the vocab-streaming cross-entropy forward
    (K4) and backward (K5) at the gpt3-350m loss shape and a small case
-   with ragged tiles in fp32 and bf16; kernel, plain and library times
-   beside the bound. Outputs are held element by element (see
+   with ragged tiles in fp32 and bf16 (every bf16 product through the
+   TMA + wgmma route as the C entries report it, the C launchers' plan
+   ``ce_plan_c`` equal to ``ce_plan``); kernel (eager and in a CUDA
+   graph), plain, the bf16 cuBLAS products they compute and library
+   times beside the bound. Outputs are held element by element (see
    ``_scaled_err``), and dhead also on the vocab columns no token has as
    its label, where dl is the softmax part alone. Then the residual +
    bias + norm epilogue (K6) at the gpt3-350m norm shape in its layer
    forms (residual + bias, norm-only, with the gelu), the rms form at
    H 4096 and small fp32 cases, r bit-equal and y by row; and the bias +
-   gelu (K7) at the gpt3-350m FFN shape and a small fp32 case. The split
+   gelu (K7) at the gpt3-350m FFN shape and a small fp32 case (its 2-D
+   walk the C launcher's, ``bias_gelu_plan_c`` equal to
+   ``bias_gelu_plan``; the first 256 rows alone bit-equal to those rows
+   of the whole call; eager and device times beside F.gelu's). The split
    flash backward (K3): in its fused-qkv mode at gpt3-1.3b's S 8192
    shape (B 1, h 16, d 128, bf16) bit-equal to K2 and timed beside it,
    at S 2048 against its plain version; in its separate mode at
@@ -48,7 +54,9 @@ Phases, each failing loudly (any failure exits nonzero):
    the card, with the fusion compiler on (its default), 3 warm-up steps
    and the best of 3 windows of 4 steps; the loss must start near ln(V)
    and fall, K1/K2 must launch 24 times per step, K4/K5 once per step (2
-   launches and 3 per 8192-column vocab slab, 21), K6 2L + 1 = 49 times
+   launches and 3 per 8192-column vocab slab, 21; every one of their
+   1 + 3 x 7 bf16 products a step through the wgmma route, and the C
+   launchers' plan ``ce_plan``'s), K6 2L + 1 = 49 times
    and K7 24 times, and the fusion report must list 49 applied
    ``layer_epilogue`` and 24 applied ``bias_gelu`` sites and no error.
    The same step then runs with ``use_auto_fusion`` off, and its step
@@ -72,10 +80,11 @@ Phases, each failing loudly (any failure exits nonzero):
    starts within 0.5 of ln(V) and falls; per step K1 launches L = 24
    times (both policies save the flash o/lse), K2 L at S 1024 and 4096,
    K3 2L at S 8192 (the 6 MiB gate), K6 4L + 1 and K7 2L (recomputed in
-   the backward); at S 4096 the peak memory of the forward + backward
-   falls from remat False to True to "full" (the whole step's peak is
-   printed beside it). Prints bench.py's gpt3_1p3b_* keys (MFU against
-   989 TFLOP/s) and the peaks on one line.
+   the backward), K4/K5's products all through wgmma; at S 4096 the
+   peak memory of the forward + backward falls from remat False to True
+   to "full" (the whole step's peak is printed beside it). Prints
+   bench.py's gpt3_1p3b_* keys (MFU against 989 TFLOP/s) and the peaks
+   on one line.
 7b. ``llama_train``: gradients of llama_loss at llama1b (16 layers,
    bf16), B 2, S 2048, remat=True: fusion on (K11 L times in the forward,
    K11 L again and K3 2L in the backward, no K2) and off (K1-sep and K3);
@@ -1208,8 +1217,13 @@ def check_ce(dev) -> tuple[dict, dict]:
               dh[:, free], rdh[:, free], tol, dim=0)
         return err
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    before = collections.Counter(ce.PRODUCTS)
     # ragged token and vocab tiles, two vocab slabs, the last ragged
     for dt, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+        if ce.ce_plan_c(300, 128, ce.SLAB + 1000, dt) != ce.ce_plan(
+                300, 128, ce.SLAB + 1000, dt, sms=sms):
+            raise AssertionError(f"ce_plan_c != ce_plan, small {dt}")
         x, wte, lab, g = case(300, 128, ce.SLAB + 1000, dt)
         nll, lse = ce.fused_ce_fwd(x, wte.t(), lab)
         rnll, rlse = ce.fused_ce_fwd_plain(x, wte.t(), lab)
@@ -1220,6 +1234,8 @@ def check_ce(dev) -> tuple[dict, dict]:
         hold_bwd(f"ce {dt} small", dx, dh, rdx, rdh, lab, tol)
 
     N, H, V = 16384, 1024, 50304
+    if ce.ce_plan_c(N, H, V) != ce.ce_plan(N, H, V, sms=sms):
+        raise AssertionError("ce_plan_c != ce_plan at the gpt3-350m shape")
     x, wte, lab, g = case(N, H, V, torch.bfloat16)
     head = wte.t()
     nll, lse = ce.fused_ce_fwd(x, head, lab)
@@ -1243,9 +1259,35 @@ def check_ce(dev) -> tuple[dict, dict]:
     err_b = hold_bwd("ce bf16", dx, dh, rdx, rdh, lab, BF16_TOL)
     del rdx, rdh, dx, dh
     torch.cuda.empty_cache()
+    # every bf16 product above went through the wgmma route, as the C
+    # entries reported what they launched
+    seen = ce.PRODUCTS - before
+    variants = sorted({v for v, dt, _ in seen if dt == "bfloat16"})
+    if variants != ["wgmma"]:
+        raise AssertionError(f"ce bf16 products took {variants}: {seen}")
     fwd_ms = _time_ms(lambda: ce.fused_ce_fwd(x, head, lab), iters=5)
     bwd_ms = _time_ms(lambda: ce.fused_ce_bwd(x, head, lab, lse, g),
                       iters=3)
+    fwd_dev = _graph_ms(lambda: ce.fused_ce_fwd(x, head, lab), iters=5)
+    bwd_dev = _graph_ms(lambda: ce.fused_ce_bwd(x, head, lab, lse, g),
+                        iters=3)
+    # the products the kernels compute, as bf16 cuBLAS calls: x @ w^T for
+    # K4; per vocab slab x @ w_slab^T, dl @ w_slab and dl^T @ x for K5
+    slabs = [wte[v0:v0 + ce.SLAB] for v0 in range(0, V, ce.SLAB)]
+    dls = [(1e-4 * torch.randn((N, ws.shape[0]), generator=gen,
+                               device=dev)).to(torch.bfloat16)
+           for ws in slabs]
+
+    def bwd_products():
+        for ws, dl in zip(slabs, dls):
+            x @ ws.t()
+            dl @ ws
+            dl.t() @ x
+
+    fwd_products = _time_ms(lambda: x @ wte.t(), iters=5)
+    bwd_products_ms = _time_ms(bwd_products, iters=3)
+    del slabs, dls
+    torch.cuda.empty_cache()
     fwd_plain = _time_ms(lambda: ce.fused_ce_fwd_plain(x, head, lab),
                          iters=3, warmup=1)
     bwd_plain = _time_ms(lambda: ce.fused_ce_bwd_plain(x, head, lab, lse,
@@ -1267,10 +1309,12 @@ def check_ce(dev) -> tuple[dict, dict]:
     io = (N * H + V * H) * 2 + N * 4
     f_bound = _bound(io + 2 * N * 4, 2.0 * N * H * V)
     b_bound = _bound(io + 2 * N * 4 + (N * H + V * H) * 2, 6.0 * N * H * V)
-    print(f"ce fwd: kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, "
+    print(f"ce fwd: kernel {fwd_ms:.4f} ms (device {fwd_dev:.4f}), plain "
+          f"{fwd_plain:.4f} ms, bf16 products {fwd_products:.4f} ms, "
           f"cross_entropy {lib_fwd_ms:.4f} ms, bound {f_bound[0]:.4f} ms "
           f"({f_bound[1]})")
-    print(f"ce bwd: kernel {bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms, "
+    print(f"ce bwd: kernel {bwd_ms:.4f} ms (device {bwd_dev:.4f}), plain "
+          f"{bwd_plain:.4f} ms, bf16 products {bwd_products_ms:.4f} ms, "
           f"cross_entropy bwd {lib_bwd_ms:.4f} ms, bound {b_bound[0]:.4f} "
           f"ms ({b_bound[1]})")
     src = "paddle_tpu_torch/csrc/fused_ce.cu"
@@ -1278,14 +1322,16 @@ def check_ce(dev) -> tuple[dict, dict]:
     shape = f"N{N} H{H} V{V}"
     return ({"name": "fused_ce_fwd", "route": "cuda", "source": src,
              "replaces": ref_py + ":81", "max_abs_err": max(err_f, err_l),
-             "ms": fwd_ms, "plain_ms": fwd_plain, "bound_ms": f_bound[0],
-             "bound_by": f_bound[1], "library_ms": lib_fwd_ms,
-             "shape": shape},
+             "ms": fwd_ms, "device_ms": fwd_dev, "plain_ms": fwd_plain,
+             "bound_ms": f_bound[0], "bound_by": f_bound[1],
+             "library_ms": lib_fwd_ms, "products_ms": fwd_products,
+             "variant": variants[0], "shape": shape},
             {"name": "fused_ce_bwd", "route": "cuda", "source": src,
              "replaces": ref_py + ":125", "max_abs_err": err_b,
-             "ms": bwd_ms, "plain_ms": bwd_plain, "bound_ms": b_bound[0],
-             "bound_by": b_bound[1], "library_ms": lib_bwd_ms,
-             "shape": shape})
+             "ms": bwd_ms, "device_ms": bwd_dev, "plain_ms": bwd_plain,
+             "bound_ms": b_bound[0], "bound_by": b_bound[1],
+             "library_ms": lib_bwd_ms, "products_ms": bwd_products_ms,
+             "variant": variants[0], "shape": shape})
 
 
 def _vec(gen, dev, h: int, mean: float, std: float, dtype=torch.float32):
@@ -1388,26 +1434,45 @@ def check_bias_gelu(dev) -> dict:
     x = (2.0 * torch.randn((16384, 4096), generator=gen,
                            device=dev)).to(torch.bfloat16)
     b = _vec(gen, dev, 4096, 0.0, 0.5)
+    # the 2-D walk: the C launcher's is bias_gelu_plan's, and the first
+    # 256 rows alone give the bits of those rows of the whole call
+    N, Fd = x.shape
+    walk = fba.bias_gelu_plan_c(N, Fd, x.dtype, b.dtype)
+    if walk != fba.bias_gelu_plan(N, Fd, x.element_size(),
+                                  walk["resident"]):
+        raise AssertionError(f"bias_gelu_plan_c {walk} != bias_gelu_plan")
+    if not torch.equal(fba.bias_gelu_fwd(x[:256], b),
+                       fba.bias_gelu_fwd(x, b)[:256]):
+        raise AssertionError("K7: rows 0-255 alone differ from the call's")
     ms = _time_ms(lambda: fba.bias_gelu_fwd(x, b))
+    device_ms = _graph_ms(lambda: fba.bias_gelu_fwd(x, b))
     plain_ms = _time_ms(lambda: fba.bias_gelu_plain(x, b))
     # nearest library call: the tanh gelu on a pre-biased input (the add
     # left out)
     xb = x + b.to(torch.bfloat16)
     library_ms = _time_ms(lambda: torch.nn.functional.gelu(
         xb, approximate="tanh"))
-    N, Fd = x.shape
+    library_device_ms = _graph_ms(lambda: torch.nn.functional.gelu(
+        xb, approximate="tanh"))
     bound_ms, bound_by = _bound(2 * N * Fd * 2 + Fd * 4, 12.0 * N * Fd,
                                 FP32_FLOP_PER_S)
-    print(f"K7 bias gelu bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"gelu on x + b {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by})")
+    variant = (f"2-D walk: {walk['cols']} vectors x {walk['rows']} rows a "
+               f"block, grid {walk['grid'][0]} x {walk['grid'][1]}, "
+               f"{walk['unroll']} loads in flight")
+    print(f"K7 bias gelu bf16: kernel {ms:.4f} ms (device {device_ms:.4f}), "
+          f"plain {plain_ms:.4f} ms, gelu on x + b {library_ms:.4f} ms "
+          f"(device {library_device_ms:.4f}), bound {bound_ms:.4f} ms "
+          f"({bound_by}); {variant}")
+    # K7 computes no product: products_ms is null
     return {"name": "fused_bias_act", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/fused_bias_act.cu",
             "replaces": "paddle_tpu/ops/pallas/fused_bias_act.py:91",
             "max_abs_err": errs[torch.bfloat16], "max_abs_err_fp32":
-            errs[torch.float32], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "shape": f"N{N} F{Fd} bf16"}
+            errs[torch.float32], "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "library_device_ms": library_device_ms,
+            "products_ms": None, "variant": variant,
+            "shape": f"N{N} F{Fd} bf16"}
 
 
 def _train_counters():
@@ -1422,8 +1487,31 @@ def _train_counters():
             "fused_bias_act": fba.bias_gelu_fwd}
 
 
+def _check_ce_products(tag: str, before: collections.Counter, steps: int,
+                       N: int, H: int, V: int) -> None:
+    """The cross-entropy products since ``before`` are exactly ``steps``
+    forwards and backwards at x [N, H] bf16 over V, every one through the
+    wgmma route as the C entries reported it (K4's "stats" once a step,
+    K5's "dl", "dx", "dw" once a slab), and the C launchers' plan
+    (``ce_plan_c``) is ``ce_plan``'s at that shape."""
+    from paddle_tpu_torch.ops.kernels import fused_ce as ce
+
+    diff = dict(ce.PRODUCTS - before)
+    slabs = -(-V // ce.SLAB)
+    want = {("wgmma", "bfloat16", p): steps * (1 if p == "stats" else slabs)
+            for p in ("stats", "dl", "dx", "dw")}
+    if diff != want:
+        raise AssertionError(f"{tag}: CE products {diff} != {want}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if ce.ce_plan_c(N, H, V) != ce.ce_plan(N, H, V, sms=sms):
+        raise AssertionError(f"{tag}: ce_plan_c != ce_plan at N{N} H{H} "
+                             f"V{V}")
+    print(f"{tag}: CE products by (variant, dtype, product): {diff}")
+
+
 TRAIN_CATEGORIES = (
-    ("K4/K5 cross-entropy", ("ce_gemm_kernel", "ce_stats_reduce")),
+    ("K4/K5 cross-entropy", ("ce_wg_kernel", "ce_fma_kernel",
+                             "ce_stats_reduce")),
     ("K1/K2 flash attention", ("fwd_wg_kernel", "bwd_wg_kernel",
                                "fwd_fma_kernel", "bwd_fma_kernel")),
     ("K6/K7 norm epilogue, bias gelu", ("norm_epilogue_kernel",
@@ -1543,6 +1631,7 @@ def run_train(dev, profile: bool = False, fused: bool = True,
                     "flash_bwd_hm": fa.flash_bwd_hm}
         for fn in counters.values():
             fn.launches = 0
+        ce_before = collections.Counter(ce.PRODUCTS)
         best = float("inf")
         for _ in range(windows):
             torch.cuda.synchronize()
@@ -1568,6 +1657,8 @@ def run_train(dev, profile: bool = False, fused: bool = True,
             "fused_bias_act": L * steps if fused else 0}
     if launches != want:
         raise AssertionError(f"train launches {launches} != {want}")
+    _check_ce_products("train", ce_before, steps, batch * cfg.seq_len,
+                       cfg.hidden, cfg.vocab_size)
     if fused:
         counts = _template_counts(report)
         want_sites = {("layer_epilogue", True): 2 * L + 1,
@@ -1819,6 +1910,7 @@ def run_train_13b(dev) -> dict:
         counters = _split_counters()
         for fn in counters.values():
             fn.launches = 0
+        ce_before = collections.Counter(ce.PRODUCTS)
         best, windows = float("inf"), 3
         for _ in range(windows):
             torch.cuda.synchronize()
@@ -1843,6 +1935,8 @@ def run_train_13b(dev) -> dict:
         if launches != want:
             raise AssertionError(f"train 13b S{S} launches {launches} != "
                                  f"{want}")
+        _check_ce_products(f"train 13b S{S}", ce_before, steps, B * S,
+                           cfg.hidden, cfg.vocab_size)
         split_launches += launches["flash_bwd_split"]
         if not all(math.isfinite(v) for v in losses):
             raise AssertionError(f"non-finite loss in {losses}")

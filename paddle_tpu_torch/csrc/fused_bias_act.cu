@@ -20,11 +20,27 @@
 // 268 MB, 0.080 ms at 3.35 TB/s. swiglu: gate and up in, y out, 6 bytes an
 // element in bf16; at LLaMA-1B's prefill [8192, 5504] 271 MB, 0.081 ms.
 //
-// Design. A grid-stride loop over 16-byte vectors (8 bf16 or 4 fp32
-// values of one row: F is a multiple of the vector width), 256 threads a
-// block, at most 16 blocks per SM's worth of the grid; each thread loads
-// its vector of each input (and, for the gelu, the matching bias values)
-// and stores one vector.
+// Design of bias_gelu: a 2-D walk over 16-byte vectors (8 bf16 or 4 fp32
+// values of one row: F is a multiple of the vector width). A block of 256
+// threads covers ``cols`` vectors of a row (up to 256) and ``rows`` rows
+// (256 / cols); gridDim.x blocks span a row, gridDim.y walk the rows. Each
+// thread owns one column vector for the whole call: it reads and rounds
+// its bias values once, into registers (the bias dtype is a template
+// parameter, not a branch per element), then strides over rows with
+// kUnroll independent 16-byte loads in flight before any arithmetic.
+// Offsets within a row are 32-bit; a row's start is one 64-bit product.
+// The grid is kWaves times what the card holds at once (the occupancy it
+// reports for the kernel, times its SMs), capped so that each thread has
+// at least kUnroll rows: on the H100 one wave of long-lived blocks ran at
+// 0.109 ms at [16384, 4096] bf16 and 8 or 16 waves at 0.094, a grid that
+// leaves threads less than a full pass slower again (PERF.md).
+// bias_gelu_plan in ops/kernels/fused_bias_act.py mirrors the walk. The
+// arithmetic of an element is the eager composition's, as above, whatever
+// the walk.
+//
+// swiglu: a grid-stride loop over 16-byte vectors, 256 threads a block,
+// at most 16 blocks per SM's worth of the grid; each thread loads its
+// vector of each input and stores one vector.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -33,7 +49,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 132 * 16;
+constexpr long long kMaxBlocks = 132 * 16;   // swiglu's grid-stride cap
+constexpr int kUnroll = 4;   // bias_gelu: 16-byte loads in flight a thread
+constexpr int kWaves = 8;    // bias_gelu: blocks, in units of the card's fill
 
 template <typename T> struct Vec;
 template <> struct Vec<float> { static constexpr int N = 4; };
@@ -55,12 +73,6 @@ template <typename T> __device__ __forceinline__ float rnd(float v) {
   return to_f(from_f<T>(v));
 }
 
-__device__ __forceinline__ float vec_at(const void* p, int code, int j) {
-  return code == 0
-             ? __ldg(static_cast<const float*>(p) + j)
-             : __bfloat162float(static_cast<const __nv_bfloat16*>(p)[j]);
-}
-
 __device__ __forceinline__ float gelu_tanh(float x) {
   // PyTorch's tanh gelu: 0.5 x (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3)))
   const float kBeta = 0.7978845608028654f;
@@ -69,27 +81,44 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return 0.5f * x * (1.f + tanhf(inner));
 }
 
-template <typename T>
+// Thread (tr, tc) = (threadIdx.x / cols, threadIdx.x % cols) of block
+// (bx, by) owns the 16-byte vector bx cols + tc of rows by rows + tr + j
+// gridDim.y rows, j = 0, 1, ...; threads past rows x cols or past the row
+// idle.
+template <typename T, typename B>
 __global__ void __launch_bounds__(kThreads)
-bias_gelu_kernel(const T* __restrict__ x, const void* __restrict__ bias,
-                 int bias_code, T* __restrict__ y, long long n_vec, int f) {
+bias_gelu_kernel(const T* __restrict__ x, const B* __restrict__ bias,
+                 T* __restrict__ y, int n, int f, int cols, int rows) {
   constexpr int E = Vec<T>::N;
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-       i < n_vec; i += stride) {
-    const long long e0 = i * E;
-    const int c = (int)(e0 % f);
-    const uint4 u = *reinterpret_cast<const uint4*>(x + e0);
-    const T* xe = reinterpret_cast<const T*>(&u);
-    uint4 o;
-    T* ye = reinterpret_cast<T*>(&o);
+  const int tr = threadIdx.x / cols;
+  const int c = (blockIdx.x * cols + threadIdx.x % cols) * E;
+  if (tr >= rows || c >= f) return;
+  float b[E];
 #pragma unroll
-    for (int j = 0; j < E; ++j) {
-      const float b = rnd<T>(vec_at(bias, bias_code, c + j));
-      const float v = rnd<T>(__fadd_rn(to_f(xe[j]), b));
-      ye[j] = from_f<T>(gelu_tanh(v));
+  for (int j = 0; j < E; ++j) b[j] = rnd<T>(to_f(bias[c + j]));
+  const int stride = gridDim.y * rows;
+  for (int r = blockIdx.y * rows + tr; r < n; r += kUnroll * stride) {
+    uint4 u[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      const int rk = r + k * stride;
+      if (rk < n)
+        u[k] = *reinterpret_cast<const uint4*>(x + (size_t)rk * f + c);
     }
-    *reinterpret_cast<uint4*>(y + e0) = o;
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      const int rk = r + k * stride;
+      if (rk >= n) break;
+      const T* xe = reinterpret_cast<const T*>(&u[k]);
+      uint4 o;
+      T* ye = reinterpret_cast<T*>(&o);
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        const float v = rnd<T>(__fadd_rn(to_f(xe[j]), b[j]));
+        ye[j] = from_f<T>(gelu_tanh(v));
+      }
+      *reinterpret_cast<uint4*>(y + (size_t)rk * f + c) = o;
+    }
   }
 }
 
@@ -125,15 +154,48 @@ long long grid_for(int n, int f, long long* n_vec) {
   return blocks < 1 ? 1 : blocks;
 }
 
-template <typename T>
-int launch(const void* x, const void* bias, int bias_code, void* y, int n,
-           int f, cudaStream_t st) {
+// bias_gelu's walk for [n, f]: out = {cols, rows, gridDim.x, gridDim.y,
+// kUnroll, resident blocks}. ``resident`` is the card's capacity for the
+// kernel (blocks an SM at full occupancy, times the SMs), queried once per
+// instantiation; gridDim.y is kWaves times it over the row's column
+// blocks, up to a pass of kUnroll rows a thread.
+template <typename T, typename B>
+cudaError_t walk(int n, int f, int* out) {
+  static int resident = 0;
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, bias_gelu_kernel<T, B>, kThreads, 0);
+    if (err != cudaSuccess) return err;
+    resident = per_sm * sms;
+  }
+  const int vecs = f / Vec<T>::N;
+  const int cols = vecs < kThreads ? vecs : kThreads;
+  const int rows = kThreads / cols;
+  const int gx = (vecs + cols - 1) / cols;
+  const int passes = (n + rows * kUnroll - 1) / (rows * kUnroll);
+  int gy = kWaves * resident / gx;
+  if (gy > passes) gy = passes;
+  if (gy < 1) gy = 1;
+  const int v[6] = {cols, rows, gx, gy, kUnroll, resident};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return cudaSuccess;
+}
+
+template <typename T, typename B>
+int launch(const void* x, const void* bias, void* y, int n, int f,
+           cudaStream_t st) {
   if (f % Vec<T>::N) return (int)cudaErrorInvalidValue;
-  long long n_vec;
-  const long long blocks = grid_for<T>(n, f, &n_vec);
-  bias_gelu_kernel<T><<<(unsigned)blocks, kThreads, 0, st>>>(
-      static_cast<const T*>(x), bias, bias_code, static_cast<T*>(y), n_vec,
-      f);
+  int w[6];
+  cudaError_t err = walk<T, B>(n, f, w);
+  if (err != cudaSuccess) return (int)err;
+  bias_gelu_kernel<T, B><<<dim3(w[2], w[3]), kThreads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const B*>(bias),
+      static_cast<T*>(y), n, f, w[0], w[1]);
   return (int)cudaGetLastError();
 }
 
@@ -151,14 +213,37 @@ int launch_swiglu(const void* gate, const void* up, void* y, int n, int f,
 
 }  // namespace
 
-// dtype / bias_code: 0 fp32, 1 bf16.
+// dtype / bias_code: 0 fp32, 1 bf16; x and y [n, f], f % (16 / itemsize)
+// == 0, 16-byte aligned.
 extern "C" int bias_gelu(const void* x, const void* bias, int bias_code,
                          void* y, int n, int f, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n <= 0 || f <= 0 || bias == nullptr) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return launch<float>(x, bias, bias_code, y, n, f, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, bias, bias_code, y, n, f, st);
+  using BF = __nv_bfloat16;
+  if (dtype == 0 && bias_code == 0)
+    return launch<float, float>(x, bias, y, n, f, st);
+  if (dtype == 0 && bias_code == 1)
+    return launch<float, BF>(x, bias, y, n, f, st);
+  if (dtype == 1 && bias_code == 0)
+    return launch<BF, float>(x, bias, y, n, f, st);
+  if (dtype == 1 && bias_code == 1)
+    return launch<BF, BF>(x, bias, y, n, f, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The walk bias_gelu launches for [n, f] (see walk), for holding
+// bias_gelu_plan to the source: out = {cols, rows, gridDim.x, gridDim.y,
+// unroll, resident blocks}.
+extern "C" int bias_gelu_plan_c(int n, int f, int dtype, int bias_code,
+                                int* out) {
+  if (n <= 0 || f <= 0 || out == nullptr) return (int)cudaErrorInvalidValue;
+  using BF = __nv_bfloat16;
+  if (dtype == 0 && f % 4 == 0)
+    return (int)(bias_code ? walk<float, BF>(n, f, out)
+                           : walk<float, float>(n, f, out));
+  if (dtype == 1 && f % 8 == 0)
+    return (int)(bias_code ? walk<BF, BF>(n, f, out)
+                           : walk<BF, float>(n, f, out));
   return (int)cudaErrorInvalidValue;
 }
 

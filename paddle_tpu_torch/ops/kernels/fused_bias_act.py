@@ -33,10 +33,57 @@ import torch.nn.functional as F
 from . import _build
 
 __all__ = ["fused_bias_gelu", "fused_swiglu", "fused_bias_act_supported",
-           "bias_gelu_fwd", "bias_gelu_plain", "swiglu_fwd", "swiglu_plain"]
+           "bias_gelu_fwd", "bias_gelu_plain", "swiglu_fwd", "swiglu_plain",
+           "bias_gelu_plan", "bias_gelu_plan_c"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fns = {}
+# K7's walk (csrc/fused_bias_act.cu, bias_gelu_kernel)
+THREADS = 256               # threads a block
+UNROLL = 4                  # 16-byte loads in flight a thread
+WAVES = 8                   # blocks a launch, in units of the card's fill
+
+
+def bias_gelu_plan(n: int, f: int, itemsize: int, resident: int) -> dict:
+    """K7's 2-D walk over x [n, f] of ``itemsize``-byte elements, on a
+    card that holds ``resident`` blocks at once (``bias_gelu_plan_c``
+    reports the card's). A 16-byte ``vec`` of a row is one thread's
+    column; a block covers ``cols`` of them (up to 256) on ``rows`` rows
+    (256 // cols); ``grid[0]`` blocks span a row and ``grid[1]`` walk the
+    rows:
+    thread (tr, tc) of block (bx, by) owns column vector bx cols + tc of
+    rows by rows + tr + j grid[1] rows (threads past the row or past
+    rows x cols idle), ``unroll`` rows' loads in flight at a time.
+    ``grid[1]`` is ``WAVES`` times what the card holds, spread over the
+    row's column blocks, up to one pass of ``unroll`` rows a thread."""
+    vec = 16 // itemsize
+    vecs = f // vec
+    cols = min(vecs, THREADS)
+    rows = THREADS // cols
+    gx = -(-vecs // cols)
+    gy = max(1, min(WAVES * resident // gx, -(-n // (rows * UNROLL))))
+    return {"vec": vec, "cols": cols, "rows": rows, "grid": (gx, gy),
+            "unroll": UNROLL, "resident": resident}
+
+
+def bias_gelu_plan_c(n: int, f: int, dtype=torch.bfloat16,
+                     bias_dtype=torch.float32) -> dict:
+    """The walk the C launcher takes (``bias_gelu_plan_c`` in the
+    library) in bias_gelu_plan's form: for holding it to the source on
+    the card."""
+    fn = _fns.get("bias_gelu_plan_c")
+    if fn is None:
+        fn = _build.library("fused_bias_act").bias_gelu_plan_c
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns["bias_gelu_plan_c"] = fn
+    out = (ctypes.c_int * 6)()
+    _build.check(fn(n, f, _DTYPE_CODE[dtype], _DTYPE_CODE[bias_dtype],
+                    ctypes.addressof(out)), "bias_gelu_plan_c")
+    cols, rows, gx, gy, unroll, resident = out
+    return {"vec": 16 // torch.empty((), dtype=dtype).element_size(),
+            "cols": cols, "rows": rows, "grid": (gx, gy), "unroll": unroll,
+            "resident": resident}
 
 
 def fused_bias_act_supported(n: int, f: int, dtype) -> bool:

@@ -21,17 +21,29 @@ and 128 takes the TMA + wgmma variant at every S the kernels take
 227 KB; the work order covers every causal tile once, heaviest first
 within each L2 chunk; the plan's constants are the source's. The flash
 launch counters take the variant the C launcher reports, not the plan's.
+The cross-entropy products (K4's "stats", K5's "dl", "dx", "dw" a slab;
+``fused_ce.ce_plan``) at gpt3-350m's and gpt3-1.3b's loss shapes and a
+ragged case: bf16 takes the TMA + wgmma route and fp32 the FMA one, every
+launch fits 227 KB, the persistent blocks' tiles cover every output tile
+of each product exactly once, the slabs cover the vocabulary, and the
+constants are the source's; the CE product counters take the variant
+the C entry reports. K7's 2-D walk (``fused_bias_act.bias_gelu_plan``)
+covers every element of [n, f] exactly once for ragged n and every
+f % 8 == 0, each thread on one fixed column vector.
 """
 
 import collections
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.ops.kernels import decode_attention as da
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
+from paddle_tpu_torch.ops.kernels import fused_bias_act as fba
+from paddle_tpu_torch.ops.kernels import fused_ce as ce
 from paddle_tpu_torch.ops.kernels import quant_matmul as qmm
 
 ENGINE_SHAPES = [(512, 4096, 4096), (512, 4096, 1024), (512, 4096, 14336),
@@ -410,3 +422,217 @@ def test_flash_counters_take_the_launched_variant():
         (3, 2, 1)
     assert diff == {("wgmma", "bfloat16", 64, 512, "fwd", 8): 2,
                     ("fma", "bfloat16", 64, 512, "fwd", 8): 1}
+
+
+CE_SHAPES = [(16384, 1024, 50304), (4096, 2048, 50304),
+             (300, 128, ce.SLAB + 1000)]
+CE_DTYPES = [torch.bfloat16, torch.float32]
+
+
+@pytest.mark.parametrize("dtype", CE_DTYPES)
+@pytest.mark.parametrize("N,H,V", CE_SHAPES)
+def test_ce_plan_takes_the_route_and_fits(N, H, V, dtype):
+    """bf16 products take the TMA + wgmma route (128 x 256 tiles, or 128
+    x 128 under one wave; "stats" always 256 wide), fp32 the FMA one;
+    every launch fits 227 KB with a ring of at least 2 stages; the
+    persistent grid is one block a SM, up to the tiles."""
+    plan = ce.ce_plan(N, H, V, dtype)
+    slabs = -(-V // ce.SLAB)
+    assert [e["product"] for e in plan] == \
+        ["stats"] + ["dl", "dx", "dw"] * slabs
+    for e in plan:
+        assert e["smem"] <= ce.CE_SMEM
+        assert e["stages"] >= 2
+        if dtype == torch.bfloat16:
+            assert e["variant"] == "wgmma"
+            assert (e["bm"], e["bk"]) == (128, 64)
+            assert e["bn"] in (128, 256)
+            assert e["bn"] == 256 or (e["product"] != "stats"
+                                      and e["tiles"] * 2 < 2 * 132)
+            assert e["grid"] == min(e["tiles"], ce.H100_SMS)
+            assert e["smem"] == ce.WG_SMEM_FIXED + e["stages"] * (
+                (128 + e["bn"]) * 64 * 2)
+        else:
+            assert e["variant"] == "fma"
+            assert (e["bm"], e["bn"], e["bk"]) == (128, 128, 32)
+            assert e["grid"] == e["tiles"]
+
+
+def test_ce_plan_at_gpt3_350m():
+    """The flagship's products: 256-wide tiles with a 4-stage ring, the
+    statistics over the rows fastest (x stays in L2, w streams once),
+    the backward's over the columns (w's slab or x stays in L2), and 128
+    wide only for the last slab's dw (36 tiles of 256 under a wave)."""
+    plan = ce.ce_plan(16384, 1024, 50304)
+    assert plan[0]["tiles"] == 128 * 197 and not plan[0]["raster_n"]
+    assert all(e["raster_n"] for e in plan[1:])
+    assert [e["bn"] for e in plan] == [256] * 21 + [128]
+    assert {e["stages"] for e in plan[:-1]} == {4}
+
+
+def _tile_origin(e, tile):
+    """(row, column) of tile ``tile``'s first output element under a
+    ce_plan entry, as csrc/fused_ce.cu's wg_place puts it (the fp32
+    grid's blockIdx.x is the column tile, raster_n True)."""
+    mt, nt = -(-e["M"] // e["bm"]), -(-e["Nn"] // e["bn"])
+    mi, ni = ((tile // nt, tile % nt) if e["raster_n"]
+              else (tile % mt, tile // mt))
+    return mi * e["bm"], ni * e["bn"]
+
+
+def _cover(e):
+    """Each output tile's count over the persistent blocks' walks (block
+    b takes tiles b, b + grid, ...; the fp32 grid one tile a block)."""
+    counts = collections.Counter()
+    for b in range(e["grid"]):
+        for tile in range(b, e["tiles"], e["grid"]):
+            m0, n0 = _tile_origin(e, tile)
+            assert 0 <= m0 < e["M"] and 0 <= n0 < e["Nn"]
+            assert m0 % e["bm"] == 0 and n0 % e["bn"] == 0
+            counts[m0, n0] += 1
+    return counts
+
+
+@pytest.mark.parametrize("dtype", CE_DTYPES)
+@pytest.mark.parametrize("N,H,V", CE_SHAPES)
+def test_ce_plan_covers_every_output_tile_once(N, H, V, dtype):
+    """Every output tile of each product is taken by exactly one block,
+    once; the products' shapes are the slab's (dl [N, wc] over H, dx
+    [N, H] over wc, dw [wc, H] over N) and the slabs cover the vocabulary
+    in order."""
+    plan = ce.ce_plan(N, H, V, dtype)
+    for e in plan:
+        counts = _cover(e)
+        want = {(m, n) for m in range(0, e["M"], e["bm"])
+                for n in range(0, e["Nn"], e["bn"])}
+        assert set(counts) == want and set(counts.values()) == {1}
+        assert e["tiles"] == len(want)
+    assert (plan[0]["M"], plan[0]["Nn"], plan[0]["K"]) == (N, V, H)
+    v0 = 0
+    for dl, dx, dw in zip(plan[1::3], plan[2::3], plan[3::3]):
+        wc = min(ce.SLAB, V - v0)
+        assert dl["v0"] == dx["v0"] == dw["v0"] == v0
+        assert (dl["M"], dl["Nn"], dl["K"]) == (N, wc, H)
+        assert (dx["M"], dx["Nn"], dx["K"]) == (N, H, wc)
+        assert (dw["M"], dw["Nn"], dw["K"]) == (wc, H, N)
+        v0 += wc
+    assert v0 == V
+
+
+def test_ce_plan_constants_are_the_source():
+    src = (Path(ce.__file__).resolve().parents[2] / "csrc"
+           / "fused_ce.cu").read_text()
+    for name, value in (("kWgBM", ce.WG_BM), ("kWgBK", ce.WG_BK),
+                        ("kWgMaxStages", ce.WG_MAX_STAGES),
+                        ("kSmemMax", ce.CE_SMEM), ("kGT", ce.FMA_TILE),
+                        ("kGK", ce.FMA_BK), ("kGStages", ce.FMA_STAGES)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    assert f"constexpr int kDlStaging = {ce.WG_STAGING};" in src
+    assert ("constexpr int kSmemFixed =             // alignment, barriers, "
+            "dl staging\n    1024 + 16 * kWgMaxStages + 8 * kDlStaging;") \
+        in src
+    assert ce.WG_SMEM_FIXED == 1024 + 16 * ce.WG_MAX_STAGES + \
+        8 * ce.WG_STAGING
+    assert "constexpr int kFmaSmem = 4 * 2 * kGStages * kGStage;" in src
+    assert "constexpr int kGStage = kGT * kP;" in src
+    assert ce.FMA_SMEM == 4 * 2 * ce.FMA_STAGES * ce.FMA_TILE * (
+        ce.FMA_BK + 4)
+    assert "enum { EPI_DL = 0, EPI_DX = 1, EPI_DW = 2, EPI_STATS = 3 };" \
+        in src
+    assert ce._PRODUCTS == ("dl", "dx", "dw", "stats")
+
+
+def test_ce_products_count_the_launched_variant(monkeypatch):
+    """``PRODUCTS`` counts what the C entry reports it launched, one
+    product for the forward and three a slab for the backward."""
+    def entry(code):
+        def fn(*args):
+            args[-1]._obj.value = code
+            return 0
+        return fn
+
+    before = collections.Counter(ce.PRODUCTS)
+    monkeypatch.setattr(ce, "_kernel", lambda name: entry(1))
+    ce._launch("ce_fwd", ("stats",), torch.bfloat16)
+    ce._launch("ce_bwd", ("dl", "dx", "dw") * 2, torch.bfloat16)
+    monkeypatch.setattr(ce, "_kernel", lambda name: entry(0))
+    ce._launch("ce_fwd", ("stats",), torch.float32)
+    diff = ce.PRODUCTS - before
+    assert diff == {("wgmma", "bfloat16", "stats"): 1,
+                    ("wgmma", "bfloat16", "dl"): 2,
+                    ("wgmma", "bfloat16", "dx"): 2,
+                    ("wgmma", "bfloat16", "dw"): 2,
+                    ("fma", "float32", "stats"): 1}
+
+
+def _walk(plan, n, f):
+    """Every (thread, row, first element) bias_gelu_kernel touches,
+    following its loops: thread (tr, tc) of block (bx, by) on column
+    vector bx cols + tc, passes r = by rows + tr, + unroll stride, ...
+    while r < n, each loading rows r + k stride < n (k < unroll)."""
+    vec, cols, rows, unroll = (plan["vec"], plan["cols"], plan["rows"],
+                               plan["unroll"])
+    gx, gy = plan["grid"]
+    bx, by, tid = (a.ravel() for a in np.meshgrid(
+        np.arange(gx), np.arange(gy), np.arange(fba.THREADS), indexing="ij"))
+    tr, c = tid // cols, (bx * cols + tid % cols) * vec
+    active = (tr < rows) & (c < f)
+    thread = np.flatnonzero(active)
+    r0, c = (by * rows + tr)[active], c[active]
+    stride = gy * rows
+    passes = -(-n // (unroll * stride)) + 1
+    j = np.arange(passes)[:, None, None]
+    k = np.arange(unroll)[None, :, None]
+    r = r0[None, None, :] + j * unroll * stride
+    rk = r + k * stride
+    ok = (r < n) & (rk < n)
+    shape = ok.shape
+    return (np.broadcast_to(thread, shape)[ok], rk[ok],
+            np.broadcast_to(c, shape)[ok])
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("f", [8, 64, 200, 1000, 2056, 4096, 5504])
+@pytest.mark.parametrize("n,resident", [(1, 1056), (7, 1056), (300, 1056),
+                                        (300, 5), (1027, 64), (2048, 1)])
+def test_bias_gelu_walk_covers_every_element_once(itemsize, f, n, resident):
+    """K7: every 16-byte vector of [n, f] is read and written by exactly
+    one thread, once; each thread stays on one column vector (its bias
+    values are read once); the grid is WAVES times what the card holds,
+    spread over the row's column blocks, up to one pass a thread."""
+    plan = fba.bias_gelu_plan(n, f, itemsize, resident)
+    vec = 16 // itemsize
+    assert plan["vec"] == vec and plan["cols"] * plan["rows"] <= 256
+    gx, gy = plan["grid"]
+    assert gx * plan["cols"] * vec >= f > (gx - 1) * plan["cols"] * vec
+    assert gy == max(1, min(fba.WAVES * resident // gx,
+                            -(-n // (plan["rows"] * plan["unroll"]))))
+    thread, row, col = _walk(plan, n, f)
+    assert (col % vec == 0).all() and (col < f).all() and (row < n).all()
+    counts = np.bincount(row * (f // vec) + col // vec,
+                         minlength=n * (f // vec))
+    assert (counts == 1).all()
+    # one column vector a thread: its bias values are read once
+    firsts = {}
+    for t, cc in zip(thread.tolist(), col.tolist()):
+        assert firsts.setdefault(t, cc) == cc
+
+
+def test_bias_gelu_walk_at_gpt3_350m():
+    """gpt3-350m's FFN [16384, 4096] bf16 on the H100, which holds 4
+    blocks of the kernel an SM (60 registers a thread): two blocks of 256
+    vectors span a row, 8 x 528 / 2 = 2112 walk the rows, 7-8 rows a
+    thread in passes of 4 loads in flight; at 1027 rows the grid stops
+    at one pass a thread."""
+    plan = fba.bias_gelu_plan(16384, 4096, 2, 4 * 132)
+    assert (plan["cols"], plan["rows"], plan["grid"]) == (256, 1, (2, 2112))
+    assert plan["unroll"] == 4
+    assert fba.bias_gelu_plan(1027, 4096, 2, 4 * 132)["grid"] == (2, 257)
+
+
+def test_bias_gelu_walk_constants_are_the_source():
+    src = (Path(fba.__file__).resolve().parents[2] / "csrc"
+           / "fused_bias_act.cu").read_text()
+    assert f"constexpr int kThreads = {fba.THREADS};" in src
+    assert f"constexpr int kUnroll = {fba.UNROLL};" in src
+    assert f"constexpr int kWaves = {fba.WAVES};" in src

@@ -44,7 +44,15 @@ on rotated inputs, each within its tolerance of its plain version, and
 every launch is counted as the wgmma variant (the launchers report what
 they launched); the forward's scheduling counters are back at 0 after
 each launch, each stream has its own, and a launch captured in a CUDA
-graph owns one."""
+graph owns one. The cross-entropy tile loop (TMA + wgmma for bf16): the C
+launchers' plan is ``ce_plan``'s, every bf16 product is counted as the
+wgmma variant (the entries report what they launched), K5 is bitwise
+reproducible and K4/K5 hold their plain versions with ragged token, vocab
+and slab edges. K7's walk is ``bias_gelu_plan``'s, and the first 256 rows
+of gpt3-350m's FFN input alone give the bits of those rows of the whole
+call."""
+
+import collections
 
 import numpy as np
 import pytest
@@ -232,6 +240,85 @@ def test_fused_ce_kernels_match_plain(cuda, dtype, tol, N, H, V):
     free = torch.ones(V, dtype=torch.bool, device=cuda)
     free[lab] = False
     assert _scaled(dh[:, free], rdh[:, free], dim=0) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("N,H,V", [(16384, 1024, 50304), (4096, 2048, 50304),
+                                   (300, 128, ce.SLAB + 1000)])
+def test_ce_plan_c_matches_ce_plan(cuda, dtype, N, H, V):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert ce.ce_plan_c(N, H, V, dtype) == ce.ce_plan(N, H, V, dtype, sms=sms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,V", [(300, 128, ce.SLAB + 1000),
+                                   (129, 384, 136), (1024, 256, 4096),
+                                   (4100, 2048, 2 * ce.SLAB)])
+def test_fused_ce_bf16_takes_wgmma_and_is_deterministic(cuda, N, H, V):
+    """Every bf16 product of K4 and K5 is counted as the wgmma variant,
+    one "stats" and three a slab; two backward calls are bit-equal; both
+    hold their plain versions at ragged token, vocab and slab edges."""
+    rng = np.random.default_rng(7)
+    tol = 3 * 2 ** -7
+    x = torch.from_numpy(rng.normal(size=(N, H)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    wte = torch.from_numpy((rng.normal(size=(V, H)) * 3 / H ** 0.5).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    lab = torch.from_numpy(rng.integers(0, V, size=N)).to(cuda)
+    g = torch.from_numpy(rng.random(N).astype(np.float32)).to(cuda)
+    before = collections.Counter(ce.PRODUCTS)
+    nll, lse = ce.fused_ce_fwd(x, wte.t(), lab)
+    dx, dh = ce.fused_ce_bwd(x, wte.t(), lab, lse, g)
+    dx2, dh2 = ce.fused_ce_bwd(x, wte.t(), lab, lse, g)
+    rnll, rlse = ce.fused_ce_fwd_plain(x, wte.t(), lab)
+    rdx, rdh = ce.fused_ce_bwd_plain(x, wte.t(), lab, lse, g)
+    torch.cuda.synchronize()
+    slabs = -(-V // ce.SLAB)
+    assert dict(ce.PRODUCTS - before) == {
+        ("wgmma", "bfloat16", "stats"): 1,
+        ("wgmma", "bfloat16", "dl"): 2 * slabs,
+        ("wgmma", "bfloat16", "dx"): 2 * slabs,
+        ("wgmma", "bfloat16", "dw"): 2 * slabs}
+    assert torch.equal(dx, dx2) and torch.equal(dh, dh2)
+    assert (nll - rnll).abs().max().item() <= 1e-3
+    assert (lse - rlse).abs().max().item() <= 1e-3
+    assert _scaled(dx, rdx) <= tol and _scaled(dh, rdh, dim=0) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,f,dtype", [(16384, 4096, torch.bfloat16),
+                                       (300, 5504, torch.bfloat16),
+                                       (512, 256, torch.float32),
+                                       (7, 1000, torch.float32)])
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16])
+def test_bias_gelu_plan_c_matches_plan(cuda, n, f, dtype, bias_dtype):
+    from paddle_tpu_torch.ops.kernels import fused_bias_act as fba
+
+    got = fba.bias_gelu_plan_c(n, f, dtype, bias_dtype)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    assert got == fba.bias_gelu_plan(n, f, itemsize, got["resident"])
+    assert got["resident"] >= torch.cuda.get_device_properties(
+        cuda).multi_processor_count
+
+
+@pytest.mark.cuda
+def test_bias_gelu_rows_alone_give_the_call_bits(cuda):
+    """K7 on the first 256 rows of a [16384, 4096] bf16 input (fp32
+    bias) gives the bits of those rows of the whole call, and both are
+    the plain composition's: the walk does not change an element's
+    arithmetic."""
+    from paddle_tpu_torch.ops.kernels import fused_bias_act as fba
+
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy((2 * rng.normal(size=(16384, 4096))).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    b = torch.from_numpy(rng.normal(size=4096).astype(np.float32)).to(cuda)
+    y = fba.bias_gelu_fwd(x, b)
+    head = fba.bias_gelu_fwd(x[:256].contiguous(), b)
+    torch.cuda.synchronize()
+    assert torch.equal(head, y[:256])
+    assert torch.equal(y, fba.bias_gelu_plain(x, b))
 
 
 @pytest.mark.cuda
