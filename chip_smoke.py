@@ -7,7 +7,12 @@ Phases, each failing loudly (any failure exits nonzero):
 1. ``kernels``: build every CUDA kernel from ``paddle_tpu_torch/csrc/``,
    hold each against its plain PyTorch version at the shapes the serving
    main path gives it (llama3-8b), and time kernel, plain version and the
-   nearest single PyTorch library call.
+   nearest single PyTorch library call. K8 in bf16 through its split /
+   TMA ring / wgmma variant (the C launcher's plan ``rpa_plan_c`` equal to
+   ``rpa_plan``), eager and device (CUDA graph) times beside SDPA's, a
+   digest of its output, and row independence at mb 16 and 32: the same
+   query rows carried by decode, 4-row verify and 16-row prefill chunks
+   at every offset, on page and split edges, are bit-equal.
 2. ``engine``: ``ServingEngine(llama_presets("llama3-8b"))`` at full
    width with random bf16 weights drawn on the card from a seed, serving
    eight requests (half share a 256-token prefix, greedy and sampled);
@@ -120,7 +125,8 @@ Phases, each failing loudly (any failure exits nonzero):
    the card and on the CPU from identical weights, fusion on; greedy
    streams equal except where the CPU's top-2 margin is under 1e-4.
 11. ``serving_kernels``: the serving engine's int8, speculative and
-   multi-tenant kernels against their plain versions: K8q (int8 pages)
+   multi-tenant kernels against their plain versions: K8q (int8 pages,
+   the wgmma variant in bf16, device times, a digest, row independence)
    at the llama3-8b step's attention shapes in bf16 and fp32 and K10q
    (int8 dense cache) at K10's shapes, each bit-equal to its fp kernel on
    the inputs dequantized beforehand; K13 (grouped LoRA BGMV) at the
@@ -161,7 +167,11 @@ After each of the phases train, train_13b, llama_train, decode and paged
 every bf16 flash launch at head dim 64 or 128 must have taken the TMA +
 wgmma variant, as the C launchers report what they launched
 (``flash_attention.LAUNCHES_BY_PLAN``), and at every shape launched the
-C launchers' plan must be ``flash_plan``'s.
+C launchers' plan must be ``flash_plan``'s. After each of the phases
+engine and int8, cpu and serving every K8 / K8q launch must have taken
+its plan's variant, every bf16 one at head dim 128 the split / TMA ring /
+wgmma one (``ragged_paged_attention.LAUNCHES_BY_PLAN``), and at every
+shape launched ``rpa_plan_c`` must equal ``rpa_plan``.
 
 Prints the card's name and power limit, one JSON line ``{"kernels": ...}``
 and, last, ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -283,6 +293,44 @@ def _check_flash_variants(tag: str, before: collections.Counter) -> None:
 
 
 RPA_SHAPE = (32, 16, 32, 8, 128, 128, 16, 129)  # C qb nH nKV d bs mb P
+# phases whose every bf16 d 128 K8 / K8q launch must take the split / TMA
+# ring / wgmma variant (ragged_paged_attention.rpa_plan)
+RPA_WGMMA_PHASES = ("engine/int8", "cpu", "serving")
+
+
+def _rpa_launch_counts() -> collections.Counter:
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+
+    return collections.Counter(rpa.LAUNCHES_BY_PLAN)
+
+
+def _check_rpa_variants(tag: str, before: collections.Counter) -> None:
+    """The K8 / K8q launches since ``before``, by (variant as the C entry
+    reported it, dtype, d, bs, mb, G, qb, int8 pages): each took its
+    plan's variant, every bf16 one at head dim 128 "wgmma", at least one
+    launched, and at every shape launched the C launcher's plan
+    (``rpa_plan_c``) is ``rpa_plan``'s."""
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+
+    diff = rpa.LAUNCHES_BY_PLAN - before
+    if not diff:
+        raise AssertionError(f"{tag}: no K8 / K8q launch")
+    clusters = []
+    for (variant, dt, d, bs, mb, G, qb, quant), n in sorted(diff.items()):
+        dtype = getattr(torch, dt)
+        plan = rpa.rpa_plan(mb, bs, d, G, qb, dtype, quant)
+        plan_c = rpa.rpa_plan_c(mb, bs, d, G, qb, dtype, quant)
+        if {k: plan_c[k] for k in plan} != plan:
+            raise AssertionError(f"{tag}: rpa_plan_c {plan_c} != rpa_plan "
+                                 f"{plan} at mb {mb} bs {bs} d {d} {dt}")
+        if variant != plan["variant"] or (dt == "bfloat16" and d == 128
+                                          and variant != "wgmma"):
+            raise AssertionError(f"{tag}: {n} {dt} d{d} K8 launches took "
+                                 f"{variant}, plan {plan['variant']}")
+        clusters.append(plan_c["clusters"])
+    print(f"{tag}: K8/K8q launches by (variant, dtype, d, bs, mb, G, qb, "
+          "int8): " + ", ".join(f"{k}: {n}" for k, n in sorted(diff.items()))
+          + f"; clusters the card holds at once (wgmma) {clusters}")
 
 
 def _rpa_rows(dev):
@@ -337,8 +385,105 @@ def _sdpa_on_pages(q, kp, vp, rows_t, pos_t, nv_t, scale):
     return lambda: sdpa(qh, kg, vg, attn_mask=mask, scale=scale)
 
 
+# query positions the row-independence holds put on tile (64) and page
+# (128) edges and on split edges (1024 keys a split at mb 16 and 32)
+RPA_EDGE_POS = (0, 1, 63, 64, 127, 128, 129, 255, 256, 511, 512, 1023, 1024,
+                1025, 1500, 2047, 2048, 3071, 3072, 4095)
+
+
+def _digest(*ts) -> str:
+    """A short digest of tensors' bits, to compare two checkouts' output."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _rpa_row_independence(dev, mb: int, quant: bool, seed: int) -> int:
+    """K8 (K8q with ``quant``) at llama3-8b's attention width (nH 32, nKV
+    8, d 128, bs 128, qb 16, bf16): the same query rows carried by a
+    decode chunk (n_valid 1), a verify chunk of 4 rows and a 16-row
+    prefill chunk, at every offset of those chunks, for positions on page
+    and split edges (``RPA_EDGE_POS``), beside filler chunks (decode rows
+    of other requests, idle sink rows), spread over calls of different C.
+    Every carried row must be torch.equal to the decode chunk's. Returns
+    the rows held."""
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+
+    nH, nKV, d, bs, qb = 32, 8, 128, 128, 16
+    S = mb * bs
+    P = mb + 9
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.RandomState(seed)
+    bf = torch.bfloat16
+    q_all = torch.randn((S, nH, d), generator=gen, device=dev).to(bf)
+    if quant:
+        kp, vp = (torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                dtype=torch.int8)
+                  for shape in ((P, nKV, d, bs), (P, nKV, bs, d)))
+        sc = [torch.rand((P, nKV), generator=gen, device=dev) * 0.02 + 0.01
+              for _ in range(2)]
+    else:
+        kp = torch.randn((P, nKV, d, bs), generator=gen, device=dev).to(bf)
+        vp = torch.randn((P, nKV, bs, d), generator=gen, device=dev).to(bf)
+        sc = [None, None]
+    table = np.asarray(rng.permutation(np.arange(1, P))[:mb], np.int32)
+    carriers = [(p, nv, o) for p in RPA_EDGE_POS if p < S
+                for nv in (1, 4, 16) for o in range(nv)
+                if p - o >= 0 and p - o + nv <= S]
+    order = rng.permutation(len(carriers))
+    got = {}
+    i, call, sizes = 0, 0, (37, 64, 5, 61, 23, 64, 48)
+    while i < len(order):
+        n = min(sizes[call % len(sizes)], len(order) - i)
+        call += 1
+        fill = rng.randint(0, 4)
+        C = n + fill
+        q = torch.randn((C, qb, nH, d), generator=gen, device=dev).to(bf)
+        rows = np.zeros((C, mb), np.int32)
+        pos0 = np.zeros(C, np.int32)
+        nval = np.ones(C, np.int32)
+        slots = rng.permutation(C)
+        mine = []
+        for k, idx in enumerate(order[i:i + n]):
+            p, nv, o = carriers[idx]
+            c = int(slots[k])
+            rows[c], pos0[c], nval[c] = table, p - o, nv
+            q[c, :nv] = q_all[p - o:p - o + nv]
+            mine.append((c, carriers[idx]))
+        for c in slots[n:]:
+            if rng.rand() < 0.5:             # another request's decode row
+                rows[c] = rng.randint(1, P, size=mb)
+                pos0[c] = rng.randint(0, S)
+            # else idle against the sink page: pos0 0, n_valid 1
+        out = rpa.ragged_paged_attention(
+            q, kp, vp, *(torch.from_numpy(a).to(dev)
+                         for a in (rows, pos0, nval)), d ** -0.5,
+            k_scales=sc[0], v_scales=sc[1])
+        for c, (p, nv, o) in mine:
+            got[(p, nv, o)] = out[c, o]
+        i += n
+    held = 0
+    for (p, nv, o), row in got.items():
+        ref = got[(p, 1, 0)]
+        if not torch.equal(row, ref):
+            n_diff = (row != ref).sum().item()
+            raise AssertionError(
+                f"K8{'q' if quant else ''} mb {mb}: position {p} carried at "
+                f"offset {o} of a {nv}-row chunk differs from the decode "
+                f"chunk's row in {n_diff} elements")
+        held += 1
+    return held
+
+
 def check_rpa(dev) -> dict:
-    """K8 at the llama3-8b attention shapes (``_rpa_rows``)."""
+    """K8 at the llama3-8b attention shapes (``_rpa_rows``): fp32 (the FMA
+    kernel) and bf16 (the split / TMA ring / wgmma kernel, whose C plan
+    must be ``rpa_plan``'s) against the plain version; eager and device
+    (CUDA graph) times beside SDPA on pre-gathered pages; a digest of the
+    bf16 output; row independence at mb 16 and 32."""
     from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
 
     C, qb, nH, nKV, d, bs, mb, P = RPA_SHAPE
@@ -351,47 +496,58 @@ def check_rpa(dev) -> dict:
         q = torch.randn((C, qb, nH, d), generator=gen, device=dev).to(dt)
         kp = torch.randn((P, nKV, d, bs), generator=gen, device=dev).to(dt)
         vp = torch.randn((P, nKV, bs, d), generator=gen, device=dev).to(dt)
+        before = collections.Counter(rpa.LAUNCHES_BY_PLAN)
         got = rpa.ragged_paged_attention(q, kp, vp, rows_t, pos_t, nv_t,
                                          scale)
         ref = rpa.ragged_paged_attention_plain(q, kp, vp, rows_t, pos_t,
                                                nv_t, scale)
         torch.cuda.synchronize()
+        _check_rpa_variants(f"rpa {dt}", before)
         valid = (torch.arange(qb, device=dev)[None, :] < nv_t[:, None])
         err = (got.float() - ref.float()).abs()[valid].max().item()
         print(f"rpa {dt}: max_abs_err {err:.3e} (atol {tol})")
         if not err <= tol:
             raise AssertionError(f"rpa {dt}: max_abs_err {err} > {tol}")
         errs[dt] = err
-    ms = _time_ms(lambda: rpa.ragged_paged_attention(q, kp, vp, rows_t, pos_t,
-                                                     nv_t, scale))
+    print(f"rpa bf16 output digest {_digest(got)}")
+    fn = lambda: rpa.ragged_paged_attention(q, kp, vp, rows_t, pos_t, nv_t,
+                                            scale)
+    ms, graph_ms = _time_ms(fn), _graph_ms(fn)
     plain_ms = _time_ms(lambda: rpa.ragged_paged_attention_plain(
         q, kp, vp, rows_t, pos_t, nv_t, scale))
-    library_ms = _time_ms(_sdpa_on_pages(q, kp, vp, rows_t, pos_t, nv_t,
-                                         scale))
+    sdpa = _sdpa_on_pages(q, kp, vp, rows_t, pos_t, nv_t, scale)
+    library_ms, graph_library_ms = _time_ms(sdpa), _graph_ms(sdpa)
     # what these inputs need: q and o once, every page a chunk reaches
     # once (pages shared between chunks counted once), and the dots of
     # the valid query rows over their causal keys
     nbytes = (2 * q.numel() * 2 + n_pages * 2 * nKV * bs * d * 2
               + (rows_t.numel() + 2 * C) * 4)
     bound_ms, bound_by = _bound(nbytes, flops)
-    print(f"rpa bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    held = sum(_rpa_row_independence(dev, m, False, 30 + m)
+               for m in (16, 32))
+    print(f"rpa bf16: row independence: {held} carried rows bit-equal to "
+          "their decode chunk's (mb 16 and 32)")
+    print(f"rpa bf16: kernel {ms:.4f} ms (device {graph_ms:.4f}), plain "
+          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (device "
+          f"{graph_library_ms:.4f}), bound {bound_ms:.4f} ms ({bound_by})")
     return {"name": "ragged_paged_attention", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
             "replaces": "paddle_tpu/ops/pallas/ragged_paged_attention.py:85",
             "max_abs_err": errs[torch.bfloat16], "max_abs_err_fp32":
-            errs[torch.float32], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
+            errs[torch.float32], "ms": ms, "graph_ms": graph_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "graph_library_ms": graph_library_ms,
             "shape": f"C{C} qb{qb} nH{nH} nKV{nKV} d{d} bs{bs} mb{mb}"}
 
 
 def check_rpa_int8(dev) -> dict:
     """K8q at the llama3-8b attention shapes (``_rpa_rows``), int8 pages
-    with [P, nKV] fp32 scales, bf16 (tensor-core kernel) and fp32 q (FMA
-    kernel): equal to K8 on the pre-dequantized pages (torch.equal: the
-    staged tiles are the same bits, so any difference is the dequant),
-    and within K8's tolerance of the plain version."""
+    with [P, nKV] fp32 scales, bf16 (the wgmma kernel, int8 boxes through
+    its ring) and fp32 q (FMA kernel): equal to K8 on the pre-dequantized
+    pages (torch.equal: the dequantized tiles are the same bits, so any
+    difference is the dequant), and within K8's tolerance of the plain
+    version; eager and device times, a digest, row independence at mb
+    16."""
     from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
     from paddle_tpu_torch.ops.quant import dequantize_int8
 
@@ -411,8 +567,11 @@ def check_rpa_int8(dev) -> dict:
         q = torch.randn((C, qb, nH, d), generator=gen, device=dev).to(dt)
         kd = dequantize_int8(kq, ks[:, :, None, None], dt)
         vd = dequantize_int8(vq, vs[:, :, None, None], dt)
+        before = collections.Counter(rpa.LAUNCHES_BY_PLAN)
         got = rpa.ragged_paged_attention_int8(q, kq, vq, ks, vs, rows_t,
                                               pos_t, nv_t, scale)
+        torch.cuda.synchronize()
+        _check_rpa_variants(f"K8q {dt}", before)
         k8 = rpa.ragged_paged_attention(q, kd, vd, rows_t, pos_t, nv_t,
                                         scale)
         ref = rpa.ragged_paged_attention_plain(q, kq, vq, rows_t, pos_t,
@@ -428,27 +587,34 @@ def check_rpa_int8(dev) -> dict:
         if not err <= tol:
             raise AssertionError(f"K8q {dt}: max_abs_err {err} > {tol}")
         errs[dt] = err
-    ms = _time_ms(lambda: rpa.ragged_paged_attention_int8(
-        q, kq, vq, ks, vs, rows_t, pos_t, nv_t, scale))
+    print(f"K8q bf16 output digest {_digest(got)}")
+    fn = lambda: rpa.ragged_paged_attention_int8(q, kq, vq, ks, vs, rows_t,
+                                                 pos_t, nv_t, scale)
+    ms, graph_ms = _time_ms(fn), _graph_ms(fn)
     plain_ms = _time_ms(lambda: rpa.ragged_paged_attention_plain(
         q, kq, vq, rows_t, pos_t, nv_t, scale, ks, vs))
-    library_ms = _time_ms(_sdpa_on_pages(q, kd, vd, rows_t, pos_t, nv_t,
-                                         scale))
+    sdpa = _sdpa_on_pages(q, kd, vd, rows_t, pos_t, nv_t, scale)
+    library_ms, graph_library_ms = _time_ms(sdpa), _graph_ms(sdpa)
     # q and o (bf16) once, the int8 pages the chunks reach once with
     # their two fp32 scales, the int32 rows
     nbytes = (2 * q.numel() * 2 + n_pages * 2 * nKV * (bs * d + 4)
               + (rows_t.numel() + 2 * C) * 4)
     bound_ms, bound_by = _bound(nbytes, flops)
-    print(f"K8q bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa on "
-          f"dequantized pages {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+    held = _rpa_row_independence(dev, 16, True, 41)
+    print(f"K8q bf16: row independence: {held} carried rows bit-equal to "
+          "their decode chunk's (mb 16)")
+    print(f"K8q bf16: kernel {ms:.4f} ms (device {graph_ms:.4f}), plain "
+          f"{plain_ms:.4f} ms, sdpa on dequantized pages {library_ms:.4f} "
+          f"ms (device {graph_library_ms:.4f}), bound {bound_ms:.4f} ms "
           f"({bound_by})")
     return {"name": "ragged_paged_attention_int8", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
             "replaces": "paddle_tpu/ops/pallas/ragged_paged_attention.py:85",
             "max_abs_err": errs[torch.bfloat16],
             "max_abs_err_fp32": errs[torch.float32], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
+            "graph_ms": graph_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "graph_library_ms": graph_library_ms,
             "shape": f"C{C} qb{qb} nH{nH} nKV{nKV} d{d} bs{bs} mb{mb} int8"}
 
 
@@ -3763,13 +3929,17 @@ def main(argv=None) -> int:
     kernels = {}
     t0 = time.perf_counter()
     flash_before = _flash_launch_counts()
+    rpa_before = _rpa_launch_counts()
 
     def done(phase: str) -> None:
-        nonlocal t0, flash_before
+        nonlocal t0, flash_before, rpa_before
         now = time.perf_counter()
         if phase in FLASH_WGMMA_PHASES:
             _check_flash_variants(phase, flash_before)
+        if phase in RPA_WGMMA_PHASES:
+            _check_rpa_variants(phase, rpa_before)
         flash_before = _flash_launch_counts()
+        rpa_before = _rpa_launch_counts()
         print(f"phase {phase}: {now - t0:.1f} s")
         t0 = now
 

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels: K9
 // (quant_matmul.cu) and the flash tile loops (flash_fwd.cuh,
-// flash_attention.cu); and by the decode kernels' copy rings (K15, K14,
-// K16 in paged_decode_attention.cu, K10 in decode_attention.cu).
+// flash_attention.cu) and K8/K8q's split ring (ragged_paged_attention.cu);
+// and by the decode kernels' copy rings (K15, K14, K16 in
+// paged_decode_attention.cu, K10 in decode_attention.cu).
 //
 // - mbarriers: init, arrive, arrive with an expected byte count, wait on
 //   a phase parity; per-thread cp.async copies and their groups;
@@ -18,7 +19,10 @@
 // - the launcher's register check: setmaxnreg moves registers between a
 //   kernel's roles within what the block got at launch, so a kernel whose
 //   entry allocation is smaller than its roles' sum would hang in the
-//   consumers' increase; the launcher refuses it instead.
+//   consumers' increase; the launcher refuses it instead;
+// - across a cluster: an arrival on another block's mbarrier (release at
+//   cluster scope), a wait that acquires at cluster scope, and the
+//   cluster-scope fence (K8's split combine, ragged_paged_attention.cu).
 #pragma once
 
 #include <cuda.h>           // CUtensorMap and its enums only:
@@ -56,6 +60,36 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
                :: "r"(smem_u32(bar)) : "memory");
+}
+// Arrive on the mbarrier at ``bar``'s offset in the shared memory of
+// block ``rank`` of this cluster, releasing this thread's prior writes
+// (and those ordered before them) at cluster scope.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\n"
+      "}\n" :: "r"(smem_u32(bar)), "r"(rank) : "memory");
+}
+// mbar_wait that acquires at cluster scope: what the arriving blocks
+// wrote before their release is visible after it.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%0], "
+      "%1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+__device__ __forceinline__ void fence_cluster() {
+  asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
 }
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
@@ -490,10 +524,12 @@ EncodeTiled encode_tiled() {
 
 // A map of ``rank`` dimensions (dims innermost first, strides in bytes of
 // dimensions 1..rank-1, each a multiple of 16) with 128-byte swizzled
-// boxes; TMA writes zeros for elements past the dims.
+// boxes, or boxes in ``swizzle``; TMA writes zeros for elements past the
+// dims.
 bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
               int rank, const uint64_t* dims, const uint64_t* strides,
-              const uint32_t* box) {
+              const uint32_t* box,
+              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   cuuint64_t d[5], s[4];
@@ -505,7 +541,7 @@ bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
     if (i + 1 < rank) s[i] = strides[i];
   }
   return fn(map, type, rank, const_cast<void*>(ptr), d, s, b, e,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -21,24 +21,141 @@ rows repeat the last valid row. Returns o [C, qb, nH, d] in q's dtype.
 
 On a CPU tensor the wrappers run the plain version; on a CUDA tensor they
 launch ``csrc/ragged_paged_attention.cu`` (``rpa_forward`` for fp pages,
-``rpa_forward_int8`` for int8 pages) or raise.
+``rpa_forward_int8`` for int8 pages) or raise. ``rpa_plan`` is the launch
+a geometry takes, a function of (mb, bs, d, G, qb, dtype, quant) alone:
+
+- "wgmma" (bf16, d 64 or 128, bs a multiple of 64: the engine's route):
+  the context of a (chunk, kv head) is cut by key position into splits of
+  ``pages_per_split`` pages, one block each, the splits one thread-block
+  cluster of at most 8. A block streams its split's 64-key tiles through
+  a ring of TMA loads (k and v boxes in the 128-byte swizzle; K8q's int8
+  boxes unswizzled, dequantized by the block into one bf16 tile) and
+  runs q k^T and p v as ``wgmma`` on its 64 query rows; the active
+  splits combine (m, l, acc) in split order through distributed shared
+  memory. A split wholly past the chunk's last key loads nothing and adds
+  nothing, and a split with no key of a row adds weight exp(-1e30 - M) =
+  0, so a row's bits depend only on its own position and keys, not on the
+  chunk that carries it (the verify ladder and the sampled streams'
+  independence of chunking rely on that).
+- "mma" (bf16, d 64 or 128, bs 16, 32 or 48 a page): the mma.sync kernel,
+  one block a (chunk, kv head, 64 rows) over all its pages.
+- "fma" (fp32; bf16 at d 256): the CUDA-core kernel.
+
+Each C entry reports the variant it launched; the wrappers count it in
+``LAUNCHES_BY_PLAN`` by (variant, dtype, d, bs, mb, G, qb, quant), and
+``rpa_plan_c`` returns the C launcher's plan.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
 
 from ..quant import dequantize_int8
 from . import _build
+# an H100 SM's shared memory (kSmSmem), what the card holds back for each
+# block (kBlockReserved) and what one block may take (kMaxSmem, 227 KB)
+from .decode_attention import (BLOCK_SMEM_MAX, BLOCK_SMEM_RESERVED,
+                               SM_SMEM_BYTES)
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_int8",
-           "ragged_paged_attention_plain", "SUPPORTED_HEAD_DIMS"]
+           "ragged_paged_attention_plain", "SUPPORTED_HEAD_DIMS", "rpa_plan",
+           "rpa_plan_c", "LAUNCHES_BY_PLAN"]
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+_VARIANTS = ("fma", "mma", "wgmma")   # the C entries' *variant codes
 _fns = {}
+
+# launches on CUDA tensors by (variant as the C entry reported it, dtype,
+# d, bs, mb, G, qb, quant)
+LAUNCHES_BY_PLAN: collections.Counter = collections.Counter()
+
+RPA_ROWS = 64                # kRows: query rows a block (a warpgroup)
+RPA_TILE_KEYS = 64           # kTileKeys: keys a ring stage (a TMA box)
+RPA_SPLIT_KEYS = 1024        # kSplitKeys: keys a split at the least
+RPA_MAX_CLUSTER = 8          # kMaxCluster: a portable cluster
+RPA_BLOCKS_PER_SM = 3        # kBlocksPerSm
+RPA_MAX_STAGES = 4           # kMaxStages
+RPA_SMEM_FIXED = 1024 + 128  # kSmemFixed: base alignment, barriers
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def rpa_plan(mb: int, bs: int, d: int, G: int, qb: int,
+             dtype=torch.bfloat16, quant: bool = False) -> dict:
+    """The launch of one call, as ``csrc/ragged_paged_attention.cu::
+    rpa_plan`` makes it, from the geometry alone (never pos0, n_valid, C
+    or the page ids): the variant; keys a tile; pages a split and splits
+    (blocks a cluster; the other variants walk every page in one block);
+    64-row tiles; ring stages; shared bytes a block; blocks an SM by
+    shared memory.
+
+    "wgmma": a split holds at least ``RPA_SPLIT_KEYS`` keys and the splits
+    are at most ``RPA_MAX_CLUSTER``; the ring holds as many 64-key stages
+    (k and v; int8 for K8q, which adds one bf16 tile) as leave room for
+    ``RPA_BLOCKS_PER_SM`` blocks an SM, at most 4 and at most the split's
+    tiles; the combine reuses the ring's bytes."""
+    if (mb <= 0 or bs <= 0 or bs % 16 or G <= 0 or qb <= 0
+            or d not in SUPPORTED_HEAD_DIMS or dtype not in _DTYPE_CODE):
+        raise ValueError(f"mb {mb}, bs {bs}, d {d}, G {G}, qb {qb}, {dtype}: "
+                         "no K8 variant takes this geometry")
+    row_tiles = _ceil(qb * G, RPA_ROWS)
+    bf16 = dtype == torch.bfloat16
+    if bf16 and d != 256 and bs % RPA_TILE_KEYS == 0:
+        pps = max(_ceil(RPA_SPLIT_KEYS, bs), _ceil(mb, RPA_MAX_CLUSTER))
+        stage = 2 * RPA_TILE_KEYS * d * (1 if quant else 2)
+        extra = 2 * RPA_TILE_KEYS * d * 2 if quant else 0
+        budget = (SM_SMEM_BYTES // RPA_BLOCKS_PER_SM - BLOCK_SMEM_RESERVED
+                  - RPA_SMEM_FIXED - extra)
+        stages = min(RPA_MAX_STAGES, pps * bs // RPA_TILE_KEYS,
+                     budget // stage)
+        combine = 4 * (RPA_ROWS * (d + 8) + 2 * RPA_ROWS
+                       + RPA_MAX_CLUSTER * RPA_ROWS + RPA_ROWS)
+        plan = {"variant": "wgmma", "tile_keys": RPA_TILE_KEYS,
+                "pages_per_split": pps, "splits": _ceil(mb, pps),
+                "stages": stages,
+                "smem": RPA_SMEM_FIXED + max(stages * stage + extra,
+                                             combine)}
+    else:
+        kt = 32 if bs % 32 == 0 else 16
+        if bf16 and d != 256:
+            plan = {"variant": "mma",
+                    "smem": 2 * (d * (kt + 8) + kt * (d + 8))}
+        else:
+            plan = {"variant": "fma",
+                    "smem": 4 * (RPA_ROWS * d + 2 * d * kt + RPA_ROWS * kt
+                                 + 3 * RPA_ROWS)}
+        plan.update(tile_keys=kt, pages_per_split=mb, splits=1, stages=1)
+    plan["row_tiles"] = row_tiles
+    plan["blocks_per_sm"] = SM_SMEM_BYTES // (plan["smem"]
+                                              + BLOCK_SMEM_RESERVED)
+    return plan
+
+
+_PLAN_KEYS = ("variant", "tile_keys", "pages_per_split", "splits",
+              "row_tiles", "stages", "smem", "blocks_per_sm")
+
+
+def rpa_plan_c(mb: int, bs: int, d: int, G: int, qb: int,
+               dtype=torch.bfloat16, quant: bool = False) -> dict:
+    """The plan K8's C launcher follows (``rpa_plan_c`` in the library),
+    to hold ``rpa_plan`` to it on the card; ``clusters`` (wgmma) is the
+    number of its clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    out = (ctypes.c_int * 9)()
+    _build.check(_kernel_fn("rpa_plan_c")(
+        mb, bs, d, G, qb, _DTYPE_CODE[dtype], int(quant),
+        ctypes.addressof(out)), "rpa_plan_c")
+    plan = dict(zip(_PLAN_KEYS, out[:8]))
+    plan["variant"] = _VARIANTS[plan["variant"]]
+    plan["clusters"] = out[8]
+    return plan
 
 
 def ragged_paged_attention_plain(q, k_pages, v_pages, rows, pos0, n_valid,
@@ -80,8 +197,11 @@ def _kernel_fn(name: str):
     if fn is None:
         fn = getattr(_build.library("ragged_paged_attention"), name)
         P, I = ctypes.c_void_p, ctypes.c_int
-        n_ptr = 7 if name == "rpa_forward" else 9
-        fn.argtypes = [P] * n_ptr + [I] * 7 + [ctypes.c_float, I, P]
+        if name == "rpa_plan_c":
+            fn.argtypes = [I] * 7 + [P]
+        else:
+            n_ptr = 7 if name == "rpa_forward" else 9
+            fn.argtypes = [P] * n_ptr + [I] * 8 + [ctypes.c_float, I, P, P]
         fn.restype = I
         _fns[name] = fn
     return fn
@@ -89,14 +209,17 @@ def _kernel_fn(name: str):
 
 def _check_cuda(q, k_pages, v_pages, rows, pos0, n_valid,
                 page_dtype) -> None:
+    """Every operand's dtype, shape, device, contiguity and alignment, in
+    as few Python operations as the checks allow (the wrapper's host time
+    is a visible share of a ~0.05 ms call); the messages are built only
+    on failure."""
     C, qb, nH, d = q.shape
-    if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"q dtype {q.dtype}: the kernel takes float32 or "
-                        "bfloat16")
-    if k_pages.dtype != page_dtype or v_pages.dtype != page_dtype:
-        raise TypeError(f"pages {k_pages.dtype} / {v_pages.dtype}: this "
-                        f"kernel takes {page_dtype} pages")
     P, nkv, kd, bs = k_pages.shape
+    if (q.dtype not in _DTYPE_CODE or k_pages.dtype != page_dtype
+            or v_pages.dtype != page_dtype):
+        raise TypeError(f"q {q.dtype}, pages {k_pages.dtype} / "
+                        f"{v_pages.dtype}: the kernel takes a float32 or "
+                        f"bfloat16 q and {page_dtype} pages")
     if v_pages.shape != (P, nkv, bs, d) or kd != d:
         raise ValueError(f"page shapes {tuple(k_pages.shape)} / "
                          f"{tuple(v_pages.shape)} do not match q {q.shape}")
@@ -105,31 +228,49 @@ def _check_cuda(q, k_pages, v_pages, rows, pos0, n_valid,
     if d not in SUPPORTED_HEAD_DIMS or bs % 16:
         raise ValueError(f"head dim {d} / page size {bs}: the kernel takes "
                          f"d in {SUPPORTED_HEAD_DIMS} and bs % 16 == 0")
-    for name, t, shape in (("rows", rows, (C, rows.shape[-1])),
-                           ("pos0", pos0, (C,)), ("n_valid", n_valid, (C,))):
-        if t.dtype != torch.int32 or tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be int32 {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-    for t in (q, k_pages, v_pages, rows, pos0, n_valid):
-        if t.device != q.device or not t.is_contiguous():
-            raise ValueError("all operands must be contiguous and on "
-                             f"{q.device}")
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError("the kernel reads pages as 16-byte vectors: page "
-                         "arrays must be 16-byte aligned")
+    if (rows.dtype != torch.int32 or pos0.dtype != torch.int32
+            or n_valid.dtype != torch.int32 or rows.dim() != 2
+            or rows.shape[0] != C or pos0.shape != (C,)
+            or n_valid.shape != (C,)):
+        raise ValueError(f"rows, pos0, n_valid must be int32 [{C}, mb], "
+                         f"[{C}], [{C}]; got {rows.dtype} "
+                         f"{tuple(rows.shape)}, {pos0.dtype} "
+                         f"{tuple(pos0.shape)}, {n_valid.dtype} "
+                         f"{tuple(n_valid.shape)}")
+    dev = q.get_device()
+    if (k_pages.get_device() != dev or v_pages.get_device() != dev
+            or rows.get_device() != dev or pos0.get_device() != dev
+            or n_valid.get_device() != dev or not q.is_contiguous()
+            or not k_pages.is_contiguous() or not v_pages.is_contiguous()
+            or not rows.is_contiguous() or not pos0.is_contiguous()
+            or not n_valid.is_contiguous()):
+        raise ValueError("all operands must be contiguous and on "
+                         f"{q.device}")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16 or \
+            q.data_ptr() % 4:
+        raise ValueError("the kernel reads pages as 16-byte boxes and q as "
+                         "32-bit words: page arrays must be 16-byte and q "
+                         "4-byte aligned")
 
 
 def _launch(name, q, k_pages, v_pages, scales, rows, pos0, n_valid,
             sm_scale) -> torch.Tensor:
+    """One ctypes call, one kernel launch; nothing allocated but the
+    output. Counts the launch under the variant the C entry reported."""
     C, qb, nH, d = q.shape
+    P, nkv, _, bs = k_pages.shape
+    mb = rows.shape[1]
     out = torch.empty_like(q)
-    err = _kernel_fn(name)(
+    variant = ctypes.c_int(-1)
+    _build.check(_kernel_fn(name)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         *(t.data_ptr() for t in scales), rows.data_ptr(), pos0.data_ptr(),
-        n_valid.data_ptr(), out.data_ptr(), C, qb, nH, k_pages.shape[1], d,
-        k_pages.shape[3], rows.shape[1], float(sm_scale),
-        _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, name)
+        n_valid.data_ptr(), out.data_ptr(), C, qb, nH, nkv, d, bs, mb, P,
+        float(sm_scale), _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
+        ctypes.byref(variant)), name)
+    LAUNCHES_BY_PLAN[(_VARIANTS[variant.value], _DTYPE_NAME[q.dtype], d, bs,
+                      mb, nH // nkv, qb, bool(scales))] += 1
     return out
 
 
@@ -146,12 +287,12 @@ def ragged_paged_attention_int8(q, k_pages, v_pages, k_scales, v_scales,
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check_cuda(q, k_pages, v_pages, rows, pos0, n_valid, torch.int8)
-    want = (k_pages.shape[0], k_pages.shape[1])
+    want, dev = k_pages.shape[:2], q.get_device()
     for t in (k_scales, v_scales):
-        if (t.dtype != torch.float32 or tuple(t.shape) != want
-                or t.device != q.device or not t.is_contiguous()):
+        if (t.dtype != torch.float32 or t.shape != want
+                or t.get_device() != dev or not t.is_contiguous()):
             raise ValueError(f"scale planes must be contiguous float32 "
-                             f"{want} on {q.device}, got {t.dtype} "
+                             f"{tuple(want)} on {q.device}, got {t.dtype} "
                              f"{tuple(t.shape)}")
     out = _launch("rpa_forward_int8", q, k_pages, v_pages,
                   (k_scales, v_scales), rows, pos0, n_valid, sm_scale)

@@ -29,7 +29,15 @@ of each product exactly once, the slabs cover the vocabulary, and the
 constants are the source's; the CE product counters take the variant
 the C entry reports. K7's 2-D walk (``fused_bias_act.bias_gelu_plan``)
 covers every element of [n, f] exactly once for ragged n and every
-f % 8 == 0, each thread on one fixed column vector.
+f % 8 == 0, each thread on one fixed column vector. K8 / K8q
+(``ragged_paged_attention.rpa_plan``): for every (mb, bs, d, G, qb) the
+wgmma route takes, the splits load pages [0, last // bs] of a chunk
+once each, in order, tile by tile, whatever its last key; at most 8
+splits (a cluster) of at least 1024 keys; the ring and the combine fit
+227 KB with three blocks an SM; the plan takes the geometry alone; other
+pages, dtypes and head dims take the mma.sync or FMA kernel; the
+constants are the source's, and launches are counted under the variant
+the C entry reports.
 """
 
 import collections
@@ -45,6 +53,7 @@ from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import fused_bias_act as fba
 from paddle_tpu_torch.ops.kernels import fused_ce as ce
 from paddle_tpu_torch.ops.kernels import quant_matmul as qmm
+from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
 
 ENGINE_SHAPES = [(512, 4096, 4096), (512, 4096, 1024), (512, 4096, 14336),
                  (512, 14336, 4096), (32, 4096, 128256)]
@@ -636,3 +645,246 @@ def test_bias_gelu_walk_constants_are_the_source():
     assert f"constexpr int kThreads = {fba.THREADS};" in src
     assert f"constexpr int kUnroll = {fba.UNROLL};" in src
     assert f"constexpr int kWaves = {fba.WAVES};" in src
+
+
+# ---- K8 / K8q: the split plan (ragged_paged_attention.rpa_plan) -----------
+
+RPA_MB = [1, 2, 3, 5, 12, 16, 17, 32, 64]
+RPA_BS = [64, 128, 256]
+
+
+def _rpa_tiles(plan, mb, bs, last):
+    """The tiles rpa_wg_kernel's blocks load for a chunk whose last valid
+    key is ``last``, in split order: (split, page index in rows[c], first
+    key of the tile in the page), following its n_act and n_tiles."""
+    pps, splits = plan["pages_per_split"], plan["splits"]
+    tk = plan["tile_keys"]
+    split_keys = pps * bs
+    n_act = min(splits, last // split_keys + 1)
+    out = []
+    for s in range(splits):
+        key0 = s * split_keys
+        n_tiles = 0
+        if s < n_act:
+            n_tiles = min(min(split_keys, mb * bs - key0),
+                          last - key0 + 1 + tk - 1) // tk
+        out += [(s, s * pps + j // (bs // tk), (j % (bs // tk)) * tk)
+                for j in range(n_tiles)]
+    return out
+
+
+def _rpa_lasts(plan, mb, bs):
+    """Last valid keys at the edges: 0, a tile's, a page's and a split's
+    edges (each side), the table's end, and one past it."""
+    ends = {0, 1, 63, 64, 65, bs - 1, bs, mb * bs - 1, mb * bs, mb * bs + 5}
+    for s in range(1, plan["splits"] + 1):
+        e = s * plan["pages_per_split"] * bs
+        ends |= {e - 1, e, e + 1}
+    return sorted(ends)
+
+
+@pytest.mark.parametrize("bs", RPA_BS)
+@pytest.mark.parametrize("mb", RPA_MB)
+def test_rpa_splits_cover_every_page_once_in_order(mb, bs):
+    """For every last valid key, the active splits load pages 0 ..
+    min(last // bs, mb - 1) of the chunk's table, each tile of 64 keys up
+    to the last one's once, in key order (split order is key order); the
+    splits past the chunk's last key load nothing, and the active ones
+    are ranks 0 .. n_act - 1. At d 64 and 128, bf16 and int8 pages."""
+    for d in (64, 128):
+        for quant in (False, True):
+            plan = rpa.rpa_plan(mb, bs, d, 4, 16, torch.bfloat16, quant)
+            assert plan["variant"] == "wgmma"
+            pps = plan["pages_per_split"]
+            for last in _rpa_lasts(plan, mb, bs):
+                tiles = _rpa_tiles(plan, mb, bs, last)
+                keys = [page * bs + t0 for _, page, t0 in tiles]
+                assert keys == list(range(0, min(last + 1, mb * bs), 64))
+                pages = sorted({page for _, page, _ in tiles})
+                assert pages == list(range(min(last // bs, mb - 1) + 1))
+                active = sorted({s for s, _, _ in tiles})
+                assert active == list(range(len(active)))
+                assert all(s * pps <= page < (s + 1) * pps
+                           for s, page, _ in tiles)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("bs", RPA_BS + [512])
+@pytest.mark.parametrize("mb", RPA_MB)
+def test_rpa_plan_fits(mb, bs, quant):
+    """Every geometry the wgmma route takes (d 64 and 128, G 1-16, qb
+    1-32): at most 8 splits (a portable cluster), each of at least 1024
+    keys (or the whole table) unless that would make more than 8, the
+    splits tiling the table; 1-4 ring stages, no more than a split's
+    tiles; the ring and the combine fit 227 KB and leave room for three
+    blocks an SM; 64-row tiles cover the qb x G query rows."""
+    for d in (64, 128):
+        for G in (1, 2, 4, 8, 16):
+            for qb in (1, 4, 16, 32):
+                p = rpa.rpa_plan(mb, bs, d, G, qb, torch.bfloat16, quant)
+                pps, splits = p["pages_per_split"], p["splits"]
+                assert p["variant"] == "wgmma" and p["tile_keys"] == 64
+                assert 1 <= splits <= rpa.RPA_MAX_CLUSTER
+                assert (splits - 1) * pps < mb <= splits * pps
+                least = -(-rpa.RPA_SPLIT_KEYS // bs)
+                assert pps >= least
+                if pps > least:           # larger only to keep 8 splits
+                    assert -(-mb // (pps - 1)) > rpa.RPA_MAX_CLUSTER
+                assert 1 <= p["stages"] <= min(rpa.RPA_MAX_STAGES,
+                                               pps * bs // 64)
+                stage = 2 * 64 * d * (1 if quant else 2)
+                ring = p["stages"] * stage + (2 * 64 * d * 2 if quant
+                                              else 0)
+                combine = 4 * (64 * (d + 8) + 2 * 64 + 8 * 64 + 64)
+                assert p["smem"] == rpa.RPA_SMEM_FIXED + max(ring, combine)
+                assert p["smem"] <= rpa.BLOCK_SMEM_MAX
+                assert p["blocks_per_sm"] >= rpa.RPA_BLOCKS_PER_SM
+                assert rpa.RPA_BLOCKS_PER_SM * (
+                    p["smem"] + rpa.BLOCK_SMEM_RESERVED) <= rpa.SM_SMEM_BYTES
+                assert p["row_tiles"] == -(-qb * G // 64)
+
+
+def test_rpa_plan_at_llama3_8b():
+    """The engine's step (mb 16, page 128, d 128, G 4, qb 16): 2 splits
+    of 8 pages (16 tiles of 64 keys), one 64-row tile; a 2-stage bf16
+    ring, or a 2-stage int8 ring beside the bf16 tile, ~65 KB either way:
+    three blocks an SM. At mb 32, 4 splits of 8 pages."""
+    for quant in (False, True):
+        p = rpa.rpa_plan(16, 128, 128, 4, 16, torch.bfloat16, quant)
+        assert (p["pages_per_split"], p["splits"], p["row_tiles"],
+                p["stages"], p["smem"], p["blocks_per_sm"]) == \
+            (8, 2, 1, 2, 66688, 3)
+    p = rpa.rpa_plan(32, 128, 128, 4, 16, torch.bfloat16)
+    assert (p["pages_per_split"], p["splits"]) == (8, 4)
+
+
+@pytest.mark.parametrize("dtype,d,bs,want", [
+    (torch.bfloat16, 128, 16, "mma"), (torch.bfloat16, 64, 32, "mma"),
+    (torch.bfloat16, 128, 48, "mma"), (torch.bfloat16, 256, 128, "fma"),
+    (torch.float32, 128, 128, "fma"), (torch.float32, 64, 16, "fma"),
+    (torch.bfloat16, 128, 128, "wgmma"), (torch.bfloat16, 64, 64, "wgmma")])
+def test_rpa_plan_routes(dtype, d, bs, want):
+    """bf16 at d 64/128 takes wgmma where 64-key boxes tile the page and
+    mma.sync on pages of 16, 32 or 48 tokens; fp32 and d 256 the FMA
+    kernel, whose one block a (chunk, kv head) walks every page."""
+    for quant in (False, True):
+        p = rpa.rpa_plan(12, bs, d, 2, 4, dtype, quant)
+        assert p["variant"] == want
+        if want != "wgmma":
+            assert (p["splits"], p["pages_per_split"]) == (1, 12)
+            assert p["tile_keys"] == (32 if bs % 32 == 0 else 16)
+        assert p["smem"] <= rpa.BLOCK_SMEM_MAX
+
+
+@pytest.mark.parametrize("args", [(16, 100, 128, 4, 16), (16, 128, 96, 4, 16),
+                                  (0, 128, 128, 4, 16), (16, 128, 128, 0, 16)])
+def test_rpa_plan_refuses_other_geometry(args):
+    with pytest.raises(ValueError):
+        rpa.rpa_plan(*args)
+
+
+def test_rpa_plan_reads_no_per_call_tensor():
+    """The plan's arguments are the geometry alone: no pos0, n_valid, C,
+    page ids or tensor; equal geometries give equal plans."""
+    import inspect
+
+    params = list(inspect.signature(rpa.rpa_plan).parameters)
+    assert params == ["mb", "bs", "d", "G", "qb", "dtype", "quant"]
+    assert rpa.rpa_plan(16, 128, 128, 4, 16) == \
+        rpa.rpa_plan(16, 128, 128, 4, 16, torch.bfloat16, False)
+
+
+def test_rpa_plan_constants_are_the_source():
+    src = (Path(rpa.__file__).resolve().parents[2] / "csrc"
+           / "ragged_paged_attention.cu").read_text()
+    for name, value in (("kRows", rpa.RPA_ROWS),
+                        ("kTileKeys", rpa.RPA_TILE_KEYS),
+                        ("kSplitKeys", rpa.RPA_SPLIT_KEYS),
+                        ("kMaxCluster", rpa.RPA_MAX_CLUSTER),
+                        ("kBlocksPerSm", rpa.RPA_BLOCKS_PER_SM),
+                        ("kMaxStages", rpa.RPA_MAX_STAGES)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    assert f"constexpr size_t kSmSmem = {rpa.SM_SMEM_BYTES};" in src
+    assert f"constexpr size_t kBlockReserved = {rpa.BLOCK_SMEM_RESERVED};" \
+        in src
+    assert "constexpr size_t kMaxSmem = 227 * 1024;" in src
+    assert rpa.BLOCK_SMEM_MAX == 227 * 1024
+    assert "constexpr int kSmemFixed = 1024 + 128;" in src
+    assert rpa.RPA_SMEM_FIXED == 1024 + 128
+
+
+def test_rpa_counters_take_the_launched_variant(monkeypatch):
+    """A launch is counted under the variant its C entry reported, keyed
+    by its geometry, and an error raises before anything is counted."""
+    import types
+
+    def entry(code, err=0):
+        def c_fn(*args):
+            args[-1]._obj.value = code
+            return err
+        return c_fn
+
+    monkeypatch.setattr(rpa.torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    q = torch.zeros((2, 16, 32, 128), dtype=torch.bfloat16)
+    kp = torch.zeros((3, 8, 128, 128), dtype=torch.int8)
+    vp = torch.zeros((3, 8, 128, 128), dtype=torch.int8)
+    sc = torch.ones((3, 8))
+    ints = (torch.zeros((2, 16), dtype=torch.int32),
+            torch.zeros(2, dtype=torch.int32), torch.ones(2, dtype=torch.int32))
+    before = collections.Counter(rpa.LAUNCHES_BY_PLAN)
+    try:
+        for code, scales in ((2, ()), (1, ()), (2, (sc, sc))):
+            monkeypatch.setitem(rpa._fns, "rpa_forward", entry(code))
+            monkeypatch.setitem(rpa._fns, "rpa_forward_int8", entry(code))
+            name = "rpa_forward_int8" if scales else "rpa_forward"
+            rpa._launch(name, q, kp, vp, scales, *ints, 0.1)
+        monkeypatch.setitem(rpa._fns, "rpa_forward", entry(2, err=9))
+        with pytest.raises(RuntimeError, match="rpa_forward: CUDA error 9"):
+            rpa._launch("rpa_forward", q, kp, vp, (), *ints, 0.1)
+        diff = rpa.LAUNCHES_BY_PLAN - before
+    finally:
+        rpa.LAUNCHES_BY_PLAN.clear()
+        rpa.LAUNCHES_BY_PLAN.update(before)
+    key = ("bfloat16", 128, 128, 16, 4, 16)
+    assert diff == {("wgmma", *key, False): 1, ("mma", *key, False): 1,
+                    ("wgmma", *key, True): 1}
+
+
+def _rpa_operands():
+    C, qb, nH, nkv, d, bs, mb, P = 4, 16, 32, 8, 128, 128, 16, 9
+    return dict(q=torch.zeros((C, qb, nH, d), dtype=torch.bfloat16),
+                kp=torch.zeros((P, nkv, d, bs), dtype=torch.bfloat16),
+                vp=torch.zeros((P, nkv, bs, d), dtype=torch.bfloat16),
+                rows=torch.zeros((C, mb), dtype=torch.int32),
+                pos0=torch.zeros(C, dtype=torch.int32),
+                nv=torch.ones(C, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("bad", [
+    {"q": torch.zeros((4, 16, 32, 128), dtype=torch.float16)},
+    {"kp": torch.zeros((9, 8, 128, 128), dtype=torch.float32)},
+    {"vp": torch.zeros((9, 8, 64, 128), dtype=torch.bfloat16)},
+    {"q": torch.zeros((4, 16, 36, 128), dtype=torch.bfloat16)},
+    {"kp": torch.zeros((9, 8, 128, 40), dtype=torch.bfloat16),
+     "vp": torch.zeros((9, 8, 40, 128), dtype=torch.bfloat16)},
+    {"rows": torch.zeros((4, 16), dtype=torch.int64)},
+    {"pos0": torch.zeros(3, dtype=torch.int32)},
+    {"nv": torch.ones((4, 1), dtype=torch.int32)},
+    {"rows": torch.zeros((16, 4), dtype=torch.int32).t()},
+    {"q": torch.zeros((4, 16, 32, 129), dtype=torch.bfloat16)[..., 1:]},
+])
+def test_rpa_wrapper_checks_refuse_bad_operands(bad):
+    """The CUDA arm's checks (run before any launch) refuse a wrong
+    dtype, shape, head count, page size, index dtype or shape, and a
+    non-contiguous operand, whatever the device."""
+    ops = {**_rpa_operands(), **bad}
+    with pytest.raises((TypeError, ValueError)):
+        rpa._check_cuda(ops["q"], ops["kp"], ops["vp"], ops["rows"],
+                        ops["pos0"], ops["nv"], torch.bfloat16)
+
+
+def test_rpa_wrapper_checks_take_good_operands():
+    ops = _rpa_operands()
+    rpa._check_cuda(ops["q"], ops["kp"], ops["vp"], ops["rows"],
+                    ops["pos0"], ops["nv"], torch.bfloat16)

@@ -50,7 +50,13 @@ wgmma variant (the entries report what they launched), K5 is bitwise
 reproducible and K4/K5 hold their plain versions with ragged token, vocab
 and slab edges. K7's walk is ``bias_gelu_plan``'s, and the first 256 rows
 of gpt3-350m's FFN input alone give the bits of those rows of the whole
-call."""
+call. K8 / K8q (bf16, d 64/128, pages of a multiple of 64: splits by key
+position in a cluster, a TMA ring, wgmma): the C plan is ``rpa_plan``'s;
+at llama3-8b's width (mb 16 and 32) a query row's bits do not depend on
+the chunk that carries it (decode, 4-row verify and 16-row prefill
+chunks at every offset, positions on page and split edges, other
+chunks and C varying), and K8q equals K8 on dequantized pages with
+ragged n_valid and idle sink chunks."""
 
 import collections
 
@@ -91,7 +97,8 @@ def _rpa_case(G, d, bs, C=4, qb=4, nkv=2, mb=12, P=16, seed=0):
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
                                         (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("G,d,bs", [(1, 128, 128), (4, 128, 16),
-                                    (4, 64, 32), (2, 256, 48)])
+                                    (4, 64, 32), (2, 256, 48), (4, 128, 64),
+                                    (4, 64, 128), (16, 128, 256)])
 def test_rpa_kernel_matches_plain(cuda, dtype, atol, G, d, bs):
     q, kp, vp, rows, pos0, nv = _rpa_case(G, d, bs)
     fl = [torch.from_numpy(a).to(cuda, dtype) for a in (q, kp, vp)]
@@ -543,7 +550,8 @@ def _int8(rng, shape):
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
                                         (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("G,d,bs", [(1, 128, 128), (4, 128, 16),
-                                    (4, 64, 32), (2, 256, 48)])
+                                    (4, 64, 32), (2, 256, 48), (4, 128, 64),
+                                    (4, 64, 128), (16, 128, 256)])
 def test_rpa_int8_kernel_matches_k8_and_plain(cuda, dtype, atol, G, d, bs):
     """K8q: equal to K8 on the pages dequantized beforehand (torch.equal:
     the staged tiles are the same bits) and within K8's tolerance of the
@@ -574,6 +582,143 @@ def test_rpa_int8_kernel_matches_k8_and_plain(cuda, dtype, atol, G, d, bs):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                ref.float().cpu().numpy(), atol=atol,
                                rtol=atol)
+
+
+# llama3-8b's attention width: 32 q heads, 8 kv heads, head dim 128
+RPA_WIDTH = dict(nH=32, nKV=8, d=128, bs=128, qb=16)
+RPA_EDGES = (0, 1, 63, 64, 127, 128, 129, 255, 256, 511, 512, 1023, 1024,
+             1025, 2047, 2048, 3071, 3072, 4095)
+
+
+def _rpa_pages(cuda, gen, P, quant):
+    w = RPA_WIDTH
+    shapes = ((P, w["nKV"], w["d"], w["bs"]), (P, w["nKV"], w["bs"], w["d"]))
+    if quant:
+        kp, vp = (torch.randint(-127, 128, sh, generator=gen, device=cuda,
+                                dtype=torch.int8) for sh in shapes)
+        return kp, vp, [torch.rand((P, w["nKV"]), generator=gen,
+                                   device=cuda) * 0.02 + 0.01
+                        for _ in range(2)]
+    kp, vp = (torch.randn(sh, generator=gen, device=cuda).to(torch.bfloat16)
+              for sh in shapes)
+    return kp, vp, [None, None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("mb", [16, 32])
+def test_rpa_rows_do_not_depend_on_their_chunk(cuda, mb, quant):
+    """K8 / K8q's split combine: a query row's output bits are the same
+    whether a decode chunk (n_valid 1), a verify chunk of 4 rows or a
+    16-row prefill chunk carries it, at every offset of those chunks,
+    for positions on tile (64), page (128) and split (1024 keys) edges, beside
+    other requests' decode rows and idle sink rows, over calls of
+    different C."""
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+
+    w = RPA_WIDTH
+    S, P, qb = mb * w["bs"], mb + 9, w["qb"]
+    gen = torch.Generator(device=cuda).manual_seed(mb + 2 * quant)
+    rng = np.random.default_rng(mb)
+    q_all = torch.randn((S, w["nH"], w["d"]), generator=gen,
+                        device=cuda).to(torch.bfloat16)
+    kp, vp, sc = _rpa_pages(cuda, gen, P, quant)
+    table = rng.permutation(np.arange(1, P))[:mb].astype(np.int32)
+    carriers = [(p, nv, o) for p in RPA_EDGES for nv in (1, 4, 16)
+                for o in range(nv) if p - o >= 0 and p - o + nv <= S]
+    order = rng.permutation(len(carriers))
+    before = collections.Counter(rpa.LAUNCHES_BY_PLAN)
+    got, i, call = {}, 0, 0
+    while i < len(order):
+        n = min((29, 64, 3, 50)[call % 4], len(order) - i)
+        call += 1
+        C = n + int(rng.integers(0, 4))
+        q = torch.randn((C, qb, w["nH"], w["d"]), generator=gen,
+                        device=cuda).to(torch.bfloat16)
+        rows = np.zeros((C, mb), np.int32)
+        pos0, nval = np.zeros(C, np.int32), np.ones(C, np.int32)
+        slots = rng.permutation(C)
+        for k, idx in enumerate(order[i:i + n]):
+            p, nv, o = carriers[idx]
+            c = int(slots[k])
+            rows[c], pos0[c], nval[c] = table, p - o, nv
+            q[c, :nv] = q_all[p - o:p - o + nv]
+        for c in slots[n:]:
+            if rng.random() < 0.5:
+                rows[c] = rng.integers(1, P, size=mb)
+                pos0[c] = rng.integers(0, S)
+        out = ragged_paged_attention(
+            q, kp, vp, *(torch.from_numpy(a).to(cuda)
+                         for a in (rows, pos0, nval)), w["d"] ** -0.5,
+            k_scales=sc[0], v_scales=sc[1])
+        for k, idx in enumerate(order[i:i + n]):
+            p, nv, o = carriers[idx]
+            got[carriers[idx]] = out[int(slots[k]), o]
+        i += n
+    torch.cuda.synchronize()
+    assert {k[0] for k in rpa.LAUNCHES_BY_PLAN - before} == {"wgmma"}
+    for (p, nv, o), row in got.items():
+        assert torch.equal(row, got[(p, 1, 0)]), (p, nv, o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mb", [16, 32])
+def test_rpa_int8_equals_k8_at_the_engine_width(cuda, mb):
+    """K8q bit-equal to K8 on pages dequantized beforehand at llama3-8b's
+    width, both through the wgmma variant: ragged n_valid (1, 2, 5, 16),
+    chunks straddling pages and splits, a chunk at the table's end and
+    idle sink chunks; K8 within 2e-2 of its plain version."""
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+    from paddle_tpu_torch.ops.quant import dequantize_int8
+
+    w = RPA_WIDTH
+    S, P, qb = mb * w["bs"], 2 * mb + 3, w["qb"]
+    gen = torch.Generator(device=cuda).manual_seed(mb)
+    rng = np.random.default_rng(mb + 1)
+    kq, vq, (ks, vs) = _rpa_pages(cuda, gen, P, True)
+    C = 12
+    rows = np.stack([rng.permutation(np.arange(1, P))[:mb]
+                     for _ in range(C)]).astype(np.int32)
+    rows[9:] = 0                                      # idle: the sink
+    pos0 = np.array([0, 127, 255, 300, S - 1, 1000, 250, 511, S - 16, 0, 0,
+                     0], np.int32)
+    nval = np.array([1, 2, 5, 16, 1, 16, 16, 2, 16, 1, 1, 1], np.int32)
+    ints = [torch.from_numpy(a).to(cuda) for a in (rows, pos0, nval)]
+    q = torch.randn((C, qb, w["nH"], w["d"]), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    kd = dequantize_int8(kq, ks[:, :, None, None], torch.bfloat16)
+    vd = dequantize_int8(vq, vs[:, :, None, None], torch.bfloat16)
+    before = collections.Counter(rpa.LAUNCHES_BY_PLAN)
+    got = ragged_paged_attention(q, kq, vq, *ints, 0.088, k_scales=ks,
+                                 v_scales=vs)
+    k8 = ragged_paged_attention(q, kd, vd, *ints, 0.088)
+    ref = ragged_paged_attention_plain(q, kd, vd, *ints, 0.088)
+    torch.cuda.synchronize()
+    assert {k[0] for k in rpa.LAUNCHES_BY_PLAN - before} == {"wgmma"}
+    assert torch.equal(got, k8)
+    valid = torch.arange(qb, device=cuda)[None, :] < ints[2][:, None]
+    err = (k8.float() - ref.float()).abs()[valid].max().item()
+    assert err <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("mb,bs,d,G,qb", [(16, 128, 128, 4, 16),
+                                          (32, 128, 128, 4, 16),
+                                          (12, 64, 64, 2, 4),
+                                          (5, 256, 128, 16, 32),
+                                          (12, 16, 128, 4, 4),
+                                          (3, 128, 256, 1, 16)])
+def test_rpa_plan_c_matches_plan(cuda, dtype, quant, mb, bs, d, G, qb):
+    """The C launcher's plan is rpa_plan's; the card holds at least one
+    cluster of the wgmma variant at once."""
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+
+    plan = rpa.rpa_plan(mb, bs, d, G, qb, dtype, quant)
+    plan_c = rpa.rpa_plan_c(mb, bs, d, G, qb, dtype, quant)
+    assert {k: plan_c[k] for k in plan} == plan
+    assert plan_c["clusters"] >= 1 or plan["variant"] != "wgmma"
 
 
 @pytest.mark.cuda
