@@ -129,16 +129,19 @@ Phases, each failing loudly (any failure exits nonzero):
    the wgmma variant in bf16, device times, a digest, row independence)
    at the llama3-8b step's attention shapes in bf16 and fp32 and K10q
    (int8 dense cache) at K10's shapes, each bit-equal to its fp kernel on
-   the inputs dequantized beforehand; K13 (grouped LoRA BGMV) at the
-   step's q and v projections, within 1e-5 of its fp32 plain version,
-   slot-0 rows exactly 0; kernel, plain, library time and bound (K10q
-   also on the device, and one allocation a call).
+   the inputs dequantized beforehand; K13 (grouped LoRA BGMV: a cluster
+   a packed row, the shrink split over H) at the step's q and v
+   projections, within 1e-5 of its fp32 plain version, slot-0 rows
+   exactly 0, a row's bits the same at other (c, i) in calls of other C,
+   its C plan ``lora_plan``'s; kernel, plain, library time and bound
+   (K13 and K10q also on the device, K10q one allocation a call).
 12. ``serving``: llama3-8b serving (random bf16 weights from seed 0):
    (a) int8 KV pages against bf16 (K8q L per step, 65552 KV bytes per
    token); (b) speculative decode, k 3, with the n-gram proposer and with
    drafts known to be right or wrong, streams held to the
    non-speculative engine's; (c) two LoRA adapters, priorities and a
-   schema-constrained request on a tight pool (K13 2L per step, a
+   schema-constrained request on a tight pool (K13 2L per step, every
+   launch through the cluster kernel at ``lora_plan_c == lora_plan``, a
    preemption, the ledger summed after every step, no-adapter streams
    held to the LoRA-off engine's); (d) card against CPU, small fp32, int8
    KV with the multi-tenant axes and with speculation; (e) the public
@@ -149,9 +152,11 @@ Phases, each failing loudly (any failure exits nonzero):
    plain versions: K15 (d-major k pages, GQA native; p rounded to bf16 as
    the kernel does) at llama2-7b's width (32 heads of 128, page 128, 16
    blocks) and llama3-8b's GQA (8 kv heads, 4 q heads each), K14
-   (token-major pages) and K16 (bit-equal to K14), with ragged lengths
-   (1, mid-page, a full table, 0) on a shuffled table, bf16 and fp32
-   (K15's C ring plan ``paged_mxu_plan``'s); kernel and SDPA on
+   (token-major pages) and K16 (warp-specialised, bit-equal to K14),
+   with ragged lengths (1, mid-page, a full table, 0) on a shuffled
+   table, bf16 and fp32, K16 also at its rings' edges (d 64 / 128 / 256,
+   pages of 16 / 64 / 128); the C ring plans ``paged_mxu_plan``'s and
+   ``paged_dma_plan``'s; kernel and SDPA on
    pre-gathered pages, eager and on the device, plain and the bound (the
    valid tokens' k and v, q and o) at the paged phase's last step.
 14. ``paged``: ``block_multihead_attention`` at llama2-7b's attention
@@ -621,11 +626,80 @@ def check_rpa_int8(dev) -> dict:
 LORA_TOL = 1e-5        # fp32 products of exact bf16 widenings; sum order
 
 
+def _lora_launch_counts() -> collections.Counter:
+    from paddle_tpu_torch.ops.kernels import lora_matmul as lm
+
+    return collections.Counter(lm.LAUNCHES_BY_PLAN)
+
+
+def _check_lora_variants(tag: str, before: collections.Counter,
+                         want: int | None = None) -> int:
+    """The K13 launches since ``before``, by (variant as the C entry
+    reported it, dtype, H, N, r): every one took the cluster kernel, at
+    every shape launched the C launcher's plan (``lora_plan_c``) is
+    ``lora_plan``'s, and there are ``want`` of them where given. Returns
+    their number."""
+    from paddle_tpu_torch.ops.kernels import lora_matmul as lm
+
+    diff = lm.LAUNCHES_BY_PLAN - before
+    for (variant, dt, H, N, r), n in sorted(diff.items()):
+        es = torch.empty((), dtype=getattr(torch, dt)).element_size()
+        plan = lm.lora_plan(H, N, r, es)
+        if lm.lora_plan_c(H, N, r, es) != plan:
+            raise AssertionError(f"{tag}: lora_plan_c {H} {N} {r} {dt} != "
+                                 f"lora_plan {plan}")
+        if variant != "cluster":
+            raise AssertionError(f"{tag}: {n} K13 launches took {variant}")
+    total = sum(diff.values())
+    print(f"{tag}: K13 launches by (variant, dtype, H, N, r): "
+          + ", ".join(f"{k}: {n}" for k, n in sorted(diff.items())))
+    if total == 0 or (want is not None and total != want):
+        raise AssertionError(f"{tag}: {total} K13 launches, want "
+                             f"{want if want is not None else '> 0'}")
+    return total
+
+
+def _lora_row_independence(lm, x, a, b, ids, gen) -> int:
+    """Rows of ``x`` carried again at other (c, i) in calls of other C
+    (1, 5 and 40 packed rows, the rest random rows on random slots):
+    each carried row's output is ``torch.equal`` to the first call's."""
+    C, qb, H = x.shape
+    S = a.shape[0]
+    ref = lm.lora_matmul(x, a, b, ids)
+    rng = np.random.RandomState(5)
+    held = 0
+    for C2 in (1, 5, 40):
+        x2 = torch.randn((C2, qb, H), generator=gen, device=x.device).to(
+            x.dtype)
+        ids2 = torch.from_numpy(rng.randint(0, S, size=C2).astype(
+            np.int32)).to(x.device)
+        moves = []
+        for _ in range(min(C2 * qb, 12)):
+            src = (rng.randint(C), rng.randint(qb))
+            dst = (rng.randint(C2), rng.randint(qb))
+            if any(m[1][0] == dst[0] for m in moves):
+                continue                     # one source row's slot a c
+            x2[dst] = x[src]
+            ids2[dst[0]] = ids[src[0]]
+            moves.append((src, dst))
+        got = lm.lora_matmul(x2, a, b, ids2)
+        for src, dst in moves:
+            if not torch.equal(got[dst], ref[src]):
+                raise AssertionError(f"K13: row {src} carried at {dst} of "
+                                     f"a {C2}-row call differs")
+            held += 1
+    return held
+
+
 def check_lora(dev) -> dict:
     """K13 at the llama3-8b engine step's shapes: x [32, 16, 4096] bf16,
     rank 8, 5 slots (slot 0 the zero identity), N 4096 (q) and 1024 (v),
     mixed ids with 0; fp32 out held by row to the plain version within
-    LORA_TOL (``_scaled_err``), slot-0 rows exactly 0."""
+    LORA_TOL (``_scaled_err``), slot-0 rows exactly 0; a row's bits the
+    same at other (c, i) in calls of other C; every launch through the
+    cluster kernel at ``lora_plan_c == lora_plan``; eager and device
+    (CUDA graph) times beside two fp32 bmm on the pre-gathered A and B;
+    a digest of each output."""
     from paddle_tpu_torch.ops.kernels import lora_matmul as lm
 
     gen = torch.Generator(device=dev).manual_seed(22)
@@ -635,6 +709,7 @@ def check_lora(dev) -> dict:
         0, S, size=C).astype(np.int32)).to(dev)
     ids[:3] = torch.tensor([0, 1, 4], dtype=torch.int32, device=dev)
     recs = {}
+    before = _lora_launch_counts()
     for N in (4096, 1024):
         a = (torch.randn((S, H, r), generator=gen, device=dev) * 0.05).to(
             torch.bfloat16)
@@ -648,28 +723,39 @@ def check_lora(dev) -> dict:
         zero = got[ids == 0]
         if not (zero == 0).all():
             raise AssertionError(f"K13 N{N}: slot-0 rows are not exactly 0")
-        ms = _time_ms(lambda: lm.lora_matmul(x, a, b, ids))
+        held = _lora_row_independence(lm, x, a, b, ids, gen)
+        fn = lambda: lm.lora_matmul(x, a, b, ids)  # noqa: E731
+        ms, graph_ms = _time_ms(fn), _graph_ms(fn)
         plain_ms = _time_ms(lambda: lm.lora_matmul_plain(x, a, b, ids))
         # library yardstick: two fp32 bmm on the pre-gathered A and B
         xf = x.float()
         ag, bg = a[ids.long()].float(), b[ids.long()].float()
-        library_ms = _time_ms(lambda: torch.bmm(torch.bmm(xf, ag), bg))
+        lib = lambda: torch.bmm(torch.bmm(xf, ag), bg)  # noqa: E731
+        library_ms, graph_library_ms = _time_ms(lib), _graph_ms(lib)
         used = len(set(ids.tolist()))
         nbytes = (x.numel() * 2 + used * (H * r + r * N) * 2 + C * 4
                   + C * qb * N * 4)
         bound_ms, bound_by = _bound(nbytes, 2.0 * C * qb * r * (H + N),
                                     FP32_FLOP_PER_S)
         print(f"K13 N{N}: {int((ids == 0).sum())} slot-0 rows exactly 0; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, two fp32 bmm "
-              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+              f"{held} rows carried at other (c, i) and C bit-equal; output "
+              f"digest {_digest(got)}; kernel {ms:.4f} ms (device "
+              f"{graph_ms:.4f}), plain {plain_ms:.4f} ms, two fp32 bmm "
+              f"{library_ms:.4f} ms (device {graph_library_ms:.4f}), bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
         recs[N] = {"name": "lora_matmul", "route": "cuda",
                    "source": "paddle_tpu_torch/csrc/lora_matmul.cu",
                    "replaces": "paddle_tpu/ops/pallas/lora_matmul.py:57",
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by,
-                   "library_ms": library_ms,
+                   "max_abs_err": err, "ms": ms, "graph_ms": graph_ms,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": library_ms,
+                   "graph_library_ms": graph_library_ms,
                    "shape": f"C{C} qb{qb} H{H} r{r} N{N} bf16"}
-    recs[4096]["ms_n1024"] = recs[1024]["ms"]
+        del xf, ag, bg
+    _check_lora_variants("K13 kernel checks", before)
+    for key in ("ms", "graph_ms", "bound_ms", "library_ms",
+                "graph_library_ms"):
+        recs[4096][f"{key}_n1024"] = recs[1024][key]
     return recs[4096]
 
 
@@ -3363,6 +3449,7 @@ def run_serving(dev) -> dict:
     for lora in (False, True):
         eng, vocab = _tenant_engine(cfg, params, dev, lora, n_pages)
         reqs = _tenant_requests(Request, cfg.vocab_size, lora)
+        lora_before = _lora_launch_counts()
         with _LogitTap(eng) as tap:
             steps, ln = _serving_counted(lambda: _drive(eng, reqs))
         res[lora] = (reqs, tap, eng.stats, ln, steps)
@@ -3370,6 +3457,8 @@ def run_serving(dev) -> dict:
             if ln["lora_matmul"] != 2 * L * steps:
                 raise AssertionError(f"K13 launches {ln['lora_matmul']} != "
                                      f"2 x {L} x {steps}")
+            _check_lora_variants("serving multi-tenant", lora_before,
+                                 2 * L * steps)
             counts["lora_matmul"] = ln["lora_matmul"]
             held = eng.adapters.n_pages_held()
         del eng
@@ -3487,11 +3576,15 @@ def check_serving_cpu(dev) -> None:
                 eng.register_schema("animal", json_schema_dfa(
                     {"enum": ["cat", "car", "dog"]}, vocab).fresh)
             reqs = requests("lora" in kw)
+            lora_before = _lora_launch_counts()
             with _LogitTap(eng) as tap:
                 if name == "cuda":
                     _, ln = _serving_counted(lambda: _drive(eng, reqs, 0.05))
                 else:
                     _drive(eng, reqs, 0.05)
+            if name == "cuda" and "lora" in kw:
+                _check_lora_variants(f"serving cpu/cuda {tag}", lora_before,
+                                     ln["lora_matmul"])
             res[name] = (reqs, tap, eng.page_accounting(), dict(eng.stats))
         want = ["ragged_paged_attention_int8"] + (
             ["lora_matmul"] if "lora" in kw else [])
@@ -3582,14 +3675,53 @@ def _check_mxu_plan(d, bs, G, dtype) -> None:
                              f"{want} at d{d} bs{bs} G{G} {dtype}")
 
 
+def _check_dma_plan(d, bs, dtype) -> None:
+    """K16's C launcher plans its rings as paged_dma_plan does."""
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+
+    es = torch.empty((), dtype=dtype).element_size()
+    want, got = da.paged_dma_plan(d, bs, es), da.paged_dma_plan_c(d, bs, es)
+    if got != want:
+        raise AssertionError(f"paged_dma_plan_c {got} != paged_dma_plan "
+                             f"{want} at d{d} bs{bs} {dtype}")
+
+
+def _dma_ring_edges(gen, dev) -> int:
+    """K16 (the warp-specialised kernel) bit-equal to K14 at its rings'
+    edges, d 64 / 128 / 256, pages of 16 / 64 / 128, bf16 and fp32:
+    lengths 1, 0 (every page), ending on a tile, inside the second tile,
+    on the k ring's last stage, a page and one, a full table; its C plan
+    paged_dma_plan's. Returns the cases held."""
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+
+    held = 0
+    for dt in (torch.bfloat16, torch.float32):
+        for d in (64, 128, 256):
+            for bs in (16, 64, 128):
+                _check_dma_plan(d, bs, dt)
+                tile, ks = da.paged_dma_plan(d, bs, dt.itemsize)[:2]
+                lens = [1, 0, tile, tile + 3, tile * ks, bs + 1, 4 * bs]
+                q, k, v, table, sl = _paged_case(gen, dev, dt, len(lens), 4,
+                                                 1, d, bs, 4, lens, False)
+                args = (q, k, v, table, sl, d ** -0.5)
+                if not torch.equal(da.paged_decode_attention_dma(*args),
+                                   da.paged_decode_attention_kernel(*args)):
+                    raise AssertionError(f"K16 != K14 at d{d} bs{bs} {dt} "
+                                         f"lens {lens}")
+                held += 1
+    return held
+
+
 def check_paged(dev) -> tuple[dict, dict, dict]:
     """K15, K14 and K16 against their plain versions: ragged lengths (1,
     mid-page, a full table, 0) on a shuffled table, bf16 and fp32, at
     llama2-7b's width (32 heads of 128, page 128, 16 blocks; K15 also at
     llama3-8b's GQA, 8 kv heads of 4 q heads; K14/K16 at 8 heads in fp32,
-    where the reference's gate refuses 32); K16 bit-equal to K14.
-    Timed at the paged phase's last decode step (B 8, 1088 tokens a
-    sequence, bf16)."""
+    where the reference's gate refuses 32); K16 bit-equal to K14 there
+    and at its rings' edges (``_dma_ring_edges``), its C plan
+    ``paged_dma_plan``'s. Timed at the paged phase's last decode step (B
+    8, 1088 tokens a sequence, bf16), eager and on the device (CUDA
+    graphs), beside SDPA on pre-gathered pages."""
     from paddle_tpu_torch.ops.kernels import decode_attention as da
 
     gen = torch.Generator(device=dev).manual_seed(21)
@@ -3611,6 +3743,7 @@ def check_paged(dev) -> tuple[dict, dict, dict]:
         nh = 32 if dt == torch.bfloat16 else 8
         q, k, v, table, sl = _paged_case(gen, dev, dt, len(lens), nh, 1, 128,
                                          128, 16, lens, False)
+        _check_dma_plan(128, 128, dt)
         k14 = da.paged_decode_attention_kernel(q, k, v, table, sl,
                                                128 ** -0.5)
         k16 = da.paged_decode_attention_dma(q, k, v, table, sl, 128 ** -0.5)
@@ -3620,6 +3753,7 @@ def check_paged(dev) -> tuple[dict, dict, dict]:
             raise AssertionError(f"K16 != K14 ({dt})")
         worst["tok"] = max(worst["tok"], _hold(
             f"K14 (== K16) {dt} nh{nh} lens {lens}", k14, ref, tol))
+    print(f"K16 == K14 at {_dma_ring_edges(gen, dev)} ring-edge cases")
     B, nh, d, bs = PAGED["B"], PAGED["nh"], PAGED["d"], PAGED["bs"]
     mb = PAGED["max_seq"] // bs
     n = PAGED["prompt"] + PAGED["steps"]
@@ -3826,11 +3960,13 @@ def run_paged(dev) -> dict:
     PagedKVCaches (one a layer; bf16, page 128, 2048 tokens, B 8), a
     1024-token prefill through block_multihead_attention (K1-sep 32
     times) and 64 decode steps with d-major pages (K15 32 times a step),
-    then the same with token-major pages (K14 32 times a step); K16 on the
-    token-major caches (bit-equal to K14); one GQA pass at llama3-8b's
-    width (32 q heads, 8 kv heads) through paged_decode_attention (K15's
-    native GQA); a small fp32 case, card against CPU. Returns the
-    launches of K15 and K14 (decode loops) and K16 (its pass)."""
+    then the same with token-major pages (K14 32 times a step); K16 (the
+    warp-specialised kernel, its own rings) once a layer on the
+    token-major caches, each layer bit-equal to K14; one GQA pass at
+    llama3-8b's width (32 q heads, 8 kv heads) through
+    paged_decode_attention (K15's native GQA); a small fp32 case, card
+    against CPU. Returns the launches of K15 and K14 (decode loops) and
+    K16 (its pass)."""
     from paddle_tpu_torch.incubate.nn.functional import fused_transformer \
         as ft
     from paddle_tpu_torch.ops.kernels import decode_attention as da
@@ -3865,6 +4001,7 @@ def run_paged(dev) -> dict:
             raise AssertionError(f"paged: K16 != K14 at layer {i}")
     if launches["paged_decode_attention_dma"] != PAGED["L"]:
         raise AssertionError(f"paged: K16 launched {ln}")
+    _check_dma_plan(PAGED["d"], PAGED["bs"], torch.bfloat16)
     print(f"paged: K16 on the {PAGED['L']} token-major caches, bit-equal to "
           f"K14 ({launches['paged_decode_attention_dma']} launches)")
     del caches, last_q, k16

@@ -22,7 +22,11 @@
 //   consumers' increase; the launcher refuses it instead;
 // - across a cluster: an arrival on another block's mbarrier (release at
 //   cluster scope), a wait that acquires at cluster scope, and the
-//   cluster-scope fence (K8's split combine, ragged_paged_attention.cu).
+//   cluster-scope fence (K8's split combine, ragged_paged_attention.cu);
+//   the cluster barrier split into a relaxed arrival and a wait; an
+//   asynchronous store of four floats into another block's shared memory
+//   that completes bytes on that block's mbarrier (K13's partial sums,
+//   lora_matmul.cu).
 #pragma once
 
 #include <cuda.h>           // CUtensorMap and its enums only:
@@ -90,6 +94,35 @@ __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
 }
 __device__ __forceinline__ void fence_cluster() {
   asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
+}
+// The cluster barrier split in two: every thread arrives (relaxed: after
+// mbar_init_fence, that is enough for the mbarriers' initialisation) and
+// later waits, so that a block's own work overlaps the other blocks'
+// arrival.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+// The shared::cluster address of this block's shared ``addr`` in block
+// ``rank`` of the cluster.
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+// Store four floats at the shared::cluster address ``dst`` (16-byte
+// aligned, another block's or this one's), completing 16 bytes on the
+// mbarrier at shared::cluster address ``bar`` in the same block.
+__device__ __forceinline__ void st_async_v4(uint32_t dst, float a, float b,
+                                            float c, float d,
+                                            uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 "
+      "[%0], {%1, %2, %3, %4}, [%5];\n"
+      :: "r"(dst), "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar) : "memory");
 }
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"

@@ -1,6 +1,7 @@
 // One-token decode attention over a paged KV cache, for Hopper (sm_90a):
 // K15 (d-major k pages, GQA), K14 (token-major pages, a bulk-copy ring)
-// and K16 (K14's function over a two-stage cp.async ring).
+// and K16 (K14's function, warp-specialised: two producer warps, a score
+// warpgroup a page ahead of a value warpgroup).
 //
 // Replaces the Pallas TPU kernels
 //   paddle_tpu/ops/pallas/decode_attention.py::_paged_decode_mxu_kernel (K15)
@@ -49,33 +50,47 @@
 //   1, 2, 4 or 8, the launcher's choice by G). Each sum runs in the order
 //   of a walk over the whole page, so the ring changes no bit of the
 //   output.
-// K14 and K16 share one per-page function (score_rows, page_softmax,
-// value_rows): a warp per token for the scores, one warp for the page's
-// max and sum, a thread per element of d for the values, each sum in a
-// fixed order that does not depend on how the rows are tiled. They
-// differ in how rows reach shared memory:
-// - K14 (paged_ring_kernel, K15's warps and ring): in the token-major
-//   pages one head's page is bs * d contiguous values, so a tile of its
-//   rows is one contiguous run, copied into a ring of 3-16 stages of 64,
-//   32, 16 or 8 rows (at most 16 KB; decode_attention.py::
-//   paged_ring_geometry): at llama2-7b's width 6 stages of 64 rows, for
-//   the grid of nh x B = 256 blocks over 132 SMs in one wave.
-// - K16 (paged_dma_kernel, 128 threads): tiles of 32 (or 16, 8) rows that
-//   every thread copies with cp.async into a two-stage ring, the next
-//   tile's copy in flight while this one computes.
+// K14 and K16 compute one per-page function in one order of operations:
+// a token's score is K14's 32 lane partials (lane l sums d = l, l + 32,
+// .. in order) over a fixed xor tree, scaled and masked (masked_score);
+// the page's max, p and state update on one warp (page_softmax_warp); a
+// thread per element of d walks the page's tokens in order for p v
+// (value_rows) and updates acc (update_acc). In the token-major pages one
+// head's page is bs * d contiguous values, so a tile of its rows is one
+// contiguous run, copied by a 1-D bulk copy. They differ in how the work
+// is laid out:
+// - K14 (paged_ring_kernel, K15's warps and ring): one producer thread
+//   streams a page's k tiles, then its v tiles, into a ring of 3-16
+//   stages of 64, 32, 16 or 8 rows (at most 16 KB; decode_attention.py::
+//   paged_ring_geometry: at llama2-7b's width 6 stages of 64 rows, for
+//   the grid of nh x B = 256 blocks over 132 SMs in one wave); four warps
+//   take the scores a warp a token, the softmax, then the values.
+// - K16 (paged_dma_kernel, 320 threads): a k producer warp and a v
+//   producer warp keep the pages' k and v tiles flowing into a k ring and
+//   a v ring (decode_attention.py::paged_dma_plan: three stages of 64
+//   rows each at llama2-7b's width, 96 KB in flight a block, two blocks
+//   an SM). The score warpgroup computes page j + 1's scores while
+//   the value warpgroup runs page j's p v: four threads a token, each
+//   holding eight of K14's lane partials (four 16-byte loads of a bf16
+//   row at d 128), K14's tree levels 16 and 8 by shuffle among them and
+//   levels 4, 2, 1 in registers, eight tokens a warp at once; its warp 0
+//   runs the page's softmax into one of two score buffers, which the
+//   value warpgroup frees when it has read them.
 // The TPU's DMA variant copies groups of gk whole pages of all heads (gk =
 // _paged_pages_per_program); at llama2-7b's width a page of all heads is
 // 1 MiB, beyond the 227 KB of a block's shared memory, so the unit here
-// is a tile of one head's page. Since both kernels run the same function
-// on the same rows in the same order, K14 gives K16's bits.
+// is a tile of one head's page. Both kernels compute every sum in the
+// same order, so K14 gives K16's bits.
 //
 // Bound on the H100: bytes. A decode step reads the valid tokens' k and v,
 // 2 * seq_len * nkv * d values per sequence, and does 4 * nq * seq_len * d
 // flop: G flop per byte in bf16 (4 at llama3-8b), far under the ~295 the
 // tensor cores need. At llama2-7b (B 8, 32 heads of 128, bf16) with 1088
 // tokens a sequence that is 143 MB per layer, 0.043 ms at 3.35 TB/s. What
-// decides the time is the bytes in flight: K16 keeps one tile in flight a
-// block; the rings of K15 and K14 up to a page and a half (PERF.md).
+// decides the time is the bytes in flight and how fast the consumers free
+// them: K15's and K14's rings hold up to a page and a half, their four
+// warps compute each page's steps in turn; K16's two rings hold as much,
+// and its warpgroups overlap (PERF.md).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -333,6 +348,12 @@ paged_mxu_kernel(const T* __restrict__ q, const T* __restrict__ kt,
 // The per-page function, in three steps, on rows [n][D] with row stride D
 // in shared memory (a stage of either kernel's ring).
 
+// A token's score from its dot product: scaled, -1e30 added past seq_len.
+__device__ __forceinline__ float masked_score(float s, float scale, int pos,
+                                              int seq_len) {
+  return s * scale + (pos < seq_len ? 0.f : kMaskFill);
+}
+
 // s[t0 + t] = (q . row t) * scale + mask for the n rows: a warp per row,
 // the lanes over d, a fixed shuffle tree.
 template <typename T, int D>
@@ -349,21 +370,21 @@ __device__ __forceinline__ void score_rows(const float* q_s, const T* rows,
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
     if (lane == 0)
-      s_s[t0 + t] = s * scale + (base + t0 + t < seq_len ? 0.f : kMaskFill);
+      s_s[t0 + t] = masked_score(s, scale, base + t0 + t, seq_len);
   }
 }
 
-// The page's max, p (in place, fp32) and the state update, by warp 0; the
-// caller synchronises before and after.
-__device__ __forceinline__ void page_softmax(float* s_s, int bs, float* st) {
-  if (threadIdx.x >= 32) return;
-  const int lane = threadIdx.x;
+// The page's max, p (in place, fp32) and the state update (m = ml[0],
+// l = ml[1]; alpha into *alpha), by one warp.
+__device__ __forceinline__ void page_softmax_warp(float* s_s, int bs,
+                                                  float* ml, float* alpha,
+                                                  int lane) {
   float mx = kMaskFill;
   for (int t = lane; t < bs; t += 32) mx = fmaxf(mx, s_s[t]);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-  const float m_prev = st[0];
+  const float m_prev = ml[0];
   const float m_new = fmaxf(m_prev, mx);
   float sum = 0.f;
   for (int t = lane; t < bs; t += 32) {
@@ -374,23 +395,32 @@ __device__ __forceinline__ void page_softmax(float* s_s, int bs, float* st) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
   if (lane == 0) {
-    const float alpha = expf(m_prev - m_new);
-    st[1] = st[1] * alpha + sum;     // l
-    st[0] = m_new;                   // m
-    st[2] = alpha;
+    const float a = expf(m_prev - m_new);
+    ml[1] = ml[1] * a + sum;         // l
+    ml[0] = m_new;                   // m
+    *alpha = a;
   }
 }
 
-// pv[k] += sum over the n rows of p[t0 + t] * row t [dd], dd = tid + k*128,
-// tokens in order.
+// K14's: warp 0, state st = (m, l, alpha); the caller synchronises before
+// and after.
+__device__ __forceinline__ void page_softmax(float* s_s, int bs, float* st) {
+  if (threadIdx.x >= 32) return;
+  page_softmax_warp(s_s, bs, st, st + 2, threadIdx.x);
+}
+
+// pv[k] += sum over the n rows of p[t0 + t] * row t [dd], dd = vt + k*128
+// (vt the thread's index among the 128 that walk the values), tokens in
+// order.
 template <typename T, int D>
 __device__ __forceinline__ void value_rows(const float* p_s, const T* rows,
                                            int n, int t0,
                                            float (&pv)[(D + kThreads - 1) /
-                                                       kThreads]) {
+                                                       kThreads],
+                                           int vt) {
 #pragma unroll
   for (int k = 0; k < (D + kThreads - 1) / kThreads; ++k) {
-    const int dd = threadIdx.x + k * kThreads;
+    const int dd = vt + k * kThreads;
     if (dd >= D) break;
     float a = pv[k];
 #pragma unroll 4
@@ -411,10 +441,11 @@ __device__ __forceinline__ void update_acc(
 
 template <typename T, int D>
 __device__ __forceinline__ void store_out(
-    T* ob, const float (&acc)[(D + kThreads - 1) / kThreads], float l) {
+    T* ob, const float (&acc)[(D + kThreads - 1) / kThreads], float l,
+    int vt) {
 #pragma unroll
   for (int k = 0; k < (D + kThreads - 1) / kThreads; ++k) {
-    const int dd = threadIdx.x + k * kThreads;
+    const int dd = vt + k * kThreads;
     if (dd < D) ob[dd] = from_f<T>(acc[k] / fmaxf(l, 1e-30f));
   }
 }
@@ -429,7 +460,7 @@ __device__ __forceinline__ void store_out(
 
 // smem: full[kMaxStages], empty[kMaxStages] (256 B), the ring: stages x
 // [tile][D] T (from byte 256), then q [D], s [bs], state (m, l, alpha).
-// The walk is K16's: per page its k tiles, then its v tiles.
+// The walk: per page its k tiles, then its v tiles.
 template <typename T, int D>
 __global__ void __launch_bounds__(kRingThreads)
 paged_ring_kernel(const T* __restrict__ q, const T* __restrict__ kp,
@@ -503,7 +534,7 @@ paged_ring_kernel(const T* __restrict__ q, const T* __restrict__ kp,
         compute_sync();
       }
     } else {
-      value_rows<T, D>(s_s, rows, tile, (r - half) * tile, pv);
+      value_rows<T, D>(s_s, rows, tile, (r - half) * tile, pv, tid);
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[s]);
       if (r == per_page - 1) {
@@ -514,77 +545,185 @@ paged_ring_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       }
     }
   }
-  store_out<T, D>(out + ((size_t)b * nh + hh) * D, acc, st[1]);
+  store_out<T, D>(out + ((size_t)b * nh + hh) * D, acc, st[1], tid);
 }
 
-// smem: q [D], s [bs], state (m, l, alpha), then the ring: 2 x [tile][D] T.
-// The walk is, per page, its k tiles then its v tiles; tile i + 1's copy is
-// issued before tile i is computed.
+// ---- K16: K14's per-page function, warp-specialised ----------------------
+//
+// Warps 0-3 (the score warpgroup) take each page's scores and, on warp 0,
+// its softmax; warps 4-7 (the value warpgroup) its p v, a page behind;
+// warp 8's lane 0 streams the pages' k tiles into the k ring, warp 9's the
+// v tiles into the v ring, each in table order. kfull / vfull count a
+// producer's arrival and the stage's bytes, kempty / vempty the four
+// consuming warps' releases; sfull[b] says the score buffer b holds a
+// page's p and alpha (warp 0's 32 lanes), sempty[b] that the value warps
+// have read them.
+
+constexpr int kDmaThreads = 2 * kThreads + 64;   // + two producer warps
+constexpr int kDmaBarBytes = 640;                // 4 x 16 + 4 mbarriers
+
+// Eight consecutive values widened to fp32 (16-byte aligned).
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = __bfloat162float(e[i]);
+}
+
+// smem: kfull, kempty, vfull, vempty [kMaxStages] each, sfull [2], sempty
+// [2] (from byte 0); the k ring: k_stages x [tile][D] T (from byte 640),
+// the v ring: v_stages x [tile][D] T; then fp32 q [D], s [2][bs], (m, l),
+// alpha [2] (paged_dma_plan's layout).
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kDmaThreads, D == 256 ? 1 : 2)
 paged_dma_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                  const T* __restrict__ vp, const int* __restrict__ table,
                  const int* __restrict__ seq_lens, T* __restrict__ out,
-                 int nh, int bs, int mb, int tile, float scale) {
+                 int nh, int bs, int mb, int tile, int k_stages,
+                 int v_stages, float scale) {
   constexpr int NK = (D + kThreads - 1) / kThreads;
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;
+  constexpr int KD = D / 32;                 // K14's terms a lane
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(smem_raw);
+  uint64_t* kempty = kfull + kMaxStages;
+  uint64_t* vfull = kempty + kMaxStages;
+  uint64_t* vempty = vfull + kMaxStages;
+  uint64_t* sfull = vempty + kMaxStages;
+  uint64_t* sempty = sfull + 2;
+  T* kring = reinterpret_cast<T*>(smem_raw + kDmaBarBytes);
+  T* vring = kring + (size_t)k_stages * tile * D;
+  float* q_s = reinterpret_cast<float*>(vring + (size_t)v_stages * tile * D);
   float* s_s = q_s + D;
-  float* st = s_s + bs;
-  T* ring = reinterpret_cast<T*>(st + 4);   // 16-byte aligned: D, bs % 8 == 0
+  float* ml = s_s + 2 * bs;
+  float* alpha_s = ml + 2;
   const int hh = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int seq_len = seq_lens[b];
+  const int n_pages = pages_to_read(seq_len, bs, mb);
+  const int tpp = bs / tile;                 // tiles a page
   const T* qb = q + ((size_t)b * nh + hh) * D;
-  for (int e = tid; e < D; e += kThreads) q_s[e] = to_f(qb[e]);
+  for (int e = tid; e < D; e += 2 * kThreads) q_s[e] = to_f(qb[e]);
   if (tid == 0) {
-    st[0] = kMaskFill;
-    st[1] = 0.f;
+    ml[0] = kMaskFill;
+    ml[1] = 0.f;
+  } else if (tid == 2 * kThreads) {
+    for (int s = 0; s < kMaxStages; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&kempty[s], kWarps);
+      mbar_init(&vfull[s], 1);
+      mbar_init(&vempty[s], kWarps);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&sfull[i], 32);
+      mbar_init(&sempty[i], kWarps);
+    }
+    mbar_init_fence();
   }
+  __syncthreads();
+
+  if (warp >= 8) {                           // producers
+    if (lane != 0) return;
+    const bool v = warp == 9;
+    T* ring = v ? vring : kring;
+    const T* src0 = v ? vp : kp;
+    uint64_t* full = v ? vfull : kfull;
+    uint64_t* empty = v ? vempty : kempty;
+    const int stages = v ? v_stages : k_stages;
+    const uint32_t bytes = (uint32_t)(tile * D * sizeof(T));
+    for (int i = 0; i < n_pages * tpp; ++i) {
+      const int s = i % stages;
+      mbar_wait(&empty[s], ((i / stages) & 1) ^ 1);
+      const size_t page = (size_t)table[(size_t)b * mb + i / tpp];
+      const T* src = src0 + ((page * nh + hh) * (size_t)bs +
+                             (size_t)(i % tpp) * tile) * D;
+      mbar_expect_tx(&full[s], bytes);
+      bulk_load(smem_u32(ring + (size_t)s * tile * D), src, bytes, &full[s]);
+    }
+    return;
+  }
+
+  if (warp < 4) {                            // scores and softmax
+    // four threads a token: part g holds K14's lanes 8g .. 8g + 7
+    const int g = tid % 4, tq = tid / 4;
+    float qr[KD][8];
+#pragma unroll
+    for (int k = 0; k < KD; ++k) load8(q_s + 32 * k + 8 * g, qr[k]);
+    for (int j = 0; j < n_pages; ++j) {
+      const int sb = j & 1;
+      float* sj = s_s + sb * bs;
+      mbar_wait(&sempty[sb], ((j >> 1) & 1) ^ 1);
+      for (int r = 0; r < tpp; ++r) {
+        const int i = j * tpp + r, st = i % k_stages;
+        mbar_wait(&kfull[st], (i / k_stages) & 1);
+        const T* rows = kring + (size_t)st * tile * D;
+        for (int t = tq; t < tile; t += 32) {     // whole warps in or out
+          const T* row = rows + (size_t)t * D + 8 * g;
+          float c[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) c[e] = 0.f;
+#pragma unroll
+          for (int k = 0; k < KD; ++k) {
+            float x[8];
+            load8(row + 32 * k, x);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) c[e] = fmaf(qr[k][e], x[e], c[e]);
+          }
+#pragma unroll
+          for (int e = 0; e < 8; ++e)            // level 16: lanes l, l ^ 16
+            c[e] += __shfl_xor_sync(0xffffffffu, c[e], 2);
+#pragma unroll
+          for (int e = 0; e < 8; ++e)            // level 8
+            c[e] += __shfl_xor_sync(0xffffffffu, c[e], 1);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) c[e] += c[e + 4];   // level 4
+#pragma unroll
+          for (int e = 0; e < 2; ++e) c[e] += c[e + 2];   // level 2
+          const float s = c[0] + c[1];                      // level 1
+          if (g == 0)
+            sj[r * tile + t] = masked_score(s, scale, j * bs + r * tile + t,
+                                            seq_len);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&kempty[st]);
+      }
+      named_barrier(1, kThreads);            // the page's scores are in
+      if (warp == 0) {
+        page_softmax_warp(sj, bs, ml, &alpha_s[sb], lane);
+        mbar_arrive(&sfull[sb]);
+      }
+    }
+    return;
+  }
+
+  const int vt = tid - kThreads;             // values, a page behind
   float acc[NK], pv[NK];
 #pragma unroll
   for (int k = 0; k < NK; ++k) acc[k] = pv[k] = 0.f;
-  const int seq_len = seq_lens[b];
-  const int n_pages = pages_to_read(seq_len, bs, mb);
-  const int per_page = 2 * (bs / tile);     // k tiles, then v tiles
-  const int n_tiles = n_pages * per_page;
-  constexpr int kVec = 16 / sizeof(T);
-  auto issue = [&](int i) {
-    const int j = i / per_page, r = i % per_page;
-    const size_t page = (size_t)table[(size_t)b * mb + j];
-    const T* src = (r < per_page / 2 ? kp : vp) +
-                   ((page * nh + hh) * (size_t)bs +
-                    (size_t)(r % (per_page / 2)) * tile) * D;
-    T* dst = ring + (size_t)(i % 2) * tile * D;
-    for (int e = tid; e < tile * D / kVec; e += kThreads)
-      cp_async16(dst + e * kVec, src + (size_t)e * kVec);
-    cp_commit();
-  };
-  if (n_tiles > 0) issue(0);
-  __syncthreads();
-  for (int i = 0; i < n_tiles; ++i) {
-    cp_wait_all();
-    __syncthreads();                          // tile i landed, i - 1 consumed
-    if (i + 1 < n_tiles) issue(i + 1);
-    const int j = i / per_page, r = i % per_page, half = per_page / 2;
-    const T* rows = ring + (size_t)(i % 2) * tile * D;
-    if (r < half) {
-      score_rows<T, D>(q_s, rows, tile, r * tile, j * bs, seq_len, scale,
-                       s_s);
-      if (r == half - 1) {
-        __syncthreads();
-        page_softmax(s_s, bs, st);
-        __syncthreads();
-      }
-    } else {
-      value_rows<T, D>(s_s, rows, tile, (r - half) * tile, pv);
-      if (r == per_page - 1) {
-        update_acc<D>(acc, pv, st[2]);
-#pragma unroll
-        for (int k = 0; k < NK; ++k) pv[k] = 0.f;
-      }
+  for (int j = 0; j < n_pages; ++j) {
+    const int sb = j & 1;
+    const float* pj = s_s + sb * bs;
+    mbar_wait(&sfull[sb], (j >> 1) & 1);
+    for (int r = 0; r < tpp; ++r) {
+      const int i = j * tpp + r, st = i % v_stages;
+      mbar_wait(&vfull[st], (i / v_stages) & 1);
+      value_rows<T, D>(pj, vring + (size_t)st * tile * D, tile, r * tile, pv,
+                       vt);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&vempty[st]);
     }
+    update_acc<D>(acc, pv, alpha_s[sb]);
+#pragma unroll
+    for (int k = 0; k < NK; ++k) pv[k] = 0.f;
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sempty[sb]);
   }
-  __syncthreads();
-  store_out<T, D>(out + ((size_t)b * nh + hh) * D, acc, st[1]);
+  store_out<T, D>(out + ((size_t)b * nh + hh) * D, acc, ml[1], vt);
 }
 
 // ---- launchers ------------------------------------------------------------
@@ -682,31 +821,71 @@ size_t ring_smem(int d, int bs, int tile, int stages, size_t itemsize) {
 }
 
 template <typename T, int D>
-int launch_tok(bool dma, const void* q, const void* kp, const void* vp,
-               const int* tb, const int* sl, void* out, int B, int nh,
-               int bs, int mb, int tile, int stages, float scale,
-               cudaStream_t st) {
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(kp);
-  const T* vt = static_cast<const T*>(vp);
-  T* ot = static_cast<T*>(out);
-  const dim3 grid(nh, B);
-  if (!dma) {
-    const size_t smem = ring_smem(D, bs, tile, stages, sizeof(T));
-    if (smem == 0 || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-    cudaError_t err = set_smem(paged_ring_kernel<T, D>, smem);
-    if (err != cudaSuccess) return (int)err;
-    paged_ring_kernel<T, D><<<grid, kRingThreads, smem, st>>>(
-        qt, kt, vt, tb, sl, ot, nh, bs, mb, tile, stages, scale);
-    return (int)cudaGetLastError();
-  }
-  tile = bs % 32 == 0 ? 32 : bs % 16 == 0 ? 16 : 8;
-  const size_t smem = sizeof(float) * ((size_t)D + bs + 4) +
-                      sizeof(T) * 2 * (size_t)tile * D;
-  cudaError_t err = set_smem(paged_dma_kernel<T, D>, smem);
+int launch_tok(const void* q, const void* kp, const void* vp, const int* tb,
+               const int* sl, void* out, int B, int nh, int bs, int mb,
+               int tile, int stages, float scale, cudaStream_t st) {
+  const size_t smem = ring_smem(D, bs, tile, stages, sizeof(T));
+  if (smem == 0 || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_smem(paged_ring_kernel<T, D>, smem);
   if (err != cudaSuccess) return (int)err;
-  paged_dma_kernel<T, D><<<grid, kThreads, smem, st>>>(
-      qt, kt, vt, tb, sl, ot, nh, bs, mb, tile, scale);
+  paged_ring_kernel<T, D><<<dim3(nh, B), kRingThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kp),
+      static_cast<const T*>(vp), tb, sl, static_cast<T*>(out), nh, bs, mb,
+      tile, stages, scale);
+  return (int)cudaGetLastError();
+}
+
+// K16's rings, as decode_attention.py::paged_dma_plan sizes them: rows a
+// stage (the most of 64, 32, 16, 8 that divides the page within 16 KB),
+// stages of the k ring and of the v ring (as many between them as leave
+// two blocks on an SM beside the fixed part, half each, the v ring the
+// odd one, 2 to 16 each; else a block's whole shared memory), threads
+// and shared bytes; false where no two-stage rings fit.
+struct DmaPlan {
+  int tile, k_stages, v_stages, threads;
+  size_t smem;
+};
+bool dma_plan(int D, int bs, size_t itemsize, DmaPlan& p) {
+  const size_t row = (size_t)D * itemsize;
+  p.tile = 0;
+  for (int t = 64; t >= 8; t /= 2)
+    if (bs % t == 0 && t * row <= kStageBytes) {
+      p.tile = t;
+      break;
+    }
+  if (p.tile == 0) return false;
+  const size_t slot = p.tile * row;
+  const size_t fixed = kDmaBarBytes + sizeof(float) * ((size_t)D + 2 * bs + 4);
+  const size_t rooms[2] = {kSmSmem / 2 - kBlockReserved, kMaxSmem};
+  for (size_t room : rooms) {
+    if (room <= fixed) continue;
+    const int total =
+        (int)std::min((size_t)2 * kMaxStages, (room - fixed) / slot);
+    p.k_stages = total / 2;
+    p.v_stages = total - p.k_stages;
+    if (p.k_stages >= 2) {
+      p.threads = kDmaThreads;
+      p.smem = fixed + (size_t)total * slot;
+      return true;
+    }
+  }
+  return false;
+}
+
+// One launch of K16. The kernel's limit on dynamic shared memory is
+// raised once, to a block's whole 227 KB.
+template <typename T, int D>
+int launch_dma(const void* q, const void* kp, const void* vp, const int* tb,
+               const int* sl, void* out, int B, int nh, int bs, int mb,
+               float scale, cudaStream_t st) {
+  DmaPlan p;
+  if (!dma_plan(D, bs, sizeof(T), p)) return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = set_smem(paged_dma_kernel<T, D>, kMaxSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  paged_dma_kernel<T, D><<<dim3(nh, B), p.threads, p.smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kp),
+      static_cast<const T*>(vp), tb, sl, static_cast<T*>(out), nh, bs, mb,
+      p.tile, p.k_stages, p.v_stages, scale);
   return (int)cudaGetLastError();
 }
 
@@ -757,18 +936,17 @@ extern "C" int paged_mxu_plan_c(int d, int bs, int G, int itemsize,
   return 0;
 }
 
-// K14 (dma = 0) and K16 (dma = 1): q [B, nh, d], k and v [P, nh, bs, d].
-// tile and stages are K14's ring (rows a stage, stages); K16 sizes its own.
-extern "C" int paged_decode_tok(int dma, const void* q, const void* k,
-                                const void* v, const int* table,
-                                const int* seq_lens, void* out, int B, int nh,
-                                int d, int bs, int mb, int tile, int stages,
-                                float scale, int dtype, void* stream) {
+// K14: q [B, nh, d], k and v [P, nh, bs, d]; tile and stages are its
+// ring (rows a stage, stages: paged_ring_geometry).
+extern "C" int paged_decode_tok(const void* q, const void* k, const void* v,
+                                const int* table, const int* seq_lens,
+                                void* out, int B, int nh, int d, int bs,
+                                int mb, int tile, int stages, float scale,
+                                int dtype, void* stream) {
   if (!geometry_ok(B, nh, d, bs, mb, dtype))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool m = dma != 0;
-#define ARGS m, q, k, v, table, seq_lens, out, B, nh, bs, mb, tile, stages, \
+#define ARGS q, k, v, table, seq_lens, out, B, nh, bs, mb, tile, stages, \
     scale, st
   if (dtype == 1) {
     if (d == 64) return launch_tok<__nv_bfloat16, 64>(ARGS);
@@ -779,4 +957,39 @@ extern "C" int paged_decode_tok(int dma, const void* q, const void* k,
   if (d == 128) return launch_tok<float, 128>(ARGS);
   return launch_tok<float, 256>(ARGS);
 #undef ARGS
+}
+
+// K16: K14's function and operands; it sizes its own rings (dma_plan).
+extern "C" int paged_decode_dma(const void* q, const void* k, const void* v,
+                                const int* table, const int* seq_lens,
+                                void* out, int B, int nh, int d, int bs,
+                                int mb, float scale, int dtype,
+                                void* stream) {
+  if (!geometry_ok(B, nh, d, bs, mb, dtype))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define ARGS q, k, v, table, seq_lens, out, B, nh, bs, mb, scale, st
+  if (dtype == 1) {
+    if (d == 64) return launch_dma<__nv_bfloat16, 64>(ARGS);
+    if (d == 128) return launch_dma<__nv_bfloat16, 128>(ARGS);
+    return launch_dma<__nv_bfloat16, 256>(ARGS);
+  }
+  if (d == 64) return launch_dma<float, 64>(ARGS);
+  if (d == 128) return launch_dma<float, 128>(ARGS);
+  return launch_dma<float, 256>(ARGS);
+#undef ARGS
+}
+
+// K16's rings as its launcher plans them (dma_plan): out = {rows a stage,
+// k stages, v stages, threads, shared bytes}; cudaErrorInvalidValue where
+// none fit.
+extern "C" int paged_dma_plan_c(int d, int bs, int itemsize, int* out) {
+  DmaPlan p;
+  if (!dma_plan(d, bs, (size_t)itemsize, p)) return (int)cudaErrorInvalidValue;
+  out[0] = p.tile;
+  out[1] = p.k_stages;
+  out[2] = p.v_stages;
+  out[3] = p.threads;
+  out[4] = (int)p.smem;
+  return 0;
 }

@@ -40,8 +40,11 @@ o = acc / max(l, 1e-30).
   [P, nh, bs, d], nh == nq, fp32 products, p not rounded. One thread
   streams the rows through a ring of 1-D bulk copies that
   ``paged_ring_geometry`` sizes.
-- K16 ``paged_decode_attention_dma``: K14's function through the kernel
-  that copies its own pages (bit-equal to K14); raises where
+- K16 ``paged_decode_attention_dma``: K14's function and order of
+  operations (bit-equal to K14) through a warp-specialised kernel: two
+  producer warps stream the pages' k and v tiles into two rings that
+  ``paged_dma_plan`` sizes, a score warpgroup takes page j + 1's scores
+  while a value warpgroup takes page j's p v; raises where
   ``paged_decode_supported`` fails, as the reference's does.
 
 Their gates are the reference's term for term (v5e VMEM caps that decide
@@ -68,7 +71,7 @@ __all__ = ["decode_attention", "decode_attention_int8",
            "paged_decode_attention_mxu", "paged_decode_attention_kernel",
            "paged_decode_attention_dma", "paged_decode_mxu_plain",
            "paged_decode_plain", "paged_ring_geometry", "paged_mxu_plan",
-           "paged_mxu_plan_c"]
+           "paged_mxu_plan_c", "paged_dma_plan", "paged_dma_plan_c"]
 
 BLOCK_S = 512
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -444,6 +447,50 @@ def paged_mxu_plan_c(d: int, bs: int, G: int, itemsize: int) -> tuple:
     return tuple(out)
 
 
+DMA_THREADS = 320            # kDmaThreads: two warpgroups, two producer warps
+DMA_BAR_BYTES = 640          # kDmaBarBytes: the block's mbarriers
+
+
+def paged_dma_plan(d: int, bs: int, itemsize: int) -> tuple[int, int, int,
+                                                            int, int]:
+    """K16's rings, as ``csrc/paged_decode_attention.cu::dma_plan`` sizes
+    them: (rows a stage, k stages, v stages, threads, shared bytes a
+    block). A stage is the largest of 64, 32, 16, 8 rows that divides the
+    page and fits 16 KB (K14's tile); the k ring and the v ring share as
+    many stages as leave ``RING_BLOCKS_PER_SM`` blocks room on an SM
+    beside the fixed part (barriers, fp32 q [d], two score buffers
+    [2][bs], m, l, two alphas), half each and the odd one to v, 2 to 16
+    each; a page too long for that gets a block's whole shared memory.
+    The k producer walks the table's pages in order, each page's k tiles
+    in order, stage i of the walk into k slot i % k_stages; the v
+    producer likewise into the v ring; a page's k tiles are consumed
+    (its scores) before its v tiles (its p v)."""
+    row = d * itemsize
+    tile = next((t for t in (64, 32, 16, 8)
+                 if bs % t == 0 and t * row <= RING_TILE_BYTES), None)
+    if tile is None:
+        raise ValueError(f"d {d}, bs {bs}: no K16 stage")
+    fixed = DMA_BAR_BYTES + 4 * (d + 2 * bs + 4)
+    for room in (SM_SMEM_BYTES // RING_BLOCKS_PER_SM - BLOCK_SMEM_RESERVED,
+                 BLOCK_SMEM_MAX):
+        total = min(2 * RING_MAX_STAGES, max(room - fixed, 0) // (tile * row))
+        k_stages = total // 2
+        if k_stages >= 2:
+            return (tile, k_stages, total - k_stages, DMA_THREADS,
+                    fixed + total * tile * row)
+    raise ValueError(f"d {d}, bs {bs}: no two-stage K16 rings fit")
+
+
+def paged_dma_plan_c(d: int, bs: int, itemsize: int) -> tuple:
+    """The rings K16's C launcher plans (``paged_dma_plan_c`` in the
+    library), to hold ``paged_dma_plan`` to it on the card."""
+    out = (ctypes.c_int * 5)()
+    _build.check(_paged_fn("paged_dma_plan_c")(d, bs, itemsize,
+                                                ctypes.addressof(out)),
+                 "paged_dma_plan_c")
+    return tuple(out)
+
+
 def _paged_fn(name: str):
     fn = _fns.get(name)
     if fn is None:
@@ -451,11 +498,12 @@ def _paged_fn(name: str):
         P, I = ctypes.c_void_p, ctypes.c_int
         if name == "paged_mxu_plan_c":
             fn.argtypes = [I] * 4 + [P]
+        elif name == "paged_dma_plan_c":
+            fn.argtypes = [I] * 3 + [P]
         else:
-            lead = [I] if name == "paged_decode_tok" else []
-            n_int = 6 if name == "paged_decode_mxu" else 7
-            fn.argtypes = lead + [P] * 6 + [I] * n_int + [ctypes.c_float, I,
-                                                          P]
+            n_int = {"paged_decode_mxu": 6, "paged_decode_tok": 7,
+                     "paged_decode_dma": 5}[name]
+            fn.argtypes = [P] * 6 + [I] * n_int + [ctypes.c_float, I, P]
         fn.restype = I
         _fns[name] = fn
     return fn
@@ -495,8 +543,8 @@ def _check_paged(q, k_pages, v_pages, block_table, seq_lens,
     return B, nkv, nq // nkv, bs, mb
 
 
-def _launch_paged(name: str, dma, q, k_pages, v_pages, block_table,
-                  seq_lens, sm_scale: float, d_major: bool) -> torch.Tensor:
+def _launch_paged(name: str, q, k_pages, v_pages, block_table, seq_lens,
+                  sm_scale: float, d_major: bool) -> torch.Tensor:
     B, nkv, G, bs, mb = _check_paged(q, k_pages, v_pages, block_table,
                                      seq_lens, d_major)
     d = q.shape[2]
@@ -505,11 +553,12 @@ def _launch_paged(name: str, dma, q, k_pages, v_pages, block_table,
             block_table.data_ptr(), seq_lens.data_ptr(), o.data_ptr())
     if d_major:
         geo = (nkv, G, d, bs, mb)
-    else:   # K16 sizes its own tiles and ignores the ring
-        ring = paged_ring_geometry(d, bs, q.element_size())[:2] \
-            if dma == (0,) else (0, 0)
-        geo = (nkv, d, bs, mb, *ring)
-    err = _paged_fn(name)(*dma, *ptrs, B, *geo, float(sm_scale),
+    elif name == "paged_decode_tok":
+        geo = (nkv, d, bs, mb,
+               *paged_ring_geometry(d, bs, q.element_size())[:2])
+    else:   # K16 sizes its own rings
+        geo = (nkv, d, bs, mb)
+    err = _paged_fn(name)(*ptrs, B, *geo, float(sm_scale),
                           _DTYPE_CODE[q.dtype],
                           torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, name)
@@ -525,7 +574,7 @@ def paged_decode_attention_mxu(q, kt_pages, v_pages, block_table, seq_lens,
                                       seq_lens, sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    o = _launch_paged("paged_decode_mxu", (), q, kt_pages, v_pages,
+    o = _launch_paged("paged_decode_mxu", q, kt_pages, v_pages,
                       block_table, seq_lens, sm_scale, d_major=True)
     paged_decode_attention_mxu.launches += 1
     return o
@@ -543,7 +592,7 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, block_table,
     if q.shape[1] != k_pages.shape[1]:
         raise ValueError(f"{q.shape[1]} q heads over {k_pages.shape[1]} "
                          "page heads: the token-major kernels take nh == nq")
-    o = _launch_paged("paged_decode_tok", (0,), q, k_pages, v_pages,
+    o = _launch_paged("paged_decode_tok", q, k_pages, v_pages,
                       block_table, seq_lens, sm_scale, d_major=False)
     paged_decode_attention_kernel.launches += 1
     return o
@@ -551,10 +600,11 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, block_table,
 
 def paged_decode_attention_dma(q, k_pages, v_pages, block_table, seq_lens,
                                sm_scale: float) -> torch.Tensor:
-    """K16: K14's function through the kernel that copies its own pages
-    (bit-equal to K14). Raises where ``paged_decode_supported`` fails, on
-    any device, as the reference's entry does. Counts its CUDA launches
-    in ``paged_decode_attention_dma.launches``."""
+    """K16: K14's function through the warp-specialised kernel that
+    sizes its own rings (``paged_dma_plan``; bit-equal to K14). Raises
+    where ``paged_decode_supported`` fails, on any device, as the
+    reference's entry does. Counts its CUDA launches in
+    ``paged_decode_attention_dma.launches``."""
     if not paged_decode_supported(k_pages.shape, q.shape[1],
                                   max_blocks=block_table.shape[1],
                                   itemsize=k_pages.element_size()):
@@ -567,7 +617,7 @@ def paged_decode_attention_dma(q, k_pages, v_pages, block_table, seq_lens,
                                   sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    o = _launch_paged("paged_decode_tok", (1,), q, k_pages, v_pages,
+    o = _launch_paged("paged_decode_dma", q, k_pages, v_pages,
                       block_table, seq_lens, sm_scale, d_major=False)
     paged_decode_attention_dma.launches += 1
     return o

@@ -37,7 +37,18 @@ splits (a cluster) of at least 1024 keys; the ring and the combine fit
 227 KB with three blocks an SM; the plan takes the geometry alone; other
 pages, dtypes and head dims take the mma.sync or FMA kernel; the
 constants are the source's, and launches are counted under the variant
-the C entry reports.
+the C entry reports. K13 (``lora_matmul.lora_plan``): at r 4, 8, 16, fp32
+and bf16, H 128 / 4096 / 14336 and N 128 / 1024 / 4096 the launch fits
+227 KB with three blocks an SM, its cluster is a power of two up to 8
+that divides H / 128, its blocks' H slices cover every column of H once
+and their N slices every column of N once, its stages copy every column
+of a block's H slice once a row group, in order; the plan takes (H, N,
+r, itemsize) alone and refuses shapes outside the reference's gate;
+launches are counted under the variant the C entry reports. K16
+(``decode_attention.paged_dma_plan``): at d 64, 128, 256, pages of 8-128
+tokens, fp32 and bf16 the rings fit with two blocks an SM, and the k and
+v producers stage every tile of every page once, in table order, a
+page's k tiles consumed before its v tiles.
 """
 
 import collections
@@ -52,6 +63,7 @@ from paddle_tpu_torch.ops.kernels import decode_attention as da
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import fused_bias_act as fba
 from paddle_tpu_torch.ops.kernels import fused_ce as ce
+from paddle_tpu_torch.ops.kernels import lora_matmul as lm
 from paddle_tpu_torch.ops.kernels import quant_matmul as qmm
 from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
 
@@ -888,3 +900,207 @@ def test_rpa_wrapper_checks_take_good_operands():
     ops = _rpa_operands()
     rpa._check_cuda(ops["q"], ops["kp"], ops["vp"], ops["rows"],
                     ops["pos0"], ops["nv"], torch.bfloat16)
+
+
+LORA_ROOM = lm.SM_SMEM_BYTES // lm.BLOCKS_PER_SM - lm.BLOCK_SMEM_RESERVED
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("r", [4, 8, 16])
+@pytest.mark.parametrize("H", [128, 4096, 14336])
+@pytest.mark.parametrize("N", [128, 1024, 4096])
+def test_lora_plan_fits_and_its_slices_cover_h_and_n(N, H, r, itemsize):
+    """Three blocks an SM; a cluster of 1-8 blocks (a power of two, the
+    most that divides H / 128); block k's H slice and N slice, over the
+    cluster, cover every column once; B's slice staged where it fits;
+    the stages of a row group copy the block's H slice once, chunk by
+    chunk in order, with the chunk's rows of A."""
+    p = lm.lora_plan(H, N, r, itemsize)
+    assert p["smem"] <= LORA_ROOM and p["smem"] <= 227 * 1024
+    assert p["cluster"] in (1, 2, 4, 8) and 2 <= p["stages"] <= 4
+    assert p["threads"] == 8 * 32 + 32
+    cl = p["cluster"]
+    h_cols = [h for k in range(cl)
+              for h in range(k * p["h_slice"], (k + 1) * p["h_slice"])]
+    n_cols = [n for k in range(cl)
+              for n in range(k * p["n_slice"], (k + 1) * p["n_slice"])]
+    assert h_cols == list(range(H)) and n_cols == list(range(N))
+    assert p["n_slice"] % 16 == 0                # 16-byte output runs
+    assert (H // 128) % cl == 0 and (cl == 8 or (H // 128) % (2 * cl))
+    chunks = p["h_slice"] // p["h_chunk"]
+    assert chunks * p["h_chunk"] == p["h_slice"]
+    for k in range(cl):                          # one row group's stages
+        cols = [h for c in range(chunks)
+                for h in range(k * p["h_slice"] + c * p["h_chunk"],
+                               k * p["h_slice"] + (c + 1) * p["h_chunk"])]
+        assert cols == h_cols[k * p["h_slice"]:(k + 1) * p["h_slice"]]
+    stage = (lm.ROW_GROUP * (p["h_chunk"] + lm.X_PAD)
+             + p["h_chunk"] * r) * itemsize
+    b_bytes = r * p["n_slice"] * itemsize
+    assert p["b_stage"] == (b_bytes <= lm.B_STAGE_BYTES)
+    assert p["smem"] == lm.BAR_BYTES + p["b_stage"] * b_bytes \
+        + 4 * (2 * 8 + 1 + 8) * lm.ROW_GROUP * r + p["stages"] * stage
+    # the tensor-core route: each of the 8 warps takes whole k16 steps
+    assert p["h_chunk"] % (16 * lm.WARPS) == 0
+
+
+def test_lora_plan_at_the_llama3_8b_step():
+    """The multi-tenant step's q (N 4096) and v (N 1024) deltas: clusters
+    of 8, 512 columns of H a block, 512 and 128 columns of N: 256 blocks
+    at C 32 for both, all on the card at once (three an SM); qb 16 is one
+    row group, one stage, B's slice staged: every byte a block reads is
+    in flight at once."""
+    for N, n_slice in ((4096, 512), (1024, 128)):
+        p = lm.lora_plan(4096, N, 8, 2)
+        assert (p["cluster"], p["h_slice"], p["n_slice"], p["h_chunk"],
+                p["b_stage"]) == (8, 512, n_slice, 512, 1)
+        assert p["stages"] >= 16 // lm.ROW_GROUP
+        assert 32 * p["cluster"] <= 132 * lm.BLOCKS_PER_SM
+
+
+def test_lora_plan_takes_no_per_call_argument():
+    """A row's bits depend on the plan, so the plan reads (H, N, r,
+    itemsize) alone: never C, qb or ids."""
+    import inspect
+
+    assert list(inspect.signature(lm.lora_plan).parameters) == \
+        ["H", "N", "r", "itemsize"]
+
+
+@pytest.mark.parametrize("args", [(300, 1024, 8, 2), (4096, 1000, 8, 2),
+                                  (4096, 1024, 12, 2), (4096, 1024, 32, 4),
+                                  (4096, 1024, 8, 1), (0, 128, 8, 2)])
+def test_lora_plan_refuses_shapes_outside_the_gate(args):
+    with pytest.raises(ValueError):
+        lm.lora_plan(*args)
+
+
+def test_lora_plan_constants_are_the_source():
+    src = (Path(lm.__file__).resolve().parents[2] / "csrc"
+           / "lora_matmul.cu").read_text()
+    for name, value in (("kRowGroup", lm.ROW_GROUP),
+                        ("kMaxCluster", lm.MAX_CLUSTER),
+                        ("kMaxStages", lm.MAX_STAGES),
+                        ("kBlocksPerSm", lm.BLOCKS_PER_SM),
+                        ("kBStageBytes", lm.B_STAGE_BYTES),
+                        ("kXPad", lm.X_PAD), ("kWarps", lm.WARPS),
+                        ("kBarBytes", lm.BAR_BYTES)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    assert f"constexpr size_t kSmSmem = {lm.SM_SMEM_BYTES};" in src
+    assert f"constexpr size_t kBlockReserved = {lm.BLOCK_SMEM_RESERVED};" \
+        in src
+    assert "constexpr int kThreads = kConsumers + 32;" in src
+
+
+def test_lora_counters_take_the_launched_variant(monkeypatch):
+    """A launch is counted under the variant its C entry reported, keyed
+    by its shape; an error, or a qb outside the gate, raises before
+    anything is counted."""
+    import types
+
+    def entry(code, err=0):
+        def c_fn(*args):
+            args[-1]._obj.value = code
+            return err
+        return c_fn
+
+    monkeypatch.setattr(lm.torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    x = torch.zeros((2, 16, 256), dtype=torch.bfloat16)
+    a = torch.zeros((3, 256, 8), dtype=torch.bfloat16)
+    b = torch.zeros((3, 8, 1024), dtype=torch.bfloat16)
+    ids = torch.zeros(2, dtype=torch.int32)
+    before = collections.Counter(lm.LAUNCHES_BY_PLAN)
+    try:
+        monkeypatch.setitem(lm._fns, "lora_matmul", entry(0))
+        out = lm._launch(x, a, b, ids)
+        monkeypatch.setitem(lm._fns, "lora_matmul", entry(0, err=9))
+        with pytest.raises(RuntimeError, match="lora_matmul: CUDA error 9"):
+            lm._launch(x, a, b, ids)
+        with pytest.raises(ValueError):
+            lm._launch(x[:, :12], a, b, ids)
+        diff = lm.LAUNCHES_BY_PLAN - before
+    finally:
+        lm.LAUNCHES_BY_PLAN.clear()
+        lm.LAUNCHES_BY_PLAN.update(before)
+    assert out.shape == (2, 16, 1024) and out.dtype == torch.float32
+    assert diff == {("cluster", "bfloat16", 256, 1024, 8): 1}
+
+
+DMA_ROOM = da.SM_SMEM_BYTES // da.RING_BLOCKS_PER_SM - da.BLOCK_SMEM_RESERVED
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("bs", [8, 16, 64, 128])
+def test_paged_dma_plan_fits_two_blocks_an_sm(itemsize, d, bs):
+    tile, ks, vs, threads, smem = da.paged_dma_plan(d, bs, itemsize)
+    assert smem <= DMA_ROOM
+    assert bs % tile == 0 and tile % 8 == 0
+    assert tile * d * itemsize <= da.RING_TILE_BYTES
+    assert 2 <= ks <= vs <= da.RING_MAX_STAGES and vs - ks <= 1
+    assert threads == da.DMA_THREADS == 320
+    assert smem == da.DMA_BAR_BYTES + 4 * (d + 2 * bs + 4) \
+        + (ks + vs) * tile * d * itemsize
+
+
+def _dma_walks(d, bs, itemsize, n_pages):
+    """The two producers' walks as the kernel issues them: for stage i of
+    each ring, (slot, page, first row, rows); and the order in which the
+    warpgroups consume them, the score warpgroup up to two pages ahead
+    of the value warpgroup (its two score buffers)."""
+    tile, ks, vs, _, _ = da.paged_dma_plan(d, bs, itemsize)
+    tpp = bs // tile
+    walks = {kind: [(i % st, i // tpp, (i % tpp) * tile, tile)
+                    for i in range(n_pages * tpp)]
+             for kind, st in (("k", ks), ("v", vs))}
+    order = []
+    for j in range(n_pages + 1):                 # scores of page j while
+        if j < n_pages:                          # page j - 1's values run
+            order += [("k", j)] * tpp
+        if j:
+            order += [("v", j - 1)] * tpp
+    return walks, order, tile
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("bs", [8, 16, 64, 128])
+def test_paged_dma_stages_cover_every_page_once_in_order(itemsize, d, bs):
+    """Each page's k rows and v rows are staged exactly once, in order,
+    the pages in table order, each ring's slots in turn; a page's k
+    tiles are consumed (its scores, its softmax) before its v tiles."""
+    n_pages = 3
+    walks, order, tile = _dma_walks(d, bs, itemsize, n_pages)
+    for kind, walk in walks.items():
+        stages = da.paged_dma_plan(d, bs, itemsize)[1 if kind == "k" else 2]
+        assert [w[0] for w in walk] == [i % stages for i in range(len(walk))]
+        for j in range(n_pages):
+            rows = [r for _, page, r0, n in walk if page == j
+                    for r in range(r0, r0 + n)]
+            assert rows == list(range(bs))
+        pages = [page for _, page, _, _ in walk]
+        assert pages == sorted(pages)
+    for j in range(n_pages):
+        last_k = max(i for i, e in enumerate(order) if e == ("k", j))
+        first_v = min(i for i, e in enumerate(order) if e == ("v", j))
+        assert last_k < first_v
+
+
+def test_paged_dma_plan_at_llama2_7b():
+    """B 8, 32 heads of 128, page 128, bf16: stages of 64 rows, three in
+    each ring (96 KB in flight a block), two blocks an SM, so the 256
+    blocks run in one wave."""
+    tile, ks, vs, threads, smem = da.paged_dma_plan(128, 128, 2)
+    assert (tile, ks, vs, threads) == (64, 3, 3, 320)
+    assert 2 * smem + 2 * da.BLOCK_SMEM_RESERVED <= da.SM_SMEM_BYTES
+
+
+def test_paged_dma_plan_constants_are_the_source():
+    src = (Path(da.__file__).resolve().parents[2] / "csrc"
+           / "paged_decode_attention.cu").read_text()
+    assert "constexpr int kDmaThreads = 2 * kThreads + 64;" in src
+    assert da.DMA_THREADS == 2 * 128 + 64
+    assert f"constexpr int kDmaBarBytes = {da.DMA_BAR_BYTES};" in src
+    assert "paged_dma_kernel<T, D><<<dim3(nh, B), p.threads, p.smem, st>>>" \
+        in src

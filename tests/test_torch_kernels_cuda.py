@@ -23,12 +23,15 @@ values; the int8 kernels (K8q, K10q) must equal their fp kernels (K8,
 K10) bit for bit on inputs dequantized beforehand, and their plain versions within
 the fp kernels' tolerances; K13's fp32 output is held by row within 1e-5
 (exact widenings of its inputs, fp32 sums in another order), its slot-0
-rows exactly 0. The head-major flash (K17) must equal K1-sep and K3-sep
-bit for bit on the same values; the paged decode kernels (K15, K14) are
+rows exactly 0, a row's bits the same wherever a call carries it, its
+launches through the cluster kernel at ``lora_plan_c == lora_plan``, and
+shapes outside the reference's gate refused. The head-major flash (K17)
+must equal K1-sep and K3-sep bit for bit on the same values; the paged decode kernels (K15, K14) are
 held by row to their plain versions at the training tolerances above
 (K15's plain version rounds p to the page dtype as the kernel does), and
-K16 must equal K14 bit for bit. K9 runs in three variants: each case
-asserts which variant's counter moved (``qmm_plan``); K14's ring
+K16 must equal K14 bit for bit, also at its own rings' edges
+(``paged_dma_plan``, whose C plan must be the Python one). K9 runs in
+three variants: each case asserts which variant's counter moved (``qmm_plan``); K14's ring
 (``paged_ring_geometry``) and K15's (``paged_mxu_plan``, whose C plan
 must be the Python one) are held at their edges: a length that ends on a
 stage, one that ends on the ring's last stage, one inside a stage, 0 and
@@ -66,6 +69,7 @@ import torch
 
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import fused_ce as ce
+from paddle_tpu_torch.ops.kernels import lora_matmul as lm
 from paddle_tpu_torch.ops.kernels.quant_matmul import (quant_matmul,
                                                        quant_matmul_plain)
 from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
@@ -724,12 +728,16 @@ def test_rpa_plan_c_matches_plan(cuda, dtype, quant, mb, bs, d, G, qb):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("C,qb,H,r,N", [(32, 16, 4096, 8, 4096),
-                                        (5, 3, 256, 8, 1000),
-                                        (4, 40, 300, 16, 512),
-                                        (2, 1, 128, 4, 96)])
+                                        (5, 8, 384, 8, 1024),
+                                        (4, 40, 640, 16, 512),
+                                        (2, 8, 128, 4, 128),
+                                        (3, 24, 1536, 16, 384)])
 def test_lora_kernel_matches_plain(cuda, dtype, C, qb, H, r, N):
     """K13 within 1e-5 of the plain fp32 version by row, slot-0 rows
-    exactly 0, deterministic."""
+    exactly 0, deterministic, every launch through the cluster kernel at
+    ``lora_plan_c == lora_plan`` (shapes inside the reference's gate:
+    clusters of 8, 4, 2 and 1 block, one and several 8-row groups and H
+    chunks)."""
     from paddle_tpu_torch.ops.kernels.lora_matmul import (lora_matmul,
                                                           lora_matmul_plain)
 
@@ -746,13 +754,104 @@ def test_lora_kernel_matches_plain(cuda, dtype, C, qb, H, r, N):
     x, a, b = (t.to(cuda, dtype) for t in (x, a, b))
     ids = ids.to(cuda)
     before = lora_matmul.launches
+    by_plan = collections.Counter(lm.LAUNCHES_BY_PLAN)
     got = lora_matmul(x, a, b, ids)
     ref = lora_matmul_plain(x, a, b, ids)
     torch.cuda.synchronize()
     assert lora_matmul.launches == before + 1
+    dt = str(dtype).replace("torch.", "")
+    assert lm.LAUNCHES_BY_PLAN - by_plan == collections.Counter(
+        {("cluster", dt, H, N, r): 1})
+    es = dtype.itemsize
+    assert lm.lora_plan_c(H, N, r, es) == lm.lora_plan(H, N, r, es)
     assert got.dtype == torch.float32 and _scaled(got, ref) <= 1e-5
     assert (got[ids == 0] == 0).all()
     assert torch.equal(got, lora_matmul(x, a, b, ids))
+
+
+@pytest.mark.cuda
+def test_lora_fp32_long_h_holds_to_fp64(cuda):
+    """K13 in fp32 at H 14336 (clusters of 8, 1792 columns of H a block,
+    several chunks and row groups) within 1e-5 of an fp64 evaluation of
+    the same function, row by row; slot-0 rows exactly 0. (The fp32
+    plain version, one cuBLAS sum over all of H, is held to the kernel
+    at H up to 4096.)"""
+    from paddle_tpu_torch.ops.kernels.lora_matmul import lora_matmul
+
+    rng = np.random.default_rng(13)
+    C, qb, H, r, N, S = 3, 24, 14336, 16, 384, 5
+    x = torch.from_numpy(rng.normal(size=(C, qb, H)).astype(np.float32))
+    a = torch.from_numpy((0.05 * rng.normal(size=(S, H, r))).astype(
+        np.float32))
+    b = torch.from_numpy((0.05 * rng.normal(size=(S, r, N))).astype(
+        np.float32))
+    a[0], b[0] = 0, 0
+    ids = torch.from_numpy(np.array([0, 3, 1], np.int32))
+    ref = torch.einsum("cqr,crn->cqn",
+                       torch.einsum("cqh,chr->cqr", x.double(),
+                                    a[ids.long()].double()),
+                       b[ids.long()].double())
+    got = lora_matmul(x.to(cuda), a.to(cuda), b.to(cuda), ids.to(cuda))
+    torch.cuda.synchronize()
+    assert (got[0] == 0).all()
+    assert _scaled(got[1:].cpu().double(), ref[1:]) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,r,N", [(4096, 8, 4096), (4096, 8, 1024),
+                                   (640, 16, 384)])
+def test_lora_rows_do_not_depend_on_their_call(cuda, dtype, H, r, N):
+    """K13: the same x row on the same adapter, carried at other (c, i)
+    in calls of other C (1, 3 and 33 packed rows, qb 8 and 16), gives
+    ``torch.equal`` output rows."""
+    from paddle_tpu_torch.ops.kernels.lora_matmul import lora_matmul
+
+    rng = np.random.default_rng(17)
+    S, C, qb = 4, 6, 16
+    a = torch.from_numpy((0.05 * rng.normal(size=(S, H, r))).astype(
+        np.float32)).to(cuda, dtype)
+    b = torch.from_numpy((0.05 * rng.normal(size=(S, r, N))).astype(
+        np.float32)).to(cuda, dtype)
+    x = torch.from_numpy(rng.normal(size=(C, qb, H)).astype(
+        np.float32)).to(cuda, dtype)
+    ids = torch.from_numpy(rng.integers(0, S, size=C).astype(
+        np.int32)).to(cuda)
+    ref = lora_matmul(x, a, b, ids)
+    for C2, qb2 in ((1, 8), (3, 16), (33, 8)):
+        x2 = torch.from_numpy(rng.normal(size=(C2, qb2, H)).astype(
+            np.float32)).to(cuda, dtype)
+        ids2 = torch.from_numpy(rng.integers(0, S, size=C2).astype(
+            np.int32)).to(cuda)
+        moves = [((c, int(rng.integers(qb))), (c2, int(rng.integers(qb2))))
+                 for c2, c in zip(range(C2), rng.integers(0, C, size=C2))]
+        for (c, i), (c2, i2) in moves:
+            x2[c2, i2] = x[c, i]
+            ids2[c2] = ids[c]
+        got = lora_matmul(x2, a, b, ids2)
+        torch.cuda.synchronize()
+        for (c, i), (c2, i2) in moves:
+            assert torch.equal(got[c2, i2], ref[c, i]), (C2, c, i, c2, i2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,qb,H,r,N", [(2, 3, 256, 8, 1024),
+                                        (2, 8, 300, 8, 1024),
+                                        (2, 8, 256, 8, 1000),
+                                        (2, 8, 256, 12, 1024)])
+def test_lora_refuses_shapes_outside_the_gate(cuda, C, qb, H, r, N):
+    """K13 raises, and launches nothing, where qb % 8, H % 128, N % 128
+    or r in (4, 8, 16) fails (the reference's kernel gate)."""
+    from paddle_tpu_torch.ops.kernels.lora_matmul import lora_matmul
+
+    x = torch.zeros((C, qb, H), device=cuda, dtype=torch.bfloat16)
+    a = torch.zeros((3, H, r), device=cuda, dtype=torch.bfloat16)
+    b = torch.zeros((3, r, N), device=cuda, dtype=torch.bfloat16)
+    ids = torch.zeros((C,), device=cuda, dtype=torch.int32)
+    before = lora_matmul.launches
+    with pytest.raises(ValueError):
+        lora_matmul(x, a, b, ids)
+    assert lora_matmul.launches == before
 
 
 @pytest.mark.cuda
@@ -897,6 +996,7 @@ def test_serving_engine_runs_the_int8_and_lora_kernels(cuda):
         for i in range(3)]
     before = (ragged_paged_attention.launches,
               ragged_paged_attention_int8.launches, lora_matmul.launches)
+    by_plan = collections.Counter(lm.LAUNCHES_BY_PLAN)
     st = eng.run(reqs)
     torch.cuda.synchronize()
     n = st["unified_steps"]
@@ -904,6 +1004,11 @@ def test_serving_engine_runs_the_int8_and_lora_kernels(cuda):
     assert (ragged_paged_attention.launches - before[0],
             ragged_paged_attention_int8.launches - before[1],
             lora_matmul.launches - before[2]) == (0, 2 * n, 4 * n)
+    # q (N 512) and v (N 256) deltas, both through the cluster kernel
+    dt = str(cfg.dtype).replace("torch.", "")
+    assert lm.LAUNCHES_BY_PLAN - by_plan == collections.Counter(
+        {("cluster", dt, 512, 512, 8): 2 * n,
+         ("cluster", dt, 512, 256, 8): 2 * n})
 
 
 @pytest.mark.cuda
@@ -1067,6 +1172,34 @@ def test_paged_ring_edges(cuda, dtype, tol, nh, d, bs):
     assert da.paged_decode_attention_kernel.launches == before + 1
     assert torch.equal(k14, k16)
     assert _scaled(k14, ref) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("bs", [16, 64, 128])
+def test_paged_dma_ring_edges(cuda, dtype, d, bs):
+    """K16 at its own rings' edges (``paged_dma_plan``, whose C plan
+    must be the Python one): lengths 1, 0 (every page read), ending on a
+    tile, inside the second tile, on the k ring's last stage, a page and
+    one (a partial last page), a full table; bit-equal to K14 and
+    deterministic."""
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+
+    es = dtype.itemsize
+    plan = da.paged_dma_plan(d, bs, es)
+    assert da.paged_dma_plan_c(d, bs, es) == plan
+    tile, k_stages = plan[:2]
+    lens = [1, 0, tile, tile + 3, tile * k_stages, bs + 1, 10 ** 6]
+    q, k, v, table, lens = _paged_inputs(cuda, dtype, 4, 1, d, bs, lens,
+                                         False, seed=18)
+    before = da.paged_decode_attention_dma.launches
+    k16 = da.paged_decode_attention_dma(q, k, v, table, lens, d ** -0.5)
+    again = da.paged_decode_attention_dma(q, k, v, table, lens, d ** -0.5)
+    k14 = da.paged_decode_attention_kernel(q, k, v, table, lens, d ** -0.5)
+    torch.cuda.synchronize()
+    assert da.paged_decode_attention_dma.launches == before + 2
+    assert torch.equal(k16, k14) and torch.equal(k16, again)
 
 
 @pytest.mark.cuda
