@@ -192,6 +192,7 @@ import math
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -199,7 +200,7 @@ import torch
 PHASES = ("kernels", "engine", "int8", "cpu", "train_kernels", "train",
           "train_cpu", "train_13b", "llama_train", "decode_kernels",
           "decode", "decode_cpu", "serving_kernels", "serving",
-          "paged_kernels", "paged")
+          "paged_kernels", "paged", "fleet")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12         # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12          # fp32 outside the tensor cores (K6, K7)
@@ -4034,6 +4035,300 @@ def run_paged(dev) -> dict:
     return launches
 
 
+FLEET_ENGINE = dict(SERVING_ENGINE)       # llama3-8b replicas of the fleet
+
+
+def _fleet_requests(cls, vocab: int, n: int = 8, seed: int = 40):
+    """``n`` requests with 600-1100-token prompts, 32 new tokens each,
+    every second one sampled."""
+    rng = np.random.RandomState(seed)
+    return [cls(rid=i, prompt=rng.randint(1, vocab, size=rng.randint(
+        600, 1101)).astype(np.int32), max_new_tokens=32,
+        **(dict(temperature=0.9, top_p=0.85, seed=300 + i) if i % 2
+           else {})) for i in range(n)]
+
+
+def _warm(eng, rid: int) -> None:
+    """One short request through the engine before it is timed (the
+    kernels are built already; this is the first launch of each), then
+    its counters back at 0."""
+    from paddle_tpu_torch.inference.serving import Request
+
+    eng.run([Request(rid=rid, prompt=np.ones(640, np.int32),
+                     max_new_tokens=2)])
+    eng.pool.release(eng._deferred_free)
+    eng._deferred_free = []
+    eng.pool.commit_evictable()
+    eng.stats = {k: 0 for k in eng.stats}
+
+
+def _fleet_ledgers(router, tag: str) -> None:
+    acc = router.page_accounting()
+    for eid, a in acc["engines"].items():
+        if a["total"] != router.replicas[eid].engine.n_pages - 1:
+            raise AssertionError(f"{tag}: engine {eid} ledger {a}")
+
+
+def _drive_fleet(router, reqs, tag: str) -> tuple[int, float]:
+    """Submit ``reqs`` and tick the router until it is idle, holding both
+    ledgers after every tick; returns (ticks, seconds)."""
+    for r in reqs:
+        router.submit(r, now=1e18)
+    t0, n = time.perf_counter(), 0
+    while router.step(now=1e18):
+        n += 1
+        _fleet_ledgers(router, tag)
+        if n > 5000:
+            raise AssertionError(f"{tag}: the fleet did not drain")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    for r in reqs:
+        if (r.aborted or r.t_done is None
+                or len(r.out_tokens) != r.max_new_tokens):
+            raise AssertionError(f"{tag}: request {r.rid} did not complete")
+    for rep in router.replicas:
+        if rep.alive and rep.engine.page_accounting()["in_flight"]:
+            raise AssertionError(f"{tag}: pages left in flight")
+    return n, secs
+
+
+def _disagg_arm(cfg, params, dev, overlap: bool, kv_quant=(False, False),
+                reqs=None, **router_kw):
+    """One prefill and one decode replica of llama3-8b on one params
+    dict, warmed, joined by the wire (``overlap`` or not); returns the
+    router, the requests, (ticks, seconds) and the launches."""
+    from paddle_tpu_torch.inference.fleet import FleetRouter
+    from paddle_tpu_torch.inference.serving import Request, ServingEngine
+
+    engs = [ServingEngine(cfg, params=params, device=dev, engine_id=i,
+                          wire_overlap=overlap, kv_quant=kv_quant[i],
+                          **FLEET_ENGINE) for i in range(2)]
+    for i, e in enumerate(engs):
+        _warm(e, -1 - i)
+    router = FleetRouter(engines=engs, disagg_prefill=1, **router_kw)
+    reqs = reqs or _fleet_requests(Request, cfg.vocab_size)
+    tag = f"fleet disagg overlap={overlap} kv_quant={kv_quant}"
+    (n, secs), ln = _serving_counted(lambda: _drive_fleet(router, reqs, tag))
+    return router, reqs, (n, secs), ln
+
+
+def _per_handoff(router) -> dict:
+    st = router.fleet_stats()
+    h = max(1, st["n_handoffs"])
+    return {"handoffs": st["n_handoffs"],
+            "pages": st["disagg_shipped_pages"],
+            "bytes_per_handoff": st["shipped_bytes"] / h,
+            "export_ms": st["wire_export_ms"] / h,
+            "adopt_ms": st["wire_adopt_ms"] / h}
+
+
+def _adopted_equal_cpu_conversion(cfg, params, dev) -> int:
+    """An int8 replica's shipment adopted by a bf16 replica on the card:
+    the adopted pages equal the host conversion of the same shipment,
+    bit for bit; returns the pages compared. ``adopt_pages`` converts on
+    the host too, so this holds the host-to-device copy and the
+    ``index_copy_`` scatter; the conversion itself is held bitwise to
+    the reference's by the CPU tests of ``tests/test_torch_wire.py``."""
+    from paddle_tpu_torch.inference.serving import Request, ServingEngine
+
+    donor = ServingEngine(cfg, params=params, device=dev, kv_quant=True,
+                          **FLEET_ENGINE)
+    recv = ServingEngine(cfg, params=params, device=dev, engine_id=1,
+                         **FLEET_ENGINE)
+    req = _fleet_requests(Request, cfg.vocab_size, n=1, seed=41)[0]
+    donor.submit(req)
+    while not req.out_tokens:
+        donor.step(now=1e18)
+    ship = donor.finalize_shipment(donor.stage_request_pages(req.rid))
+    conv = recv._convert_shipment(ship)
+    if recv.adopt_pages(ship) != len(conv["hashes"]):
+        raise AssertionError("fleet mixed: adoption refused")
+    for j, h in enumerate(conv["hashes"]):
+        page = recv.pool.cache[h]
+        for name, pool in (("k", recv.k_pages), ("v", recv.v_pages)):
+            got = pool[:, page].cpu().view(torch.int16).numpy()
+            if got.tobytes() != conv[name][j].tobytes():
+                raise AssertionError(f"fleet mixed: adopted {name} page {j}"
+                                     " differs from the host conversion")
+    n = len(conv["hashes"])
+    del donor, recv
+    torch.cuda.empty_cache()
+    return n
+
+
+def run_fleet(dev) -> dict:
+    """The serving fleet at llama3-8b (random bf16 weights from seed 0),
+    replicas sharing one params dict: (a) one prefill and one decode
+    replica over the wire, overlapped and synchronous, streams held to a
+    lone engine's; (b) two colocated replicas under bench.py's fleet
+    traffic (FleetDriver, wall clock) with replica 1 killed at the
+    33rd-percentile arrival; (c) an int8 prefill replica (K8q) into a
+    bf16 decode replica (K8): the adopted pages equal the host conversion
+    bitwise, the int8 wire ships 65552 / 131072 of the bf16 bytes a
+    page, and a chaos ``migration.stage`` corrupt is rejected by crc
+    while the request still completes. Returns the launches of each
+    kernel in the fleet runs."""
+    from paddle_tpu_torch.inference import serving
+    from paddle_tpu_torch.inference.fleet import FleetRouter
+    from paddle_tpu_torch.inference.loadgen import (FleetDriver, WorkloadSpec,
+                                                    synthesize)
+    from paddle_tpu_torch.inference.serving import Request, ServingEngine
+    from paddle_tpu_torch.models.llama import init_llama_params, llama_presets
+    from paddle_tpu_torch.testing import chaos
+
+    cfg = llama_presets("llama3-8b")
+    L = cfg.n_layers
+    params = init_llama_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    total = collections.Counter()
+
+    # (a) disaggregated: a lone engine first, its logits tapped
+    solo = ServingEngine(cfg, params=params, device=dev, **FLEET_ENGINE)
+    _warm(solo, -9)
+    ref = _fleet_requests(Request, cfg.vocab_size)
+    with _LogitTap(solo) as tap:
+        solo.run(ref)
+    del solo
+    streams, figures = {}, {}
+    for overlap in (True, False):
+        router, reqs, (n, secs), ln = _disagg_arm(cfg, params, dev, overlap)
+        total.update(ln)
+        steps = [rep.engine.stats["unified_steps"] for rep in router.replicas]
+        st = router.fleet_stats()
+        if st["n_handoffs"] != len(reqs) or st["disagg_shipped_pages"] <= 0:
+            raise AssertionError(f"fleet disagg overlap={overlap}: {st}")
+        want = {"ragged_paged_attention": L * sum(steps)}
+        if {k: v for k, v in ln.items() if v} != want:
+            raise AssertionError(f"fleet disagg overlap={overlap}: launches "
+                                 f"{ln} != {want} (steps {steps})")
+        if router.replicas[0].engine.stats["decode_steps"]:
+            raise AssertionError("fleet disagg: the prefill replica decoded")
+        same, exc = _serving_streams_agree(
+            f"fleet disagg overlap={overlap}", ref, reqs, tap)
+        samp = [(a.out_tokens == b.out_tokens)
+                for a, b in zip(ref, reqs) if a.temperature]
+        if not all(samp):
+            raise AssertionError(f"fleet disagg overlap={overlap}: sampled "
+                                 f"streams equal {samp}")
+        streams[overlap] = [r.out_tokens for r in reqs]
+        figures[overlap] = dict(_per_handoff(router), ticks=n,
+                                ms_per_tick=secs / n * 1e3, steps=steps)
+        print(f"fleet disagg llama3-8b overlap={overlap}: {n} ticks, "
+              f"{secs / n * 1e3:.2f} ms a tick, steps prefill/decode "
+              f"{steps}, {same} greedy tokens equal to the lone engine's, "
+              f"{exc} near-tie exceptions, sampled streams equal "
+              f"{sum(samp)}/{len(samp)}; {figures[overlap]}; launches "
+              f"K8 {ln['ragged_paged_attention']}")
+        del router
+        torch.cuda.empty_cache()
+    if streams[True] != streams[False]:
+        raise AssertionError("fleet disagg: overlapped and synchronous wire "
+                             "streams differ")
+    # the host's crc32 of one llama3-8b bf16 page (k and v: 2 x 8 MiB)
+    shape = (1, L, cfg.n_kv_heads, cfg.head_dim, FLEET_ENGINE["page_size"])
+    page = np.random.RandomState(0).randint(0, 1 << 16, size=shape,
+                                            dtype=np.uint16)
+    crc_ms = {}
+    for name, fn in (("chained", lambda: serving._page_crc(
+            page, page, None, None, 0)),
+                     ("concatenated", lambda: zlib.crc32(
+                         page[0].tobytes() + page[0].tobytes()))):
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        crc_ms[name] = (time.perf_counter() - t0) / 5 * 1e3
+    print(f"fleet wire: host crc32 of one bf16 page ({2 * page.nbytes} B) "
+          f"{crc_ms['chained']:.2f} ms "
+          f"({2 * page.nbytes / crc_ms['chained'] / 1e6:.2f} GB/s); the "
+          f"reference's form (a copy of the page's bytes first) "
+          f"{crc_ms['concatenated']:.2f} ms")
+
+    # (b) replica loss under bench.py's fleet traffic
+    engs = [ServingEngine(cfg, params=params, device=dev, engine_id=i,
+                          **FLEET_ENGINE) for i in range(2)]
+    for i, e in enumerate(engs):
+        _warm(e, -1 - i)
+    router = FleetRouter(engines=engs)
+    wl = synthesize(WorkloadSpec(
+        n_requests=48, seed=7, vocab_size=cfg.vocab_size,
+        process="poisson", rate=30.0, prefix_len=512, n_prefixes=1,
+        shared_frac=0.9, tail_log_mean=5.3, tail_log_sigma=0.6,
+        tail_min=32, tail_max=512, new_min=64, new_max=128,
+        max_seq=1536, n_tenants=8, tenant_skew=1.2, n_sessions=6,
+        deadline_ttft=30.0, deadline_e2e=120.0))
+    kill_at = float(np.percentile([r.arrival for r in wl], 33))
+    m, ln = _serving_counted(lambda: FleetDriver(router, clock="wall").run(
+        wl, kills={kill_at: 1}))
+    total.update(ln)
+    steps = sum(rep.engine.stats["unified_steps"] for rep in router.replicas)
+    bad = [r.rid for r in wl if r.aborted
+           or len(r.out_tokens) != r.max_new_tokens]
+    if bad or m["migrated_pages"] <= 0 or m["n_killed"] != 1:
+        raise AssertionError(f"fleet replica loss: incomplete {bad} "
+                             f"({m['n_deadline_expired']} past a deadline, "
+                             f"wall {m['wall_s']} s), migrated "
+                             f"{m['migrated_pages']}, killed {m['n_killed']}")
+    if ln["ragged_paged_attention"] != L * steps:
+        raise AssertionError(f"fleet replica loss: K8 launches {ln} != "
+                             f"{L} x {steps}")
+    _fleet_ledgers(router, "fleet replica loss")
+    print(f"fleet replica loss llama3-8b (2 replicas, {len(wl)} requests, "
+          f"kill at {kill_at:.3f} s): goodput {m['goodput_tok_s']} tok/s, "
+          f"ttft p50 {m['ttft_p50_s']} s p99 {m['ttft_p99_s']} s, "
+          f"migrated pages {m['migrated_pages']} "
+          f"({m['migration_bytes']} B), recovery_ms max "
+          f"{m['recovery_ms_max']} mean {m['recovery_ms_mean']}, recovered "
+          f"{m['n_recovered']}, wall {m['wall_s']} s, {m['steps']} ticks, "
+          f"deadline misses {m['n_deadline_expired']}; launches K8 "
+          f"{ln['ragged_paged_attention']}")
+    del router, engs
+    torch.cuda.empty_cache()
+
+    # (c) int8 prefill replica into a bf16 decode replica
+    n_cmp = _adopted_equal_cpu_conversion(cfg, params, dev)
+    chaos.arm(chaos.FaultPlan(seed=0).add("migration.stage", "corrupt",
+                                          once=True, pool="prefill"))
+    try:
+        router, reqs, (n, secs), ln = _disagg_arm(
+            cfg, params, dev, True, kv_quant=(True, False),
+            reqs=_fleet_requests(Request, cfg.vocab_size, n=4, seed=42))
+    finally:
+        chaos.disarm()
+    total.update(ln)
+    steps = [rep.engine.stats["unified_steps"] for rep in router.replicas]
+    want = {"ragged_paged_attention_int8": L * steps[0],
+            "ragged_paged_attention": L * steps[1]}
+    if {k: v for k, v in ln.items() if v} != want:
+        raise AssertionError(f"fleet mixed: launches {ln} != {want}")
+    st = router.fleet_stats()
+    fig = _per_handoff(router)
+    bf16 = figures[True]
+    per_page = st["shipped_bytes"] / max(1, st["disagg_shipped_pages"])
+    per_page_bf16 = bf16["bytes_per_handoff"] * bf16["handoffs"] / bf16[
+        "pages"]
+    # int8 k and v and two fp32 scales a head and layer, against bf16 k
+    # and v: 65552 / 131072 at llama3-8b (head dim 128, page 128)
+    bs, kv = FLEET_ENGINE["page_size"], L * cfg.n_kv_heads
+    want = (kv * (2 * cfg.head_dim * bs + 8), kv * 4 * cfg.head_dim * bs)
+    if st["migration_rejected"] < 1 or (per_page, per_page_bf16) != want:
+        raise AssertionError(f"fleet mixed: rejected "
+                             f"{st['migration_rejected']}, bytes a page "
+                             f"{per_page} vs bf16 {per_page_bf16}, want "
+                             f"{want}")
+    print(f"fleet mixed int8 -> bf16: {n_cmp} adopted pages equal to the "
+          f"host conversion; {per_page:.0f} wire bytes a page against "
+          f"{per_page_bf16:.0f} in bf16 (ratio "
+          f"{per_page / per_page_bf16:.6f}); corrupt staging rejected "
+          f"{st['migration_rejected']} time(s), retries exhausted "
+          f"{st['n_retry_exhausted']}, all {len(reqs)} requests completed; "
+          f"{fig}; steps {steps}; launches K8q "
+          f"{ln['ragged_paged_attention_int8']} K8 "
+          f"{ln['ragged_paged_attention']}")
+    del router, params
+    torch.cuda.empty_cache()
+    return {k: v for k, v in total.items() if v}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4197,6 +4492,9 @@ def main(argv=None) -> int:
     if "paged" in phases:
         launches.update(run_paged(dev))
         done("paged")
+    if "fleet" in phases:
+        print(f"fleet launches {run_fleet(dev)}")
+        done("fleet")
     if set(phases) != set(PHASES):
         print(f"phases {phases} only: no result line")
         return 0

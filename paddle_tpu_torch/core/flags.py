@@ -100,3 +100,41 @@ GLOBAL_FLAGS.define("use_library_flash_attention", False)
 GLOBAL_FLAGS.define("flash_attention_fused_dqkv", True)
 # sharded training (later slice): turning it on is refused
 GLOBAL_FLAGS.define("dist_allreduce_quant", False)
+
+# the fleet (inference/fleet/): read only by FleetRouter, never by a lone
+# ServingEngine. The overlapped migration wire is the engine's, read when
+# its constructor gets no wire_overlap
+GLOBAL_FLAGS.define("serving_wire_overlap", False)
+GLOBAL_FLAGS.define("serving_fleet_engines", 0)
+GLOBAL_FLAGS.define("serving_fleet_migration", True)
+GLOBAL_FLAGS.define("serving_fleet_affinity", True)
+GLOBAL_FLAGS.define("serving_fleet_retry_max", 3)
+GLOBAL_FLAGS.define("serving_fleet_retry_base_delay", 0.05)
+GLOBAL_FLAGS.define("serving_fleet_step_budget", 0.0)
+GLOBAL_FLAGS.define("serving_fleet_fail_threshold", 1)
+GLOBAL_FLAGS.define("serving_fleet_shed_backlog", 0.0)
+GLOBAL_FLAGS.define("serving_fleet_tight_deadline", 0.25)
+# disaggregated prefill / decode pools
+GLOBAL_FLAGS.define("serving_disagg_prefill", 0)
+GLOBAL_FLAGS.define("serving_disagg_ship_deadline", 0.0)
+GLOBAL_FLAGS.define("serving_disagg_dynamic", False)
+GLOBAL_FLAGS.define("serving_disagg_ewma", 0.3)
+GLOBAL_FLAGS.define("serving_disagg_hysteresis", 0.2)
+# zero-downtime operations (rollout, autoscale, SLO shed; a later slice):
+# FleetRouter refuses serving_fleet_autoscale and serving_fleet_slo_shed
+# when on, and rollout() raises
+GLOBAL_FLAGS.define("serving_fleet_rollout_canary", 4)
+GLOBAL_FLAGS.define("serving_fleet_autoscale", False)
+GLOBAL_FLAGS.define("serving_fleet_min_engines", 1)
+GLOBAL_FLAGS.define("serving_fleet_max_engines", 4)
+GLOBAL_FLAGS.define("serving_fleet_scale_high", 0.85)
+GLOBAL_FLAGS.define("serving_fleet_scale_low", 0.2)
+GLOBAL_FLAGS.define("serving_fleet_scale_ewma", 0.3)
+GLOBAL_FLAGS.define("serving_fleet_scale_cooldown", 1.0)
+GLOBAL_FLAGS.define("serving_fleet_slo_shed", False)
+GLOBAL_FLAGS.define("serving_fleet_slo_rate", 0.0)
+# the observability plane (obs/): host-side span tracing into a bounded
+# ring and flight-recorder dumps on death paths
+GLOBAL_FLAGS.define("obs_trace", False)
+GLOBAL_FLAGS.define("obs_buffer_events", 65536)
+GLOBAL_FLAGS.define("obs_dir", "artifacts")

@@ -30,10 +30,17 @@ parameters) is data, never shape. Around it:
   the q and v projections), priority classes with preemption, and
   schema-constrained decoding by a per-row vocabulary mask.
 
-Token streams, page ledgers and counters equal the reference engine's
-for the same weights and requests. The fleet wire (page export and
-adoption, the prefill-only role) and the chaos/observability probes are
-not ported yet.
+- the fleet surface (``inference/fleet/``): an ``engine_id``, the
+  ``prefill_only`` role of a disaggregated prefill pool (prefill and the
+  first token, then the prompt's full pages go to ``outbox`` and the
+  slot is released), and the KV page wire, version 2: export (blocking,
+  or staged behind the in-flight step on ``wire_overlap``), crc'd
+  two-phase adoption into the prefix cache, and int8 <-> fp conversion
+  at a mixed-mode edge. Chaos probes and observability spans sit on the
+  host paths, each behind one global load when disarmed.
+
+Token streams, page ledgers, counters and wire shipments equal the
+reference engine's for the same weights and requests.
 """
 
 from __future__ import annotations
@@ -42,6 +49,8 @@ import dataclasses
 import hashlib
 import math
 import time
+import warnings
+import zlib
 from typing import Optional
 
 import numpy as np
@@ -52,15 +61,19 @@ from ..core.flags import GLOBAL_FLAGS
 from ..core.jax_random import fold_in, gumbel, prng_key
 from ..models.llama import (LlamaConfig, _mm, apply_rope, init_llama_params,
                             quantize_weights_int8, rms_norm, rope_angles)
+from .. import obs as _obs
 from ..obs import clock as _clock
 from ..ops.kernels.lora_matmul import lora_matmul
 from ..ops.kernels.ragged_paged_attention import ragged_paged_attention
 from ..ops.nucleus import nucleus_keep
-from ..ops.quant import kv_scale_update, quantize_to_scale, rescale_int8
+from ..ops.quant import (SCALE_EPS, kv_scale_update, quantize_to_scale,
+                         rescale_int8)
+from ..testing import chaos as _chaos
 from .multitenant.lora import AdapterStore
 from .speculative import NgramProposer
 
-__all__ = ["Request", "ServingEngine"]
+__all__ = ["Request", "ServingEngine", "wire_gather_pages",
+           "wire_scatter_pages"]
 
 
 @dataclasses.dataclass
@@ -84,6 +97,16 @@ class Request:
     adapter_id: Optional[object] = None
     schema_id: Optional[object] = None
     constraint: Optional[object] = None
+    # the fleet's (inference/fleet/), never read by the engine:
+    # deadline_* are budgets in seconds from arrival (0 = none), which
+    # the load generator's driver enforces and the router uses to send a
+    # tight request to the least-loaded replica; session is an affinity
+    # key; param_version pins an accepted stream to the weight version it
+    # was admitted under (stamped by the router; None = unpinned)
+    deadline_ttft: float = 0.0
+    deadline_e2e: float = 0.0
+    session: Optional[object] = None
+    param_version: Optional[str] = None
     # filled by the engine:
     out_tokens: list = dataclasses.field(default_factory=list)
     t_first: Optional[float] = None    # first-token time
@@ -116,6 +139,60 @@ def _pick_tokens(logits, temps, topps, seeds, positions,
     noisy = masked + gumbel(keys, logits.shape[-1])
     samp = torch.argmax(noisy, dim=-1).to(torch.int32)
     return torch.where(temps > 0, samp, greedy)
+
+
+def wire_gather_pages(pages: torch.Tensor, pg: torch.Tensor) -> torch.Tensor:
+    """The wire's donor half: the per-layer pages at indices ``pg`` of
+    ``pages`` [L, P, ...] in shipment layout [n, L, ...], a new
+    contiguous tensor. On a CUDA tensor these are torch ops on the
+    current stream, ordered behind the steps already enqueued there."""
+    return torch.index_select(pages, 1, pg).movedim(1, 0).contiguous()
+
+
+def wire_scatter_pages(pages: torch.Tensor, pg: torch.Tensor,
+                       payload: torch.Tensor) -> torch.Tensor:
+    """The wire's adopter half: write ``payload`` [L, n, ...] into
+    ``pages`` [L, P, ...] at page indices ``pg``, in place."""
+    return pages.index_copy_(1, pg, payload)
+
+
+# the wire names dtypes as the reference does (``str`` of a jnp dtype)
+_DTYPE_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16",
+               torch.float16: "float16", torch.int8: "int8"}
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A CPU tensor as a numpy payload with the same bytes: bf16, which
+    numpy lacks, as a uint16 view."""
+    t = t.contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _from_host(a, dtype: torch.dtype) -> torch.Tensor:
+    """A numpy payload as a CPU tensor of ``dtype``: a 2-byte payload of a
+    bf16 pool (uint16 here, ``ml_dtypes.bfloat16`` from the reference) is
+    viewed, never converted."""
+    a = np.ascontiguousarray(a)
+    if dtype == torch.bfloat16:
+        if a.dtype.itemsize != 2:
+            raise ValueError(f"bfloat16 payload of itemsize "
+                             f"{a.dtype.itemsize}")
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _page_crc(k, v, ks, vs, j: int) -> int:
+    """crc32 of shipment page j: its k and v bytes (+ both scale planes
+    when the payload is int8), the reference's crc32 of their
+    concatenation, chained over each array's own bytes without copying
+    them."""
+    crc = 0
+    for a in (k, v) if ks is None else (k, v, ks, vs):
+        crc = zlib.crc32(np.ascontiguousarray(a[j]).reshape(-1).view(
+            np.uint8), crc)
+    return crc
 
 
 class _PagePool:
@@ -211,7 +288,12 @@ class ServingEngine:
     completion and returns latency/throughput/occupancy stats. Runs on
     ``cuda`` unless ``device`` says otherwise. Each of ``speculative_k``,
     ``spec_ngram``, ``kv_quant``, ``lora``, ``priorities`` and
-    ``constrained`` falls back to its ``serving_*`` flag when None."""
+    ``constrained`` falls back to its ``serving_*`` flag when None, and
+    ``wire_overlap`` to ``serving_wire_overlap``. ``engine_id``,
+    ``prefill_only`` and ``wire_overlap`` are the fleet's; a lone engine
+    keeps their defaults and never exports or adopts. On a card every
+    step, export and adoption of an engine runs on the current CUDA
+    stream; the overlapped wire's host copies alone use a side stream."""
 
     def __init__(self, cfg: LlamaConfig, params: Optional[dict] = None,
                  seed: int = 0, max_batch: int = 8, page_size: int = 128,
@@ -230,7 +312,31 @@ class ServingEngine:
                  lora_slots: int = 4,
                  priorities: Optional[bool] = None,
                  constrained: Optional[bool] = None,
+                 decode_quantum: Optional[int] = None,
+                 engine_id: int = 0,
+                 prefill_only: bool = False,
+                 wire_overlap: Optional[bool] = None,
                  device=None):
+        if decode_quantum is not None:
+            warnings.warn(
+                "ServingEngine(decode_quantum=...) is deprecated and has "
+                "no effect: the unified ragged-paged-attention step has "
+                "no decode-quantum boundary", DeprecationWarning,
+                stacklevel=2)
+        self.decode_quantum = max(1, decode_quantum or 8)  # legacy attr
+        # fleet identity: names this replica in the router's health and
+        # stats and targets chaos specs (ctx {"engine": id})
+        self.engine_id = int(engine_id)
+        # disaggregated pool role, set by the router (constructor or
+        # attribute flip): a prefill-only engine prefills through the
+        # first token, puts (request, shipment) on ``outbox`` and
+        # releases the slot; it never dispatches a decode row.
+        # ``pool_role`` tags its chaos probes
+        self.prefill_only = bool(prefill_only)
+        self.pool_role: Optional[str] = None
+        self.outbox: list = []
+        # the weight version loaded (set_params); None on a lone engine
+        self.param_version: Optional[str] = None
         self.device = resolve_device(device)
         self.cfg = cfg
         if params is None:
@@ -244,6 +350,8 @@ class ServingEngine:
             # per-column absmax int8 + bf16 scales; every matmul of the
             # step goes through the tuple-aware _mm
             self.params = quantize_weights_int8(self.params)
+        # set_params lands new weights in the format the constructor chose
+        self._weight_only_int8 = bool(weight_only_int8)
 
         def flag(value, name):
             return GLOBAL_FLAGS.get(name) if value is None else value
@@ -271,6 +379,12 @@ class ServingEngine:
                                                     "serving_spec_ngram")))
                           if self.spec_k else None)
         self._kv_quant = bool(flag(kv_quant, "serving_kv_quant"))
+        # overlapped wire: export stages a gather and an asynchronous
+        # device-to-host copy behind the in-flight step instead of
+        # blocking on it, and adoption's page writes wait for the next
+        # dispatch. Off: the synchronous wire
+        self._wire_overlap = bool(flag(wire_overlap, "serving_wire_overlap"))
+        self._wire_stream = None      # the side stream of staged copies
         self._lora_on = bool(flag(lora, "serving_lora"))
         self._prio_on = bool(flag(priorities, "serving_priorities"))
         self._constr_on = bool(flag(constrained, "serving_constrained"))
@@ -334,6 +448,12 @@ class ServingEngine:
         self._inflight = None
         self._prev_out_dev = None
         self._deferred_free: list[int] = []
+        # adoption staged by begin_adopt, not yet committed: the ledger's
+        # in_flight class
+        self._adopting: list[dict] = []
+        # overlapped-wire commits: published in the prefix cache (ledger
+        # class cache_idle), their bytes written at the next dispatch
+        self._commit_pending: list[dict] = []
         self.stats = {
             "unified_steps": 0, "decode_steps": 0, "prefills": 0,
             "prefill_tokens": 0, "prefill_grid_tokens": 0,
@@ -348,7 +468,11 @@ class ServingEngine:
             "waste_preempted_slot_tokens": 0,      # re-prefill after preempt
             "spec_proposed_tokens": 0, "spec_accepted_tokens": 0,
             "preemptions": 0,
+            # donor-side host ms spent materializing wire payloads
+            "wire_export_ms": 0.0,
         }
+        # FLAGS_obs_trace=1 arms the observability plane from any entry
+        _obs.arm_from_flags()
 
     # -- the step program -------------------------------------------------
 
@@ -505,6 +629,16 @@ class ServingEngine:
 
     # -- scheduler ---------------------------------------------------------
 
+    def set_params(self, params, version=None) -> None:
+        """Swap the weights in place: the next step reads them; resident
+        KV pages stay valid. An engine built with weight-only int8 gets
+        its new weights quantized as its constructor did."""
+        self.params = params
+        if ((self._weight_only_int8 or self.cfg.weight_only_int8)
+                and not isinstance(self.params["blocks"]["wq"], tuple)):
+            self.params = quantize_weights_int8(self.params)
+        self.param_version = version
+
     def register_adapter(self, adapter_id, weights: dict) -> None:
         """Add a LoRA adapter (``multitenant.make_lora``'s layout) to the
         host library; requests name it by ``adapter_id``. It becomes
@@ -560,6 +694,13 @@ class ServingEngine:
                     f"{req.constraint.dfa.vocab_size} != model vocab "
                     f"{self.cfg.vocab_size}")
         self.queue.append(req)
+        # lifecycle: the first submission opens the request's trace flow;
+        # a resume (preemption, migration, handoff) is an instant on it
+        _obs.lifecycle(req.rid,
+                       "arrival" if (req.t_first is None
+                                     and not req.out_tokens)
+                       else "resubmit",
+                       engine=self.engine_id)
 
     def abort(self, rid: int) -> bool:
         """Cancel a request by rid, queued or slot-resident (its pages go
@@ -616,7 +757,12 @@ class ServingEngine:
 
     def _alloc_pages(self, n: int) -> Optional[list[int]]:
         """Free-list alloc, reclaiming idle prefix-cache pages on demand,
-        then idle LoRA adapters, in that order."""
+        then idle LoRA adapters, in that order. Chaos ``pool.alloc``
+        ``fail`` reports an empty pool."""
+        if _chaos.active():               # disarmed: one global load
+            spec = _chaos.fire("pool.alloc", ctx={"engine": self.engine_id})
+            if spec is not None and spec.kind == "fail":
+                return None
         if len(self.pool.free) < n:
             self.pool.evict(n - len(self.pool.free))
         while (len(self.pool.free) < n and self.adapters is not None
@@ -692,6 +838,8 @@ class ServingEngine:
             slot = free_slots.pop(0)
             n_shared = len(shared)
             self.slots[slot] = req
+            _obs.lifecycle(req.rid, "admit", engine=self.engine_id,
+                           slot=slot)
             self._slot_shared[slot] = shared
             self._slot_owned[slot] = pages
             self._slot_hashes[slot] = hashes
@@ -747,6 +895,7 @@ class ServingEngine:
         req.n_preempted += 1
         req.age = 0
         self.stats["preemptions"] += 1
+        _obs.lifecycle(req.rid, "preempt", engine=self.engine_id)
         self._release_slot_pages(slot, defer=True)
         self._prefilling.pop(slot, None)
         self._clear_slot(slot)
@@ -783,8 +932,25 @@ class ServingEngine:
         req = self.slots[slot]
         if req is not None and len(req.out_tokens) >= req.max_new_tokens:
             req.t_done = _clock.now()
+            _obs.lifecycle(req.rid, "done", engine=self.engine_id)
             self._release_slot_pages(slot, defer=defer_free)
             self._clear_slot(slot)
+
+    def _chaos_step(self) -> None:
+        """Armed-only ``engine.step`` probe: ``raise`` (the router sees a
+        dead replica) or ``hang`` (sleep ``seconds``; the router's step
+        budget catches it)."""
+        ctx = {"engine": self.engine_id}
+        if self.pool_role is not None:
+            ctx["pool"] = self.pool_role
+        spec = _chaos.fire("engine.step", ctx=ctx)
+        if spec is None:
+            return
+        if spec.kind == "hang":
+            time.sleep(float(spec.args.get("seconds", 0.05)))
+        else:
+            raise _chaos.ChaosInjected(
+                f"chaos: engine {self.engine_id} step failure")
 
     def step(self, now: Optional[float] = None) -> bool:
         """Admissions + ONE unified dispatch + harvest. Returns True while
@@ -797,16 +963,33 @@ class ServingEngine:
         harvest cycle in ``_deferred_free``. Speculative and constrained
         engines are synchronous: drafts and masks are host state made
         from the previous step's tokens, so each step is harvested before
-        the next dispatch."""
+        the next dispatch. A prefill-only engine exports its finished
+        prefills after the harvest (``_export_completed``)."""
+        if _chaos.active():               # disarmed: one global load
+            self._chaos_step()
+        if _obs.active():                 # the same for the tracer
+            with _obs.span("engine.step", engine=self.engine_id):
+                return self._step_impl(now, traced=True)
+        return self._step_impl(now, traced=False)
+
+    def _step_impl(self, now: Optional[float], traced: bool) -> bool:
+        def phase(name, fn, *args):
+            if traced:
+                with _obs.span(name, engine=self.engine_id):
+                    return fn(*args)
+            return fn(*args)
+
         now = _clock.now() if now is None else now
-        self._admit(now)
+        phase("engine.admit", self._admit, now)
         prev = self._inflight
-        self._dispatch_unified(now)
+        phase("engine.dispatch", self._dispatch_unified, now)
         if self.spec_k or self._constr_on:
             if self._inflight is not None:
-                self._harvest(self._inflight)
+                phase("engine.harvest", self._harvest, self._inflight)
         elif prev is not None:
-            self._harvest(prev)
+            phase("engine.harvest", self._harvest, prev)
+        if self.prefill_only:
+            self._export_completed()
         if self._inflight is None and (self._deferred_free
                                        or self.pool.pending_evict):
             # nothing in flight: deferred and pending pages can be
@@ -824,6 +1007,42 @@ class ServingEngine:
         return (self._inflight is not None or bool(self.queue)
                 or any(s is not None for s in self.slots))
 
+    def _export_completed(self) -> None:
+        """Prefill-only sweep, after the harvest: a resident past its
+        prefill flip with its first token landed is done here. Its full
+        prompt pages are exported (None when no full page is covered),
+        ``(request, shipment)`` goes on ``outbox`` for the router, and
+        the slot is released at once. A decode engine re-admits the
+        request with prompt + out_tokens, its cache lookup covers the
+        shipped pages and it re-prefills the tail: the resume path of
+        preemption and engine loss, so the stream is unchanged. The same
+        sweep moves a mid-decode resident off an engine returning to the
+        prefill role. A slot the in-flight step references is never
+        swept: a resumed request would export before its prefill-final
+        token is harvested, and that token would enter the stream twice.
+
+        The pages are released with ``defer=False``: no dispatched step
+        references them, and on a card every later write to them is
+        enqueued on this engine's stream behind the export's gather."""
+        inflight = ({s for _i, s, _r, _k, _m, _d in self._inflight[1]}
+                    if self._inflight is not None else set())
+        for s in range(self.B):
+            req = self.slots[s]
+            if (req is None or s in self._prefilling or s in inflight
+                    or not req.out_tokens):
+                continue
+            t0 = _clock.now()
+            with _obs.span("wire.stage", engine=self.engine_id,
+                           rid=req.rid):
+                shipment = (self.stage_request_pages(req.rid)
+                            if self._wire_overlap
+                            else self.export_request_pages(req.rid))
+            self.stats["wire_export_ms"] += (_clock.now() - t0) * 1e3
+            self.outbox.append((req, shipment))
+            _obs.lifecycle(req.rid, "ship", engine=self.engine_id)
+            self._release_slot_pages(s, defer=False)
+            self._clear_slot(s)
+
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
@@ -833,11 +1052,17 @@ class ServingEngine:
         row (its input token + up to spec_k drafts), remaining rows carry
         qb-token prefill slices in admission order, the rest idle against
         the sink. Charges the occupancy ledger one slot-token per engaged
-        slot (m for a speculative row); harvest classifies them."""
+        slot (m for a speculative row); harvest classifies them. Deferred
+        adoption commits land first; a prefill-only engine dispatches no
+        decode row (a slot past its flip waits for the export sweep)."""
+        if self._commit_pending:
+            self._flush_commits()
         C, qb = self.n_rows, self.qb
         pref_entry = set(self._prefilling)
         decoding = [s for s in range(self.B) if self.slots[s] is not None
                     and s not in pref_entry]
+        if self.prefill_only:
+            decoding = []
         prev_rows: dict[int, int] = {}
         if self._inflight is not None:
             for idx, s, req, kind, m, _dr in self._inflight[1]:
@@ -1014,6 +1239,8 @@ class ServingEngine:
                 req.out_tokens.extend(o[:take])
                 if req.t_first is None and take:
                     req.t_first = now
+                    _obs.lifecycle(req.rid, "first-token",
+                                   engine=self.engine_id)
                 self.stats["decode_active_tokens"] += take
                 self.stats["waste_spec_rejected_slot_tokens"] += m - a
                 self.stats["waste_overrun_slot_tokens"] += a - take
@@ -1034,6 +1261,8 @@ class ServingEngine:
                 self._emit(req, tok)
                 if kind == "fin" and req.t_first is None:
                     req.t_first = now
+                    _obs.lifecycle(req.rid, "first-token",
+                                   engine=self.engine_id)
                 if self.slots[s] is req:
                     self.cur_tok[s] = tok
                     self._finish_if_done(s, defer_free=True)
@@ -1042,6 +1271,429 @@ class ServingEngine:
                     and req.t_done is None):
                 # released at dispatch: only the completion time is left
                 req.t_done = now
+                _obs.lifecycle(req.rid, "done", engine=self.engine_id)
+
+    # -- the KV page wire (inference/fleet/) --------------------------------
+    #
+    # A KV page is a function of (params, token prefix, page size, quant
+    # mode, adapter digest), the argument that makes the prefix cache
+    # sound, so replicas of one model can exchange page bytes, and a
+    # request resumed through adopted pages emits the stream of an
+    # uninterrupted run. A shipment (wire version 2, the reference's) is
+    # a dict:
+    #
+    #   version=2, rid, page_size, kv_quant, dtype, geom=(L, nKV, dH)
+    #   hashes  [n]  cumulative prefix-chain hashes (adapter-salted)
+    #   k       [n, L, nKV, dH, bs]   numpy, page-major
+    #   v       [n, L, nKV, bs, dH]
+    #   k_scales/v_scales [n, L, nKV] fp32 (int8 payload only, else None)
+    #   crc     [n]  crc32 over each page's k + v (+ scale) bytes
+    #   quant_mode "int8" | "fp", tokens [n * bs] int32, salt  (v2 only)
+    #   staged  True while the payload is an asynchronous copy (crc None
+    #           until finalize_shipment)
+    #
+    # ``dtype`` is the canonical name ("bfloat16", "float32", "int8");
+    # numpy has no bf16, so a bf16 payload travels as a uint16 view of
+    # the same bytes (the crcs are over bytes and do not change).
+    # Adoption is two-phase so the page ledger is exact while bytes are
+    # in transit: begin_adopt allocates and stages (ledger class
+    # in_flight), commit_adopt publishes the pages in the prefix cache at
+    # refcount 0 and writes their bytes, now (synchronous wire) or at the
+    # next dispatch (overlapped), abort_adopt returns staged pages.
+
+    def _export_meta(self, rid: int):
+        """The slot serving ``rid``, and for its exportable prefix (the
+        tokens the host knows, prompt + harvested out_tokens, that have
+        been dispatched into the pool) the tokens, salt, hashes and page
+        ids. None for unknown or queued rids or no full page."""
+        for slot in range(self.B):
+            req = self.slots[slot]
+            if req is not None and req.rid == rid:
+                break
+        else:
+            return None
+        full = (np.concatenate([np.asarray(req.prompt, np.int32),
+                                np.asarray(req.out_tokens, np.int32)])
+                if req.out_tokens else np.asarray(req.prompt, np.int32))
+        written = (self._prefilling[slot] if slot in self._prefilling
+                   else int(self.seq_lens[slot]))
+        n_exp = min(written, len(full)) // self.bs
+        if n_exp <= 0:
+            return None
+        tokens = np.ascontiguousarray(full[:n_exp * self.bs], np.int32)
+        salt = self._cache_salt(req)
+        hashes = self._page_hashes(tokens, salt)
+        pg = np.asarray(self._full_rows[slot][:n_exp], np.int32)
+        return slot, tokens, salt, hashes, pg
+
+    def _shipment_header(self, rid: int, tokens, salt, hashes) -> dict:
+        cfg = self.cfg
+        return {"version": 2, "rid": rid, "page_size": self.bs,
+                "kv_quant": self._kv_quant,
+                "quant_mode": "int8" if self._kv_quant else "fp",
+                "dtype": _DTYPE_NAME[self.k_pages.dtype],
+                "geom": (cfg.n_layers, cfg.n_kv_heads, cfg.head_dim),
+                "hashes": hashes, "tokens": tokens, "salt": salt}
+
+    def _gather_export(self, pg: np.ndarray) -> list:
+        """The pages ``pg`` of the k, v (and scale) arrays in shipment
+        layout, on the engine's device: gathers enqueued on its stream."""
+        pgd = torch.as_tensor(pg, dtype=torch.long).to(self.device)
+        arrs = [self.k_pages, self.v_pages]
+        if self._kv_quant:
+            arrs += [self.k_scales, self.v_scales]
+        out = [wire_gather_pages(a, pgd) for a in arrs]
+        return out + [None] * (4 - len(out))
+
+    def export_request_pages(self, rid: int) -> Optional[dict]:
+        """The synchronous wire: the full KV pages (+ scale planes) a
+        resident request has written, on the host, for adoption by
+        another engine. Reading them waits for every step enqueued on
+        the stream. None for unknown or queued rids or no full page."""
+        if self._commit_pending:
+            self._flush_commits()
+        meta = self._export_meta(rid)
+        if meta is None:
+            return None
+        _slot, tokens, salt, hashes, pg = meta
+        k, v, ks, vs = (None if a is None else _to_host(a.cpu())
+                        for a in self._gather_export(pg))
+        out = self._shipment_header(rid, tokens, salt, hashes)
+        out.update({"k": k, "v": v, "k_scales": ks, "v_scales": vs,
+                    "crc": [_page_crc(k, v, ks, vs, j)
+                            for j in range(len(pg))]})
+        return out
+
+    def stage_request_pages(self, rid: int) -> Optional[dict]:
+        """The overlapped wire's export: gather the request's pages on
+        the engine's stream behind the in-flight step, start their copy
+        into pinned host buffers on a side stream that waits for the
+        gather, and return at once with ``staged=True`` and ``crc=None``
+        (``finalize_shipment`` waits for the copy). The slot's pages may
+        be released right after: every later write to them is enqueued
+        on the engine's stream behind the gather, and the side stream is
+        recorded on the gathered buffers so that the caching allocator
+        keeps them until the copy is done."""
+        if self._commit_pending:
+            self._flush_commits()
+        meta = self._export_meta(rid)
+        if meta is None:
+            return None
+        _slot, tokens, salt, hashes, pg = meta
+        arrs = self._gather_export(pg)
+        done = None
+        if self.device.type == "cuda":
+            gathered = torch.cuda.Event()
+            gathered.record()
+            if self._wire_stream is None:
+                self._wire_stream = torch.cuda.Stream(self.device)
+            side = self._wire_stream
+            side.wait_event(gathered)
+            host = []
+            with torch.cuda.stream(side):
+                for a in arrs:
+                    if a is None:
+                        host.append(None)
+                        continue
+                    h = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+                    h.copy_(a, non_blocking=True)
+                    a.record_stream(side)
+                    host.append(h)
+                done = torch.cuda.Event()
+                done.record(side)
+            arrs = host
+        k, v, ks, vs = arrs
+        out = self._shipment_header(rid, tokens, salt, hashes)
+        out.update({"k": k, "v": v, "k_scales": ks, "v_scales": vs,
+                    "crc": None, "staged": True, "copied": done})
+        return out
+
+    def finalize_shipment(self, shipment: Optional[dict]) -> Optional[dict]:
+        """Wait for a staged shipment's copy and compute its crcs (the
+        router calls this when it drains the outbox). Chaos point
+        ``migration.stage``: ``drop`` loses the staging buffer (the
+        request falls back to re-prefill), ``corrupt`` flips a payload
+        byte after the crcs are computed, so the adopter rejects the
+        page. A shipment that is not staged passes through."""
+        if not shipment or not shipment.get("staged"):
+            return shipment
+        t0 = _clock.now()
+        done = shipment.pop("copied", None)
+        if done is not None:
+            done.synchronize()
+        k, v, ks, vs = (None if shipment[n] is None
+                        else _to_host(shipment[n])
+                        for n in ("k", "v", "k_scales", "v_scales"))
+        shipment.update({"k": k, "v": v, "k_scales": ks, "v_scales": vs,
+                         "crc": [_page_crc(k, v, ks, vs, j)
+                                 for j in range(len(shipment["hashes"]))],
+                         "staged": False})
+        self.stats["wire_export_ms"] += (_clock.now() - t0) * 1e3
+        _obs.instant("wire.finalize", engine=self.engine_id,
+                     rid=shipment.get("rid"),
+                     pages=len(shipment.get("hashes", [])))
+        if _chaos.active():
+            ctx = {"engine": self.engine_id}
+            if self.pool_role is not None:
+                ctx["pool"] = self.pool_role
+            spec = _chaos.fire("migration.stage", ctx=ctx)
+            if spec is not None:
+                if spec.kind == "drop":
+                    return None
+                if spec.kind == "corrupt":
+                    k = np.array(k, copy=True)
+                    k.reshape(-1).view(np.uint8)[0] ^= 0xFF
+                    shipment["k"] = k
+        return shipment
+
+    @staticmethod
+    def shipment_bytes(shipment: dict) -> int:
+        """Wire bytes of a shipment's payload (an int8 page ships at about
+        half a bf16 page's bytes)."""
+        n = shipment["k"].nbytes + shipment["v"].nbytes
+        if shipment["k_scales"] is not None:
+            n += shipment["k_scales"].nbytes + shipment["v_scales"].nbytes
+        return int(n)
+
+    def _shipment_quant_mode(self, shipment: dict) -> str:
+        """The payload's representation: v2 names it, v1's ``kv_quant``
+        decides."""
+        qm = shipment.get("quant_mode")
+        if qm is not None:
+            return qm
+        return "int8" if shipment.get("kv_quant") else "fp"
+
+    def shipment_cache_hashes(self, shipment: dict) -> Optional[list]:
+        """The hashes a shipment's pages take in THIS pool's cache: its
+        own in the same quant mode, else re-keyed from its token prefix
+        (the preimage tags int8 content). None when that is impossible
+        (a v1 cross-mode shipment)."""
+        want = "int8" if self._kv_quant else "fp"
+        if self._shipment_quant_mode(shipment) == want:
+            return list(shipment["hashes"])
+        toks = shipment.get("tokens")
+        if toks is None:
+            return None
+        return self._page_hashes(
+            np.asarray(toks, np.int32),
+            shipment.get("salt", b""))[:len(shipment["hashes"])]
+
+    def _convert_shipment(self, shipment: dict) -> Optional[dict]:
+        """Re-express a v2 shipment of the other quant mode in this
+        pool's, re-keyed from its token prefix; bit for bit the
+        reference's numpy conversion. int8 -> fp: q * scale in fp32, then
+        one rounding to the pool dtype (round to nearest even, bf16 too).
+        fp -> int8: a one-shot absmax / 127 per (page, layer, kv head),
+        the stored scale unclamped, only the quantizing divide clamped by
+        SCALE_EPS. The crcs are checked against the original payload and
+        the conversion stops at the first bad page, so a corrupt
+        shipment is never re-crc'd clean. None without a token prefix
+        (v1)."""
+        toks = shipment.get("tokens")
+        if toks is None:
+            return None
+        src_q = self._shipment_quant_mode(shipment) == "int8"
+        k, v = shipment["k"], shipment["v"]
+        ks, vs = shipment["k_scales"], shipment["v_scales"]
+        n_ok = 0
+        for j in range(len(shipment["hashes"])):
+            if _page_crc(k, v, ks if src_q else None, vs, j) \
+                    != shipment["crc"][j]:
+                break     # corrupt: pages past j can't extend the chain
+            n_ok += 1
+        tokens = np.asarray(toks, np.int32)[:n_ok * self.bs]
+        hashes = self._page_hashes(tokens, shipment.get("salt", b""))
+        dt = self.k_pages.dtype
+        if src_q:
+            def conv(q, sc):
+                return _to_host((_from_host(q[:n_ok], torch.int8).float()
+                                 * _from_host(sc[:n_ok], torch.float32)[
+                                     :, :, :, None, None]).to(dt))
+
+            kc, vc, ksc, vsc = conv(k, ks), conv(v, vs), None, None
+        else:
+            src = {"bfloat16": torch.bfloat16, "float16": torch.float16}.get(
+                shipment["dtype"], torch.float32)
+
+            def conv(x):
+                xf = _from_host(x[:n_ok], src).float()
+                sc = xf.abs().amax(dim=(3, 4)) / 127.0
+                q = torch.round(xf / torch.clamp_min(
+                    sc, SCALE_EPS)[:, :, :, None, None])
+                return (q.clamp(-127, 127).to(torch.int8).numpy(),
+                        sc.numpy())
+
+            (kc, ksc), (vc, vsc) = conv(k), conv(v)
+        out = dict(shipment)
+        out.update({"kv_quant": self._kv_quant,
+                    "quant_mode": "int8" if self._kv_quant else "fp",
+                    "dtype": _DTYPE_NAME[dt], "hashes": hashes,
+                    "tokens": tokens, "k": kc, "v": vc, "k_scales": ksc,
+                    "v_scales": vsc,
+                    "crc": [_page_crc(kc, vc, ksc, vsc, j)
+                            for j in range(n_ok)]})
+        return out
+
+    def begin_adopt(self, shipment: dict) -> Optional[dict]:
+        """Phase 1 of adoption: check the shipment against this pool's
+        geometry (ValueError on a mismatch; a v2 shipment of the other
+        quant mode converts instead), skip pages whose hash is resident,
+        stop at the first page whose crc fails or that cannot be
+        allocated, and stage the rest (ledger class ``in_flight``).
+        Returns the staging handle, or None when nothing is adoptable or
+        chaos ``migration.adopt`` ``fail`` fires."""
+        cfg = self.cfg
+        if (shipment.get("version") not in (1, 2)
+                or shipment["page_size"] != self.bs
+                or tuple(shipment["geom"]) != (cfg.n_layers,
+                                               cfg.n_kv_heads,
+                                               cfg.head_dim)):
+            raise ValueError(
+                f"shipment geometry {shipment.get('page_size')}/"
+                f"{shipment.get('dtype')}/{shipment.get('geom')} does "
+                f"not match this pool ({self.bs}/"
+                f"{_DTYPE_NAME[self.k_pages.dtype]}/"
+                f"{(cfg.n_layers, cfg.n_kv_heads, cfg.head_dim)})")
+        want = "int8" if self._kv_quant else "fp"
+        if self._shipment_quant_mode(shipment) != want:
+            conv = self._convert_shipment(shipment)
+            if conv is None:
+                raise ValueError(
+                    f"shipment quant mode "
+                    f"{self._shipment_quant_mode(shipment)} does not "
+                    f"match this pool ({want}) and carries no token "
+                    f"prefix to re-key from (wire v1)")
+            shipment = conv
+        elif shipment["dtype"] != _DTYPE_NAME[self.k_pages.dtype]:
+            raise ValueError(
+                f"shipment dtype {shipment['dtype']} does not match "
+                f"this pool ({_DTYPE_NAME[self.k_pages.dtype]})")
+        if _chaos.active():
+            spec = _chaos.fire("migration.adopt",
+                               ctx={"engine": self.engine_id})
+            if spec is not None and spec.kind == "fail":
+                return None
+        k, v = shipment["k"], shipment["v"]
+        ks, vs = shipment["k_scales"], shipment["v_scales"]
+        staged: list[tuple[int, int]] = []     # (shipment idx, pool page)
+        for j, h in enumerate(shipment["hashes"]):
+            if _page_crc(k, v, ks if self._kv_quant else None, vs, j) \
+                    != shipment["crc"][j]:
+                break     # corrupt: pages past j can't extend the chain
+            if h in self.pool.cache:
+                continue  # already resident; the chain stays contiguous
+            pages = self._alloc_pages(1)
+            if pages is None:
+                break     # adopter full: keep the prefix staged so far
+            staged.append((j, pages[0]))
+        if not staged:
+            return None
+        handle = {"shipment": shipment, "staged": staged}
+        self._adopting.append(handle)
+        return handle
+
+    def commit_adopt(self, handle: dict) -> int:
+        """Phase 2: publish the staged pages in the prefix cache at
+        refcount 0 (idle-cached, where the victim's re-admission lookup
+        finds them) and write their bytes into the pool: now on the
+        synchronous wire, at the next dispatch on the overlapped one
+        (``_flush_commits``). Chaos ``migration.commit`` ``raise`` fires
+        before any state moves. Returns the pages adopted."""
+        if _chaos.active():
+            ctx = {"engine": self.engine_id}
+            if self.pool_role is not None:
+                ctx["pool"] = self.pool_role
+            spec = _chaos.fire("migration.commit", ctx=ctx)
+            if spec is not None and spec.kind == "raise":
+                raise _chaos.ChaosInjected(
+                    f"chaos: engine {self.engine_id} commit failure")
+        self._adopting.remove(handle)
+        shipment, staged = handle["shipment"], handle["staged"]
+        with _obs.span("wire.commit", engine=self.engine_id,
+                       rid=shipment.get("rid"), pages=len(staged)):
+            idx = [j for j, _ in staged]
+            if idx == list(range(idx[0], idx[0] + len(idx))):
+                idx = slice(idx[0], idx[0] + len(idx))   # a view, no copy
+
+            def rows(name):
+                a = shipment[name]
+                return None if a is None else a[idx]
+
+            ent = {"pages": [p for _, p in staged],
+                   "hashes": [shipment["hashes"][j] for j, _ in staged],
+                   "k": rows("k"), "v": rows("v"),
+                   "ks": rows("k_scales") if self._kv_quant else None,
+                   "vs": rows("v_scales") if self._kv_quant else None}
+            if self._wire_overlap:
+                self._commit_pending.append(ent)
+            else:
+                self._write_pages(ent["pages"], ent["k"], ent["v"],
+                                  ent["ks"], ent["vs"])
+            for j, p in staged:
+                self.pool.insert(shipment["hashes"][j], p)
+            # the pages idle in the cache until a lookup claims them
+            self.pool.decref(ent["pages"])
+        if shipment.get("rid") is not None:
+            _obs.lifecycle(shipment["rid"], "adopt", engine=self.engine_id,
+                           pages=len(staged))
+        return len(staged)
+
+    def _write_pages(self, pages: list, k, v, ks, vs) -> None:
+        """Write page-major host payloads into the pool at ``pages``: one
+        host-to-device copy per array and an ``index_copy_`` on the page
+        dimension, enqueued on the engine's stream."""
+        pg = torch.as_tensor(pages, dtype=torch.long).to(self.device)
+        for pool, host, dt in ((self.k_pages, k, self.k_pages.dtype),
+                               (self.v_pages, v, self.v_pages.dtype),
+                               (self.k_scales, ks, torch.float32),
+                               (self.v_scales, vs, torch.float32)):
+            if host is not None:
+                wire_scatter_pages(pool, pg, _from_host(host, dt).to(
+                    self.device).movedim(0, 1))
+
+    def _flush_commits(self) -> None:
+        """Write every deferred adoption commit (overlapped wire) in one
+        batch: at dispatch entry, before a step can attend the pages, and
+        at export entry, before their bytes can ship again. A page whose
+        cache entry no longer carries its commit's hash was evicted (and
+        maybe handed out) since the commit; it is skipped, or it would
+        clobber the new tenant's bytes and freshly zeroed scales."""
+        pend, self._commit_pending = self._commit_pending, []
+        pages: list[int] = []
+        parts: list[list] = [[], [], [], []]
+        for ent in pend:
+            keep = [i for i, (p, h) in enumerate(zip(ent["pages"],
+                                                     ent["hashes"]))
+                    if self.pool.hash_of.get(p) == h]
+            if not keep:
+                continue
+            pages += [ent["pages"][i] for i in keep]
+            for lst, name in zip(parts, ("k", "v", "ks", "vs")):
+                if ent[name] is not None:
+                    lst.append(ent[name][keep])
+        if pages:
+            self._write_pages(pages, *(np.concatenate(lst) if lst else None
+                                       for lst in parts))
+
+    def abort_adopt(self, handle: dict) -> None:
+        """Roll back a staged adoption: its pages return to the free list
+        (nothing was published or written)."""
+        self._adopting.remove(handle)
+        self.pool.release([p for _, p in handle["staged"]])
+
+    def adopt_pages(self, shipment: dict) -> int:
+        """begin_adopt + commit_adopt (the router's path); the pages
+        adopted, 0 when nothing was adoptable. A commit that raises
+        (chaos ``migration.commit``) aborts the staging leak-free and
+        reports 0: the wire counts a rejection."""
+        handle = self.begin_adopt(shipment)
+        if handle is None:
+            return 0
+        try:
+            return self.commit_adopt(handle)
+        except Exception:
+            self.abort_adopt(handle)
+            return 0
 
     def kv_bytes_per_page(self) -> float:
         """Device bytes one KV page costs across all layers, with its
@@ -1060,9 +1712,11 @@ class ServingEngine:
     def page_accounting(self) -> dict:
         """Page census for the leak invariant: every non-sink page is in
         exactly one of free / slot-owned / slot-shared (deduplicated) /
-        idle-cached / deferred-free / adapter (resident LoRA weights) /
-        in-flight (migration pages, 0 until the fleet wire is ported);
-        the counts sum to n_pages - 1."""
+        idle-cached (refcount 0, including pages adopted on the
+        overlapped wire whose bytes land at the next dispatch) /
+        deferred-free / adapter (resident LoRA weights) / in-flight
+        (pages staged by begin_adopt, not yet committed or rolled back);
+        the counts sum to n_pages - 1, per engine and so fleet-wide."""
         owned = [p for lst in self._slot_owned for p in lst]
         shared = {p for lst in self._slot_shared for p in lst}
         counts = {
@@ -1073,7 +1727,7 @@ class ServingEngine:
             "deferred_free": len(self._deferred_free),
             "adapter": (self.adapters.n_pages_held()
                         if self.adapters is not None else 0),
-            "in_flight": 0,
+            "in_flight": sum(len(h["staged"]) for h in self._adopting),
         }
         counts["total"] = sum(counts.values())
         return counts
@@ -1082,7 +1736,10 @@ class ServingEngine:
         """Drive all requests to completion against wall-clock arrivals;
         returns throughput, latency percentiles, the slot-occupancy
         decomposition, the speculative, preemption, adapter and
-        prefix-cache counters."""
+        prefix-cache counters. As the reference's, it reads none of the
+        fleet's request fields (``deadline_ttft``, ``deadline_e2e``,
+        ``session``, ``param_version``): deadlines are the load
+        generator's driver's to enforce, the rest the router's."""
         for r in sorted(requests, key=lambda r: r.arrival):
             self.submit(r)
         self.stats = {k: 0 for k in self.stats}   # per-run counters

@@ -52,7 +52,18 @@ def test_port_imports_without_jax_or_reference():
             "paddle_tpu_torch.incubate",
             "paddle_tpu_torch.incubate.nn",
             "paddle_tpu_torch.incubate.nn.functional",
-            "paddle_tpu_torch.incubate.nn.functional.fused_transformer"
+            "paddle_tpu_torch.incubate.nn.functional.fused_transformer",
+            "paddle_tpu_torch.obs", "paddle_tpu_torch.obs.trace",
+            "paddle_tpu_torch.obs.flight", "paddle_tpu_torch.obs.metrics",
+            "paddle_tpu_torch.testing", "paddle_tpu_torch.testing.chaos",
+            "paddle_tpu_torch.inference.fleet",
+            "paddle_tpu_torch.inference.fleet.router",
+            "paddle_tpu_torch.inference.fleet.migration",
+            "paddle_tpu_torch.inference.loadgen",
+            "paddle_tpu_torch.inference.loadgen.arrivals",
+            "paddle_tpu_torch.inference.loadgen.workload",
+            "paddle_tpu_torch.inference.loadgen.metrics",
+            "paddle_tpu_torch.inference.loadgen.driver",
             } <= mods
 
 

@@ -59,7 +59,11 @@ at llama3-8b's width (mb 16 and 32) a query row's bits do not depend on
 the chunk that carries it (decode, 4-row verify and 16-row prefill
 chunks at every offset, positions on page and split edges, other
 chunks and C varying), and K8q equals K8 on dequantized pages with
-ragged n_valid and idle sink chunks."""
+ragged n_valid and idle sink chunks. The serving fleet's overlapped wire:
+an export staged while a step is in flight (gather on the engine's
+stream, copy into pinned memory on a side stream) ships the synchronous
+export's bytes, writes enqueued after the staging do not reach it, and
+a deferred adoption commit lands before the next step reads the page."""
 
 import collections
 
@@ -1357,3 +1361,97 @@ def test_sched_scratch_by_stream_and_capture(cuda):
     assert all(int(buf.abs().sum()) == 0 for buf in fa._SCHED.values())
     assert all(int(slots.abs().sum()) == 0
                for slots, _ in fa._CAPTURED.values())
+
+
+def _wire_engine(cuda, dtype, **kw):
+    from paddle_tpu_torch.inference.serving import ServingEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig(vocab_size=512, hidden=512, n_layers=2, n_heads=4,
+                      n_kv_heads=2, ffn_hidden=768, max_seq_len=512,
+                      dtype=dtype, param_dtype=dtype)
+    params = kw.pop("params", None)
+    eng = ServingEngine(cfg, params=params, max_batch=2, page_size=16,
+                        max_seq=256, prefill_budget=64, device=cuda, **kw)
+    return eng
+
+
+def _same_shipment(a, b) -> None:
+    for k in ("hashes", "crc", "dtype", "geom", "quant_mode"):
+        assert a[k] == b[k], k
+    for k in ("k", "v", "k_scales", "v_scales"):
+        assert (a[k] is None) == (b[k] is None), k
+        if a[k] is not None:
+            assert a[k].tobytes() == b[k].tobytes(), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_staged_export_equals_sync_export_with_a_step_in_flight(cuda,
+                                                                kv_quant):
+    """The overlapped wire's export on the card: staged while a step is
+    in flight (gather on the engine's stream, copy on a side stream into
+    pinned memory) it ships the synchronous export's bytes and crcs; and
+    writes to the pages enqueued right after the staging (a reused page)
+    do not reach the staged copy."""
+    from paddle_tpu_torch.inference.serving import Request
+
+    eng = _wire_engine(cuda, torch.bfloat16, kv_quant=kv_quant,
+                       wire_overlap=True)
+    req = Request(rid=0, prompt=np.arange(1, 41, dtype=np.int32),
+                  max_new_tokens=16)
+    eng.submit(req)
+    while len(req.out_tokens) < 3:
+        eng.step(now=1e18)
+    eng.step(now=1e18)
+    assert eng._inflight is not None
+    staged = eng.stage_request_pages(0)
+    assert staged["staged"] and staged["k"].is_pinned()
+    sync = eng.export_request_pages(0)
+    _same_shipment(eng.finalize_shipment(staged), sync)
+    pages = torch.as_tensor(eng._full_rows[0][:len(sync["hashes"])],
+                            dtype=torch.long, device=cuda)
+    staged = eng.stage_request_pages(0)
+    for arr in (eng.k_pages, eng.v_pages):
+        arr.index_fill_(1, pages, 0)
+    _same_shipment(eng.finalize_shipment(staged), sync)
+    assert not bool(eng.k_pages[:, pages].any())
+
+
+@pytest.mark.cuda
+def test_deferred_commit_lands_before_the_next_step_reads(cuda):
+    """An adoption on the overlapped wire publishes the pages at once and
+    writes their bytes at the next dispatch, before that step's kernels:
+    the step that admits a request sharing the prefix attends the
+    adopted bytes, the pages equal the shipment's, and the stream is the
+    donor's own."""
+    from paddle_tpu_torch.inference.serving import Request
+
+    donor = _wire_engine(cuda, torch.float32)
+    prompt = np.random.default_rng(3).integers(1, 512, size=40).astype(
+        np.int32)
+    ref = Request(rid=0, prompt=prompt.copy(), max_new_tokens=8)
+    donor.submit(ref)
+    while len(ref.out_tokens) < 1:
+        donor.step(now=1e18)
+    ship = donor.export_request_pages(0)
+    while donor.step(now=1e18):
+        pass
+    recv = _wire_engine(cuda, torch.float32, params=donor.params,
+                        wire_overlap=True)
+    assert recv.adopt_pages(ship) == 2 and len(recv._commit_pending) == 1
+    pages = [recv.pool.cache[h] for h in ship["hashes"]]
+    assert not bool(recv.k_pages[:, pages].any())      # not yet written
+    req = Request(rid=1, prompt=prompt.copy(), max_new_tokens=8)
+    recv.submit(req)
+    recv.step(now=1e18)
+    assert not recv._commit_pending
+    assert recv.stats["prefill_cached_tokens"] == 32
+    for j, p in enumerate(pages):
+        assert recv.k_pages[:, p].cpu().numpy().tobytes() == \
+            ship["k"][j].tobytes()
+        assert recv.v_pages[:, p].cpu().numpy().tobytes() == \
+            ship["v"][j].tobytes()
+    while recv.step(now=1e18):
+        pass
+    assert req.out_tokens == ref.out_tokens
