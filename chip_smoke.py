@@ -168,15 +168,41 @@ Phases, each failing loudly (any failure exits nonzero):
    K14; a GQA pass at llama3-8b's width through paged_decode_attention
    (K15); a small fp32 cache on the card against the CPU.
 
-After each of the phases train, train_13b, llama_train, decode and paged
-every bf16 flash launch at head dim 64 or 128 must have taken the TMA +
-wgmma variant, as the C launchers report what they launched
+15. ``fleet``: llama3-8b replicas on one params dict: a prefill and a
+   decode replica over the wire (overlapped and synchronous), two
+   colocated replicas under bench.py's fleet traffic with one killed, an
+   int8 prefill replica into a bf16 one.
+16. ``rollout``: llama3-8b at the serving settings, v1 (seed 0) and v2
+   (seed 1): a deploy of v2 fired mid-decode by ``FleetDriver(deploys=)``
+   under the same traffic, every stream equal to a lone engine's on the
+   version it was pinned to; a ``rollout.canary`` failure (one rollback,
+   back on v1); a ``rollout.swap`` raise (a replacement on v2); autoscale
+   1 -> 2 -> 1 replicas with no request dropped; SLO shed of three
+   never-accepted predicted misses. The ledgers sum on every tick, K8
+   launches L x every engine's steps, all wgmma. Prints
+   ``WeightCatalog.put`` ms and GB/s, ``rollout_ms``,
+   ``rollout_stall_ms``, each ``set_params`` swap, goodput, TTFT p50 / p99
+   and peak memory.
+17. ``resilient``: gpt3-350m at the train phase's settings under
+   ResilientTrainLoop (``donated_step``; save_every 2, keep 2): 6 steps
+   through a NaN at step 3 (restored bitwise from the step-2 checkpoint),
+   a torn step-6 save, a new loop resuming at step 4 with the
+   checkpoint's bytes and the uninterrupted run's next losses, and
+   ``run_elastic`` over this script's ``--resilient-worker`` mode (2
+   layers): a generation killed after a torn save, relaunched at step 2
+   without rebuilding a kernel. Prints the state's bytes, save / verify /
+   load ms, crc32 GB/s, the step with and without the watchdog's guard,
+   and K1, K2, K4-K7's launches (flash and CE by variant).
+
+After each of the phases train, train_13b, llama_train, decode, paged and
+resilient every bf16 flash launch at head dim 64 or 128 must have taken
+the TMA + wgmma variant, as the C launchers report what they launched
 (``flash_attention.LAUNCHES_BY_PLAN``), and at every shape launched the
 C launchers' plan must be ``flash_plan``'s. After each of the phases
-engine and int8, cpu and serving every K8 / K8q launch must have taken
-its plan's variant, every bf16 one at head dim 128 the split / TMA ring /
-wgmma one (``ragged_paged_attention.LAUNCHES_BY_PLAN``), and at every
-shape launched ``rpa_plan_c`` must equal ``rpa_plan``.
+engine and int8, cpu, serving and rollout every K8 / K8q launch must
+have taken its plan's variant, every bf16 one at head dim 128 the split
+/ TMA ring / wgmma one (``ragged_paged_attention.LAUNCHES_BY_PLAN``), and
+at every shape launched ``rpa_plan_c`` must equal ``rpa_plan``.
 
 Prints the card's name and power limit, one JSON line ``{"kernels": ...}``
 and, last, ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -187,6 +213,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -200,7 +227,7 @@ import torch
 PHASES = ("kernels", "engine", "int8", "cpu", "train_kernels", "train",
           "train_cpu", "train_13b", "llama_train", "decode_kernels",
           "decode", "decode_cpu", "serving_kernels", "serving",
-          "paged_kernels", "paged", "fleet")
+          "paged_kernels", "paged", "fleet", "rollout", "resilient")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12         # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12          # fp32 outside the tensor cores (K6, K7)
@@ -264,7 +291,8 @@ def _bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
 
 # phases whose every bf16 flash launch at head dim 64 or 128 must take the
 # TMA + wgmma variant (flash_attention.flash_plan)
-FLASH_WGMMA_PHASES = ("train", "train_13b", "llama_train", "decode", "paged")
+FLASH_WGMMA_PHASES = ("train", "train_13b", "llama_train", "decode", "paged",
+                      "resilient")
 
 
 def _flash_launch_counts() -> collections.Counter:
@@ -301,7 +329,7 @@ def _check_flash_variants(tag: str, before: collections.Counter) -> None:
 RPA_SHAPE = (32, 16, 32, 8, 128, 128, 16, 129)  # C qb nH nKV d bs mb P
 # phases whose every bf16 d 128 K8 / K8q launch must take the split / TMA
 # ring / wgmma variant (ragged_paged_attention.rpa_plan)
-RPA_WGMMA_PHASES = ("engine/int8", "cpu", "serving")
+RPA_WGMMA_PHASES = ("engine/int8", "cpu", "serving", "rollout")
 
 
 def _rpa_launch_counts() -> collections.Counter:
@@ -4329,6 +4357,690 @@ def run_fleet(dev) -> dict:
     return {k: v for k, v in total.items() if v}
 
 
+# -- the runtime plane: rollout, autoscale, SLO shed -------------------------
+
+ROLLOUT_TRAFFIC = dict(       # the fleet phase's bench.py traffic, no deadlines
+    n_requests=48, seed=7, process="poisson", rate=30.0, prefix_len=512,
+    n_prefixes=1, shared_frac=0.9, tail_log_mean=5.3, tail_log_sigma=0.6,
+    tail_min=32, tail_max=512, new_min=64, new_max=128, max_seq=1536,
+    n_tenants=8, tenant_skew=1.2, n_sessions=6)
+
+
+def _release() -> None:
+    """Free the card's memory held by what the caller dropped: a router
+    and its engines form reference cycles (``_watch``'s wrapper, ship
+    jobs), which only the cycle collector frees."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _ledgers_sum(router, tag: str) -> None:
+    """Every engine's 7-class census sums to its pool (dead and retired
+    ones included while the router holds them) and the fleet's too."""
+    acc = router.page_accounting()
+    for rep in router.replicas:
+        a = acc["engines"][rep.engine.engine_id]
+        if a["total"] != rep.engine.n_pages - 1:
+            raise AssertionError(f"{tag}: engine {rep.engine.engine_id} "
+                                 f"ledger {a}")
+    if acc["fleet"]["total"] != acc["expected"]:
+        raise AssertionError(f"{tag}: fleet ledger {acc}")
+
+
+def _watch(router, tag: str) -> dict:
+    """Wrap ``router.step`` so that every tick holds the ledgers and
+    records every engine the fleet had (replacements and retired ones
+    too) and whether a stream was mid-decode when a rollout began."""
+    seen = {"engines": {}, "mid_decode_at_rollout": None}
+    step = router.step
+
+    def watched(now: float = 0.0) -> bool:
+        active = router.rollout_active
+        if active and seen["mid_decode_at_rollout"] is None:
+            seen["mid_decode_at_rollout"] = any(
+                r is not None and 0 < len(r.out_tokens) < r.max_new_tokens
+                for rep in router.replicas for r in rep.engine.slots)
+        more = step(now=now)
+        _ledgers_sum(router, tag)
+        for rep in router.replicas:
+            seen["engines"][rep.engine.engine_id] = rep.engine
+        return more
+
+    router.step = watched
+    for rep in router.replicas:
+        seen["engines"][rep.engine.engine_id] = rep.engine
+    return seen
+
+
+def _tick(router, reqs, tag: str, now: float = 1e18, until=None,
+          extra: int = 0) -> int:
+    """Submit ``reqs`` and tick until the router is idle (or ``until()``
+    holds), then ``extra`` more ticks; returns the ticks."""
+    for r in reqs:
+        router.submit(r, now=now)
+    n = 0
+    while router.step(now=now):
+        n += 1
+        if until is not None and until():
+            return n
+        if n > 20000:
+            raise AssertionError(f"{tag}: the fleet did not drain")
+    for _ in range(extra):
+        router.step(now=now)
+        n += 1
+    return n
+
+
+def _mid_decode(router) -> bool:
+    return any(r is not None and 0 < len(r.out_tokens) < r.max_new_tokens
+               for rep in router.replicas for r in rep.engine.slots)
+
+
+def _all_done(tag: str, reqs) -> None:
+    bad = [r.rid for r in reqs
+           if r.aborted or len(r.out_tokens) != r.max_new_tokens]
+    if bad:
+        raise AssertionError(f"{tag}: requests {bad} did not complete")
+
+
+def _k8_steps(seen) -> int:
+    return sum(e.stats["unified_steps"] for e in seen["engines"].values())
+
+
+def _replicas(cfg, params, dev, n: int, first_id: int = 0) -> list:
+    from paddle_tpu_torch.inference.serving import ServingEngine
+
+    engs = [ServingEngine(cfg, params=params, device=dev,
+                          engine_id=first_id + i, **FLEET_ENGINE)
+            for i in range(n)]
+    for e in engs:
+        _warm(e, -1 - e.engine_id)
+    return engs
+
+
+def _lone_agree(cfg, params, dev, tag: str, reqs) -> tuple[int, int]:
+    """Copies of ``reqs`` (the same request may appear in several runs:
+    one copy each) through one lone engine on ``params``: greedy streams
+    held by ``_serving_streams_agree`` (equal, except from a near-tie of
+    the lone engine's own logits), sampled ones exactly. Returns (greedy
+    tokens equal, near-tie exceptions)."""
+    from paddle_tpu_torch.inference.serving import Request
+
+    def key(r):
+        return (np.asarray(r.prompt).tobytes(), r.max_new_tokens,
+                r.temperature, r.top_p, r.seed)
+
+    uniq = {}
+    for r in reqs:
+        uniq.setdefault(key(r), Request(
+            rid=len(uniq), prompt=np.asarray(r.prompt).copy(),
+            max_new_tokens=r.max_new_tokens, temperature=r.temperature,
+            top_p=r.top_p, seed=r.seed))
+    solo = _replicas(cfg, params, dev, 1, first_id=90)[0]
+    with _LogitTap(solo) as tap:
+        solo.run(list(uniq.values()))
+    ref = [uniq[key(r)] for r in reqs]
+    same, exc = _serving_streams_agree(tag, ref, reqs, tap)
+    bad = [b.rid for a, b in zip(ref, reqs)
+           if a.temperature and a.out_tokens != b.out_tokens]
+    if bad:
+        raise AssertionError(f"{tag}: sampled streams {bad} differ from the "
+                             "lone engine's")
+    del solo, tap
+    _release()
+    return same, exc
+
+
+def _params_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def run_rollout(dev) -> dict:
+    """The fleet's zero-downtime operations at llama3-8b (random bf16
+    weights: v1 from seed 0, v2 from seed 1; replicas at the serving
+    settings sharing one params dict a version): (a) a rollout to v2
+    fired mid-decode by ``FleetDriver(deploys=...)`` under the fleet
+    phase's bench.py traffic, converging to v2, every stream equal to a
+    lone engine's on the version it was pinned to; (b) ``rollout.canary``
+    failing on engine 0: one rollback, the fleet back on v1; (c)
+    ``rollout.swap`` raising: the engine replaced, the fleet on v2; (d)
+    autoscale adding a replica under a burst and retiring one when idle,
+    no request dropped; (e) SLO shed dropping only never-accepted
+    predicted misses. The 7-class ledgers sum on every tick. Returns the
+    K8 launches of the fleet runs."""
+    from paddle_tpu_torch.inference.fleet import FleetRouter, WeightCatalog
+    from paddle_tpu_torch.inference.loadgen import (FleetDriver, WorkloadSpec,
+                                                    synthesize)
+    from paddle_tpu_torch.inference.serving import Request, ServingEngine
+    from paddle_tpu_torch.models.llama import init_llama_params, llama_presets
+    from paddle_tpu_torch.testing import chaos
+
+    cfg = llama_presets("llama3-8b")
+    L = cfg.n_layers
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    v1, v2 = (init_llama_params(cfg, torch.Generator(device=dev)
+                                .manual_seed(s), dev) for s in (0, 1))
+    nbytes = _params_bytes(v1)
+    catalog = WeightCatalog()
+    put_ms = {}
+    for name, p in (("v1", v1), ("v2", v2), ("v2 again", v2)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ver = catalog.put(p)
+        put_ms[name] = (time.perf_counter() - t0) * 1e3
+        if name == "v1":
+            ver1 = ver
+        else:
+            ver2 = ver
+    if ver1 == ver2 or catalog.versions() != sorted([ver1, ver2]):
+        raise AssertionError(f"rollout: catalog {catalog.versions()}")
+    print(f"rollout WeightCatalog.put llama3-8b ({nbytes} B, device to host "
+          f"and sha1): v1 {put_ms['v1']:.1f} ms "
+          f"({nbytes / put_ms['v1'] / 1e6:.3f} GB/s), v2 {put_ms['v2']:.1f} "
+          f"ms ({nbytes / put_ms['v2'] / 1e6:.3f} GB/s); v2 again (its "
+          f"tensors unchanged, not hashed) {put_ms['v2 again']:.3f} ms")
+    swaps = []
+    set_params = ServingEngine.set_params
+
+    def timed_set_params(self, params, version=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        set_params(self, params, version=version)
+        torch.cuda.synchronize()
+        swaps.append((self.engine_id, version,
+                      (time.perf_counter() - t0) * 1e3))
+
+    ServingEngine.set_params = timed_set_params
+    total = collections.Counter()
+    pinned = {ver1: [], ver2: []}
+    try:
+        # (a) a deploy through the load generator, mid-decode
+        router = FleetRouter(engines=_replicas(cfg, v1, dev, 2))
+        router.catalog = catalog
+        seen = _watch(router, "rollout (a)")
+        wl = synthesize(WorkloadSpec(vocab_size=cfg.vocab_size,
+                                     **ROLLOUT_TRAFFIC))
+        deploy_at = float(np.percentile([r.arrival for r in wl], 33))
+        m, ln = _serving_counted(lambda: FleetDriver(router, clock="wall")
+                                 .run(wl, deploys={deploy_at: ver2}))
+        total.update(ln)
+        st = router.fleet_stats()
+        _all_done("rollout (a)", wl)
+        # a stream that finished before the deploy named versions ran on
+        # v1 unpinned (param_version None)
+        groups = {v: [r for r in wl if (r.param_version or ver1) == v]
+                  for v in (ver1, ver2)}
+        if (st["fleet_versions"] != [ver2] or st["n_rollouts"] != 1
+                or st["n_rollback"] or not seen["mid_decode_at_rollout"]
+                or sum(map(len, groups.values())) != len(wl)
+                or not all(groups.values())):
+            raise AssertionError(
+                f"rollout (a): {st}, mid-decode at the deploy "
+                f"{seen['mid_decode_at_rollout']}, pinned "
+                f"{ {v: len(g) for v, g in groups.items()} }")
+        if ln["ragged_paged_attention"] != L * _k8_steps(seen):
+            raise AssertionError(f"rollout (a): K8 launches {ln} != {L} x "
+                                 f"{_k8_steps(seen)}")
+        for v, g in groups.items():
+            pinned[v] += [("a", r) for r in g]
+        print(f"rollout (a) llama3-8b, 2 replicas, {len(wl)} requests, "
+              f"deploy at {deploy_at:.3f} s (mid-decode): rollout_ms "
+              f"{st['rollout_ms']}, rollout_stall_ms "
+              f"{st['rollout_stall_ms']}, swaps (engine, ms) "
+              f"{[(e, round(ms, 3)) for e, _v, ms in swaps]}, goodput "
+              f"{m['goodput_tok_s']} tok/s, ttft p50 {m['ttft_p50_s']} s "
+              f"p99 {m['ttft_p99_s']} s, wall {m['wall_s']} s, "
+              f"{m['steps']} ticks, pinned v1/v2 {len(groups[ver1])}/"
+              f"{len(groups[ver2])}, canary steps included; launches K8 "
+              f"{ln['ragged_paged_attention']}")
+        del router, seen
+        _release()
+
+        small = _fleet_requests(Request, cfg.vocab_size, n=8, seed=43)
+
+        def fresh():
+            return [Request(rid=r.rid, prompt=r.prompt.copy(),
+                            max_new_tokens=r.max_new_tokens,
+                            temperature=r.temperature, top_p=r.top_p,
+                            seed=r.seed) for r in small]
+
+        # (b) a canary failure rolls the fleet back; (c) a swap that raises
+        for run, point, kind, want in (("b", "rollout.canary", "fail", ver1),
+                                       ("c", "rollout.swap", "raise", ver2)):
+            tag = f"rollout ({run}) {point} {kind}"
+            router = FleetRouter(engines=_replicas(cfg, v1, dev, 2))
+            router.catalog = catalog
+            seen = _watch(router, tag)
+            reqs = fresh()
+            chaos.arm(chaos.FaultPlan(seed=0).add(point, kind, at=0,
+                                                  engine=0))
+            try:
+                def drive():
+                    _tick(router, reqs, tag, until=lambda: _mid_decode(router))
+                    router.rollout(version=ver2)
+                    return _tick(router, [], tag)
+                _, ln = _serving_counted(drive)
+            finally:
+                chaos.disarm()
+            total.update(ln)
+            st = router.fleet_stats()
+            _all_done(tag, reqs)
+            ok = st["fleet_versions"] == [want] and (
+                (st["n_canary_fail"], st["n_rollback"], st["n_killed"])
+                == (1, 1, 0) if point == "rollout.canary" else
+                (st["n_swap_deaths"], st["n_killed"], st["n_rollback"])
+                == (1, 1, 0))
+            if not ok or any(r.param_version not in pinned for r in reqs):
+                raise AssertionError(f"{tag}: {st}")
+            if ln["ragged_paged_attention"] != L * _k8_steps(seen):
+                raise AssertionError(f"{tag}: K8 launches {ln} != {L} x "
+                                     f"{_k8_steps(seen)}")
+            for r in reqs:
+                pinned[r.param_version].append((run, r))
+            print(f"{tag}: versions {st['fleet_versions']}, n_canary_fail "
+                  f"{st['n_canary_fail']}, n_rollback {st['n_rollback']}, "
+                  f"n_swap_deaths {st['n_swap_deaths']}, replicas "
+                  f"{[(r.engine.engine_id, r.alive) for r in router.replicas]}"
+                  f", rollout_ms {st['rollout_ms']}, rollout_stall_ms "
+                  f"{st['rollout_stall_ms']}; launches K8 "
+                  f"{ln['ragged_paged_attention']}")
+            del router, seen
+            _release()
+
+        # (d) autoscale: one replica, a burst, then idle
+        tag = "rollout (d) autoscale"
+        router = FleetRouter(engines=_replicas(cfg, v1, dev, 1),
+                             autoscale=True, min_engines=1, max_engines=2,
+                             scale_high=0.2, scale_low=0.05, scale_ewma=1.0,
+                             scale_cooldown=0.0)
+        seen = _watch(router, tag)
+        reqs = fresh()
+        _, ln = _serving_counted(lambda: _tick(router, reqs, tag, extra=4))
+        total.update(ln)
+        st = router.fleet_stats()
+        _all_done(tag, reqs)
+        if (st["n_scale_up"] < 1 or st["n_scale_down"] < 1
+                or st["autoscale_n_engines_max"] != 2
+                or sum(r.alive for r in router.replicas) != 1
+                or router._retiring is not None):
+            raise AssertionError(f"{tag}: {st}")
+        if ln["ragged_paged_attention"] != L * _k8_steps(seen):
+            raise AssertionError(f"{tag}: K8 launches {ln} != {L} x "
+                                 f"{_k8_steps(seen)}")
+        pinned[ver1] += [("d", r) for r in reqs]
+        print(f"{tag}: scale up {st['n_scale_up']}, down "
+              f"{st['n_scale_down']}, engines max "
+              f"{st['autoscale_n_engines_max']} min "
+              f"{st['autoscale_n_engines_min']}, every request completed, "
+              f"engines seen {sorted(seen['engines'])}; launches K8 "
+              f"{ln['ragged_paged_attention']}")
+        del router, seen
+        _release()
+
+        # (e) SLO shed at a pinned rate prior (1 token/s an engine)
+        tag = "rollout (e) slo shed"
+        router = FleetRouter(engines=_replicas(cfg, v1, dev, 2),
+                             slo_shed=True, slo_rate=1.0)
+        seen = _watch(router, tag)
+        safe = fresh()
+        doomed = [Request(rid=100 + i, prompt=np.arange(1, 200,
+                                                        dtype=np.int32),
+                          max_new_tokens=8, deadline_ttft=0.5)
+                  for i in range(3)]
+        _, ln = _serving_counted(lambda: _tick(router, safe + doomed, tag,
+                                               now=0.0))
+        total.update(ln)
+        st = router.fleet_stats()
+        _all_done(tag, safe)
+        if (st["n_slo_shed"] != 3
+                or not all(d.aborted and not d.out_tokens for d in doomed)):
+            raise AssertionError(f"{tag}: {st}, doomed "
+                                 f"{[(d.aborted, d.out_tokens) for d in doomed]}")
+        if ln["ragged_paged_attention"] != L * _k8_steps(seen):
+            raise AssertionError(f"{tag}: K8 launches {ln} != {L} x "
+                                 f"{_k8_steps(seen)}")
+        pinned[ver1] += [("e", r) for r in safe]
+        print(f"{tag}: shed {st['n_slo_shed']} never-accepted requests with "
+              f"a 0.5 s TTFT budget, the {len(safe)} without one completed; "
+              f"launches K8 {ln['ragged_paged_attention']}")
+        del router, seen
+        _release()
+    finally:
+        ServingEngine.set_params = set_params
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # every stream against a lone engine on the version it was pinned to
+    for v, params in ((ver1, v1), (ver2, v2)):
+        name = "v1" if v == ver1 else "v2"
+        runs = collections.Counter(run for run, _r in pinned[v])
+        same, exc = _lone_agree(cfg, params, dev, f"rollout on {name}",
+                                [r for _run, r in pinned[v]])
+        print(f"rollout: {sum(runs.values())} streams pinned to {name} (by "
+              f"run {dict(sorted(runs.items()))}) equal to a lone {name} "
+              f"engine's: {same} greedy tokens, {exc} near-tie exceptions")
+    print(f"rollout: peak memory {peak:.2f} GiB (v1 + v2 weights "
+          f"{2 * nbytes / 2**30:.2f} GiB), set_params swaps "
+          f"{[(e, round(ms, 3)) for e, _v, ms in swaps]}")
+    del v1, v2, catalog
+    _release()
+    return {k: v for k, v in total.items() if v}
+
+
+# -- the runtime plane: training's self-healing loop --------------------------
+
+RESILIENT_WORKER = "--resilient-worker"
+
+
+def _gpt350m(n_layers=None):
+    from paddle_tpu_torch.models.gpt import gpt_presets
+
+    cfg = dataclasses.replace(gpt_presets("gpt3-350m"), unroll=True,
+                              remat=False)
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
+
+
+def _train_batch(cfg, batch: int = 16):
+    rng = np.random.RandomState(0)
+    return (rng.randint(0, cfg.vocab_size, size=(batch, cfg.seq_len)),
+            rng.randint(0, cfg.vocab_size, size=(batch, cfg.seq_len)))
+
+
+def _step_launches(cfg, steps: int) -> dict:
+    """K1, K2, K4, K5, K6, K7 launches of ``steps`` fused gpt steps."""
+    from paddle_tpu_torch.ops.kernels import fused_ce as ce
+
+    L = cfg.n_layers
+    slabs = -(-cfg.vocab_size // ce.SLAB)
+    return {"flash_fwd": L * steps, "flash_bwd": L * steps,
+            "fused_ce_fwd": 2 * steps, "fused_ce_bwd": 3 * slabs * steps,
+            "fused_norm_epilogue": (2 * L + 1) * steps,
+            "fused_bias_act": L * steps}
+
+
+def _resilient_loop(cfg, root: str, dev, seed: int = 0, **kw):
+    from paddle_tpu_torch.parallel.resilient_step import make_resilient_loop
+
+    return make_resilient_loop(
+        cfg, root, step_kwargs=dict(lr=1e-4, seed=seed, m_dtype="bfloat16",
+                                    v_dtype="bfloat16", device=dev), **kw)
+
+
+def _host_leaves(state) -> dict:
+    from paddle_tpu_torch.distributed.checkpoint import flatten_state_dict
+
+    return {k: v.detach().cpu() for k, v in
+            flatten_state_dict(state).items()}
+
+
+def _equal_to_npz(state, path: str) -> int:
+    """Every leaf of ``state`` bitwise equal to its chunk in the
+    checkpoint's npz (read directly, not through the loader); returns the
+    bytes compared."""
+    from paddle_tpu_torch.distributed.checkpoint import flatten_state_dict
+
+    n = 0
+    with np.load(f"{path}/0_0.npz") as npz:
+        for k, v in flatten_state_dict(state).items():
+            t = v.detach().cpu()
+            if t.dtype == torch.bfloat16:
+                t = t.view(torch.int16)
+            got = t.numpy().tobytes()
+            if got != npz[f"{k}#0"].tobytes():
+                raise AssertionError(f"resilient: {k} differs from {path}")
+            n += len(got)
+    return n
+
+
+def _resilient_worker() -> int:
+    """One generation of the elastic run of ``run_resilient`` (d): a
+    gpt3-350m-wide, 2-layer fused step under ResilientTrainLoop on the
+    card, faults from ``PT_CHAOS_PLAN`` in generation 0 only. Prints
+    BUILT (libraries this process had to compile), RESUMED, STEP, the
+    launches of its steps, DONE."""
+    import os
+
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.testing import chaos
+
+    if int(os.environ.get("PADDLE_ELASTIC_RESTART", "0")):
+        chaos.disarm()
+    before = set(_build.BUILD_DIR.glob("*.so"))
+    _build.build_all()
+    built = set(_build.BUILD_DIR.glob("*.so")) - before
+    print(f"BUILT {len(built)} in {_build.last_build_seconds:.2f} s",
+          flush=True)
+    cfg = _gpt350m(n_layers=2)
+    loop = _resilient_loop(cfg, os.environ["CHAOS_CKPT_DIR"], "cuda",
+                           save_every=1, keep_last_k=3, max_bad_steps=2,
+                           step_timeout=120.0, retries=2)
+    resumed = loop.resume()
+    print(f"RESUMED step={-1 if resumed is None else resumed}", flush=True)
+    batch = _train_batch(cfg)
+    counters = _train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    loss = None
+    while loop.step < int(os.environ["CHAOS_TOTAL_STEPS"]):
+        loss = loop.run_step(batch)
+        print(f"STEP {loop.step} LOSS {loss:.6f} LAUNCHES " + json.dumps(
+            {k: fn.launches for k, fn in counters.items()}), flush=True)
+    print(f"DONE step={loop.step} final_loss={loss:.6f} "
+          f"stats={loop.stats}", flush=True)
+    return 0
+
+
+def run_resilient(dev) -> dict:
+    """Training's self-healing loop on the card: gpt3-350m at the train
+    phase's settings (24 layers, B 16, S 1024, bf16 moments, fp32 masters,
+    fusion on) under ResilientTrainLoop over the port's in-place step
+    (``donated_step``), checkpoints on local disk (save_every 2, keep 2):
+    (a) 6 committed steps with a ``nan`` fault at step 3, restored from
+    the step-2 checkpoint bitwise and continued; (b) the step-6 save torn
+    (``checkpoint.save`` torn), which the walk-back passes; (c) a new loop
+    in the same process resumes at step 4, its state equal to the
+    checkpoint's bytes, its next losses against the uninterrupted run's;
+    (d) ``run_elastic`` over this script's worker mode (2 layers): a
+    generation killed by ``train.step`` raise after a torn save,
+    relaunched, resuming at step 2 without rebuilding a kernel. Returns
+    the launches of K1, K2, K4, K5, K6, K7 in (a) and (c)."""
+    import os
+    import re
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.distributed import checkpoint as ck
+    from paddle_tpu_torch.distributed.fleet.elastic import run_elastic
+    from paddle_tpu_torch.ops.kernels import fused_ce as ce
+    from paddle_tpu_torch.testing import chaos
+
+    cfg = _gpt350m()
+    batch = _train_batch(cfg)
+    _release()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resilient_")
+    root = os.path.join(tmp, "ckpt")
+    counters = _train_counters()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        loop = _resilient_loop(cfg, root, dev, save_every=2, keep_last_k=2,
+                               max_bad_steps=3, step_timeout=120.0)
+        if not loop.donated_step:
+            raise AssertionError("resilient: the in-place step must run "
+                                 "with donated_step")
+        leaves = _leaves(loop.state)
+        nbytes = sum(t.numel() * t.element_size() for t in leaves)
+        save_ms = []
+        save = loop._save
+
+        def timed_save():
+            t0 = time.perf_counter()
+            save()
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+
+        loop._save = timed_save
+        for fn in counters.values():
+            fn.launches = 0
+        ce_before = collections.Counter(ce.PRODUCTS)
+        steps_run = 0
+        # (a) + (b): NaN read at the third step, the third save torn
+        chaos.arm(chaos.FaultPlan(seed=0).add("train.step", "nan", at=2)
+                  .add("checkpoint.save", "torn", at=2))
+        losses, snap2, restored = {}, None, None
+        try:
+            while loop.step < 6:
+                before = loop.stats["rollbacks"]
+                out = loop.run_step(batch)
+                steps_run += 1
+                if out is not None:
+                    losses[loop.step] = out
+                if loop.step == 2 and snap2 is None:
+                    snap2 = _host_leaves(loop.state)
+                if loop.stats["rollbacks"] > before:
+                    restored = _host_leaves(loop.state)
+        finally:
+            chaos.disarm()
+        if (steps_run, loop.step, loop.stats["skipped"],
+                loop.stats["rollbacks"]) != (7, 6, 1, 1):
+            raise AssertionError(f"resilient (a): {steps_run} steps run, "
+                                 f"at {loop.step}, stats {loop.stats}")
+        if snap2.keys() != restored.keys() or not all(
+                torch.equal(snap2[k], restored[k]) for k in snap2):
+            raise AssertionError("resilient (a): the restored state is not "
+                                 "the step-2 state")
+        ls = [losses[s] for s in sorted(losses)]
+        if not all(math.isfinite(x) for x in ls) or not ls[-1] < ls[0]:
+            raise AssertionError(f"resilient (a): losses {losses}")
+        d4, d6 = ck.step_dir(root, 4), ck.step_dir(root, 6)
+        dirs = sorted(n for n in os.listdir(root) if n.startswith("step_"))
+        if (ck.verify_checkpoint(d6)[0] or not ck.verify_checkpoint(d4)[0]
+                or ck.latest_step(root) != 6
+                or dirs != ["step_00000004", "step_00000006"]):
+            raise AssertionError(f"resilient (b): dirs {dirs}, step 6 "
+                                 f"{ck.verify_checkpoint(d6)}")
+        print(f"resilient (a)+(b) gpt3-350m B16 S1024: {steps_run} steps run"
+              f", {loop.step} committed, stats {loop.stats}, losses "
+              f"{ {s: round(v, 5) for s, v in losses.items()} }; the "
+              f"rollback restored the step-2 state bitwise; step 6's save "
+              f"torn (verify: {ck.verify_checkpoint(d6)[1][:1]}); state "
+              f"{nbytes} B, saves {[round(x, 1) for x in save_ms]} ms")
+        del loop, leaves, snap2, restored
+        _release()
+
+        # (c) a new loop (other initial weights) resumes at step 4
+        loop = _resilient_loop(cfg, root, dev, seed=1, save_every=100,
+                               keep_last_k=2, step_timeout=120.0)
+        t0 = time.perf_counter()
+        ok, problems = ck.verify_checkpoint(d4)
+        verify_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        resumed = loop.resume()
+        resume_ms = (time.perf_counter() - t0) * 1e3
+        if resumed != 4 or loop.step != 4 or not ok:
+            raise AssertionError(f"resilient (c): resumed {resumed}")
+        n_eq = _equal_to_npz(loop.state, d4)
+        t0 = time.perf_counter()
+        ck.load_state_dict(loop.state, d4)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        again = {s: loop.run_step(batch) for s in (5, 6)}
+        steps_run += 2
+        exact = {s: again[s] == losses[s] for s in (5, 6)}
+        rel = {s: abs(again[s] - losses[s]) / abs(losses[s]) for s in (5, 6)}
+        # step 5's loss is a forward of the same bytes: bitwise; step 6's
+        # follows an update whose kernels may sum in another order
+        if not exact[5] or rel[6] > 1e-3:
+            raise AssertionError(f"resilient (c): losses {again} against "
+                                 f"the uninterrupted {losses}")
+        host = [a.numpy() if a.dtype != torch.bfloat16 else
+                a.view(torch.int16).numpy()
+                for a in _host_leaves(loop.state).values()]
+        t0 = time.perf_counter()
+        for a in host:
+            ck._crc(a)
+        crc_s = time.perf_counter() - t0
+        del host
+        # the step with and without the watchdog's guard (and the chaos
+        # probe, the loss fetch); no saves in either
+        guarded, bare = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loop.run_step(batch)
+            guarded.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            loss, loop.state = loop.step_fn(loop.state, batch)
+            loss.item()
+            bare.append(time.perf_counter() - t0)
+        steps_run += 6
+        ln = {k: fn.launches for k, fn in counters.items()}
+        want = _step_launches(cfg, steps_run)
+        if ln != want:
+            raise AssertionError(f"resilient: launches {ln} != {want}")
+        _check_ce_products("resilient", ce_before, steps_run,
+                           batch[0].size, cfg.hidden, cfg.vocab_size)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"resilient (c): resumed at step 4 past the torn step 6, "
+              f"{n_eq} B equal to the checkpoint's npz; next losses "
+              f"{again} vs uninterrupted {[losses[5], losses[6]]}: step 5 "
+              f"bitwise {exact[5]}, step 6 bitwise {exact[6]} (relative "
+              f"{rel[6]:.3e}, limit 1e-3)")
+        print(f"resilient checkpoint ({nbytes} B on local disk): save "
+              f"{min(save_ms):.1f}-{max(save_ms):.1f} ms, verify "
+              f"{verify_ms:.1f} ms, resume (walk-back, verify, load) "
+              f"{resume_ms:.1f} ms, load {load_ms:.1f} ms, crc32 "
+              f"{nbytes / crc_s / 1e9:.3f} GB/s; step "
+              f"{min(guarded) * 1e3:.2f} ms guarded (watchdog, chaos probe, "
+              f"loss fetch) vs {min(bare) * 1e3:.2f} ms bare; peak memory "
+              f"{peak:.2f} GiB; launches {ln} ({steps_run} steps)")
+        del loop
+        _release()
+
+        # (d) an elastic generation killed and relaunched, 2 layers
+        plan = chaos.FaultPlan(seed=0, name="chip")
+        plan.add("checkpoint.save", "torn", at=2)   # step 3's save
+        plan.add("train.step", "raise", at=3)       # the step-4 attempt
+        here = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.perf_counter()
+        rc = run_elastic(
+            os.path.abspath(__file__), [RESILIENT_WORKER], nprocs=1,
+            max_restarts=2, log_dir=os.path.join(tmp, "logs"),
+            env_extra={"PYTHONPATH": here, "CHAOS_TOTAL_STEPS": "5",
+                       "CHAOS_CKPT_DIR": os.path.join(tmp, "elastic"),
+                       **plan.to_env()})
+        secs = time.perf_counter() - t0
+        logs = []
+        for g in (0, 1):
+            with open(os.path.join(tmp, "logs", f"restart_{g}",
+                                   "worker.0.log")) as f:
+                logs.append(f.read())
+        cfg2 = _gpt350m(n_layers=2)
+        gens = []
+        for g, text in enumerate(logs):
+            steps = [int(s) for s in re.findall(r"STEP (\d+) ", text)]
+            last = re.findall(r"LAUNCHES (\{.*\})", text)
+            ln2 = json.loads(last[-1]) if last else {}
+            if ln2 != _step_launches(cfg2, len(steps)):
+                raise AssertionError(f"resilient (d) gen {g}: launches "
+                                     f"{ln2} for steps {steps}")
+            gens.append((steps, re.findall(r"BUILT (\d+)", text)))
+        want = [([1, 2, 3], ["0"]), ([3, 4, 5], ["0"])]
+        if (rc != 0 or gens != want or "RESUMED step=-1" not in logs[0]
+                or "chaos: train step failure" not in logs[0]
+                or "RESUMED step=2" not in logs[1]
+                or "DONE step=5" not in logs[1]):
+            raise AssertionError(f"resilient (d): rc {rc}, generations "
+                                 f"{gens}\n{logs[0][-2000:]}\n"
+                                 f"{logs[1][-2000:]}")
+        print(f"resilient (d) run_elastic, gpt3-350m width at 2 layers: "
+              f"generation 0 ran steps 1-3 (step 3's save torn) and died on "
+              f"the injected raise; generation 1 resumed at step 2, ran "
+              f"steps 3-5; no kernel rebuilt in either; {secs:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ln
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4336,7 +5048,11 @@ def main(argv=None) -> int:
                     + "; 'profile' and 'train_profile' (never by default) "
                     "run the bf16 engine and two flagship training steps "
                     "(fusion on, then off) under torch.profiler")
-    args = ap.parse_args(argv)
+    args, rest = ap.parse_known_args(argv)
+    if rest == [RESILIENT_WORKER]:
+        return _resilient_worker()       # run_resilient's elastic children
+    if rest:
+        ap.error(f"unrecognized arguments: {' '.join(rest)}")
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4495,6 +5211,12 @@ def main(argv=None) -> int:
     if "fleet" in phases:
         print(f"fleet launches {run_fleet(dev)}")
         done("fleet")
+    if "rollout" in phases:
+        print(f"rollout launches {run_rollout(dev)}")
+        done("rollout")
+    if "resilient" in phases:
+        print(f"resilient launches {run_resilient(dev)}")
+        done("resilient")
     if set(phases) != set(PHASES):
         print(f"phases {phases} only: no result line")
         return 0

@@ -120,9 +120,7 @@ GLOBAL_FLAGS.define("serving_disagg_ship_deadline", 0.0)
 GLOBAL_FLAGS.define("serving_disagg_dynamic", False)
 GLOBAL_FLAGS.define("serving_disagg_ewma", 0.3)
 GLOBAL_FLAGS.define("serving_disagg_hysteresis", 0.2)
-# zero-downtime operations (rollout, autoscale, SLO shed; a later slice):
-# FleetRouter refuses serving_fleet_autoscale and serving_fleet_slo_shed
-# when on, and rollout() raises
+# zero-downtime operations (FleetRouter.rollout, autoscale, SLO shed)
 GLOBAL_FLAGS.define("serving_fleet_rollout_canary", 4)
 GLOBAL_FLAGS.define("serving_fleet_autoscale", False)
 GLOBAL_FLAGS.define("serving_fleet_min_engines", 1)
@@ -133,6 +131,21 @@ GLOBAL_FLAGS.define("serving_fleet_scale_ewma", 0.3)
 GLOBAL_FLAGS.define("serving_fleet_scale_cooldown", 1.0)
 GLOBAL_FLAGS.define("serving_fleet_slo_shed", False)
 GLOBAL_FLAGS.define("serving_fleet_slo_rate", 0.0)
+# the self-healing training runtime (parallel/resilient_loop.py reads
+# these when the caller passes None; FLAGS_* in the environment reaches
+# the workers a launcher starts)
+# consecutive NaN/Inf steps tolerated (skipped) before the loop rolls
+# state back to the last good checkpoint
+GLOBAL_FLAGS.define("resilient_max_bad_steps", 3)
+# seconds a step may block before the StepWatchdog escalates (comm-task
+# dump -> checkpoint -> elastic exit)
+GLOBAL_FLAGS.define("resilient_step_timeout", 120.0)
+# rotated checkpoints kept by the loop (save_checkpoint keep_last_k)
+GLOBAL_FLAGS.define("resilient_keep_last_k", 3)
+# retry attempts for store / checkpoint IO in with_retries
+GLOBAL_FLAGS.define("resilient_retry_max", 5)
+# base backoff seconds for with_retries (exponential, full jitter)
+GLOBAL_FLAGS.define("resilient_retry_base_delay", 0.05)
 # the observability plane (obs/): host-side span tracing into a bounded
 # ring and flight-recorder dumps on death paths
 GLOBAL_FLAGS.define("obs_trace", False)

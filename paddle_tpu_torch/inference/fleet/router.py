@@ -44,15 +44,26 @@ until both roles are live again, when it re-splits (``n_resplit``).
 ``serving_disagg_dynamic`` moves one replica at a time toward the
 measured prefill share; an explicit split is a pin.
 
-Zero-downtime operations (rollout, autoscale, SLO shed) are a later
-slice: their flags are defined, ``serving_fleet_autoscale`` and
-``serving_fleet_slo_shed`` are refused when on, and ``rollout()``
-raises. With them off the reference's router is this one.
+Zero-downtime operations (primitives in ``rollout.py``): ``rollout()``
+upgrades the fleet's weights one engine at a time. Drain: the engine
+leaves placement, its queued work is placed again, and its accepted
+residents travel over the wire to a peer on the same version. Swap:
+``set_params`` under the ``rollout.swap`` chaos point; a swap that
+raises or hangs past the step budget is a death, and a fresh engine
+joins already on the target. Canary: a real lone decode plus the
+``rollout.canary`` point; a failure rolls the whole fleet back to the
+prior version. Rejoin. Every request keeps the weight version it was
+admitted under and resumes only on an engine of that version, so
+streams are unchanged through a deploy. The same drain retires engines
+for the autoscaler (``serving_fleet_autoscale``), and the SLO shed
+(``serving_fleet_slo_shed``) drops never-accepted requests whose
+predicted queue wait already exceeds their remaining TTFT budget.
 """
 
 from __future__ import annotations
 
 import functools
+import time
 from typing import Optional
 
 import numpy as np
@@ -60,8 +71,10 @@ import numpy as np
 from ... import obs as _obs
 from ...core.flags import GLOBAL_FLAGS
 from ...obs import clock as _clock
+from ...testing import chaos as _chaos
 from ..serving import Request, ServingEngine
 from .migration import ship_pages, ship_shipment
+from .rollout import RolloutState, WeightCatalog, run_canary
 
 __all__ = ["FleetRouter"]
 
@@ -76,6 +89,9 @@ class _Replica:
         self.last_step_s = 0.0
         self.last_error: Optional[str] = None
         self.role: Optional[str] = None   # "prefill"/"decode" when disagg
+        # out of placement while its rollout/retire episode evacuates
+        # it (rollout.py); flipped back at rejoin
+        self.draining = False
 
     def load_tokens(self) -> int:
         """Outstanding work in token units: queued prompt+decode plus
@@ -111,8 +127,17 @@ class FleetRouter:
                  disagg_dynamic: Optional[bool] = None,
                  dynamic_ewma: Optional[float] = None,
                  dynamic_hysteresis: Optional[float] = None,
+                 rollout_canary: Optional[int] = None,
                  autoscale: Optional[bool] = None,
-                 slo_shed: Optional[bool] = None):
+                 min_engines: Optional[int] = None,
+                 max_engines: Optional[int] = None,
+                 scale_high: Optional[float] = None,
+                 scale_low: Optional[float] = None,
+                 scale_ewma: Optional[float] = None,
+                 scale_cooldown: Optional[float] = None,
+                 slo_shed: Optional[bool] = None,
+                 slo_rate: Optional[float] = None):
+
         if engines is None:
             if n_engines is None:
                 n_engines = int(GLOBAL_FLAGS.get("serving_fleet_engines"))
@@ -194,18 +219,42 @@ class FleetRouter:
                 rep.engine.pool_role = rep.role
                 rep.engine.prefill_only = rep.role == "prefill"
             self._split_traj.append(round(dp / len(self.replicas), 3))
-        # zero-downtime operations (a later slice): autoscale and SLO
-        # shed are read only so that they can be refused when on
+        # zero-downtime operations (rollout.py): weight catalog, the
+        # in-flight rollout cursor, the autoscale controller and the
+        # SLO-shed predictor. Everything below is inert until
+        # rollout()/autoscale/slo_shed is actually used.
+        self.catalog = WeightCatalog()
+        self._rollout: Optional[RolloutState] = None
+        self._rollout_stall_ms = 0.0
+        self._engine_kwargs = dict(engine_kwargs) if engine_kwargs else None
+        self.rollout_canary = int(g("serving_fleet_rollout_canary")
+                                  if rollout_canary is None
+                                  else rollout_canary)
         self.autoscale = bool(g("serving_fleet_autoscale")
                               if autoscale is None else autoscale)
+        self.min_engines = max(1, int(g("serving_fleet_min_engines")
+                                      if min_engines is None
+                                      else min_engines))
+        self.max_engines = int(g("serving_fleet_max_engines")
+                               if max_engines is None else max_engines)
+        self.scale_high = float(g("serving_fleet_scale_high")
+                                if scale_high is None else scale_high)
+        self.scale_low = float(g("serving_fleet_scale_low")
+                               if scale_low is None else scale_low)
+        self.scale_alpha = float(g("serving_fleet_scale_ewma")
+                                 if scale_ewma is None else scale_ewma)
+        self.scale_cooldown = float(g("serving_fleet_scale_cooldown")
+                                    if scale_cooldown is None
+                                    else scale_cooldown)
         self.slo_shed = bool(g("serving_fleet_slo_shed")
                              if slo_shed is None else slo_shed)
-        for name, on in (("serving_fleet_autoscale", self.autoscale),
-                         ("serving_fleet_slo_shed", self.slo_shed)):
-            if on:
-                raise NotImplementedError(
-                    f"later slice: {name} is not ported yet (ROADMAP "
-                    "Queue 1 item 3); only False is")
+        self.slo_rate = float(g("serving_fleet_slo_rate")
+                              if slo_rate is None else slo_rate)
+        self._util_ewma: Optional[float] = None
+        self._last_scale_t = float("-inf")
+        self._retiring: Optional[_Replica] = None
+        self._rate_ewma: Optional[float] = None
+        self._rate_mark: Optional[tuple] = None   # (now, total out toks)
         self._n_eng_min = self._n_eng_max = len(self.replicas)
         # rids whose prefill phase is done (shipped or fallen back):
         # placement routes them to the decode pool from here on
@@ -294,6 +343,12 @@ class FleetRouter:
         alive = self._alive()
         if not alive:
             return None
+        # a draining replica (mid-rollout/retire) takes no new work; if
+        # EVERYTHING is draining (single-engine rollout) fall through —
+        # availability beats the drain
+        live = [r for r in alive if not r.draining]
+        if live:
+            alive = live
         if role is not None:
             # pool-scoped placement; an empty pool falls back to any
             # live engine (that IS colocated degradation — the census
@@ -427,6 +482,12 @@ class FleetRouter:
             if (self.dynamic and not self._split_pinned
                     and not self.degraded):
                 self._dynamic_resplit(now)
+        if self._rollout is not None:
+            self._rollout_tick(now)
+        if self.autoscale or self._retiring is not None:
+            self._autoscale_tick(now)
+        if self.slo_shed:
+            self._slo_tick(now)
         if self._retry:
             t = _clock.now()
             ready = [e for e in self._retry if e[0] <= t]
@@ -493,7 +554,9 @@ class FleetRouter:
             self._n_eng_min = n_live
         if n_live > self._n_eng_max:
             self._n_eng_max = n_live
-        return busy or bool(self._retry) or bool(self._recovering)
+        return (busy or bool(self._retry) or bool(self._recovering)
+                or self._rollout is not None
+                or self._retiring is not None)
 
     def kill_engine(self, engine_id: int, now: float = 0.0) -> None:
         """Deterministic replica kill (bench/smoke hook): same death +
@@ -519,12 +582,13 @@ class FleetRouter:
                    seed: int = 0, params=None,
                    version: Optional[str] = None) -> int:
         """Join a fresh replica (death is permanent, a new engine is a
-        new replica). A built engine shares replica 0's params dict (or
-        takes ``params``/``version``) and its device unless
-        ``engine_kwargs`` names one. In disaggregated mode it takes
-        ``role`` (or the thinner live pool); a degraded fleet serves it
-        colocated until the next census re-splits. Returns the new
-        engine_id."""
+        new replica). A built engine shares replica 0's params dict and
+        its device unless ``engine_kwargs`` names one; during a rollout
+        pass ``params=`` / ``version=`` so that the joiner lands on a
+        chosen side of the upgrade (replica 0 may hold either one). In
+        disaggregated mode it takes ``role`` (or the thinner live pool);
+        a degraded fleet serves it colocated until the next census
+        re-splits. Returns the new engine_id."""
         eid = 1 + max(r.engine.engine_id for r in self.replicas)
         if engine is None:
             ref = self.replicas[0].engine
@@ -553,14 +617,431 @@ class FleetRouter:
             raise ValueError("replica engine_ids must be unique")
         return engine.engine_id
 
-    # -- zero-downtime operations: a later slice -------------------------
+    # -- zero-downtime operations: rollout, autoscale, SLO shed -----------
+
+    @property
+    def rollout_active(self) -> bool:
+        return self._rollout is not None
 
     def rollout(self, params=None, version: Optional[str] = None) -> str:
-        """A rolling weight upgrade (drain, swap, canary, rejoin) is the
-        next fleet slice's (ROADMAP, Queue 1 item 3)."""
-        raise NotImplementedError(
-            "FleetRouter.rollout is not ported yet (ROADMAP Queue 1 item 3: "
-            "rollout, autoscale and SLO shed are the next fleet slice)")
+        """Start a rolling weight upgrade to ``params`` (published to
+        the catalog here) or to an already-published ``version``. The
+        upgrade advances incrementally inside ``step()`` — one engine
+        at a time through drain -> swap -> canary -> rejoin — so the
+        fleet keeps serving throughout; see ``_rollout_tick`` for the
+        fault model. Returns the target version id."""
+        if self._rollout is not None:
+            raise RuntimeError("a rollout is already in flight")
+        # name the fleet's current weights so A/B placement has a pin
+        # for both sides (and a rollback destination)
+        base = self.catalog.put(self.replicas[0].engine.params)
+        for rep in self.replicas:
+            if rep.engine.param_version is None:
+                rep.engine.param_version = base
+        # streams admitted before versions existed pin retroactively to
+        # their current engine's (= the baseline) version — a stream
+        # must never straddle the upgrade
+        for req in self._requests.values():
+            if (req.param_version is None and not req.aborted
+                    and len(req.out_tokens) < req.max_new_tokens):
+                owner = self._owner.get(req.rid)
+                req.param_version = (owner.engine.param_version
+                                     if owner is not None else base)
+        if params is not None:
+            version = self.catalog.put(params)
+        if version is None:
+            raise ValueError("rollout needs params or version")
+        if version not in self.catalog:
+            raise ValueError(f"unknown weight version {version!r}")
+        prior = next((r.engine.param_version for r in self._alive()
+                      if r.engine.param_version != version), base)
+        self._rollout = RolloutState(target=version, prior=prior,
+                                     t0=_clock.now())
+        self.stats["n_rollouts"] += 1
+        return version
+
+    def _rollout_tick(self, now: float) -> None:
+        """Advance the in-flight rolling upgrade. Protocol, one engine
+        at a time (lowest engine_id first, engines already on the
+        target skipped): (1) DRAIN — out of placement, queued work
+        re-placed on peers, accepted residents swept out through the
+        outbox and delivered over the migration wire to a same-version
+        peer (no peer: they finish in place, the drain waits); (2)
+        SWAP — ``set_params`` under the ``rollout.swap`` chaos probe; a
+        raise, or a hang past the step budget, is a *mid-swap death*:
+        the corpse is declared dead (it is empty — nothing to recover)
+        and a replacement joins already ON the target version, so the
+        rollout still converges; (3) CANARY — ``rollout.canary`` probe
+        plus a real solo decode; failure swaps this engine straight
+        back and retargets the whole fleet at the prior version (a
+        rollback is a rollout with canary failures ignored, so it
+        always converges to ONE version); (4) REJOIN placement."""
+        ro = self._rollout
+        rep = None
+        if ro.current_eid is not None:
+            rep = next((r for r in self.replicas
+                        if r.engine.engine_id == ro.current_eid), None)
+            if rep is None or not rep.alive:
+                # the engine died mid-episode (a chaos engine.step kill
+                # landing during its drain): _declare_dead already
+                # recovered its victims — replace it straight on the
+                # target version and move on
+                if rep is not None:
+                    rep.draining = False
+                self.add_engine(params=self.catalog.get(ro.target),
+                                version=ro.target,
+                                engine_kwargs=self._replacement_kwargs())
+                self._end_episode(ro)
+                return
+        if rep is None:
+            cand = [r for r in self._alive()
+                    if r.engine.param_version != ro.target
+                    and r is not self._retiring]
+            if not cand:
+                self.stats["rollout_ms"] += round(
+                    (_clock.now() - ro.t0) * 1000.0, 3)
+                self._rollout = None
+                return
+            rep = min(cand, key=lambda r: r.engine.engine_id)
+            ro.current_eid = rep.engine.engine_id
+            ro.episode_t0 = _clock.now()
+            _obs.instant("rollout.drain", engine=rep.engine.engine_id,
+                         target=ro.target)
+            self._begin_drain(rep, now)
+            return
+        if not self._drain_tick(rep, now):
+            return                              # still evacuating
+        e = rep.engine
+        died = False
+        t0 = _clock.now()
+        try:
+            with _obs.span("rollout.swap", engine=e.engine_id,
+                           target=ro.target):
+                self._swap_probe(e)
+                e.set_params(self.catalog.get(ro.target),
+                             version=ro.target)
+        except Exception as exc:    # noqa: BLE001 — any swap escape is
+            rep.last_error = (      # a mid-swap death
+                f"rollout.swap: {type(exc).__name__}: {exc}")
+            died = True
+        if (not died and self.step_budget > 0
+                and _clock.now() - t0 > self.step_budget):
+            # a hung swap past the step budget: same verdict as a hung
+            # step — the replica's weight state is not trustworthy
+            rep.last_error = (f"rollout.swap took "
+                              f"{_clock.now() - t0:.3f}s > budget "
+                              f"{self.step_budget:.3f}s")
+            died = True
+        if died:
+            self.stats["n_swap_deaths"] += 1
+            rep.draining = False
+            self._declare_dead(rep, now, reason="rollout-swap-death")
+            self.add_engine(params=self.catalog.get(ro.target),
+                            version=ro.target,
+                            engine_kwargs=self._replacement_kwargs())
+            self._end_episode(ro)
+            return
+        ok = True
+        if _chaos.active():
+            ctx = {"engine": e.engine_id}
+            if e.pool_role is not None:
+                ctx["pool"] = e.pool_role
+            spec = _chaos.fire("rollout.canary", ctx=ctx)
+            if spec is not None and spec.kind == "fail":
+                ok = False
+        if ok and self.rollout_canary > 0:
+            try:
+                with _obs.span("rollout.canary", engine=e.engine_id,
+                               target=ro.target):
+                    ok = run_canary(e, self.rollout_canary, now=now)
+            except Exception as exc:  # noqa: BLE001 — a canary that
+                rep.last_error = (    # raises is a dead engine
+                    f"rollout.canary: {type(exc).__name__}: {exc}")
+                rep.draining = False
+                self._declare_dead(rep, now,
+                                   reason="rollout-canary-death")
+                self.add_engine(params=self.catalog.get(ro.target),
+                                version=ro.target,
+                                engine_kwargs=self._replacement_kwargs())
+                self._end_episode(ro)
+                return
+        if not ok and not ro.is_rollback:
+            # automatic rollback: this engine is drained and out of
+            # placement, so swapping it straight back is safe; the
+            # engines already upgraded drain and swap back through the
+            # same machinery
+            self.stats["n_canary_fail"] += 1
+            self.stats["n_rollback"] += 1
+            _obs.flight_dump("canary-rollback",
+                             detail=f"engine {e.engine_id} canary "
+                                    f"failed on {ro.target}; fleet "
+                                    f"retargets {ro.prior}")
+            e.set_params(self.catalog.get(ro.prior), version=ro.prior)
+            self._rejoin(rep)
+            self._end_episode(ro)
+            self._rollout = RolloutState(target=ro.prior,
+                                         prior=ro.target,
+                                         is_rollback=True, t0=ro.t0)
+            return
+        if not ok:
+            self.stats["n_canary_fail"] += 1   # rollback: noted, ignored
+        self._rejoin(rep)
+        self._end_episode(ro)
+
+    def _swap_probe(self, e: ServingEngine) -> None:
+        """Armed-only ``rollout.swap`` fault probe (kinds: ``raise`` —
+        the swap dies mid-flight; ``hang`` — sleep ``seconds`` so the
+        step-budget watchdog sees an over-budget swap). Same
+        ``engine=``/``pool=`` ctx targeting as ``engine.step``."""
+        if not _chaos.active():
+            return
+        ctx = {"engine": e.engine_id}
+        if e.pool_role is not None:
+            ctx["pool"] = e.pool_role
+        spec = _chaos.fire("rollout.swap", ctx=ctx)
+        if spec is None:
+            return
+        if spec.kind == "hang":
+            time.sleep(float(spec.args.get("seconds", 0.05)))
+        else:
+            raise _chaos.ChaosInjected(
+                f"chaos: engine {e.engine_id} rollout swap failure")
+
+    def _version_peer(self, rep: _Replica) -> Optional[_Replica]:
+        """A live non-draining replica on the same weight version as
+        ``rep`` — the only legal resume target for its accepted
+        streams."""
+        v = rep.engine.param_version
+        for r in self._alive():
+            if (r is not rep and not r.draining
+                    and r.engine.param_version == v):
+                return r
+        return None
+
+    def _begin_drain(self, rep: _Replica, now: float) -> None:
+        """Take ``rep`` out of placement and start evacuating it.
+        Queued never-accepted work re-places on peers immediately
+        (re-pinning to the new engine's version); accepted residents
+        are swept out through the ``prefill_only`` outbox path —
+        export full pages, in-flight-safe, the exact disagg handoff
+        plane — and delivered by ``_drain_tick``. With no same-version
+        peer (the last engine on its version) accepted streams finish
+        in place and the drain simply waits for them."""
+        rep.draining = True
+        e = rep.engine
+        any_peer = any(r for r in self._alive()
+                       if r is not rep and not r.draining)
+        vpeer = self._version_peer(rep) is not None
+        keep, moved = [], []
+        for r in e.queue:
+            if r.aborted:
+                continue
+            accepted = bool(r.out_tokens) or r.t_first is not None
+            if not any_peer or (accepted and not vpeer):
+                keep.append(r)
+                continue
+            moved.append(r)
+        e.queue = keep
+        for r in moved:
+            if self._owner.get(r.rid) is rep:
+                del self._owner[r.rid]
+            r.age = 0
+            if not self._place(r, now):
+                self._queue_retry(r, 0)
+        if vpeer:
+            e.prefill_only = True
+
+    def _drain_tick(self, rep: _Replica, now: float) -> bool:
+        """Deliver what the draining engine swept into its outbox —
+        pages over the crc'd migration wire, request re-submitted on a
+        same-version peer, the bit-identical resume every other
+        recovery path uses — and report whether the engine is empty
+        (no queue, no residents, no outbox). If the same-version peer
+        vanished mid-drain the sweep stops and the stream finishes in
+        place on the donor."""
+        e = rep.engine
+        if e.outbox:
+            jobs, e.outbox = e.outbox, []
+            for req, shipment in jobs:
+                if (req.aborted
+                        or len(req.out_tokens) >= req.max_new_tokens):
+                    continue
+                if self._owner.get(req.rid) is rep:
+                    del self._owner[req.rid]
+                if shipment is not None and shipment.get("staged"):
+                    shipment = e.finalize_shipment(shipment)
+                target = self._choose(req, now, self._role_for(req))
+                pin = req.param_version
+                if (pin is not None and rep.alive
+                        and (target is None
+                             or target.engine.param_version != pin)):
+                    e.prefill_only = False
+                    target = rep
+                if target is None:
+                    self._queue_retry(req, 0)
+                    continue
+                if (target is not rep and shipment is not None
+                        and self.migration):
+                    res = ship_shipment(shipment, e.engine_id,
+                                        target.engine,
+                                        donor_pool=rep.role)
+                    self.stats["migrated_pages"] += res["pages"]
+                    self.stats["migration_bytes"] += res["bytes"]
+                    self.stats["shipped_bytes"] += res["bytes"]
+                    self.stats["wire_adopt_ms"] += res.get(
+                        "adopt_ms", 0.0)
+                    if res["pages"]:
+                        self.stats["n_handoffs"] += 1
+                self._deliver(req, target)
+        return (not e.queue and not e.outbox
+                and all(r is None for r in e.slots))
+
+    def _rejoin(self, rep: _Replica) -> None:
+        rep.draining = False
+        rep.engine.prefill_only = (self.disagg and not self.degraded
+                                   and rep.role == "prefill")
+
+    def _end_episode(self, ro: RolloutState) -> None:
+        if ro.current_eid is not None:
+            ms = (_clock.now() - ro.episode_t0) * 1000.0
+            if ms > self._rollout_stall_ms:
+                self._rollout_stall_ms = ms
+        ro.current_eid = None
+
+    def _replacement_kwargs(self) -> dict:
+        """Geometry for a replacement/scale-up engine: the ctor's
+        engine_kwargs when the router built its fleet, else derived
+        from replica 0 (externally built engines)."""
+        if self._engine_kwargs is not None:
+            return dict(self._engine_kwargs)
+        ref = self.replicas[0].engine
+        return dict(max_batch=ref.B, page_size=ref.bs,
+                    max_seq=ref.max_seq, n_pages=ref.n_pages)
+
+    def _autoscale_tick(self, now: float) -> None:
+        """Demand-driven engine count (``serving_fleet_autoscale``):
+        the dynamic-split demand census totalled fleet-wide, EWMA'd
+        against aggregate pool capacity in token units. Above the high
+        watermark a replica joins on the fleet's current weight
+        version; below the low watermark the least-loaded replica is
+        retired by drain-then-REMOVE (its queue re-places, its
+        residents resume on peers over the migration wire — requests
+        are never dropped). Bounded by min/max engines, a wall-clock
+        cooldown between actions, paused while a rollout is in flight
+        (one membership change at a time)."""
+        if self._retiring is not None:
+            rep = self._retiring
+            if not rep.alive:
+                self._retiring = None   # died mid-retire: stays as a
+                return                  # dead replica (frozen pool)
+            if self._drain_tick(rep, now):
+                self.replicas.remove(rep)
+                self._retiring = None
+            return
+        if not self.autoscale or self._rollout is not None:
+            return
+        pool = [r for r in self._alive() if not r.draining]
+        cap = sum((r.engine.n_pages - 1) * r.engine.bs for r in pool)
+        if not pool or cap <= 0:
+            return
+        pf, dec = self._census_tokens()
+        util = (pf + dec) / cap
+        a = self.scale_alpha
+        self._util_ewma = (util if self._util_ewma is None
+                           else a * util + (1.0 - a) * self._util_ewma)
+        t = _clock.now()
+        if t - self._last_scale_t < self.scale_cooldown:
+            return
+        if (self._util_ewma > self.scale_high
+                and len(pool) < self.max_engines):
+            ref = pool[0].engine
+            self.add_engine(params=ref.params,
+                            version=ref.param_version,
+                            engine_kwargs=self._replacement_kwargs())
+            self.stats["n_scale_up"] += 1
+            self._last_scale_t = t
+        elif (self._util_ewma < self.scale_low
+                and len(pool) > self.min_engines):
+            rep = min(pool, key=lambda r: (r.load_tokens(),
+                                           r.engine.engine_id))
+            self.stats["n_scale_down"] += 1
+            self._last_scale_t = t
+            self._retiring = rep
+            self._begin_drain(rep, now)
+
+    def _slo_tick(self, now: float) -> None:
+        """SLO-aware admission control (``serving_fleet_slo_shed``):
+        per never-accepted queued request, predicted wait (tokens
+        ahead of it in its queue / per-engine service rate) vs its
+        remaining TTFT budget — a request that cannot make its
+        deadline sheds NOW (``n_slo_shed``) instead of missing it
+        later. The pressure-shed rule extended from backlog-vs-
+        capacity to time-vs-deadline: accepted streams are never shed,
+        and the engine's admission order (priority-sorted when
+        serving_priorities is on) is the shed order, so the lowest
+        classes go first. Rate = ``serving_fleet_slo_rate`` per engine
+        when set (deterministic in rush-clock tests), else a measured
+        fleet-throughput EWMA; with neither, a no-op."""
+        pool = [r for r in self._alive() if not r.draining]
+        if not pool:
+            return
+        if self.slo_rate > 0:
+            per_engine = self.slo_rate
+        else:
+            self._measure_rate(now)
+            if not self._rate_ewma or self._rate_ewma <= 0:
+                return
+            per_engine = self._rate_ewma / len(pool)
+        for rep in pool:
+            e = rep.engine
+            ahead = float(sum(max(0, r.max_new_tokens
+                                  - len(r.out_tokens))
+                              for r in e.slots if r is not None))
+            for r in list(e.queue):
+                if r.aborted:
+                    continue
+                accepted = bool(r.out_tokens) or r.t_first is not None
+                if not accepted and r.deadline_ttft > 0:
+                    remain = (r.arrival + r.deadline_ttft) - now
+                    if ahead / per_engine > remain:
+                        e.abort(r.rid)     # shed: its removal frees
+                        self._owner.pop(r.rid, None)   # the queue for
+                        self._decode_phase.discard(r.rid)  # the rest
+                        self.stats["n_slo_shed"] += 1
+                        continue
+                ahead += len(r.prompt) + r.max_new_tokens
+        if self._retry:
+            base = min(float(r.load_tokens()) for r in pool)
+            keep = []
+            for entry in self._retry:
+                _rdy, _att, r, job = entry
+                if (job is None and not r.aborted and not r.out_tokens
+                        and r.t_first is None and r.deadline_ttft > 0
+                        and base / per_engine
+                        > (r.arrival + r.deadline_ttft) - now):
+                    self._drop(r, "n_slo_shed")
+                    continue
+                keep.append(entry)
+            self._retry = keep
+
+    def _measure_rate(self, now: float) -> None:
+        """Fleet decode-throughput EWMA on the driver clock (tokens
+        emitted across all submitted requests per ``now`` second); the
+        SLO predictor's fallback when no rate prior is pinned."""
+        total = float(sum(len(r.out_tokens)
+                          for r in self._requests.values()))
+        if self._rate_mark is None:
+            self._rate_mark = (now, total)
+            return
+        t0, n0 = self._rate_mark
+        dt = now - t0
+        if dt <= 0:
+            return
+        inst = (total - n0) / dt
+        self._rate_mark = (now, total)
+        a = self.scale_alpha
+        self._rate_ewma = (inst if self._rate_ewma is None
+                           else a * inst + (1.0 - a) * self._rate_ewma)
 
     # -- disaggregated pools: census, shipping, degraded mode -------------
 
@@ -703,6 +1184,9 @@ class FleetRouter:
         for rep in self.replicas:
             if not rep.alive or not rep.engine.outbox:
                 continue
+            if rep.draining:
+                continue    # rollout/retire evacuation: _drain_tick
+                # delivers this outbox version-pinned, not the ship plane
             jobs, rep.engine.outbox = rep.engine.outbox, []
             for req, shipment in jobs:
                 if (req.aborted
@@ -981,7 +1465,7 @@ class FleetRouter:
                 "engine": e.engine_id, "alive": rep.alive,
                 "role": rep.role,
                 "version": e.param_version,
-                "draining": False,        # rollout is a later slice
+                "draining": rep.draining,
                 "failures": rep.failures,
                 "last_step_ms": round(rep.last_step_s * 1000.0, 3),
                 "last_error": rep.last_error,
@@ -1032,9 +1516,10 @@ class FleetRouter:
         out["split_ratio"] = (round(n_pre / len(alive), 3)
                               if self.disagg and alive else 0.0)
         out["split_trajectory"] = list(self._split_traj)
-        # zero-downtime operations (a later slice): the reference's keys,
-        # with the live engine-count envelope and the versions serving
-        out["rollout_stall_ms"] = 0.0
+        # zero-downtime operations: longest single drain->swap->canary
+        # episode (the rollout's availability cost), live engine-count
+        # envelope, and the distinct weight versions still serving
+        out["rollout_stall_ms"] = round(self._rollout_stall_ms, 3)
         out["rollout_ms"] = round(out["rollout_ms"], 3)
         out["autoscale_n_engines_min"] = self._n_eng_min
         out["autoscale_n_engines_max"] = self._n_eng_max

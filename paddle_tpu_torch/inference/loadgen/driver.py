@@ -153,18 +153,25 @@ class FleetDriver:
 
     def run(self, requests, aborts: Optional[dict] = None,
             kills: Optional[dict] = None,
+            deploys: Optional[dict] = None,
             max_steps: int = 0) -> dict:
         """``kills``: {threshold: engine_id | "pool:<role>"} with abort
         threshold semantics — the replica (or every live replica of the
         named disaggregated pool role) is killed (router recovery path)
-        the first step after the threshold passes. (The reference's
-        ``deploys``, a rollout fired mid-run, comes with the port's
-        rollout.)"""
+        the first step after the threshold passes.
+
+        ``deploys``: {threshold: params_tree | version_str} — a live
+        weight rollout (``router.rollout``) fired mid-run with the same
+        threshold semantics, so goodput/TTFT are measured THROUGH a
+        deploy. A deploy landing while a previous rollout is still in
+        flight waits for it (one rollout at a time)."""
         router = self.router
         for rep in router.replicas:
             rep.engine.stats = {k: 0 for k in rep.engine.stats}
         pending = sorted((aborts or {}).items())
         pending_kills = sorted((kills or {}).items())
+        pending_deploys = sorted((deploys or {}).items(),
+                                 key=lambda kv: kv[0])
         deadlined = (self.clock == "wall"
                      and [r for r in requests
                           if r.deadline_ttft > 0 or r.deadline_e2e > 0])
@@ -189,6 +196,13 @@ class FleetDriver:
                     router.kill_pool(tgt[len("pool:"):], now=now)
                 else:
                     router.kill_engine(tgt, now=now)
+            while (pending_deploys and pending_deploys[0][0] <= gate
+                   and not router.rollout_active):
+                tgt = pending_deploys.pop(0)[1]
+                if isinstance(tgt, str):
+                    router.rollout(version=tgt)
+                else:
+                    router.rollout(params=tgt)
             if deadlined:
                 n_deadline += _sweep_deadlines(deadlined, router.abort,
                                                now)

@@ -630,9 +630,11 @@ class ServingEngine:
     # -- scheduler ---------------------------------------------------------
 
     def set_params(self, params, version=None) -> None:
-        """Swap the weights in place: the next step reads them; resident
-        KV pages stay valid. An engine built with weight-only int8 gets
-        its new weights quantized as its constructor did."""
+        """Swap the weights in place: the next step reads them. Cached
+        pages of other weights stay in the pool but no longer match a
+        lookup: the prefix-cache salt carries ``version``. An engine
+        built with weight-only int8 gets its new weights quantized as its
+        constructor did."""
         self.params = params
         if ((self._weight_only_int8 or self.cfg.weight_only_int8)
                 and not isinstance(self.params["blocks"]["wq"], tuple)):
@@ -750,10 +752,18 @@ class ServingEngine:
     def _cache_salt(self, req: Request) -> bytes:
         """The request's prefix-cache salt: its adapter's content digest
         when one is bound (KV written under adapter X must never serve a
-        request under another adapter or none), else empty."""
+        request under another adapter or none), then the engine's weight
+        version once a rollout has named one (KV written under weights V
+        must never serve a request after a swap to other weights); empty
+        for a plain engine. The reference salts by adapter only, so its
+        prefix cache serves pages of the old weights after a swap (ROADMAP
+        Queue 3)."""
+        salt = b""
         if self._lora_on and req.adapter_id is not None:
-            return b"lora:" + self.adapters.digest_of(req.adapter_id)
-        return b""
+            salt = b"lora:" + self.adapters.digest_of(req.adapter_id)
+        if self.param_version is not None:
+            salt += b"|w:" + str(self.param_version).encode()
+        return salt
 
     def _alloc_pages(self, n: int) -> Optional[list[int]]:
         """Free-list alloc, reclaiming idle prefix-cache pages on demand,

@@ -1,5 +1,5 @@
-"""Deterministic fault injection for the serving fleet (the port's copy
-of paddle_tpu/testing/chaos.py).
+"""Deterministic fault injection for the serving fleet and the training
+runtime (the port's copy of paddle_tpu/testing/chaos.py).
 
 A *fault plan* is a seeded list of :class:`FaultSpec`s, each naming an
 injection point (``"engine.step"``), when it fires (at the Nth
@@ -28,6 +28,27 @@ point                 kinds
                       flipped after the crcs are computed). Pool-scoped
 ``migration.commit``  ``raise`` (ChaosInjected out of commit_adopt before
                       any state moves). Pool-scoped
+``rollout.swap``      ``raise`` (the drained engine dies in its parameter
+                      swap; a replacement joins on the target version),
+                      ``hang`` (sleep ``seconds``; past the step budget
+                      the swap is a death). ``engine=`` / ``pool=``
+``rollout.canary``    ``fail`` (the post-swap canary reports failure: the
+                      fleet rolls back to the prior version)
+``store.connect``     ``refuse`` (ConnectionRefusedError on connect)
+``store.get``         ``timeout`` (TimeoutError), ``flaky``
+                      (ConnectionError)
+``store.set``         ``flaky`` (ConnectionError)
+``store.add``         ``flaky`` (ConnectionError)
+``checkpoint.save``   ``torn`` (truncated npz, no metadata or manifest),
+                      ``torn_manifest`` (the manifest never written),
+                      ``corrupt`` (chunk bytes flipped after the write;
+                      the crc catches it), ``missing_meta`` (no metadata
+                      file), ``raise`` (the write raises)
+``elastic.heartbeat`` ``drop`` (a beat skipped; the lease goes stale)
+``train.step``        ``nan`` (the loss read as NaN after the step ran),
+                      ``raise`` (ChaosInjected out of the step), ``hang``
+                      (sleep ``seconds`` inside the watchdog's guard),
+                      ``exit`` (``os._exit(code)``: a rank lost mid-step)
 ====================  ======================================================
 
 Targeting: a probe passes a ``ctx`` dict (``{"engine": 0, "pool":

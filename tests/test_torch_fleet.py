@@ -250,8 +250,10 @@ def test_fleet_built_from_cfg_shares_one_params_dict():
 
 
 def test_zero_downtime_flags_defined_and_refused():
-    """The next slice's flags carry the reference's defaults; autoscale
-    and SLO shed are refused when on, and rollout() raises."""
+    """The zero-downtime flags carry the reference's defaults and are
+    honoured: the router takes autoscale and SLO shed, from its
+    arguments or from the flags, and rollout() runs (its cases are
+    tests/test_torch_rollout.py's). Nothing is refused any more."""
     defaults = {"serving_fleet_rollout_canary": 4,
                 "serving_fleet_autoscale": False,
                 "serving_fleet_min_engines": 1,
@@ -266,17 +268,17 @@ def test_zero_downtime_flags_defined_and_refused():
         assert TFLAGS.get(k) == v, k
     _, te = engines()
     for kw in (dict(autoscale=True), dict(slo_shed=True)):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            TRouter(engines=te, **kw)
+        r = TRouter(engines=te, **kw)
+        assert all(getattr(r, k) is True for k in kw)
     try:
         TFLAGS.set("serving_fleet_autoscale", True)
-        with pytest.raises(NotImplementedError):
-            TRouter(engines=te)
+        assert TRouter(engines=te).autoscale is True
     finally:
         TFLAGS.set("serving_fleet_autoscale", False)
     r = TRouter(engines=te)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        r.rollout(params=te[0].params)
+    assert (r.rollout_canary, r.min_engines, r.max_engines) == (4, 1, 4)
+    assert r.rollout(params=te[0].params) in r.catalog
+    assert r.rollout_active
 
 
 def test_fleet_flag_defaults_equal_the_reference():

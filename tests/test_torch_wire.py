@@ -12,7 +12,8 @@ bytes; a port shipment handed to the JAX engine is first viewed as
 host does with bytes off a wire. Also: the staged export equals the
 synchronous one; the mixed-mode conversions (int8 -> fp32, int8 -> bf16,
 fp32 / bf16 -> int8) equal the reference's ``_convert_shipment``
-bitwise; v1 shipments adopt; redelivery skips resident hashes; chaos
+bitwise; a LoRA request's shipment (adapter-salted block hashes) crosses
+both ways with equal pages, crcs and salts; v1 shipments adopt; redelivery skips resident hashes; chaos
 ``migration.stage`` drop and corrupt and ``migration.commit`` raise
 leave no leak in either fleet; the ledger sums mid-stage and
 mid-deferred-commit."""
@@ -133,6 +134,60 @@ def test_wire_v2_both_directions_bitwise(pool):
     hits0 = ta.pool.hits
     req = _run_donor(ta, TRequest, n_tokens=2)
     assert ta.pool.hits - hits0 == 2 and len(req.out_tokens) == 2
+
+
+def test_lora_request_shipment_both_directions():
+    """A LoRA request's pages: the hashes are salted with the adapter's
+    content digest (``_cache_salt``), equal in both packages, as are the
+    headers; each package's crcs are the reference's crc32 of its
+    payload; adopted both ways, the pools, caches and hashes equal a
+    same-package adoption bitwise, and the
+    adopted pages serve the same adapter's request from the cache (and
+    not a request under no adapter)."""
+    from paddle_tpu.inference.multitenant import make_lora as jax_make_lora
+    from paddle_tpu_torch.inference.multitenant import make_lora
+
+    from torch_fleet_common import JCFG, TCFG
+
+    (jd, ja, ja2), (td, ta, ta2) = engines(3, lora=True, lora_slots=2)
+    for e in (jd, ja, ja2):
+        e.register_adapter("a0", jax_make_lora(JCFG["float32"], 8, seed=1,
+                                               scale=0.3))
+    for e in (td, ta, ta2):
+        e.register_adapter("a0", make_lora(TCFG["float32"], 8, seed=1,
+                                           scale=0.3))
+    for eng, cls in ((jd, JRequest), (td, TRequest)):
+        req = cls(rid=0, prompt=np.arange(1, 41, dtype=np.int32),
+                  max_new_tokens=8, adapter_id="a0")
+        eng.submit(req)
+        while not req.out_tokens:
+            eng.step(now=1e18)
+        assert eng._cache_salt(req).startswith(b"lora:")
+    assert td._cache_salt(req) == jd._cache_salt(req)
+    js, ts = jd.export_request_pages(0), td.export_request_pages(0)
+    assert len(ts["hashes"]) == 2 and ts["salt"].startswith(b"lora:")
+    for k in HEADER:
+        assert js[k] == ts[k], k
+    for ship in (js, ts):        # each payload's crcs are the reference's
+        assert ship["crc"] == [_crc(ship, j) for j in range(2)]
+    assert ts["hashes"] == td._page_hashes(np.arange(1, 33, dtype=np.int32),
+                                           ts["salt"])
+    assert ts["hashes"] != td._page_hashes(np.arange(1, 33, dtype=np.int32),
+                                           b"")
+    # JAX -> port against JAX -> JAX, port -> JAX against port -> port
+    assert ja.adopt_pages(js) == ta.adopt_pages(js) == 2
+    _assert_same_state(ja, ta)
+    assert ja2.adopt_pages(_as_jax(ts)) == ta2.adopt_pages(ts) == 2
+    _assert_same_state(ja2, ta2)
+    hits0 = ta.pool.hits
+    plain = TRequest(rid=1, prompt=np.arange(1, 41, dtype=np.int32),
+                     max_new_tokens=1)
+    ta.run([plain])
+    assert ta.pool.hits == hits0
+    lora = TRequest(rid=2, prompt=np.arange(1, 41, dtype=np.int32),
+                    max_new_tokens=1, adapter_id="a0")
+    ta.run([lora])
+    assert ta.pool.hits - hits0 == 2
 
 
 @pytest.mark.parametrize("pool", list(POOLS))

@@ -1,4 +1,4 @@
-"""Shared by tests/test_torch_{fleet,disagg,wire,loadgen}.py: the fleet
+"""Shared by tests/test_torch_{fleet,disagg,wire,loadgen,rollout}.py: the fleet
 of the JAX package and the port's side by side on the CPU.
 
 Both packages get the same weights (drawn in JAX, carried over with
@@ -10,6 +10,7 @@ module. ``lockstep`` steps the two routers on one clock and holds their
 page ledgers, owners and return values equal after every tick."""
 
 import functools
+import re
 
 import numpy as np
 import pytest
@@ -143,14 +144,16 @@ def submit(jr, tr, jreqs, treqs, now: float = 1e18) -> None:
         tr.submit(b, now=now)
 
 
-def lockstep(jr, tr, on_step=None, limit: int = 3000) -> int:
-    """Step both routers until idle, holding equal return values, page
-    ledgers (per engine, every class) and owners after every tick, and
-    the port's ledger summing. ``on_step(n, router)`` runs on each
-    router after tick n. Returns the number of ticks."""
+def lockstep(jr, tr, on_step=None, limit: int = 3000, now: float = 1e18,
+             each_tick=None) -> int:
+    """Step both routers on the clock reading ``now`` until idle, holding
+    equal return values, page ledgers (per engine, every class) and
+    owners after every tick, and the port's ledger summing. ``on_step(n,
+    router)`` runs on each router after tick n, ``each_tick(n)`` once
+    after both. Returns the number of ticks."""
     n = 0
     while True:
-        bj, bt = jr.step(now=1e18), tr.step(now=1e18)
+        bj, bt = jr.step(now=now), tr.step(now=now)
         assert bj == bt, n
         n += 1
         if on_step is not None:
@@ -159,9 +162,20 @@ def lockstep(jr, tr, on_step=None, limit: int = 3000) -> int:
         assert tr.page_accounting() == jr.page_accounting(), n
         assert_port_ledger(tr)
         assert owners(tr) == owners(jr), n
+        if each_tick is not None:
+            each_tick(n)
         assert n < limit, "fleet did not drain"
         if not bt:
             return n
+
+
+def health(router) -> list:
+    """``health()`` without its wall-clock readings: the step time, and
+    the seconds a hung step or swap took inside ``last_error``."""
+    return [{k: (re.sub(r"\d+\.\d+s", "<t>s", v)
+                 if k == "last_error" and v else v)
+             for k, v in h.items() if k != "last_step_ms"}
+            for h in router.health()]
 
 
 def assert_same_fleet(jr, tr, jreqs, treqs) -> None:
@@ -177,10 +191,6 @@ def assert_same_fleet(jr, tr, jreqs, treqs) -> None:
     assert set(sj) == set(st)
     assert {k: v for k, v in st.items() if k not in TIMING_KEYS} == \
         {k: v for k, v in sj.items() if k not in TIMING_KEYS}
-    def health(router):
-        return [{k: v for k, v in h.items() if k != "last_step_ms"}
-                for h in router.health()]
-
     assert health(tr) == health(jr)
     for rj, rt in zip(jr.replicas, tr.replicas):
         assert (rj.alive, rj.role) == (rt.alive, rt.role)
