@@ -194,8 +194,28 @@ Phases, each failing loudly (any failure exits nonzero):
    load ms, crc32 GB/s, the step with and without the watchdog's guard,
    and K1, K2, K4-K7's launches (flash and CE by variant).
 
-After each of the phases train, train_13b, llama_train, decode, paged and
-resilient every bf16 flash launch at head dim 64 or 128 must have taken
+18. ``dist``: the sharded entry, ``make_sharded_train_step`` on the
+   (1,1,1) mesh, as bench.py calls it: (a) gpt3-350m (bf16, fp32 masters,
+   bf16 moments, zero1 off; B 16, S 1024, 3 steps) and (a2) gpt3-1.3b
+   (sr-bf16, bf16 moments, unroll, remat; B 1, S 4096, 2 steps), each
+   run after ``make_train_step`` from the same seed and held to it
+   bitwise (losses and every parameter; the SR generator included), both
+   step times printed, the sharded run's K1, K2, K4-K7 launches exact;
+   (b) GPT-MoE at gpt3-350m's widths (8 experts in 2 MoE layers,
+   capacity 1.25, B 16, S 1024: N 16384, C 2560; bf16, fp32 masters,
+   fusion on, 6 steps): the loss starts within 0.5 of ln V and falls,
+   the fusion report lists 2L + M + 1 layer epilogues and L bias_gelu,
+   every MoE layer's dispatch and combine are bitwise the reference's
+   dense one-hot form on the card, and it prints the dropped share a
+   layer, the step against (a)'s, the MoE layers' forward + backward ms
+   by CUDA events and the peak memory; (c) a small fp32 GPT-MoE through
+   the sharded entry on the card and on the CPU, within TRAIN_CPU_RTOL
+   / TRAIN_CPU_ATOL. A mesh of more ranks needs more cards (NCCL puts
+   one rank on one device): tests/test_torch_sharded_*.py hold those
+   meshes to the reference on the CPU over gloo.
+
+After each of the phases train, train_13b, llama_train, decode, paged,
+resilient and dist every bf16 flash launch at head dim 64 or 128 must have taken
 the TMA + wgmma variant, as the C launchers report what they launched
 (``flash_attention.LAUNCHES_BY_PLAN``), and at every shape launched the
 C launchers' plan must be ``flash_plan``'s. After each of the phases
@@ -227,7 +247,8 @@ import torch
 PHASES = ("kernels", "engine", "int8", "cpu", "train_kernels", "train",
           "train_cpu", "train_13b", "llama_train", "decode_kernels",
           "decode", "decode_cpu", "serving_kernels", "serving",
-          "paged_kernels", "paged", "fleet", "rollout", "resilient")
+          "paged_kernels", "paged", "fleet", "rollout", "resilient",
+          "dist")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12         # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12          # fp32 outside the tensor cores (K6, K7)
@@ -292,7 +313,7 @@ def _bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
 # phases whose every bf16 flash launch at head dim 64 or 128 must take the
 # TMA + wgmma variant (flash_attention.flash_plan)
 FLASH_WGMMA_PHASES = ("train", "train_13b", "llama_train", "decode", "paged",
-                      "resilient")
+                      "resilient", "dist")
 
 
 def _flash_launch_counts() -> collections.Counter:
@@ -1853,6 +1874,12 @@ def _map_leaves(tree, fn):
     return fn(tree)
 
 
+# make_train_step's first losses and host seconds a step, as phases
+# train and train_13b record them at the configurations phase dist runs
+# through the sharded entry: {key: (losses, seconds)}
+ONE_DEVICE_RUNS: dict = {}
+
+
 def _template_counts(report) -> dict:
     counts: dict = {}
     for row in report.sites:
@@ -1896,13 +1923,15 @@ def run_train(dev, profile: bool = False, fused: bool = True,
                                           size=(batch, cfg.seq_len)))
         labs = step.put_batch(rng.randint(0, cfg.vocab_size,
                                           size=(batch, cfg.seq_len)))
-        losses = []
-        t0 = time.perf_counter()
+        losses, warm_s = [], []
         for _ in range(warmup):
+            t0 = time.perf_counter()
             loss, params, opt = step(params, opt, toks, labs)
             losses.append(loss.item())
-            if len(losses) == 1:        # the first step traces the model
-                t_first = time.perf_counter() - t0
+            warm_s.append(time.perf_counter() - t0)
+        t_first = warm_s[0]             # the first step traces the model
+        if fused and native and not profile:
+            ONE_DEVICE_RUNS["gpt3-350m"] = (list(losses), warm_s)
         if profile:
             _profile_train(step, params, opt, toks, labs,
                            "fusion on" if fused else "fusion off")
@@ -2184,10 +2213,14 @@ def run_train_13b(dev) -> dict:
         cfg, step, params, opt = _gpt13b(dev, S, remat)
         _check_sr_state(params, opt)
         toks, labs = _gpt13b_batch(step, cfg, B)
-        losses = []
+        losses, warm_s = [], []
         for _ in range(3):
+            t0 = time.perf_counter()
             loss, params, opt = step(params, opt, toks, labs)
             losses.append(loss.item())
+            warm_s.append(time.perf_counter() - t0)
+        if (B, S, remat) == (1, 4096, True):
+            ONE_DEVICE_RUNS["gpt3-1.3b S4096"] = (list(losses), warm_s)
         counters = _split_counters()
         for fn in counters.values():
             fn.launches = 0
@@ -5041,6 +5074,513 @@ def run_resilient(dev) -> dict:
     return ln
 
 
+# ---------------------------------------------------------------------------
+# dist: the sharded entry on one card, and GPT-MoE at full width
+# ---------------------------------------------------------------------------
+
+MOE_EXPERTS, MOE_LAYERS, MOE_CAPACITY = 8, 2, 1.25
+
+
+def _one_device_mesh():
+    from paddle_tpu_torch.distributed.process_mesh import build_mesh
+
+    return build_mesh((1, 1, 1), ("dp", "pp", "mp"))
+
+
+def _steps(step, params, opt, toks, labs, n: int):
+    """(losses, params, opt, host seconds of each step, synchronized)."""
+    losses, secs = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, params, opt = step(params, opt, toks, labs)
+        losses.append(loss.item())          # syncs
+        secs.append(time.perf_counter() - t0)
+    return losses, params, opt, secs
+
+
+def _check_launches(tag: str, launches: dict, want: dict) -> None:
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches} != {want}")
+
+
+def _is_one_device_step(step) -> bool:
+    """Whether ``step`` is the step function ``make_train_step`` makes."""
+    from paddle_tpu_torch.parallel.train_step import make_train_step
+
+    return any(step.__code__ is c
+               for c in make_train_step.__code__.co_consts)
+
+
+def _dist_bitwise(dev, tag: str, key: str, cfg, B: int, steps: int,
+                  want_fn, **kw) -> tuple[dict, float]:
+    """make_sharded_train_step on the one-device mesh (bench.py's call),
+    ``steps`` steps from seed 0 and phase train's batch. On a one-rank
+    mesh it returns make_train_step's own step, which is checked; its
+    losses are held bitwise to those make_train_step gave from the same
+    seed, batch and options in phase train or train_13b
+    (``ONE_DEVICE_RUNS[key]``), when that phase ran in this call. The
+    run is the main path: its launches are counted (exact, per
+    ``want_fn(steps)``). Returns (launches, step ms), the step time the
+    mean of the steps after the first (which traces the model)."""
+    from paddle_tpu_torch.parallel import make_sharded_train_step
+
+    mesh = _one_device_mesh()
+    counters = _train_counters()
+    torch.cuda.reset_peak_memory_stats()
+    step, params, opt = make_sharded_train_step(
+        cfg, mesh, lr=1e-4, seed=0, zero1=False, device=dev, **kw)
+    if step.mesh is not mesh or not _is_one_device_step(step):
+        raise AssertionError(f"{tag}: the one-rank mesh's step is not "
+                             "make_train_step's")
+    rng = np.random.RandomState(0)
+    toks = step.put_batch(rng.randint(0, cfg.vocab_size,
+                                      size=(B, cfg.seq_len)))
+    labs = step.put_batch(rng.randint(0, cfg.vocab_size,
+                                      size=(B, cfg.seq_len)))
+    for fn in counters.values():
+        fn.launches = 0
+    losses, params, opt, secs = _steps(step, params, opt, toks, labs, steps)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    ms = sum(secs[1:]) / (steps - 1) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del step, params, opt, toks, labs
+    torch.cuda.empty_cache()
+    _check_launches(tag, launches, want_fn(steps))
+    if not losses[-1] < losses[0] or \
+            abs(losses[0] - math.log(cfg.vocab_size)) > 0.5:
+        raise AssertionError(f"{tag}: losses {losses}")
+    if key in ONE_DEVICE_RUNS:
+        one, one_s = ONE_DEVICE_RUNS[key]
+        if losses != one[:steps]:
+            raise AssertionError(f"{tag}: losses {losses} != "
+                                 f"make_train_step's {one[:steps]}")
+        one_ms = sum(one_s[1:steps]) / (steps - 1) * 1e3
+        versus = (f"== make_train_step's losses bitwise (its run in this "
+                  f"call); step {ms:.2f} ms vs its {one_ms:.2f} ms")
+    else:
+        versus = (f"not compared (make_train_step's run at {key} is in "
+                  f"another phase); step {ms:.2f} ms")
+    print(f"dist {tag}: make_sharded_train_step on the (1,1,1) mesh is "
+          f"make_train_step's step; losses {[round(v, 4) for v in losses]} "
+          f"{versus} (each the mean of steps 2-{steps}), peak {peak:.2f} "
+          f"GiB; launches {launches}")
+    return launches, ms
+
+
+def _moe_inputs(params, toks, cfg) -> list:
+    """Each MoE layer's input, from an unfused forward (the fused one
+    replays a traced graph)."""
+    from paddle_tpu_torch.core.flags import GLOBAL_FLAGS
+    from paddle_tpu_torch.models import gpt
+
+    seen = []
+    plain = gpt.moe_block_apply
+
+    def record(mp, x, cfg, shards=None):
+        seen.append(x.detach())
+        return plain(mp, x, cfg, shards)
+
+    GLOBAL_FLAGS.set("use_auto_fusion", False)
+    gpt.moe_block_apply = record
+    try:
+        with torch.no_grad():
+            gpt.loss_fn(params, toks, toks, cfg)
+    finally:
+        gpt.moe_block_apply = plain
+        GLOBAL_FLAGS.set("use_auto_fusion", True)
+    return seen
+
+
+def _route(x, mp: dict, cfg):
+    """A MoE layer's routing of its input ``x`` under its weights ``mp``:
+    (LayerNorm'd rows [N, H], gate, slot, capacity C, expert per token,
+    tokens per expert, dropped share)."""
+    from paddle_tpu_torch.models import gpt
+
+    N, E = x.shape[0] * x.shape[1], cfg.n_experts
+    C = max(1, int(cfg.moe_capacity_factor * N / E))
+    flat = gpt._layer_norm(x, mp["ln_g"], mp["ln_b"], cfg.eps).reshape(
+        N, cfg.hidden)
+    _, onehot, gate, slot = gpt.moe_route(flat, mp["router_w"], C)
+    return (flat, gate, slot, C, onehot.argmax(-1), onehot.sum(0).tolist(),
+            (slot == E * C).float().mean().item())
+
+
+def _moe_layer(params, j: int) -> dict:
+    return {k: v[j].detach() for k, v in params["moe"].items()}
+
+
+def _moe_loads(params, toks, cfg) -> tuple[list, list]:
+    """Each MoE layer's (expert per token, tokens per expert, dropped
+    share), from an unfused forward."""
+    with torch.no_grad():
+        return [_route(x, _moe_layer(params, j), cfg)[4:]
+                for j, x in enumerate(_moe_inputs(params, toks, cfg))]
+
+
+def _moe_layer_checks(params, toks, cfg) -> float:
+    """On every MoE layer's input: the slot-index dispatch and combine
+    held bitwise to the reference's dense one-hot form (each slot holds
+    one token, so the one-hot products sum one nonzero term: exact in any
+    order); returns the layers' forward + backward ms by CUDA events."""
+    from paddle_tpu_torch.models import gpt
+
+    xs = _moe_inputs(params, toks, cfg)
+    if len(xs) != cfg.n_moe_layers:
+        raise AssertionError(f"{len(xs)} MoE inputs, {cfg.n_moe_layers} "
+                             "layers")
+    total_ms = 0.0
+    E, H = cfg.n_experts, cfg.hidden
+    for j, x in enumerate(xs):
+        mp = _moe_layer(params, j)
+        flat, gate, slot, C = _route(x, mp, cfg)[:4]
+        xin = gpt.moe_dispatch(flat, slot, E, C)
+        if not torch.equal(xin, gpt.moe_dispatch_dense(flat, slot, E, C)):
+            raise AssertionError(f"MoE layer {j}: dispatch != one-hot form")
+        hout = torch.bmm(xin, mp["w1"].to(cfg.dtype))[..., :H].contiguous()
+        if not torch.equal(gpt.moe_combine(hout, slot, gate),
+                           gpt.moe_combine_dense(hout, slot, gate)):
+            raise AssertionError(f"MoE layer {j}: combine != one-hot form")
+        leaves = [t.requires_grad_(True) for t in mp.values()]
+        xg = x.clone().requires_grad_(True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        for it in range(3):                 # the last of 3 is timed
+            start.record()
+            y, aux = gpt.moe_block_apply(mp, xg, cfg)
+            torch.autograd.grad((y.float().sum() + aux), leaves + [xg])
+            end.record()
+        torch.cuda.synchronize()
+        total_ms += start.elapsed_time(end)
+        del xin, hout, flat
+    return total_ms
+
+
+def _first_moe_layer_after(params, toks, cfg, dev, depth: int):
+    """The first MoE layer's routing (``_moe_loads``'s row) after the
+    first ``depth`` dense layers, on ``dev``: the same weights cast to
+    fp32, the plain attention."""
+    small = dataclasses.replace(cfg, n_layers=depth, n_moe_layers=1,
+                                dtype=torch.float32,
+                                param_dtype=torch.float32, use_flash=False)
+    cut = {"blocks": lambda t: t[:depth], "moe": lambda t: t[:1]}
+    p = {k: _map_leaves(v, lambda t, f=cut.get(k, lambda t: t):
+                        f(t.detach()).to(dev, torch.float32))
+         for k, v in params.items()}
+    idx, loads, dropped = _moe_loads(p, toks.to(dev), small)[0]
+    return idx.cpu(), loads, dropped
+
+
+def _moe_cfg():
+    return dataclasses.replace(_gpt350m(), n_experts=MOE_EXPERTS,
+                               n_moe_layers=MOE_LAYERS,
+                               moe_capacity_factor=MOE_CAPACITY)
+
+
+def _moe_batch(step, cfg, B: int = 16):
+    rng = np.random.RandomState(0)
+    return [step.put_batch(rng.randint(0, cfg.vocab_size,
+                                       size=(B, cfg.seq_len)))
+            for _ in range(2)]
+
+
+# the layers of a forward before the first MoE layer in the routing
+# witness (the card against the CPU on the same weights)
+WITNESS_DEPTH, WITNESS_ROWS = 2, 2
+# fp32 on both sides, the same ops: only the order of sums differs
+# (~1e-6 of a router logit), so only a near-exact tie of two experts can
+# route a token differently
+WITNESS_FLIPS = 1e-3
+
+
+def _dist_moe(dev, dense_ms: float) -> tuple[dict, list]:
+    """GPT-MoE at gpt3-350m's widths through the sharded entry on the
+    one-device mesh: 8 experts in 2 MoE layers after the 24 dense ones,
+    capacity factor 1.25, bf16 with fp32 masters and bf16 moments, B 16,
+    S 1024 (N 16384, C 2560), fusion on, 6 steps. Then, on the weights
+    after them, every MoE layer's checks (``_moe_layer_checks``) and the
+    routing witness: the first MoE layer's routing after
+    ``WITNESS_DEPTH`` dense layers, on the card (B 16) and on the CPU
+    (its first ``WITNESS_ROWS`` rows), in fp32 from the same weights.
+    Returns (its launches, its losses)."""
+    from paddle_tpu_torch import compiler
+    from paddle_tpu_torch.parallel import make_sharded_train_step
+
+    cfg = _moe_cfg()
+    B, steps = 16, 6
+    torch.cuda.reset_peak_memory_stats()
+    step, params, opt = make_sharded_train_step(
+        cfg, _one_device_mesh(), lr=1e-4, seed=0, zero1=False,
+        m_dtype="bfloat16", v_dtype="bfloat16", device=dev)
+    toks, labs = _moe_batch(step, cfg, B)
+    init = _moe_loads(params, toks, cfg)
+    counters = _train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    losses, params, opt, secs = _steps(step, params, opt, toks, labs, steps)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    report = compiler.last_report()
+    L, M = cfg.n_layers, cfg.n_moe_layers
+    want = _step_launches(cfg, steps)
+    want["fused_norm_epilogue"] = (2 * L + M + 1) * steps
+    _check_launches("dist moe", launches, want)
+    counts = _template_counts(report)
+    want_sites = {("layer_epilogue", True): 2 * L + M + 1,
+                  ("bias_gelu", True): L}
+    if counts != want_sites or report.errors:
+        raise AssertionError(f"dist moe fusion report {counts} (errors "
+                             f"{report.errors}) != {want_sites}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"dist moe: non-finite loss in {losses}")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 0.5:
+        raise AssertionError(f"dist moe: first loss {losses[0]} not within "
+                             f"0.5 of ln(V) {math.log(cfg.vocab_size):.3f}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"dist moe: loss did not fall: {losses}")
+    step_ms = sum(secs[1:]) / (steps - 1) * 1e3
+    moe_ms = _moe_layer_checks(params, toks, cfg)
+    after = _moe_loads(params, toks, cfg)
+    N = B * cfg.seq_len
+    print(f"dist moe gpt3-350m widths, {MOE_EXPERTS} experts x {M} MoE "
+          f"layers, capacity {MOE_CAPACITY} (N {N}, C "
+          f"{int(MOE_CAPACITY * N / MOE_EXPERTS)}), B{B} S{cfg.seq_len}, "
+          f"bf16 + fp32 masters, fusion on: losses "
+          f"{[round(v, 4) for v in losses]}; step {step_ms:.2f} ms vs the "
+          f"dense step {dense_ms:.2f} ms (each the mean of the steps "
+          f"after the first); MoE layers' forward + backward "
+          f"{moe_ms:.2f} ms by CUDA events ({moe_ms / step_ms:.3f} of the "
+          f"step); tokens routed to each expert by layer on the initial "
+          f"weights {[r[1] for r in init]} (dropped "
+          f"{[round(r[2], 4) for r in init]}), after step {steps} "
+          f"{[r[1] for r in after]} (dropped "
+          f"{[round(r[2], 4) for r in after]}); dispatch and combine of "
+          f"every MoE layer bitwise the one-hot form; peak mem {peak:.2f} "
+          f"GiB; fusion {counts}; launches {launches}")
+    card, card_loads, card_drop = _first_moe_layer_after(
+        params, toks, cfg, dev, WITNESS_DEPTH)
+    rows = WITNESS_ROWS * cfg.seq_len
+    cpu, cpu_loads, _ = _first_moe_layer_after(
+        params, toks[:WITNESS_ROWS], cfg, "cpu", WITNESS_DEPTH)
+    flips = (card[:rows] != cpu).float().mean().item()
+    if not flips <= WITNESS_FLIPS:
+        raise AssertionError(f"dist moe witness: {flips} of the tokens "
+                             "route to another expert on the CPU")
+    print(f"dist moe routing witness ({WITNESS_DEPTH} dense layers, then "
+          f"MoE layer 1, the weights after step {steps} in fp32): card "
+          f"B{B} loads {card_loads}, dropped {card_drop:.4f}; card vs CPU "
+          f"on the first {WITNESS_ROWS} rows: loads "
+          f"{torch.bincount(card[:rows], minlength=MOE_EXPERTS).tolist()} "
+          f"vs {cpu_loads}, {flips:.5f} of the tokens route differently "
+          f"(bar {WITNESS_FLIPS})")
+    del step, params, opt, toks, labs
+    torch.cuda.empty_cache()
+    return launches, losses
+
+
+def _check_ce_vocab_slabs(dev) -> None:
+    """K4 and K5 on the two vocab slabs of the gpt3-350m head, as the
+    sharded step runs them over mp 2 (``gpt._VocabParallelCE``): each
+    slab with its own labels (-1, no gold, outside it), held to
+    the plain versions; the slabs' log-sum-exps and gold combined, held
+    to K4 on the whole head; K5 on each slab with the combined
+    log-sum-exp held to the plain version, and the slabs' dx summed held
+    to K5's on the whole head."""
+    from paddle_tpu_torch.models.gpt import _slab_labels
+    from paddle_tpu_torch.ops.kernels import fused_ce as ce
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    N, H, V, n = 4096, 1024, 50304, 2
+    x = torch.randn((N, H), generator=gen, device=dev).to(torch.bfloat16)
+    wte = (torch.randn((V, H), generator=gen, device=dev)
+           * (CE_LOGIT_STD / math.sqrt(H))).to(torch.bfloat16)
+    lab = torch.randint(0, V, (N,), generator=gen, device=dev)
+    g = torch.full((N,), 1.0 / N, device=dev)
+    v = V // n
+    # v 25152 ends inside a vocab tile: the tile's masked columns are
+    # above v, which a slab label never reaches
+    slabs = [(wte[r * v:(r + 1) * v].t(), _slab_labels(lab, r, v))
+             for r in range(n)]
+    lses, golds = [], []
+    for r, (head, sl) in enumerate(slabs):
+        nll, lse = ce.fused_ce_fwd(x, head, sl)
+        rnll, rlse = ce.fused_ce_fwd_plain(x, head, sl)
+        err = max((nll - rnll).abs().max().item(),
+                  (lse - rlse).abs().max().item())
+        if not err <= CE_FWD_ATOL:
+            raise AssertionError(f"ce slab {r}: nll / lse max_abs_err {err}")
+        lses.append(lse)
+        golds.append(torch.where(sl >= 0, lse - nll, 0.0))
+    full_nll, full_lse = ce.fused_ce_fwd(x, wte.t(), lab)
+    lse_all = torch.logsumexp(torch.stack(lses), 0)
+    err = max((lse_all - full_lse).abs().max().item(),
+              (lse_all - sum(golds) - full_nll).abs().max().item())
+    if not err <= CE_FWD_ATOL:
+        raise AssertionError(f"ce slabs combined: max_abs_err {err}")
+    dxs = []
+    for r, (head, sl) in enumerate(slabs):
+        dx, dh = ce.fused_ce_bwd(x, head, sl, lse_all, g)
+        rdx, rdh = ce.fused_ce_bwd_plain(x, head, sl, lse_all, g)
+        _hold(f"ce slab {r} dx", dx, rdx, BF16_TOL)
+        _hold(f"ce slab {r} dhead", dh, rdh, BF16_TOL, dim=0)
+        dxs.append(dx.float())
+    _hold("ce slabs' dx summed", sum(dxs),
+          ce.fused_ce_bwd(x, wte.t(), lab, full_lse, g)[0], BF16_TOL)
+    print(f"dist: K4/K5 on {n} vocab slabs of [{N}, {H}] x {V} with the "
+          f"slabs' labels, combined: nll / lse within {err:.3e} of K4 on "
+          f"the whole head (atol {CE_FWD_ATOL})")
+    torch.cuda.empty_cache()
+
+
+# the sharded step's own forward (K6 and K7 placed by hand, the LayerNorm
+# folds of the compiler's plan not all taken) against make_train_step's
+# losses on the same weights, bf16: the bar of phase train's head-major
+# check (its first loss within 1e-3)
+SHARDED_FWD_RTOL = 1e-3
+
+
+def _dist_sharded_class(dev, moe_losses: list) -> dict:
+    """The sharded step's class on the one-rank mesh, where every
+    collective is the identity (``make_sharded_train_step`` returns
+    ``make_train_step`` there, so this is the one way to run the code of
+    the multi-rank step on one card): (b)'s config, weights and batch, 3
+    steps. The launches are exact (K6 at the 2L + M + 1 LayerNorms and K7
+    at the L gelus of ``sharded_loss_fn``, K1/K2, K4/K5) and the losses
+    within ``SHARDED_FWD_RTOL`` of (b)'s. Returns its launches."""
+    from paddle_tpu_torch.parallel import make_sharded_train_step
+    from paddle_tpu_torch.parallel.train_step import _ShardedStep
+
+    cfg = _moe_cfg()
+    steps = 3
+    one, params, opt = make_sharded_train_step(
+        cfg, _one_device_mesh(), lr=1e-4, seed=0, zero1=False,
+        m_dtype="bfloat16", v_dtype="bfloat16", device=dev)
+    toks, labs = _moe_batch(one, cfg)
+    step = _ShardedStep(cfg, _one_device_mesh(), 1e-4, False,
+                        torch.device(dev), 0)
+    counters = _train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    losses, params, opt, secs = _steps(step, params, opt, toks, labs, steps)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    L, M = cfg.n_layers, cfg.n_moe_layers
+    want = _step_launches(cfg, steps)
+    want["fused_norm_epilogue"] = (2 * L + M + 1) * steps
+    _check_launches("dist sharded step class", launches, want)
+    if not np.allclose(losses, moe_losses[:steps], rtol=SHARDED_FWD_RTOL,
+                       atol=0):
+        raise AssertionError(f"dist sharded step class: losses {losses} vs "
+                             f"the one-device step's {moe_losses[:steps]}")
+    ms = sum(secs[1:]) / (steps - 1) * 1e3
+    print(f"dist sharded step class on the (1,1,1) mesh, (b)'s GPT-MoE: "
+          f"losses {[round(v, 5) for v in losses]} vs the one-device "
+          f"step's {[round(v, 5) for v in moe_losses[:steps]]} (rtol "
+          f"{SHARDED_FWD_RTOL}); step {ms:.2f} ms (mean of steps "
+          f"2-{steps}); launches {launches}")
+    del step, one, params, opt, toks, labs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _dist_cpu_case(dev) -> dict:
+    """A small fp32 GPT-MoE (H 256, 4 heads of 64, 2 dense layers, 4
+    experts in 1 MoE layer, S 256, B 2) through the sharded entry on the
+    one-device mesh, 3 steps on the card and on the CPU from identical
+    weights, fusion on: losses within TRAIN_CPU_RTOL, parameters within
+    TRAIN_CPU_ATOL; every training kernel launched on the card."""
+    from paddle_tpu_torch.models.gpt import GPTConfig, init_params
+    from paddle_tpu_torch.parallel import make_sharded_train_step
+    from paddle_tpu_torch.parallel.train_step import adamw_init
+
+    cfg = GPTConfig(vocab_size=1024, hidden=256, n_layers=2, n_heads=4,
+                    seq_len=256, n_experts=4, n_moe_layers=1,
+                    dtype=torch.float32, param_dtype=torch.float32,
+                    remat=False)
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(11), "cpu")
+    rng = np.random.RandomState(12)
+    toks = rng.randint(0, cfg.vocab_size, size=(2, cfg.seq_len))
+    labs = rng.randint(0, cfg.vocab_size, size=(2, cfg.seq_len))
+    counters = _train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    runs = {}
+    for name, device in (("cpu", "cpu"), ("cuda", dev)):
+        step, _, _ = make_sharded_train_step(cfg, _one_device_mesh(),
+                                             lr=1e-4, device=device)
+        params = _map_leaves(cpu_params, lambda t: t.clone().to(device))
+        opt = adamw_init(params)
+        losses = []
+        for _ in range(3):
+            loss, params, opt = step(params, opt, toks, labs)
+            losses.append(loss.item())
+        runs[name] = (losses, _leaves(params))
+    launches = {k: fn.launches for k, fn in counters.items()}
+    (lc, pc), (lg, pg) = runs["cpu"], runs["cuda"]
+    if not np.allclose(lg, lc, rtol=TRAIN_CPU_RTOL, atol=0):
+        raise AssertionError(f"dist cpu/cuda: losses {lg} vs {lc}")
+    worst = max((a.detach() - b.detach().cpu()).abs().max().item()
+                for a, b in zip(pc, pg))
+    if not worst <= TRAIN_CPU_ATOL:
+        raise AssertionError(f"dist cpu/cuda: params differ by {worst}")
+    if not all(launches.values()):
+        raise AssertionError(f"dist cpu/cuda: a kernel did not run on the "
+                             f"card: {launches}")
+    print(f"dist cpu/cuda (small fp32 GPT-MoE, sharded entry, fusion on): "
+          f"losses {lg} vs {lc}, params max diff {worst:.3e}, card "
+          f"launches {launches}")
+    return launches
+
+
+def run_dist(dev) -> dict:
+    """(a) bench.py's sharded call on one card at gpt3-350m (bf16, fp32
+    masters, bf16 moments, zero1 off; B 16, S 1024, 3 steps) and (a2) at
+    gpt3-1.3b (sr-bf16, bf16 moments, unroll, remat; B 1, S 4096, 2
+    steps): make_train_step's own step, its losses bitwise those of
+    phases train and train_13b where they ran in this call; (b) GPT-MoE
+    at gpt3-350m's widths, with its routing witness; (d) the sharded
+    step's class on the one-rank mesh at (b)'s config; K4/K5 on vocab
+    slabs as the mp route runs them; (c) a small fp32 GPT-MoE through
+    the sharded entry, card against CPU. Returns the
+    main path's launches, (a) + (a2) + (b) + (d)."""
+    from paddle_tpu_torch.models.gpt import gpt_presets
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused_ce as ce
+
+    total = collections.Counter()
+    cfg = _gpt350m()
+    ln, dense_ms = _dist_bitwise(
+        dev, "(a) gpt3-350m B16 S1024", "gpt3-350m", cfg, 16, 3,
+        lambda n: _step_launches(cfg, n), m_dtype="bfloat16",
+        v_dtype="bfloat16")
+    total.update(ln)
+    big = dataclasses.replace(gpt_presets("gpt3-1.3b"), seq_len=4096,
+                              unroll=True, remat=True)
+    if not fa.fused_dqkv_ok(4096, big.head_dim, 2):
+        raise AssertionError("gpt3-1.3b at S 4096 should take K2")
+
+    def want_13b(n):
+        L = big.n_layers
+        slabs = -(-big.vocab_size // ce.SLAB)
+        # remat=True: K6 and K7 run again in every block's recompute
+        return {"flash_fwd": L * n, "flash_bwd": L * n,
+                "fused_ce_fwd": 2 * n, "fused_ce_bwd": 3 * slabs * n,
+                "fused_norm_epilogue": (4 * L + 1) * n,
+                "fused_bias_act": 2 * L * n}
+
+    ln, _ = _dist_bitwise(dev, "(a2) gpt3-1.3b sr-bf16 B1 S4096",
+                          "gpt3-1.3b S4096", big, 1, 2, want_13b,
+                          m_dtype="bfloat16", v_dtype="bfloat16",
+                          weights="sr-bf16")
+    total.update(ln)
+    ln, moe_losses = _dist_moe(dev, dense_ms)
+    total.update(ln)
+    total.update(_dist_sharded_class(dev, moe_losses))
+    _check_ce_vocab_slabs(dev)
+    _dist_cpu_case(dev)
+    return dict(total)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5217,6 +5757,9 @@ def main(argv=None) -> int:
     if "resilient" in phases:
         print(f"resilient launches {run_resilient(dev)}")
         done("resilient")
+    if "dist" in phases:
+        print(f"dist launches {run_dist(dev)}")
+        done("dist")
     if set(phases) != set(PHASES):
         print(f"phases {phases} only: no result line")
         return 0

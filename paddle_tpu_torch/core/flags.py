@@ -98,7 +98,10 @@ GLOBAL_FLAGS.define("use_library_flash_attention", False)
 # reference's gate holds, False the split dq + dk/dv kernels (K3) always;
 # read when the backward runs
 GLOBAL_FLAGS.define("flash_attention_fused_dqkv", True)
-# sharded training (later slice): turning it on is refused
+# sharded training: the dp gradient sync of make_sharded_train_step as
+# the int8-wire all-reduce (distributed/autograd_collectives.py), each dp
+# rank's forward and backward on its own rows; nothing to sync on one
+# device
 GLOBAL_FLAGS.define("dist_allreduce_quant", False)
 
 # the fleet (inference/fleet/): read only by FleetRouter, never by a lone

@@ -13,11 +13,16 @@ directories under an atomically replaced ``LATEST`` pointer, and
 :func:`load_latest_valid` walks back from the newest step to the first
 that passes :func:`verify_checkpoint`.
 
-The port's tensors are whole, so it writes one chunk a tensor; loading
-assembles each target from every chunk that overlaps it, so a checkpoint
-the reference wrote from an array sharded over several devices loads
-whole. Targets are written in place with ``copy_``, which casts to the
-target's dtype and keeps its device.
+A whole tensor is written as one chunk. A ``DTensor`` of the sharded
+train step is written by the first of its replicas as its block at its
+global offset, as the reference writes the shards of a ``jax.Array``; a
+block whose columns the port holds in another order (the fused qkv over
+mp) as one chunk per run of consecutive reference columns, at the
+reference's offsets. Loading assembles each target from every chunk
+that overlaps it, so that a checkpoint the reference wrote from an array
+sharded over several devices loads whole, and a DTensor target takes
+its block of the whole. Targets are written in place with ``copy_``,
+which casts to the target's dtype and keeps its device.
 
 bf16: numpy has no bfloat16 on a host without ml_dtypes. A bf16 tensor
 is written as its 16-bit patterns under the npy descriptor ``'<V2'``,
@@ -192,6 +197,53 @@ def _raise_pending_async_error():
     raise RuntimeError("a previous async checkpoint save failed") from err
 
 
+def _is_dtensor(v) -> bool:
+    return isinstance(v, torch.Tensor) and hasattr(v, "placements")
+
+
+def _block_offsets(v) -> tuple[list, bool]:
+    """(global offset of this rank's block of a DTensor, whether this
+    rank writes it: the first replica along every axis the tensor is
+    replicated over)."""
+    coord = v.device_mesh.get_coordinate()
+    offset = [0] * v.dim()
+    mine = True
+    local = v._local_tensor.shape
+    for i, p in enumerate(v.placements):
+        if p.is_shard():
+            offset[p.dim] += coord[i] * local[p.dim]
+        elif coord[i]:
+            mine = False
+    return offset, mine
+
+
+def _dtensor_blocks(v):
+    """(global shape, [(global offset, block)]) of the chunks this rank
+    writes for a DTensor: its block, or, for a leaf the port holds in
+    another column order (``sharding.REF_COLUMNS``: the fused qkv over
+    mp), the block cut into runs of consecutive reference columns, each a
+    chunk at its reference offset (a rank's q, k and v of its heads:
+    three chunks)."""
+    from .sharding import REF_COLUMNS
+
+    offset, mine = _block_offsets(v)
+    if not mine:
+        return tuple(v.shape), []
+    local = v._local_tensor.detach()
+    cols = getattr(v, REF_COLUMNS, None)
+    if cols is None:
+        return tuple(v.shape), [(offset, local)]
+    n = local.shape[-1]
+    ref = cols[offset[-1]:offset[-1] + n].tolist()
+    blocks, start = [], 0
+    for j in range(1, n + 1):
+        if j == n or ref[j] != ref[j - 1] + 1:
+            blocks.append((offset[:-1] + [ref[start]],
+                           local[..., start:j]))
+            start = j
+    return tuple(v.shape), blocks
+
+
 def save_state_dict(state_dict, path, process_group=None, coordinator_rank=0,
                     async_save: bool = False):
     """Write this rank's data file, metadata and (last) manifest under
@@ -207,17 +259,27 @@ def save_state_dict(state_dict, path, process_group=None, coordinator_rank=0,
     arrays_out: dict = {}
     bf16: set = set()
     for key, v in flatten_state_dict(state_dict).items():
-        a, dtype = _host_array(key, v, copy=async_save)
-        name = f"{key}#0"
-        arrays_out[name] = a
-        if dtype == "bfloat16":
-            bf16.add(name)
+        if _is_dtensor(v):
+            gshape, blocks = _dtensor_blocks(v)
+            if not blocks:
+                continue        # a replica another rank writes
+        else:
+            gshape, blocks = None, [(None, v)]
+        chunks = []
+        for i, (offset, block) in enumerate(blocks):
+            a, dtype = _host_array(key, block, copy=async_save)
+            name = f"{key}#{i}"
+            arrays_out[name] = a
+            if dtype == "bfloat16":
+                bf16.add(name)
+            chunks.append({"global_offset": (list(offset) if offset
+                                             is not None else [0] * a.ndim),
+                           "local_shape": list(a.shape),
+                           "file": fname, "array": name, "crc32": _crc(a)})
         meta["state_dict_metadata"][key] = {
-            "global_shape": list(a.shape),
+            "global_shape": list(gshape if gshape is not None else a.shape),
             "dtype": dtype,
-            "chunks": [{"global_offset": [0] * a.ndim,
-                        "local_shape": list(a.shape),
-                        "file": fname, "array": name, "crc32": _crc(a)}],
+            "chunks": chunks,
         }
 
     # probe in the calling thread: overlapping async saves would otherwise
@@ -400,6 +462,9 @@ def load_state_dict(state_dict, path, process_group=None,
                 raise ValueError(f"{key}: checkpoint shape {buf.shape} != "
                                  f"target shape {tuple(target.shape)}")
             src = _as_bf16(buf) if bf16 else torch.from_numpy(buf)
+            if _is_dtensor(target):
+                src = _local_block(target, src)
+                target = target._local_tensor
             with torch.no_grad():
                 target.copy_(src)
     finally:
@@ -410,6 +475,20 @@ def load_state_dict(state_dict, path, process_group=None,
     if missing:
         raise KeyError(f"checkpoint at {path} is missing keys: {missing[:5]}"
                        f"{'...' if len(missing) > 5 else ''}")
+
+
+def _local_block(target, whole: torch.Tensor) -> torch.Tensor:
+    """This rank's block of a DTensor target, cut from the whole leaf
+    (reference order)."""
+    from .sharding import REF_COLUMNS
+
+    cols = getattr(target, REF_COLUMNS, None)
+    if cols is not None:
+        whole = whole[..., cols]
+    offset, _ = _block_offsets(target)
+    sl = tuple(slice(o, o + n) for o, n in
+               zip(offset, target._local_tensor.shape))
+    return whole[sl]
 
 
 # -- rotation + auto-resume -------------------------------------------------

@@ -6,7 +6,11 @@ backward ``_bwd_dx_kernel`` and ``_bwd_dh_kernel``. Per token, the
 [N, V] logits of x [N, H] @ head [H, V] never exist in device memory:
 vocab tiles stream through the kernel with an online max and sum-exp.
 
-- forward: nll = lse - gold and lse, both fp32 [N].
+- forward: nll = lse - gold and lse, both fp32 [N]. A negative label
+  takes no gold, in the forward and the backward: it is the kernels'
+  mark for a row without one (the sharded step gives it to the labels
+  outside a rank's vocab slab). A label in [V, the last vocab tile's
+  end) would meet a masked column: labels are negative or below V.
 - backward: dl = (softmax - onehot) * g recomputed from the saved lse
   and cast to x's dtype; dx = dl @ head^T accumulated in fp32 over vocab
   tiles, dhead = x^T @ dl accumulated in fp32 over token tiles, cast to
@@ -173,11 +177,20 @@ def _logits(x, head):
     return torch.matmul(x.float(), head.float())
 
 
+def _gold_index(labels, V: int):
+    """(labels clamped into [0, V), whether each was inside): a negative
+    label takes no gold, as in the kernels, which compare every column
+    with the label."""
+    lab = labels.long()
+    return lab.clamp(0, V - 1), (lab >= 0) & (lab < V)
+
+
 def fused_ce_fwd_plain(x, head, labels):
     """(nll, lse) fp32 [N] from the whole fp32 logit matrix."""
     logits = _logits(x, head)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(1, labels.long()[:, None])[:, 0]
+    idx, inside = _gold_index(labels, logits.shape[1])
+    gold = torch.where(inside, logits.gather(1, idx[:, None])[:, 0], 0.0)
     return lse - gold, lse
 
 
@@ -187,8 +200,9 @@ def fused_ce_bwd_plain(x, head, labels, lse, g):
     logits = _logits(x, head)
     dl = torch.exp(logits - lse[:, None])
     del logits
-    dl.scatter_add_(1, labels.long()[:, None],
-                    torch.full_like(lse[:, None], -1.0))
+    idx, inside = _gold_index(labels, dl.shape[1])
+    dl.scatter_add_(1, idx[:, None],
+                    torch.where(inside, -1.0, 0.0).to(dl.dtype)[:, None])
     dl = (dl * g.float()[:, None]).to(x.dtype).float()
     dx = torch.matmul(dl, head.float().t()).to(x.dtype)
     dh = torch.matmul(x.float().t(), dl).to(head.dtype)

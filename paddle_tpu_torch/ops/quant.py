@@ -27,14 +27,24 @@ __all__ = ["absmax_quantize_int8", "dequantize_int8", "kv_scale_update",
 SCALE_EPS = 1e-30
 
 
+_INV_127 = 1.0 / 127.0
+
+
 def absmax_quantize_int8(arr: torch.Tensor, axis: int = -2,
-                         scale_dtype=torch.float32):
+                         scale_dtype=torch.float32,
+                         reciprocal: bool = False):
     """Per-channel absmax int8 along ``axis`` (the reduced dim is kept).
 
     The values are quantized against the fp32 scale, and only then is
     the scale stored in ``scale_dtype``, in the reference's order.
-    Returns (int8 weights, scales)."""
-    scale = arr.abs().amax(dim=axis, keepdim=True).float() / 127.0
+    ``reciprocal`` takes the scale as absmax times the fp32 reciprocal
+    of 127, which is how XLA compiles the reference's ``absmax / 127``
+    inside a jitted program (its simplifier turns a divide by a constant
+    into a multiply); eagerly the reference divides. Returns (int8
+    weights, scales)."""
+    amax = arr.abs().amax(dim=axis, keepdim=True).float()
+    scale = (amax * torch.tensor(_INV_127, dtype=torch.float32)
+             if reciprocal else amax / 127.0)
     scale = torch.clamp_min(scale, SCALE_EPS)
     q = torch.clamp(torch.round(arr.float() / scale), -127, 127).to(
         torch.int8)

@@ -20,7 +20,7 @@ A step that updates its state in place (the port's ``make_train_step``:
 AdamW writes params and moments in place) has already overwritten the
 state when its loss turns out non-finite: such a loop must run with
 ``donated_step=True``, which restores from the last valid checkpoint on
-every bad step (``parallel.resilient_step.make_resilient_step`` does).
+every bad step (``parallel.resilient_step.make_resilient_loop`` does).
 
 Defaults come from the ``resilient_*`` flags (core/flags.py). All of this
 is host-side control flow around the step; the ``train.step`` chaos

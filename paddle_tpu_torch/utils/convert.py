@@ -13,6 +13,11 @@ _NP_TO_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 def _leaf(a, device, dtype) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        t = a
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(device)
     a = np.asarray(a)
     name = a.dtype.name
     if name == "bfloat16":
@@ -30,11 +35,20 @@ def _leaf(a, device, dtype) -> torch.Tensor:
     return t.to(device)
 
 
-def params_from_jax(tree, device, dtype=None):
+def params_from_jax(tree, device, dtype=None, mesh=None, cfg=None):
     """Turn a parameter tree with numpy leaves (the JAX package's
     parameters after ``np.asarray`` on each leaf) into the port's tree of
     tensors on ``device``. Dicts stay dicts, ``(int8, scale)`` tuples stay
-    tuples; ``dtype``, when given, casts floating leaves."""
+    tuples; ``dtype``, when given, casts floating leaves. With a ``mesh``
+    of more than one rank and the GPT's ``cfg``, each leaf becomes this
+    rank's DTensor block under the sharded step's specs
+    (``parallel/train_step.py::shard_gpt_params``; the fused qkv columns
+    in the port's order)."""
+    if mesh is not None and mesh.size > 1:
+        from ..parallel.train_step import shard_gpt_params
+
+        return shard_gpt_params(params_from_jax(tree, device, dtype), cfg,
+                                mesh)
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
@@ -42,12 +56,21 @@ def params_from_jax(tree, device, dtype=None):
     return _leaf(tree, device, dtype)
 
 
-def opt_state_from_jax(state, device):
+def opt_state_from_jax(state, device, mesh=None, cfg=None,
+                       zero1: bool = True):
     """Carry an AdamW state of the reference (numpy leaves) into the port
     with its tree, dtypes and shapes: ``m``, ``v`` (int8 moments as
     ``{"qm", "qs"}`` dicts), the 0-d step ``t`` and, in master mode, the
-    fp32 ``master`` tree (absent with ``weights="sr-bf16"``)."""
-    return {k: params_from_jax(v, device) for k, v in state.items()}
+    fp32 ``master`` tree (absent with ``weights="sr-bf16"``). With a
+    ``mesh`` of more than one rank, each leaf becomes this rank's block
+    where the reference places it (``shard_opt_state``; ``zero1`` as the
+    step was built)."""
+    out = {k: params_from_jax(v, device) for k, v in state.items()}
+    if mesh is not None and mesh.size > 1:
+        from ..parallel.train_step import shard_opt_state
+
+        out = shard_opt_state(out, cfg, mesh, zero1)
+    return out
 
 
 def paged_cache_from_jax(cache, device):

@@ -249,7 +249,7 @@ def test_fleet_built_from_cfg_shares_one_params_dict():
     assert r.replicas[3].engine.device.type == "cpu"
 
 
-def test_zero_downtime_flags_defined_and_refused():
+def test_zero_downtime_flags_defined_and_honoured():
     """The zero-downtime flags carry the reference's defaults and are
     honoured: the router takes autoscale and SLO shed, from its
     arguments or from the flags, and rollout() runs (its cases are

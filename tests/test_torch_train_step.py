@@ -16,7 +16,7 @@ equal to its fused path) and, where the JAX compiler runs (it needs
   (measured at most 2.3%): a master left in place or moved the wrong way
   is off by 100% or more.
 - the paths of later slices raise (``weights="sr-bf16"``, which has
-  come, in tests/test_torch_sr_bf16.py).
+  come, in tests/test_torch_sr_bf16.py; MoE in tests/test_torch_moe.py).
 """
 
 import dataclasses
@@ -169,9 +169,10 @@ def test_later_slices_raise():
         tts.make_train_step(tc, weights="sr-fp8", device="cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
         tts.make_train_step(tc, n_microbatches=2, device="cpu")
+    # MoE has come (tests/test_torch_moe.py); ring attention is the
+    # pipeline slice's
     with pytest.raises(NotImplementedError, match="later slice"):
-        tts.make_train_step(dataclasses.replace(tc, n_experts=4,
-                                                n_moe_layers=1),
+        tts.make_train_step(dataclasses.replace(tc, ring_axis="mp"),
                             device="cpu")
     with pytest.raises(ValueError):
         tts.make_train_step(tc, v_dtype="int8", device="cpu")
