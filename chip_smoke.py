@@ -210,12 +210,36 @@ Phases, each failing loudly (any failure exits nonzero):
    layer, the step against (a)'s, the MoE layers' forward + backward ms
    by CUDA events and the peak memory; (c) a small fp32 GPT-MoE through
    the sharded entry on the card and on the CPU, within TRAIN_CPU_RTOL
-   / TRAIN_CPU_ATOL. A mesh of more ranks needs more cards (NCCL puts
-   one rank on one device): tests/test_torch_sharded_*.py hold those
-   meshes to the reference on the CPU over gloo.
+   / TRAIN_CPU_ATOL. NCCL puts one rank on one device, so a mesh of
+   more ranks runs here only over gloo: phase ``pipe`` runs two such
+   ranks on the card; tests/test_torch_sharded_*.py, test_torch_pipeline
+   and test_torch_ring hold every mesh to the reference on the CPU.
+19. ``pipe``: the pipeline and ring attention over two gloo ranks that
+   share the card (``init_from_env(backend="gloo")``; NCCL
+   refuses two ranks on one device, so the times are not a pp = 2
+   speed), started after the parent built every kernel. (a)
+   gpt3-350m at pp 2 (12 layers a stage), M 4, B 16, S 1024, bf16 with
+   fp32 masters, 3 steps of "1f1b" and 3 of "gpipe": the first loss
+   within PIPE_LOSS_RTOL of make_train_step's from the same seed, the
+   losses falling, each rank's launches exact (stash and replay: K1
+   2·12·M, K2 12·M, K6 4·12·M, K7 2·12·M a step; the last stage's tail
+   K6, K4, K5 once a microbatch), every bf16 flash launch wgmma; a small
+   fp32 GPT pipelined against make_train_step on the card within
+   TRAIN_CPU_RTOL / TRAIN_CPU_ATOL. Prints each schedule's step ms, the
+   staged bytes a step, each rank's peak memory and stash. (b)
+   ring attention over sep 2 at [1, 8192, 16, 64], fp32 and bf16,
+   forward and gradients against the function in fp64 (fp32 also
+   against the cp = 1 block attention; PIPE_RING_TOL, scaled; dq's
+   first row to the zero-row floor). (c) ``ring_axis="mp"`` through the
+   sharded entry on the one-device mesh at gpt3-350m: K1-sep and K3-sep
+   first held at its attention shape [16, 1024, 16, 64] bf16 against
+   their plain versions and bitwise against K1 and K3's fused mode on
+   the packed qkv; then 3 steps, K1-sep 24 and K3-sep 48 a step, no K1
+   or K2, each loss within PIPE_LOSS_RTOL of the fused-qkv step's.
 
 After each of the phases train, train_13b, llama_train, decode, paged,
-resilient and dist every bf16 flash launch at head dim 64 or 128 must have taken
+resilient, dist and pipe (the ranks' launches included) every bf16
+flash launch at head dim 64 or 128 must have taken
 the TMA + wgmma variant, as the C launchers report what they launched
 (``flash_attention.LAUNCHES_BY_PLAN``), and at every shape launched the
 C launchers' plan must be ``flash_plan``'s. After each of the phases
@@ -248,7 +272,7 @@ PHASES = ("kernels", "engine", "int8", "cpu", "train_kernels", "train",
           "train_cpu", "train_13b", "llama_train", "decode_kernels",
           "decode", "decode_cpu", "serving_kernels", "serving",
           "paged_kernels", "paged", "fleet", "rollout", "resilient",
-          "dist")
+          "dist", "pipe")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12         # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12          # fp32 outside the tensor cores (K6, K7)
@@ -313,7 +337,7 @@ def _bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
 # phases whose every bf16 flash launch at head dim 64 or 128 must take the
 # TMA + wgmma variant (flash_attention.flash_plan)
 FLASH_WGMMA_PHASES = ("train", "train_13b", "llama_train", "decode", "paged",
-                      "resilient", "dist")
+                      "resilient", "dist", "pipe")
 
 
 def _flash_launch_counts() -> collections.Counter:
@@ -5581,6 +5605,537 @@ def run_dist(dev) -> dict:
     return dict(total)
 
 
+# -- phase pipe: the pipeline and ring attention over gloo ranks ------------
+
+PIPE_WORKER = "--pipe-worker"
+PIPE_M, PIPE_STEPS = 4, 3            # microbatches, steps of each schedule
+PIPE_RING = (1, 8192, 16, 64)        # ring attention's q, k, v [B, S, H, D]
+PIPE_SEP = (16, 1024, 16, 64)        # (c)'s attention q, k, v [B, S, h, d]
+# scaled, against the function in fp64 on the same inputs
+# (``_attention_f64``) and, fp32, against cp 1 too. fp32 is FP32_TOL, sum
+# order only: at S 8192 dk sums up to 8192 terms of both signs, and cp
+# 1's own fp32 dk lies 6.1e-5 scaled from fp64 on an H100. bf16 is
+# BF16_TOL, held to fp64 alone: cp 1's backward (autograd through the
+# probabilities' cast to bf16) rounds dp to bf16 before dp - delta
+# cancels (its dk 4.1e-2 from the ring's, which keeps dp in fp32); the
+# ring rounds its probabilities a hop at a time (against each hop's own
+# maximum), so its delta differs from fp64's by bf16 rounding, which
+# dp - delta cancels against: dq 2.004e-2 scaled there
+PIPE_RING_TOL = {"float32": FP32_TOL, "bfloat16": BF16_TOL}
+PIPE_LOSS_RTOL = 1e-3                # bf16 step's first loss vs the one-device
+PIPE_SMALL_M = 2
+
+
+def _pipe_small_cfg():
+    """The small fp32 GPT of the pipe phase's card-vs-one-device case."""
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    return GPTConfig(vocab_size=1024, hidden=256, n_layers=2, n_heads=4,
+                     seq_len=256, dtype=torch.float32,
+                     param_dtype=torch.float32, remat=False)
+
+
+def _pipe_want(cfg, stage: int, n_stages: int, M: int, steps: int) -> dict:
+    """Launches of one rank's ``steps`` pipelined steps. Each stage runs
+    its Ls = L / S blocks once a microbatch without saving anything and
+    once more in the backward's replay, whose backward follows: K1 2 Ls M,
+    K2 Ls M, K6 two a block a run (4 Ls M), K7 one (2 Ls M); the last
+    stage's tail runs once a microbatch: K6 at the final LayerNorm, K4
+    (two launches a call) and K5 (3 a vocab slab a call)."""
+    from paddle_tpu_torch.ops.kernels import fused_ce as ce
+
+    Ls = cfg.n_layers // n_stages
+    last = stage == n_stages - 1
+    slabs = -(-cfg.vocab_size // ce.SLAB)
+    return {"flash_fwd": 2 * Ls * M * steps, "flash_bwd": Ls * M * steps,
+            "fused_norm_epilogue": (4 * Ls * M + (M if last else 0)) * steps,
+            "fused_bias_act": 2 * Ls * M * steps,
+            "fused_ce_fwd": (2 * M if last else 0) * steps,
+            "fused_ce_bwd": (3 * slabs * M if last else 0) * steps}
+
+
+def _pipe_ring_inputs(dev, dtype):
+    """The ring case's q, k, v and output cotangent, drawn on the card
+    from one seed (the same on every rank and in the parent)."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    return [torch.randn(PIPE_RING, generator=gen, device=dev).to(dtype)
+            for _ in range(4)]
+
+
+def _time_parts() -> dict:
+    """Wrap the sharded step's two parts, the forward + backward
+    (``_pipeline_grads``) and the gradient sync + AdamW (``update``), and
+    in the latter each leaf's gradient sync (``_sync``) and moment
+    writes (``_store``), with synchronized host timers: {part: [ms a
+    call]}."""
+    from paddle_tpu_torch.parallel import train_step as ts
+
+    parts: dict = collections.defaultdict(list)
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            parts[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapper
+
+    for name in ("_pipeline_grads", "update", "_sync", "_store"):
+        setattr(ts._ShardedStep, name,
+                timed(name, getattr(ts._ShardedStep, name)))
+    return parts
+
+
+def _pipe_worker(root: str) -> int:
+    """One of the pipe phase's two gloo ranks sharing the card: (a) the
+    pipelined gpt3-350m step, "1f1b" then "gpipe", and the small fp32
+    case; (b) ring attention over the sep axis. Writes
+    ``root/rank<r>.json`` and the tensors the parent checks."""
+    import os
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed.autograd_collectives import ppermute
+    from paddle_tpu_torch.distributed.launch import init_from_env
+    from paddle_tpu_torch.distributed.process_mesh import build_mesh
+    from paddle_tpu_torch.distributed.sharding import gather_tree
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.parallel import (make_sharded_train_step,
+                                           ring_attention)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not init_from_env(device="cuda", backend="gloo"):
+        raise RuntimeError("pipe worker: no launcher environment")
+    rank = dist.get_rank()
+    dev = torch.device("cuda")
+    out = {"rank": rank}
+    parts = _time_parts()
+    cfg = _gpt350m()
+    toks, labs = _train_batch(cfg)
+    counters = _train_counters()
+    for sched in ("1f1b", "gpipe"):
+        mesh = build_mesh((1, 2, 1), ("dp", "pp", "mp"))
+        torch.cuda.reset_peak_memory_stats()
+        step, params, opt = make_sharded_train_step(
+            cfg, mesh, lr=1e-4, seed=0, n_microbatches=PIPE_M,
+            m_dtype="bfloat16", v_dtype="bfloat16", device=dev)
+        step.pipe.schedule = sched
+        for fn in counters.values():
+            fn.launches = 0
+        flash = ("flash_fwd", "flash_bwd")
+        wgmma = {k: counters[k].launches_wgmma for k in flash}
+        staged = ppermute.staged_bytes
+        parts.clear()
+        losses, params, opt, secs = _steps(step, params, opt, toks, labs,
+                                           PIPE_STEPS)
+        out[sched] = {
+            "parts_ms": {k: sum(v[len(v) // PIPE_STEPS:]) / (PIPE_STEPS - 1)
+                         for k, v in parts.items()},
+            "losses": losses,
+            "launches": {k: fn.launches for k, fn in counters.items()},
+            "wgmma": {k: counters[k].launches_wgmma - wgmma[k]
+                      for k in flash},
+            "ms": sum(secs[1:]) / (PIPE_STEPS - 1) * 1e3,
+            "staged_bytes_per_step":
+                (ppermute.staged_bytes - staged) / PIPE_STEPS,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "peak_stash": step.pipe.peak_stash,
+            "stage": step.pipe.stage}
+        del step, params, opt
+        torch.cuda.empty_cache()
+    out["flash_by_plan"] = [[list(k), n]
+                            for k, n in fa.LAUNCHES_BY_PLAN.items()]
+    # what one all-reduce of wte's fp32 gradient costs over gloo, from the
+    # card and from the host
+    for where in ("cuda", "cpu"):
+        g = torch.ones((cfg.vocab_size, cfg.hidden), device=where)
+        dist.all_reduce(g)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(g)
+        torch.cuda.synchronize()
+        out[f"allreduce_{where}_ms"] = (time.perf_counter() - t0) * 1e3
+        del g
+    small = _pipe_small_cfg()
+    step, params, opt = make_sharded_train_step(
+        small, build_mesh((1, 2, 1), ("dp", "pp", "mp")), lr=1e-4, seed=11,
+        n_microbatches=PIPE_SMALL_M, device=dev)
+    st, sl = _train_batch(small, 4)
+    out["small_losses"] = _steps(step, params, opt, st, sl, 3)[0]
+    whole = gather_tree(params, step.mesh)
+    if rank == 0:
+        torch.save(_map_leaves(whole, lambda t: t.detach().cpu()),
+                   os.path.join(root, "small_params.pt"))
+    del step, params, opt, whole
+    mesh = build_mesh((2,), ("sep",))
+    n = PIPE_RING[1] // 2
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, do = (t[:, rank * n:(rank + 1) * n].contiguous()
+                       for t in _pipe_ring_inputs(dev, dt))
+        q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        for _ in range(2):                   # the second is timed
+            start.record()
+            o = ring_attention(q, k, v, mesh, axis="sep", causal=True)
+            grads = torch.autograd.grad(o, (q, k, v), do)
+            end.record()
+        torch.cuda.synchronize()
+        name = str(dt).split(".")[-1]
+        out[f"ring_{name}_ms"] = start.elapsed_time(end)
+        torch.save({"o": o.detach().cpu(), "dq": grads[0].cpu(),
+                    "dk": grads[1].cpu(), "dv": grads[2].cpu()},
+                   os.path.join(root, f"ring_{name}.r{rank}.pt"))
+        del q, k, v, do, o, grads
+        torch.cuda.empty_cache()
+    out["ring_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _hold_dq(name: str, got, ref, rows: slice, tol: float) -> float:
+    """A rank's chunk ``rows`` of the ring's dq [B, S, H, D] against the
+    whole reference's: every query row but the sequence's first by
+    ``_hold``; that row is 0 in exact arithmetic (causal: it attends to
+    key 0 alone, so ds = dp - delta with o = v_0), rounding noise on
+    both sides, held in absolute value to the ZERO_ROW floor of the
+    tensor's RMS (as ``_hold_long_dqkv`` holds K2's)."""
+    part = ref[:, rows]
+    if rows.start:
+        return _hold(name, got, part, tol)
+    err = _hold(name + " rows 1..", got[:, 1:], part[:, 1:], tol)
+    floor = ZERO_ROW * ref.float().pow(2).mean().sqrt().item()
+    row0 = max(got[:, 0].float().abs().max().item(),
+               part[:, 0].float().abs().max().item())
+    print(f"{name} row 0: max |value| {row0:.3e} (floor {floor:.3e})")
+    if not row0 <= floor:
+        raise AssertionError(f"{name}: row 0 reaches {row0} > {floor}")
+    return max(err, (got[:, 0].float() - part[:, 0].float()).abs()
+               .max().item())
+
+
+def _attention_f64(q, k, v, do) -> dict:
+    """Causal attention [B, S, H, D] and its gradients in fp64, a head at
+    a time, on the host: the function the block attention computes (the
+    probabilities rounded to v's dtype before the value product, as the
+    reference's ``_block_attn``), differentiated exactly (that rounding
+    passes the gradient through)."""
+    out = {n: [] for n in ("o", "dq", "dk", "dv")}
+    S, D = q.shape[1], q.shape[-1]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    for h in range(q.shape[2]):
+        qh, kh, vh = (t[:, :, h].double().requires_grad_(True)
+                      for t in (q, k, v))
+        s = torch.einsum("bqd,bkd->bqk", qh, kh) / math.sqrt(D)
+        p = torch.softmax(torch.where(mask, s, -math.inf), dim=-1)
+        p = p + (p.to(v.dtype).double() - p).detach()
+        o = torch.einsum("bqk,bkd->bqd", p, vh)
+        grads = torch.autograd.grad(o, (qh, kh, vh), do[:, :, h].double())
+        for name, t in zip(out, (o.detach(),) + grads):
+            out[name].append(t.cpu())
+        del s, p, o, grads
+    return {n: torch.stack(ts, dim=2) for n, ts in out.items()}
+
+
+def _scaled_errs(got: dict, ref: dict, rows: slice) -> str:
+    """The scaled errors of a ring result's four tensors, ``got`` holding
+    the sequence's ``rows``, against ``ref``'s, the sequence's first
+    query row left out (dq's is 0 in exact arithmetic: ``_hold_dq``)."""
+    skip = 1 if rows.start == 0 else 0
+    errs = (_scaled_err(got[key][:, skip:], ref[key][:, rows][:, skip:])[1]
+            for key in ("o", "dq", "dk", "dv"))
+    return ", ".join(f"{key} {e:.3e} scaled"
+                     for key, e in zip(("o", "dq", "dk", "dv"), errs))
+
+
+def _pipe_ring_reference(dev) -> dict:
+    """ring_attention at cp 1 (the plain block attention) on the whole
+    sequence and its gradients, by dtype, on the host; and, under
+    "float64 of <dtype>", the function in fp64 on that dtype's inputs."""
+    from paddle_tpu_torch.distributed.process_mesh import build_mesh
+    from paddle_tpu_torch.parallel import ring_attention
+
+    mesh = build_mesh((1,), ("sep",))
+    refs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, do = _pipe_ring_inputs(dev, dt)
+        q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+        o = ring_attention(q, k, v, mesh, axis="sep", causal=True)
+        dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
+        refs[str(dt).split(".")[-1]] = {
+            "o": o.detach().cpu(), "dq": dq.cpu(), "dk": dk.cpu(),
+            "dv": dv.cpu()}
+        del q, k, v, do, o, dq, dk, dv
+        torch.cuda.empty_cache()
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[-1]
+        refs[f"float64 of {name}"] = _attention_f64(
+            *_pipe_ring_inputs(dev, dt))
+        torch.cuda.empty_cache()
+    return refs
+
+
+def _pipe_one_device(dev, cfg, steps: int, seed: int = 0, batch: int = 16,
+                     **kw):
+    """make_train_step's losses and parameters on the card from ``seed``
+    (the pipelined step's weights: both draw them on the card from one
+    generator)."""
+    from paddle_tpu_torch.parallel.train_step import make_train_step
+
+    step, params, opt = make_train_step(cfg, lr=1e-4, seed=seed, device=dev,
+                                        **kw)
+    toks, labs = _train_batch(cfg, batch)
+    losses, params, opt, _ = _steps(step, params, opt, toks, labs, steps)
+    return losses, params
+
+
+def _hold_sep_kernels(dev) -> float:
+    """K1-sep and K3-sep at (c)'s attention shape, PIPE_SEP bf16 causal,
+    on random inputs: against their plain versions, o and dq, dk, dv at
+    BF16_TOL (dq's first row to the zero-row floor: ``_hold_long_dqkv``),
+    lse at FP32_TOL; and bit-equal to K1 and to K3's fused-qkv mode on
+    the same values packed into one qkv (one body, other strides).
+    Returns the worst max_abs_err."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    B, S, h, d = PIPE_SEP
+    scale = d ** -0.5
+    tag = f"pipe (c) bf16 {list(PIPE_SEP)}"
+    gen = torch.Generator(device=dev).manual_seed(19)
+    q, k, v, do = (torch.randn(PIPE_SEP, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_fwd_sep(q, k, v, True, scale)
+    o_ref, lse_ref = fa.flash_sep_plain(q, k, v, True, scale)
+    err = max(_hold(tag + " K1-sep o", o, o_ref, BF16_TOL),
+              _hold(tag + " K1-sep lse", lse, lse_ref, FP32_TOL))
+    del o_ref, lse_ref
+    sep = fa.flash_bwd_sep(q, k, v, o, lse, do, True, scale)
+    ref = fa.flash_bwd_sep_plain(q, k, v, o, lse, do, True, scale)
+    err = max(err, _hold_long_dqkv(tag + " K3-sep", torch.stack(sep, 2),
+                                   torch.stack(ref, 2)))
+    del ref
+    torch.cuda.empty_cache()
+    qkv = torch.cat([t.reshape(B, S, h * d) for t in (q, k, v)], -1)
+    o_f, lse_f = fa.flash_fwd(qkv, h, True, scale)
+    if not (torch.equal(o, o_f) and torch.equal(lse, lse_f)):
+        raise AssertionError(tag + ": K1-sep != K1 on the packed qkv")
+    fused = fa.flash_bwd_split(qkv, o, lse, do, h, True, scale)
+    if not torch.equal(fused, torch.cat([t.reshape(B, S, h * d)
+                                         for t in sep], -1)):
+        raise AssertionError(tag + ": K3-sep != K3's fused mode on the "
+                             "packed qkv")
+    print(f"{tag}: K1-sep == K1 and K3-sep == K3 fused on the packed qkv, "
+          "bitwise")
+    del q, k, v, do, o, lse, sep, qkv, o_f, lse_f, fused
+    torch.cuda.empty_cache()
+    return err
+
+
+def _pipe_ring_axis(dev, one: list) -> dict:
+    """(c) ``ring_axis="mp"`` on the one-device mesh through the sharded
+    entry: gpt3-350m, B 16, S 1024, 3 steps; no axis to ring over, so
+    attention takes the split q, k, v: K1-sep L and K3-sep 2L (dq, then
+    dk / dv) a step, no K1 or K2, both held first at that shape
+    (``_hold_sep_kernels``); each loss within PIPE_LOSS_RTOL of the
+    fused-qkv step's ``one`` (make_train_step's 3 losses from the same
+    seed). Returns its launches."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.parallel import make_sharded_train_step
+
+    err = _hold_sep_kernels(dev)
+    cfg = dataclasses.replace(_gpt350m(), ring_axis="mp")
+    steps, L = 3, cfg.n_layers
+    step, params, opt = make_sharded_train_step(
+        cfg, _one_device_mesh(), lr=1e-4, seed=0, m_dtype="bfloat16",
+        v_dtype="bfloat16", device=dev)
+    toks, labs = (step.put_batch(a) for a in _train_batch(cfg))
+    counters = {**_train_counters(), "flash_fwd_sep": fa.flash_fwd_sep,
+                "flash_bwd_sep": fa.flash_bwd_sep}
+    for fn in counters.values():
+        fn.launches = 0
+    losses, params, opt, secs = _steps(step, params, opt, toks, labs, steps)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    want = dict(_step_launches(cfg, steps), flash_fwd=0, flash_bwd=0,
+                flash_fwd_sep=L * steps, flash_bwd_sep=2 * L * steps)
+    _check_launches("pipe (c) ring_axis one device", launches, want)
+    if not np.allclose(losses, one[:steps], rtol=PIPE_LOSS_RTOL, atol=0):
+        raise AssertionError(f"pipe (c): losses {losses} vs the fused-qkv "
+                             f"step's {one[:steps]}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"pipe (c): loss did not fall: {losses}")
+    print(f"pipe (c) ring_axis='mp' on the (1,1,1) mesh, gpt3-350m B16 "
+          f"S1024: losses {[round(v, 5) for v in losses]} vs the fused-qkv "
+          f"step's {[round(v, 5) for v in one[:steps]]} (rtol "
+          f"{PIPE_LOSS_RTOL}; largest difference "
+          f"{max(abs(a - b) for a, b in zip(losses, one)):.3e}); step "
+          f"{sum(secs[1:]) / (steps - 1) * 1e3:.2f} ms (mean of steps "
+          f"2-{steps}); launches {launches}; K1-sep / K3-sep at this shape "
+          f"max_abs_err {err:.3e}")
+    del step, params, opt, toks, labs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_pipe(dev) -> dict:
+    """(a) the pipelined gpt3-350m step (24 layers, 12 a stage; bf16,
+    fp32 masters, bf16 moments; B 16, S 1024, M 4) on two gloo ranks that
+    share the card (NCCL refuses two ranks on one device), 3 steps of
+    "1f1b" and 3 of "gpipe": the first loss within PIPE_LOSS_RTOL of
+    make_train_step's from the same seed, the losses falling, each rank's
+    launches exact (``_pipe_want``), every bf16 flash launch through
+    wgmma; a small fp32 GPT pipelined against make_train_step on the card
+    within TRAIN_CPU_RTOL / TRAIN_CPU_ATOL; (b) ring attention over sep =
+    2 at PIPE_RING, bf16 and fp32, forward and gradients against the
+    function in fp64 (fp32 also against the plain block attention, cp 1)
+    within PIPE_RING_TOL scaled; (c)
+    ``_pipe_ring_axis``. Times, staged bytes and peak memory are those of
+    2 ranks sharing one H100, not a pp = 2 speed. Returns the main path's
+    launches: both ranks' (a) and (c)'s."""
+    import os
+    import tempfile
+
+    from paddle_tpu_torch.distributed.launch import launch_procs
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    cfg = _gpt350m()
+    if "gpt3-350m" in ONE_DEVICE_RUNS:
+        one = ONE_DEVICE_RUNS["gpt3-350m"][0][:PIPE_STEPS]
+        origin = "phase train's run"
+    else:
+        one = _pipe_one_device(dev, cfg, PIPE_STEPS, m_dtype="bfloat16",
+                               v_dtype="bfloat16")[0]
+        origin = "make_train_step's steps here"
+        torch.cuda.empty_cache()
+    loss0 = one[0]
+    small = _pipe_small_cfg()
+    s_losses, s_params = _pipe_one_device(dev, small, 3, seed=11, batch=4)
+    s_params = _map_leaves(s_params, lambda t: t.detach().cpu())
+    refs = _pipe_ring_reference(dev)
+    root = tempfile.mkdtemp(prefix="chip_smoke_pipe_")
+    t0 = time.perf_counter()
+    rc = launch_procs(os.path.abspath(__file__), [PIPE_WORKER, root], 2,
+                      log_dir=os.path.join(root, "logs"), timeout=400)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        for name in sorted(os.listdir(os.path.join(root, "logs"))):
+            print(open(os.path.join(root, "logs", name)).read()[-3000:])
+        raise AssertionError(f"pipe: a rank exited {rc}")
+    ranks = [json.load(open(os.path.join(root, f"rank{r}.json")))
+             for r in range(2)]
+    total = collections.Counter()
+    for r, got in enumerate(ranks):
+        for sched in ("1f1b", "gpipe"):
+            run = got[sched]
+            want = _pipe_want(cfg, run["stage"], 2, PIPE_M, PIPE_STEPS)
+            _check_launches(f"pipe (a) rank {r} {sched}", run["launches"],
+                            want)
+            if run["wgmma"] != {k: want[k] for k in ("flash_fwd",
+                                                      "flash_bwd")}:
+                raise AssertionError(f"pipe (a) rank {r} {sched}: wgmma "
+                                     f"flash launches {run['wgmma']}")
+            total.update(run["launches"])
+            losses = run["losses"]
+            if not abs(losses[0] - loss0) <= PIPE_LOSS_RTOL * abs(loss0):
+                raise AssertionError(f"pipe (a) {sched}: first loss "
+                                     f"{losses[0]} vs make_train_step's "
+                                     f"{loss0}")
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"pipe (a) {sched}: losses {losses}")
+        fa.LAUNCHES_BY_PLAN.update({tuple(k): n
+                                    for k, n in got["flash_by_plan"]})
+        if ranks[0]["1f1b"]["losses"] != got["1f1b"]["losses"]:
+            raise AssertionError("pipe (a): the ranks report other losses")
+        if not np.allclose(got["small_losses"], s_losses,
+                           rtol=TRAIN_CPU_RTOL, atol=0):
+            raise AssertionError(f"pipe (a) small fp32: losses "
+                                 f"{got['small_losses']} vs {s_losses}")
+    pp_params = torch.load(os.path.join(root, "small_params.pt"))
+    worst = max((a - b).abs().max().item() for a, b in
+                zip(_leaves(pp_params), _leaves(s_params)))
+    if not worst <= TRAIN_CPU_ATOL:
+        raise AssertionError(f"pipe (a) small fp32: params differ by "
+                             f"{worst}")
+    for sched in ("1f1b", "gpipe"):
+        print(f"pipe (a) gpt3-350m pp 2 (12 layers a stage) M {PIPE_M} "
+              f"B16 S1024 {sched}, 2 ranks sharing one H100 over gloo: "
+              f"losses {[round(v, 5) for v in ranks[0][sched]['losses']]} "
+              f"(first vs make_train_step's {loss0:.5f} from {origin}, "
+              f"rtol {PIPE_LOSS_RTOL}); step "
+              + ", ".join(f"rank {r} {g[sched]['ms']:.1f} ms"
+                          for r, g in enumerate(ranks))
+              + " (mean of steps 2-3; of it forward + backward "
+              + ", ".join(f"{g[sched]['parts_ms']['_pipeline_grads']:.1f}"
+                          for g in ranks)
+              + " ms, gradient sync + AdamW "
+              + ", ".join(f"{g[sched]['parts_ms']['update']:.1f}"
+                          for g in ranks)
+              + " ms, of that the gradient sync "
+              + ", ".join(f"{g[sched]['parts_ms']['_sync']:.1f}"
+                          for g in ranks)
+              + " ms and the moment writes "
+              + ", ".join(f"{g[sched]['parts_ms']['_store']:.1f}"
+                          for g in ranks)
+              + " ms); staged bytes a step "
+              + ", ".join(f"rank {r} {g[sched]['staged_bytes_per_step']:.0f}"
+                          for r, g in enumerate(ranks))
+              + "; peak mem "
+              + ", ".join(f"rank {r} {g[sched]['peak_gib']:.2f} GiB"
+                          for r, g in enumerate(ranks))
+              + "; peak stash "
+              + ", ".join(f"rank {r} {g[sched]['peak_stash']}"
+                          for r, g in enumerate(ranks))
+              + "; launches a rank "
+              + "; ".join(f"rank {r} {g[sched]['launches']}"
+                          for r, g in enumerate(ranks)))
+    print(f"pipe (a) one gloo all-reduce of wte's fp32 gradient "
+          f"({cfg.vocab_size * cfg.hidden * 4} B), 2 ranks sharing one H100: "
+          + ", ".join(f"rank {r} {g['allreduce_cuda_ms']:.1f} ms from the "
+                      f"card, {g['allreduce_cpu_ms']:.1f} ms from the host"
+                      for r, g in enumerate(ranks)))
+    print(f"pipe (a) small fp32 GPT pp 2 M {PIPE_SMALL_M} vs make_train_step "
+          f"on the card: losses {ranks[0]['small_losses']} vs {s_losses}, "
+          f"params max diff {worst:.3e}")
+    n = PIPE_RING[1] // 2
+    for name in ("float32", "bfloat16"):
+        ref, f64 = refs[name], refs[f"float64 of {name}"]
+        tol = PIPE_RING_TOL[name]
+        errs = []
+        for r in range(2):
+            got = torch.load(os.path.join(root, f"ring_{name}.r{r}.pt"))
+            rows = slice(r * n, (r + 1) * n)
+            against = [("fp64", f64)] + ([("cp 1", ref)]
+                                         if name == "float32" else [])
+            for tag, want in against:
+                for key in ("o", "dk", "dv"):
+                    errs.append(_hold(f"pipe (b) ring {name} {key} rank {r} "
+                                      f"vs {tag}", got[key],
+                                      want[key][:, rows], tol))
+                errs.append(_hold_dq(f"pipe (b) ring {name} dq rank {r} vs "
+                                     f"{tag}", got["dq"], want["dq"], rows,
+                                     tol))
+            if name == "bfloat16":
+                print(f"pipe (b) ring bfloat16 rank {r} vs cp 1 (not held): "
+                      + _scaled_errs(got, ref, rows))
+        print(f"pipe (b) cp 1 {name} vs fp64: "
+              + _scaled_errs(ref, f64, slice(0, PIPE_RING[1])))
+        print(f"pipe (b) ring attention sep 2 at {list(PIPE_RING)} {name}, "
+              f"causal, 2 ranks sharing one H100: forward + backward "
+              + ", ".join(f"rank {r} {g[f'ring_{name}_ms']:.1f} ms"
+                          for r, g in enumerate(ranks))
+              + f"; worst max_abs_err {max(errs):.3e} (scaled bar {tol})")
+    print(f"pipe (b) ring peak mem "
+          + ", ".join(f"rank {r} {g['ring_peak_gib']:.2f} GiB"
+                      for r, g in enumerate(ranks))
+          + f"; the ranks' launch to exit {wall:.1f} s")
+    total.update(_pipe_ring_axis(dev, one))
+    return dict(total)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5591,6 +6146,8 @@ def main(argv=None) -> int:
     args, rest = ap.parse_known_args(argv)
     if rest == [RESILIENT_WORKER]:
         return _resilient_worker()       # run_resilient's elastic children
+    if len(rest) == 2 and rest[0] == PIPE_WORKER:
+        return _pipe_worker(rest[1])     # run_pipe's gloo ranks
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
     phases = args.phases.split(",")
@@ -5760,6 +6317,12 @@ def main(argv=None) -> int:
     if "dist" in phases:
         print(f"dist launches {run_dist(dev)}")
         done("dist")
+    if "pipe" in phases:
+        ln = run_pipe(dev)
+        print(f"pipe launches {ln}")
+        for k, n in ln.items():
+            launches[k] = launches.get(k, 0) + n
+        done("pipe")
     if set(phases) != set(PHASES):
         print(f"phases {phases} only: no result line")
         return 0

@@ -10,6 +10,17 @@ step gives each rank the part of the global loss its own tokens carry,
 and no Megatron-style identity regions are needed. Every function is the
 identity when its group is None (an axis of one rank).
 
+``ppermute`` is the transport of the pipeline and of ring attention
+(the counterpart of ``lax.ppermute``): each rank of a group sends to the
+rank a permutation names and receives from the rank that names it, all
+of it posted at once (``batch_isend_irecv``), so that neighbours never
+wait on each other's blocking pair. Gloo moves no device memory point
+to point: on a gloo group a CUDA tensor is copied to the host, sent,
+received on the host and copied back, and ``ppermute.staged_copies`` /
+``ppermute.staged_bytes`` count those copies. The group's backend
+decides the path, never a failure. ``all_to_all_dim`` moves a tensor
+from one split dim to another (ring attention's heads <-> sequence).
+
 ``reshard_op``, ``scatter_axis`` and ``gather_axis`` act on the
 reference's ``Tensor`` and come with the Paddle API slice.
 """
@@ -19,7 +30,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["dist_allreduce_quant", "QUANT_SYNC_PP_REFUSAL",
-           "all_reduce_sum", "all_gather_dim", "reduce_scatter_dim"]
+           "all_reduce_sum", "all_gather_dim", "reduce_scatter_dim",
+           "ppermute", "all_to_all_dim"]
 
 # the reference's message, word for word: make_sharded_train_step raises
 # it for dist_allreduce_quant on a pp > 1 mesh
@@ -111,6 +123,118 @@ def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """This rank's block (along ``dim``) of the sum over the group."""
     return x if group is None else _ReduceScatterDim.apply(x, dim, group)
+
+
+def _group_rank(group) -> int:
+    import torch.distributed as dist
+
+    return dist.get_group_rank(group, dist.get_rank())
+
+
+def _send_recv(x: torch.Tensor, group, perm, tag: int = 0) -> torch.Tensor:
+    """The raw permutation (no autograd): ``perm`` lists (source, dest)
+    pairs of group ranks; a rank that no pair sends to gets zeros."""
+    import torch.distributed as dist
+
+    me = _group_rank(group)
+    dst = [d for s, d in perm if s == me]
+    src = [s for s, d in perm if d == me]
+    if len(dst) > 1 or len(src) > 1:
+        raise ValueError(f"ppermute: rank {me} appears twice in {perm}")
+    staged = x.is_cuda and dist.get_backend(group) == "gloo"
+    out = torch.zeros(x.shape, dtype=x.dtype,
+                      device="cpu" if staged else x.device)
+    if not dst and not src:
+        return out.to(x.device)
+    ops = []
+    if dst:
+        buf = x.detach().contiguous()
+        if staged:
+            buf = buf.cpu()
+            _note_staged(buf)
+        ops.append(dist.P2POp(dist.isend, buf,
+                              dist.get_global_rank(group, dst[0]), group,
+                              tag))
+    if src:
+        ops.append(dist.P2POp(dist.irecv, out,
+                              dist.get_global_rank(group, src[0]), group,
+                              tag))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    ppermute.sends += len(dst)
+    if staged:
+        if src:
+            _note_staged(out)
+        out = out.to(x.device)
+    return out
+
+
+def _note_staged(t: torch.Tensor) -> None:
+    ppermute.staged_copies += 1
+    ppermute.staged_bytes += t.numel() * t.element_size()
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, perm, tag):
+        ctx.group, ctx.perm, ctx.tag = group, perm, tag
+        return _send_recv(x, group, perm, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        back = [(d, s) for s, d in ctx.perm]
+        return _send_recv(g, ctx.group, back, ctx.tag), None, None, None
+
+
+def ppermute(x: torch.Tensor, group, perm, tag: int = 0) -> torch.Tensor:
+    """``lax.ppermute`` over a process group: ``perm`` is a list of
+    (source, dest) pairs of group ranks; every rank of the group calls
+    it with the same ``perm``. A rank receives the tensor of the pair
+    that names it as dest, zeros where none does. The backward is the
+    reverse permutation. Counts ``ppermute.sends`` (tensors this rank
+    sent) and, on gloo with CUDA tensors, the host copies."""
+    if group is None:
+        return x if (0, 0) in perm else torch.zeros_like(x)
+    return _PPermute.apply(x, group, [tuple(p) for p in perm], tag)
+
+
+ppermute.sends = ppermute.staged_copies = ppermute.staged_bytes = 0
+
+
+def _all_to_all(x: torch.Tensor, split: int, cat: int, group):
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    parts = x.movedim(split, 0)
+    parts = parts.reshape((n, parts.shape[0] // n) + tuple(parts.shape[1:]))
+    src = parts.contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    # out[i]: rank i's block of this rank's part of ``split``; put the
+    # blocks side by side along ``cat``
+    out = out.movedim(1, split + 1)            # [n, ... split dim back ...]
+    return torch.cat(list(out), dim=cat).contiguous()
+
+
+class _AllToAllDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split, cat, group):
+        ctx.split, ctx.cat, ctx.group = split, cat, group
+        return _all_to_all(x, split, cat, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.cat, ctx.split, ctx.group), None, None, \
+            None
+
+
+def all_to_all_dim(x: torch.Tensor, split: int, cat: int, group):
+    """Split ``x`` along ``split`` into one block a rank, send block i to
+    rank i, and concatenate what arrives along ``cat`` in rank order:
+    a tensor held whole along ``split`` and split along ``cat`` comes out
+    split along ``split`` and whole along ``cat``. Its adjoint is the
+    move back."""
+    return x if group is None else _AllToAllDim.apply(x, split, cat, group)
 
 
 def dist_allreduce_quant(x: torch.Tensor, group=None, *, mean: bool = False,

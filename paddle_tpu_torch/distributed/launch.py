@@ -26,11 +26,16 @@ import time
 __all__ = ["main", "init_from_env", "launch_procs"]
 
 
-def init_from_env(device=None) -> bool:
+def init_from_env(device=None, backend: str | None = None) -> bool:
     """Join the process group the launcher's environment describes
-    (``tcp://`` rendezvous at the master's address): gloo when ``device``
-    is the CPU, nccl on the card (the default). Returns True if a
-    multi-process group was found and joined."""
+    (``tcp://`` rendezvous at the master's address). ``backend`` None:
+    gloo when ``device`` is the CPU, nccl on the card (the default).
+    ``backend="gloo"`` on the card lets several ranks share one device,
+    which NCCL refuses (a communicator needs one device a rank): each
+    rank's tensors stay on the card, the collectives run through gloo
+    and its point-to-point sends through host copies
+    (``autograd_collectives.ppermute``). Returns True if a multi-process
+    group was found and joined."""
     master = os.environ.get("PADDLE_MASTER") or os.environ.get("MASTER_ADDR")
     nnodes = int(os.environ.get("PADDLE_TRAINERS_NUM",
                                 os.environ.get("NNODES", "1")))
@@ -46,12 +51,14 @@ def init_from_env(device=None) -> bool:
     from ..core.device import resolve_device
 
     dev = resolve_device(device)
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if dev.type == "cuda":
         import torch
 
-        torch.cuda.set_device(int(os.environ.get("PADDLE_LOCAL_RANK",
-                                                 rank)))
-    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+        local = int(os.environ.get("PADDLE_LOCAL_RANK", rank))
+        # ranks beyond the cards share them (gloo only)
+        torch.cuda.set_device(local % torch.cuda.device_count())
+    dist.init_process_group(backend,
                             init_method=f"tcp://{master}",
                             world_size=nnodes, rank=rank)
     return True

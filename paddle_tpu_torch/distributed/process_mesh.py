@@ -6,11 +6,14 @@ paddle_tpu/distributed/process_mesh.py).
 mesh of more than one rank, a ``torch.distributed.device_mesh.DeviceMesh``
 over the process group the caller joined (``distributed/launch.py::
 init_from_env``: gloo on the CPU, nccl on the card) and one subgroup an
-axis. A mesh whose every axis is 1 needs no process group: it runs in a
-plain process. The DeviceMesh is made on first use, which every rank
-reaches in the same order (``make_sharded_train_step`` reaches it while
-it builds the step), so that a mesh can also be built only for its
-shape, as the spec tests do.
+axis. The DeviceMesh's device type follows the backend unless its
+maker names one (``Mesh.make_device_mesh``; the sharded step names its
+own device, so that gloo ranks that share a card hold their DTensors
+on it). A mesh whose every axis is 1 needs no process group: it runs in
+a plain process. The DeviceMesh is made on first use, which every rank
+reaches in the same order (``make_sharded_train_step`` makes it while it
+builds the step), so that a mesh can also be built only for its shape,
+as the spec tests do.
 """
 
 from __future__ import annotations
@@ -51,10 +54,22 @@ class Mesh:
 
     @property
     def device_mesh(self):
-        """The ``DeviceMesh`` over the joined group; None at one rank."""
+        """The ``DeviceMesh`` over the joined group (made on first use
+        for the backend's device type); None at one rank."""
+        return self.make_device_mesh()
+
+    def make_device_mesh(self, device_type: Optional[str] = None):
+        """The ``DeviceMesh``, made now if it is not yet, for
+        ``device_type`` ("cuda" or "cpu"; None: "cuda" under nccl,
+        else "cpu"); None at one rank. Refuses a device type other than
+        the one it was made for."""
         if self.size == 1:
             return None
-        if self._device_mesh is None:
+        if self._device_mesh is not None:
+            if device_type not in (None, self._device_mesh.device_type):
+                raise ValueError(f"the mesh's DeviceMesh is already made "
+                                 f"for {self._device_mesh.device_type}")
+        else:
             import torch.distributed as dist
             from torch.distributed.device_mesh import DeviceMesh
 
@@ -66,7 +81,8 @@ class Mesh:
             if dist.get_world_size() != self.size:
                 raise ValueError(f"mesh of {self.size} ranks in a group of "
                                  f"{dist.get_world_size()}")
-            kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+            kind = device_type or (
+                "cuda" if dist.get_backend() == "nccl" else "cpu")
             self._device_mesh = DeviceMesh(kind, self.devices,
                                            mesh_dim_names=self.axis_names)
         return self._device_mesh

@@ -28,12 +28,22 @@ token, so every sum the reference's einsums take has one nonzero term
 and the two forms give the same bits. ``sharded_loss_fn`` is the
 forward of the sharded train step (parallel/train_step.py) on a rank's
 blocks, with explicit collectives where the reference leaves GSPMD to
-place them. The compiler does not trace it (its collectives are no
-graph ops), so it places K6, K7 and K4/K5 itself where the compiler's
-plan would; ``model_apply``'s sharding hooks (``sp_constraint``,
-``blocks_fn``, ``emb_constraint``) are layout constraints the port has
-no use for, and ring attention (``ring_axis``) comes with the pipeline
-slice: both raise.
+place them; the pipeline runs its three parts (``sharded_embed``,
+``sharded_block``, ``sharded_tail``) on the stages that own them. The
+compiler does not trace it (its collectives are no graph ops), so it
+places K6, K7 and K4/K5 itself where the compiler's plan would.
+``model_apply``'s ``blocks_fn`` (the pipeline's,
+``parallel/pipeline.py::pipeline_blocks_fn``) replaces the layer loop
+and runs the plain composition; its other sharding hooks
+(``sp_constraint``, ``emb_constraint``) are GSPMD layout constraints the
+port has no use for, and raise.
+
+``ring_axis``: on a sharded step's mesh whose axis of that name has more
+than one rank (mp, the one the port honours), attention runs as ring
+attention over it (``parallel/ring_attention.py``); where the axis is
+absent or of one rank, as on one device, the fused-qkv entry is skipped
+and attention goes through ``flash_attention_raw`` on the split q, k, v
+(K1-sep forward, K3-sep backward), as the reference's.
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ from ..compiler import fused_call, remat_call
 from ..core.flags import GLOBAL_FLAGS
 from ..distributed.autograd_collectives import (all_gather_dim,
                                                 all_reduce_sum,
+                                                all_to_all_dim,
                                                 reduce_scatter_dim)
 from ..ops.kernels.flash_attention import (flash_attention_qkv,
                                            flash_attention_raw,
@@ -66,8 +77,8 @@ from ..ops.kernels.fused_norm_epilogue import (fused_norm_epilogue,
 __all__ = ["GPTConfig", "gpt_presets", "init_params", "block_apply",
            "moe_block_apply", "moe_route", "moe_dispatch", "moe_combine",
            "moe_dispatch_dense", "moe_combine_dense", "model_apply",
-           "loss_fn", "sharded_loss_fn",
-           "Shards", "gpt_flops_per_token"]
+           "loss_fn", "sharded_loss_fn", "sharded_embed", "sharded_block",
+           "sharded_tail", "Shards", "gpt_flops_per_token"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,22 +130,15 @@ def gpt_presets(name: str) -> GPTConfig:
     return GPTConfig(**table[name])
 
 
-def _refuse_later_slices(cfg: GPTConfig) -> None:
-    if cfg.ring_axis:
-        raise NotImplementedError(
-            "later slice: ring attention (ring_axis) comes with the "
-            "pipeline slice (parallel/pipeline.py, "
-            "parallel/ring_attention.py)")
-
-
 @dataclasses.dataclass(frozen=True)
 class Shards:
     """A rank's place in a sharded step, as the forward needs it: the
     process groups along dp and mp (None: one rank, every collective the
-    identity), this rank's index on each, and whether the expert dim is
-    split over dp. ``dp`` None with ``dp_size`` 1 is also how the
-    per-rank forward of the int8-wire sync sees the batch: its own rows
-    only."""
+    identity), this rank's index on each, whether the expert dim is
+    split over dp, and the mesh whose ``cfg.ring_axis`` ring attention
+    runs over (None: no ring). ``dp`` None with ``dp_size`` 1 is also
+    how the per-rank forward of the int8-wire sync sees the batch: its
+    own rows only."""
     dp: Any = None
     dp_size: int = 1
     dp_rank: int = 0
@@ -142,6 +146,7 @@ class Shards:
     mp_size: int = 1
     mp_rank: int = 0
     ep: bool = False
+    ring: Any = None
 
 
 _ONE = Shards()
@@ -153,7 +158,6 @@ def init_params(cfg: GPTConfig, generator: torch.Generator,
     (0.02), wpe 0.01, residual projections 0.02 / sqrt(2L), LayerNorm
     gains 1 and biases 0. The numbers differ from the reference's (another
     generator); the tree, names, shapes and dtypes are the same."""
-    _refuse_later_slices(cfg)
     H, L, Fd = cfg.hidden, cfg.n_layers, cfg.ffn_mult * cfg.hidden
     std = 0.02
     pstd = std / math.sqrt(2 * L)
@@ -237,7 +241,8 @@ def _attend(qkv, n_heads: int, cfg: GPTConfig):
     (q, k, v of ``n_heads`` heads), to [B, T, h d]."""
     B, T, three = qkv.shape
     H = three // 3
-    if cfg.use_flash and flash_qkv_supported(qkv.shape, n_heads, qkv.dtype):
+    if cfg.use_flash and not cfg.ring_axis and \
+            flash_qkv_supported(qkv.shape, n_heads, qkv.dtype):
         # K1/K2 read q, k and v from the projection output in place
         return flash_attention_qkv(qkv, n_heads, causal=True).reshape(
             B, T, H)
@@ -293,7 +298,26 @@ def _sharded_bias_gelu(h, b):
     return F.gelu(h + b.to(h.dtype), approximate="tanh")
 
 
-def _sharded_block(bp: dict, x, cfg: GPTConfig, shards: Shards):
+def _ring_attend(qkv, cfg: GPTConfig, shards: Shards):
+    """Ring attention over mp on the fused projection ``qkv`` [B, T, 3 h
+    d] of this rank's h heads over the whole sequence: an all-to-all
+    over mp brings q, k and v to the ring's layout (every head, T / mp
+    positions), the ring runs, and a second all-to-all brings the output
+    back to this rank's heads over T, [B, T, h d]."""
+    # imported here: the parallel package imports this module
+    from ..parallel.ring_attention import ring_attention
+
+    B, T, three = qkv.shape
+    hl = three // 3 // cfg.head_dim
+    q, k, v = (all_to_all_dim(t.reshape(B, T, hl, cfg.head_dim), 1, 2,
+                              shards.mp)
+               for t in qkv.split(three // 3, dim=-1))
+    o = ring_attention(q, k, v, shards.ring, axis=cfg.ring_axis,
+                       causal=True)
+    return all_to_all_dim(o, 2, 1, shards.mp).reshape(B, T, three // 3)
+
+
+def sharded_block(bp: dict, x, cfg: GPTConfig, shards: Shards):
     """``block_apply`` on a rank's blocks, with K6 at both LayerNorms
     (the second folding in the attention's residual and proj's bias, as
     the compiler's plan does) and K7 at the gelu, on the rows this rank
@@ -301,14 +325,18 @@ def _sharded_block(bp: dict, x, cfg: GPTConfig, shards: Shards):
     T / mp, H]; each LayerNorm output is all-gathered over T before a
     column-parallel product (qkv with the rank's heads, fc with its F
     columns), and each row-parallel product (proj, fc2) is
-    reduce-scattered back over T. Without mp the collectives are the
-    identity."""
+    reduce-scattered back over T. With ``shards.ring`` the attention is
+    ring attention over mp (``_ring_attend``). Without mp the
+    collectives are the identity."""
     dt = cfg.dtype
     mp = shards.mp
     h = _sharded_norm(x, bp["ln1_g"], bp["ln1_b"], cfg)[1]
     h = all_gather_dim(h, 1, mp)
     qkv = _mm(h, bp["qkv_w"], cfg) + bp["qkv_b"].to(dt)
-    o = _attend(qkv, cfg.n_heads // shards.mp_size, cfg)
+    if shards.ring is not None:
+        o = _ring_attend(qkv, cfg, shards)
+    else:
+        o = _attend(qkv, cfg.n_heads // shards.mp_size, cfg)
     o = reduce_scatter_dim(_mm(o, bp["proj_w"], cfg), 1, mp)
     x, h = _sharded_norm(x, bp["ln2_g"], bp["ln2_b"], cfg, o, bp["proj_b"])
     h = all_gather_dim(h, 1, mp)
@@ -464,16 +492,21 @@ def model_apply(params: dict, tokens, cfg: GPTConfig, sp_constraint=None,
     Routed through the fusion compiler, as the reference's when no
     sharding hooks are passed: the plan places K6 at every LayerNorm and
     K7 at every FFN gelu (with ``use_auto_fusion=0``, the plain
-    composition runs). The hooks are the reference's layout constraints;
-    the port's sharded step runs ``sharded_loss_fn`` instead."""
-    if sp_constraint is not None or blocks_fn is not None or \
-            emb_constraint is not None:
+    composition runs). ``blocks_fn(params["blocks"], x)`` (the
+    pipeline's) replaces the layer loop; the model around it is then the
+    plain composition, which the compiler does not trace (as the
+    reference's pp step runs outside its ``auto_fuse``).
+    ``sp_constraint`` and ``emb_constraint`` are the reference's GSPMD
+    layout constraints; the port's sharded step runs
+    ``sharded_loss_fn`` instead."""
+    if sp_constraint is not None or emb_constraint is not None:
         raise NotImplementedError(
-            "sp_constraint, blocks_fn and emb_constraint are GSPMD layout "
-            "hooks: the port's sharded forward is "
-            "parallel/train_step.py::make_sharded_train_step (blocks_fn, "
-            "the pipeline's, comes with the pipeline slice)")
-    _refuse_later_slices(cfg)
+            "sp_constraint and emb_constraint are GSPMD layout hooks: the "
+            "port's sharded forward is "
+            "parallel/train_step.py::make_sharded_train_step")
+    if blocks_fn is not None:
+        return _model_apply_unfused(params, tokens, cfg, return_hidden,
+                                    blocks_fn=blocks_fn)
     return fused_call(("gpt_apply", cfg, bool(return_hidden)),
                       functools.partial(_model_apply_unfused, cfg=cfg,
                                         return_hidden=return_hidden),
@@ -487,15 +520,17 @@ _REMAT_POLICY = {True: "save_dots_and_flash", "full": "save_flash"}
 
 
 def _model_apply_unfused(params: dict, tokens, cfg: GPTConfig,
-                         return_hidden: bool = False):
+                         return_hidden: bool = False, blocks_fn=None):
     """The plain op-by-op forward. With ``remat`` each block runs through
     ``compiler.remat_call`` with its policy: recomputed in the backward
     but for what the policy saves, and planned by the compiler as a
-    nested program of its own."""
+    nested program of its own. ``blocks_fn`` replaces the layer loop."""
     B, T = tokens.shape
     x = params["wte"][tokens.long()].to(cfg.dtype) + \
         params["wpe"][:T].to(cfg.dtype)
-    for i in range(cfg.n_layers):
+    if blocks_fn is not None:
+        x = blocks_fn(params["blocks"], x)
+    for i in range(cfg.n_layers if blocks_fn is None else 0):
         bp = {k: v[i] for k, v in params["blocks"].items()}
         if cfg.remat:
             x = remat_call(("gpt_block", cfg),
@@ -646,29 +681,12 @@ class _VocabParallelCE(torch.autograd.Function):
         return dx, dh, None, None
 
 
-def sharded_loss_fn(params, tokens, labels, cfg: GPTConfig, shards: Shards,
-                    loss_chunk: int = 512):
-    """This rank's share of the loss, on its blocks of the parameters
-    and its dp rows of the batch: (objective, nll_sum, aux).
-
-    ``objective`` is the sum of the cross-entropy over the tokens this
-    rank owns (its rows; over mp its T-slice) divided by the N tokens of
-    the batch, plus 0.01 x aux over the ranks that share aux. Summed over
-    ranks it is the loss, and each collective's backward is its forward's
-    adjoint, so a parameter's gradient is the sum of its ranks'
-    gradients. ``nll_sum`` and ``aux`` make the reported loss.
-
-    The vocab-parallel embedding masks ids outside the rank's slab and
-    reduce-scatters over T; the head's cross-entropy runs on the rank's
-    vocab slab of every token's logits with the log-sum-exp combined
-    over mp: K4/K5 on the slab on CUDA where their gate holds
-    (``_VocabParallelCE``), else the reference's expression under a
-    mesh (``_vocab_parallel_nll``). Without mp it is the single-device
-    cross-entropy on the rank's rows (K4/K5 on CUDA where the gate
-    holds). The blocks place K6 and K7 (``_sharded_block``)."""
+def sharded_embed(params, tokens, cfg: GPTConfig, shards: Shards):
+    """The embedding of the sharded forward: [B, T / mp, H] of this
+    rank's rows and (over mp) its T-slice. The vocab-parallel embedding
+    masks ids outside the rank's slab and reduce-scatters over T."""
     s = shards
-    B, T = tokens.shape
-    dt = cfg.dtype
+    T = tokens.shape[1]
     t_loc = T // s.mp_size
     t0 = s.mp_rank * t_loc
     wte = params["wte"]
@@ -680,19 +698,31 @@ def sharded_loss_fn(params, tokens, labels, cfg: GPTConfig, shards: Shards,
         emb = reduce_scatter_dim(emb, 1, s.mp)
     else:
         emb = wte[tokens.long()[:, t0:t0 + t_loc]]
-    x = emb.to(dt) + params["wpe"][t0:t0 + t_loc].to(dt)
-    for i in range(cfg.n_layers):
-        bp = {k: v[i] for k, v in params["blocks"].items()}
-        fn = functools.partial(_sharded_block, cfg=cfg, shards=s)
-        if cfg.remat:
-            # every op recomputed, the collectives with them (each rank
-            # runs the same backward, so they pair up)
-            x = checkpoint(fn, bp, x, use_reentrant=False)
-        else:
-            x = fn(bp, x)
+    return emb.to(cfg.dtype) + params["wpe"][t0:t0 + t_loc].to(cfg.dtype)
+
+
+def sharded_tail(params, x, labels, cfg: GPTConfig, shards: Shards,
+                 n_tokens: int, loss_chunk: int = 512):
+    """The sharded forward after the blocks, on their output ``x`` [B,
+    T / mp, H] and its rows' ``labels`` [B, T]: the MoE layers, the final
+    LayerNorm and the head's cross-entropy; (objective, nll_sum, aux)
+    with the objective nll_sum / ``n_tokens`` + 0.01 x aux over the ranks
+    that share aux (see ``sharded_loss_fn``). The head's cross-entropy
+    runs on the rank's vocab slab of every token's logits with the
+    log-sum-exp combined over mp: K4/K5 on the slab on CUDA where their
+    gate holds (``_VocabParallelCE``), else the reference's expression
+    under a mesh (``_vocab_parallel_nll``); without mp it is the
+    single-device cross-entropy on the rank's rows (K4/K5 on CUDA where
+    the gate holds)."""
+    s = shards
+    B, T = labels.shape
+    dt = cfg.dtype
+    t_loc = T // s.mp_size
+    t0 = s.mp_rank * t_loc
     x, aux = _moe_layers(params, x, cfg, s)
     x = _sharded_norm(x, params["lnf_g"], params["lnf_b"], cfg)[1]
-    head = (wte.t() if cfg.tie_embeddings else params["head_w"]).to(dt)
+    head = (params["wte"].t() if cfg.tie_embeddings
+            else params["head_w"]).to(dt)
     if s.mp is not None and head.shape[1] != cfg.vocab_size:
         xf = all_gather_dim(x, 1, s.mp)
         v_loc = head.shape[1]
@@ -711,9 +741,36 @@ def sharded_loss_fn(params, tokens, labels, cfg: GPTConfig, shards: Shards,
                                        lab.reshape(n)).sum()
         else:
             nll_sum = _chunked_ce_total(x, head, lab, loss_chunk)
-    N = B * T * s.dp_size
-    obj = nll_sum / N + 0.01 * aux / (s.dp_size * s.mp_size)
+    obj = nll_sum / n_tokens + 0.01 * aux / (s.dp_size * s.mp_size)
     return obj, nll_sum.detach(), aux.detach()
+
+
+def sharded_loss_fn(params, tokens, labels, cfg: GPTConfig, shards: Shards,
+                    loss_chunk: int = 512):
+    """This rank's share of the loss, on its blocks of the parameters
+    and its dp rows of the batch: (objective, nll_sum, aux).
+
+    ``objective`` is the sum of the cross-entropy over the tokens this
+    rank owns (its rows; over mp its T-slice) divided by the N tokens of
+    the batch, plus 0.01 x aux over the ranks that share aux. Summed over
+    ranks it is the loss, and each collective's backward is its forward's
+    adjoint, so a parameter's gradient is the sum of its ranks'
+    gradients. ``nll_sum`` and ``aux`` make the reported loss. The
+    embedding (``sharded_embed``), the blocks (``sharded_block``, which
+    place K6 and K7) and the tail (``sharded_tail``) in turn."""
+    B, T = tokens.shape
+    x = sharded_embed(params, tokens, cfg, shards)
+    for i in range(cfg.n_layers):
+        bp = {k: v[i] for k, v in params["blocks"].items()}
+        fn = functools.partial(sharded_block, cfg=cfg, shards=shards)
+        if cfg.remat:
+            # every op recomputed, the collectives with them (each rank
+            # runs the same backward, so they pair up)
+            x = checkpoint(fn, bp, x, use_reentrant=False)
+        else:
+            x = fn(bp, x)
+    return sharded_tail(params, x, labels, cfg, shards,
+                        B * T * shards.dp_size, loss_chunk)
 
 
 def gpt_flops_per_token(cfg: GPTConfig) -> float:

@@ -10,7 +10,9 @@ __all__ = ["nucleus_keep"]
 def nucleus_keep(sorted_probs: torch.Tensor, top_p) -> torch.Tensor:
     """Keep mask over descending-sorted probabilities [..., V]: the
     minimal prefix whose mass reaches ``top_p``, crossing element
-    included, at least one token always kept. The mass before each
+    included: for ``top_p`` > 0 the first token always (the mass before
+    it is 0), for ``top_p`` <= 0 none, as in the reference. The mass
+    before each
     element is an EXCLUSIVE cumsum (shift, then accumulate), never
     ``cumsum - p``, which can lose an ulp and move the boundary."""
     shifted = torch.cat([torch.zeros_like(sorted_probs[..., :1]),

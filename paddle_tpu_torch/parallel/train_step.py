@@ -43,7 +43,9 @@ from ..distributed.sharding import (REF_COLUMNS, as_dtensor, axis_of_dim,
                                     shard_array_over, shard_spec_over,
                                     to_local)
 from ..models.gpt import (GPTConfig, Shards, init_params, loss_fn,
-                          sharded_loss_fn)
+                          sharded_block, sharded_embed, sharded_loss_fn,
+                          sharded_tail)
+from .pipeline import PipelineBlocks
 
 __all__ = ["adamw_init", "adamw_update", "make_train_step",
            "gpt_param_specs", "shard_gpt_params", "opt_state_specs",
@@ -248,14 +250,13 @@ def make_train_step(cfg: GPTConfig, lr: float = 1e-4, seed: int = 0,
     masters of them in the state, ``weights='sr-bf16'`` none (stochastic
     rounding, its noise from a generator seeded with ``seed``). One
     device has no gradient to sync: ``dist_allreduce_quant`` changes
-    nothing here."""
+    nothing here. ``n_microbatches`` is ignored: one device has no pp
+    axis, and without pp the reference's pipeline is the stage itself
+    (``pipeline.py:76-77``)."""
     _check_options(weights, m_dtype, v_dtype)
     if mesh is not None:
         raise NotImplementedError("a mesh is make_sharded_train_step's "
                                   "argument")
-    if n_microbatches > 1:
-        raise NotImplementedError("later slice: microbatches come with the "
-                                  "pipeline (parallel/pipeline.py)")
     dev = resolve_device(device)
     low_precision = cfg.param_dtype != cfg.dtype
     sr = weights == "sr-bf16" and low_precision
@@ -383,6 +384,24 @@ def _check_mesh(cfg: GPTConfig, mesh) -> None:
             if n % mp:
                 raise ValueError(f"tensor parallelism over mp={mp} needs "
                                  f"{name} ({n}) divisible by it")
+    pp = mesh.shape.get("pp", 1)
+    if cfg.n_layers % pp:
+        raise ValueError(f"the pipeline over pp={pp} needs n_layers "
+                         f"({cfg.n_layers}) divisible by it")
+    ring = cfg.ring_axis
+    if ring and mesh.shape.get(ring, 1) > 1 and ring != "mp":
+        raise NotImplementedError(
+            f"ring_axis={ring!r}: the port runs ring attention over the mp "
+            f"axis only (its {mesh.shape[ring]} ranks of {ring!r} hold other "
+            "work); set ring_axis='mp' or leave it unset")
+
+
+def _ring_mesh(cfg: GPTConfig, mesh):
+    """The mesh ring attention runs over, where ``ring_axis`` names an
+    axis of more than one rank (mp, by ``_check_mesh``); else None."""
+    if cfg.ring_axis and mesh.shape.get(cfg.ring_axis, 1) > 1:
+        return mesh
+    return None
 
 
 def shard_gpt_params(params: dict, cfg: GPTConfig, mesh) -> dict:
@@ -514,29 +533,55 @@ class _ShardedStep:
     that replicate its parameter, and updates the blocks of the
     optimizer's layout. On a one-rank mesh every collective is the
     identity (``make_sharded_train_step`` returns ``make_train_step``
-    there; this class runs there only when built directly)."""
+    there; this class runs there only when built directly).
 
-    def __init__(self, cfg, mesh, lr, sr, dev, seed):
+    Over pp (``_pipeline_grads``) the three parts of ``sharded_loss_fn``
+    run where they belong: the embedding on stage 0, the blocks as a
+    pipeline (``parallel/pipeline.py``), the MoE layers, the final
+    LayerNorm and the head on the last stage. A parameter the stages
+    replicate (``wte``, ``wpe``, ``lnf_*``, ``moe``, ``head_w``) gets its
+    gradient summed over pp like any other replicated one: ``wte``'s is
+    the embedding's (stage 0) plus the head's (last stage), every other
+    one's a single stage's, so that every pp rank takes the same update
+    of it, bit for bit."""
+
+    def __init__(self, cfg, mesh, lr, sr, dev, seed, n_microbatches=1):
         self.cfg, self.mesh, self.lr, self.sr, self.dev = (cfg, mesh, lr,
                                                            sr, dev)
         self.sr_gen = (torch.Generator(device=dev).manual_seed(seed)
                        if sr else None)
         self.dp, self.mp = mesh.shape.get("dp", 1), mesh.shape.get("mp", 1)
+        self.pp = mesh.shape.get("pp", 1)
         self.quant = bool(GLOBAL_FLAGS.get("dist_allreduce_quant")) and \
             self.dp > 1
         self.moe = cfg.n_experts > 0 and cfg.n_moe_layers > 0
         self.specs = gpt_param_specs(cfg)
         coords = mesh.coords()
         self.dp_rank = coords.get("dp", 0)
+        ring = _ring_mesh(cfg, mesh)
         if self.quant:
             self.shards = Shards(mp=mesh.group("mp"), mp_size=self.mp,
-                                 mp_rank=coords.get("mp", 0))
+                                 mp_rank=coords.get("mp", 0), ring=ring)
         else:
             self.shards = Shards(
                 dp=mesh.group("dp"), dp_size=self.dp, dp_rank=self.dp_rank,
                 mp=mesh.group("mp"), mp_size=self.mp,
                 mp_rank=coords.get("mp", 0),
-                ep=self.moe and self.dp > 1 and cfg.n_experts % self.dp == 0)
+                ep=self.moe and self.dp > 1 and cfg.n_experts % self.dp == 0,
+                ring=ring)
+        self.pipe = None
+        if self.pp > 1:
+            self.pipe = PipelineBlocks(self._stage, mesh, n_microbatches)
+
+    def _stage(self, bp: dict, x):
+        """One pipeline stage: this rank's layers of the blocks, each
+        ``sharded_block`` (no checkpoint: the pipeline's replay is the
+        recompute, as the reference's stage runs block_apply in a plain
+        scan)."""
+        for i in range(bp["ln1_g"].shape[0]):
+            x = sharded_block({k: v[i] for k, v in bp.items()}, x,
+                              self.cfg, self.shards)
+        return x
 
     def compute_spec(self, path, shape):
         """The layout a parameter is computed in: its Megatron spec, and
@@ -547,31 +592,100 @@ class _ShardedStep:
             spec = P(*(None if e == ("dp",) else e for e in spec))
         return spec
 
-    def loss(self, tree, tok, lab):
-        """(objective, reported loss): the objectives summed over the
-        ranks of a gradient reduction are the loss; the reported loss,
-        made from every rank's parts in rank order, is the same on every
-        rank."""
+    def _reported(self, nll, aux, n: int):
+        """The reported loss from every rank's (nll_sum, aux), the same
+        on every rank: the last stage's parts, in rank order; ``n`` is a
+        dp rank's tokens."""
         import torch.distributed as dist
 
-        obj, nll, aux = sharded_loss_fn(tree, tok, lab, self.cfg,
-                                        self.shards)
         every = torch.stack([nll, aux])
         if self.mesh.size > 1:
             part, every = every, torch.empty((self.mesh.size * 2,),
                                              dtype=every.dtype,
                                              device=every.device)
             dist.all_gather_into_tensor(every, part)
-        every = every.reshape(-1, 2)[torch.as_tensor(
-            self.mesh.devices.reshape(self.dp, self.mp), device=obj.device)]
-        n = tok.numel()                  # a dp rank's tokens
+        last = self.mesh.devices.reshape(self.dp, self.pp, self.mp)[:, -1]
+        every = every.reshape(-1, 2)[torch.as_tensor(last,
+                                                     device=nll.device)]
         if self.quant:
             # the mean of the dp ranks' losses, as the reference's pmean
             per_dp = every[:, :, 0].sum(1) / n + 0.01 * every[:, 0, 1]
-            return obj, per_dp.sum() / self.dp
-        return obj, (every[:, :, 0].sum() / (n * self.dp)
-                     + 0.01 * every[0, 0, 1])
+            return per_dp.sum() / self.dp
+        return every[:, :, 0].sum() / (n * self.dp) + 0.01 * every[0, 0, 1]
 
+    def loss(self, tree, tok, lab):
+        """(objective, reported loss): the objectives summed over the
+        ranks of a gradient reduction are the loss; the reported loss,
+        made from every rank's parts in rank order, is the same on every
+        rank."""
+        obj, nll, aux = sharded_loss_fn(tree, tok, lab, self.cfg,
+                                        self.shards)
+        return obj, self._reported(nll, aux, tok.numel())
+
+    def _pipeline_grads(self, blocks, paths, tok, lab):
+        """(gradient of each of ``blocks``, reported loss) over pp: the
+        embedding's graph on stage 0, the pipeline's schedule, the tail
+        on the last stage, per microbatch where the loss sums over
+        tokens and once over the whole batch with MoE (its capacity and
+        aux loss see every token), where the schedule is then gpipe's."""
+        cfg, pipe = self.cfg, self.pipe
+        S, M, s = self.pp, pipe.n_micro, pipe.stage
+        b, T = tok.shape
+        if b % M:
+            raise ValueError(f"a dp rank's {b} rows over {M} microbatches")
+        mb = b // M
+        tree = _unflatten(paths, blocks)
+        index = {id(t): i for i, t in enumerate(blocks)}
+        grads = [None] * len(blocks)
+
+        def add(leaves, gs):
+            for t, g in zip(leaves, gs):
+                if g is not None:
+                    i = index[id(t)]
+                    grads[i] = g if grads[i] is None else grads[i] + g
+
+        zero = torch.zeros((), dtype=torch.float32, device=self.dev)
+        parts = {"nll": zero, "aux": zero}
+        tail_leaves = [t for path, t in zip(paths, blocks)
+                       if path[0] != "blocks"]
+        n_tokens = b * T * self.dp
+
+        def tail_grads(y, rows):
+            yd = y.detach().requires_grad_(True)
+            with torch.enable_grad():
+                obj, nll, aux = sharded_tail(tree, yd, lab[rows], cfg,
+                                             self.shards, n_tokens)
+                got = torch.autograd.grad(obj, [yd] + tail_leaves,
+                                          allow_unused=True)
+            add(tail_leaves, got[1:])
+            parts["nll"] = parts["nll"] + nll
+            parts["aux"] = parts["aux"] + aux
+            return got[0]
+
+        if self.moe:
+            def tail(ys):
+                dy = tail_grads(torch.cat(ys), slice(0, b))
+                return list(dy.reshape((M, mb) + tuple(dy.shape[1:])))
+        else:
+            def tail(j, y):
+                return tail_grads(y, slice(j * mb, (j + 1) * mb))
+
+        x = xs = None
+        if s == 0:
+            x = sharded_embed(tree, tok, cfg, self.shards)
+            xs = list(x.detach().reshape((M, mb) + tuple(x.shape[1:])))
+        like = torch.empty((mb, T // self.mp, cfg.hidden), dtype=cfg.dtype,
+                           device=self.dev)
+        dx, stage_grads = pipe.run(tree["blocks"], xs,
+                                   tail if s == S - 1 else None,
+                                   whole_tail=self.moe, like=like)
+        add([t for path, t in zip(paths, blocks) if path[0] == "blocks"],
+            [stage_grads[path[1]] for path in paths if path[0] == "blocks"])
+        if s == 0:
+            emb = [tree["wte"], tree["wpe"]]
+            add(emb, torch.autograd.grad(x, emb, torch.cat(dx),
+                                         allow_unused=True))
+        return grads, self._reported(parts["nll"], parts["aux"], tok.numel())
 
     def put_batch(self, arr):
         """The global batch on the device (a rank's step reads its dp
@@ -595,9 +709,12 @@ class _ShardedStep:
             with torch.no_grad():
                 c = reshard(to_local(p), spec_of(p, mesh), c_spec, mesh)
             blocks.append(c.detach().requires_grad_(True))
-        tree = _unflatten([q for q, _ in flat], blocks)
-        obj, loss = self.loss(tree, tok, lab)
-        grads = torch.autograd.grad(obj, blocks, allow_unused=True)
+        paths = [q for q, _ in flat]
+        if self.pipe is not None:
+            grads, loss = self._pipeline_grads(blocks, paths, tok, lab)
+        else:
+            obj, loss = self.loss(_unflatten(paths, blocks), tok, lab)
+            grads = torch.autograd.grad(obj, blocks, allow_unused=True)
         self.update(flat, comp, grads, opt_state)
         return loss.detach(), params, opt_state
 
@@ -637,7 +754,7 @@ class _ShardedStep:
         leaf in the reference's order, as the reference's region sees
         it."""
         mesh = self.mesh
-        axes = [a for a in ("mp", "dp") if mesh.shape.get(a, 1) > 1
+        axes = [a for a in ("mp", "pp", "dp") if mesh.shape.get(a, 1) > 1
                 and a not in _axes(c_spec, ndim)
                 and not (self.quant and a == "dp")]
         if not self.quant:
@@ -724,6 +841,17 @@ def make_sharded_train_step(cfg: GPTConfig, mesh, lr: float = 1e-4,
     - mp: Megatron tensor parallelism with sequence parallelism between
       blocks (``models/gpt.py::sharded_loss_fn``): heads, F columns and
       the vocab over mp, tokens over mp between blocks.
+    - pp: each rank holds its L / pp layers; the blocks run as a pipeline
+      of ``n_microbatches`` microbatches of a dp rank's rows
+      (``parallel/pipeline.py``, the reference's "1f1b" schedule; the
+      step's ``pipe.schedule`` may be set to "gpipe"), the embedding on
+      stage 0, the MoE layers, final LayerNorm and head on the last
+      stage; a stage's activation over mp is the rank's [mb, T / mp, H],
+      passed between ranks of equal (dp, mp).
+    - ``cfg.ring_axis="mp"``: attention runs as ring attention over mp
+      (an all-to-all to the ring's layout, every head over T / mp, and
+      back); an axis absent from the mesh or of one rank routes attention
+      to ``flash_attention_raw`` (K1-sep / K3-sep), as one device does.
     - MoE: the expert dim over dp where dp divides it.
     - ZeRO-3: ``distributed.sharding.shard_array_over(p, mesh, "dp")`` on
       the parameters the step returns: they are held sharded between
@@ -733,27 +861,26 @@ def make_sharded_train_step(cfg: GPTConfig, mesh, lr: float = 1e-4,
     - ``FLAGS_dist_allreduce_quant``: forward and backward per dp rank on
       its own rows (its own MoE capacity; parameters gathered over dp),
       gradients synced by ``dist_allreduce_quant`` (mean), the loss the
-      mean of the ranks' losses, as the reference's per-rank region.
+      mean of the ranks' losses, as the reference's per-rank region;
+      refused with pp > 1 and dp > 1, as the reference refuses it.
 
     On a mesh whose every axis is 1 this is ``make_train_step`` (the
     same state and step, bit for bit); ``n_microbatches`` is ignored
     without pp, as in the reference, and ``_emb_pin`` (a GSPMD layout
     pin) means nothing here. On more ranks the parameters are drawn from
     ``seed`` on every rank and cut into blocks, and the state is
-    DTensors on the mesh's DeviceMesh. pp > 1 and ``abstract`` come with
-    later slices."""
+    DTensors on the mesh's DeviceMesh (of the step's device type, so
+    that gloo ranks sharing a card keep their state on it).
+    ``abstract`` (the AOT state) is not ported."""
     _check_options(weights, m_dtype, v_dtype)
     pp = mesh.shape.get("pp", 1)
     if pp > 1 and GLOBAL_FLAGS.get("dist_allreduce_quant") and \
             mesh.shape.get("dp", 1) > 1:
         raise ValueError(QUANT_SYNC_PP_REFUSAL)
-    if pp > 1:
-        raise NotImplementedError(
-            "later slice: pp > 1 (the pipeline, parallel/pipeline.py)")
     if abstract:
         raise NotImplementedError(
-            "later slice: abstract=True (the AOT state, on the meta "
-            "device)")
+            "abstract=True (the AOT state on the meta device) is not "
+            "ported: ROADMAP.md, Queue 1")
     if mesh.size == 1:
         step, params, opt_state = make_train_step(
             cfg, lr=lr, seed=seed, m_dtype=m_dtype, v_dtype=v_dtype,
@@ -761,8 +888,8 @@ def make_sharded_train_step(cfg: GPTConfig, mesh, lr: float = 1e-4,
         step.mesh = mesh
         return step, params, opt_state
     _check_mesh(cfg, mesh)
-    mesh.device_mesh                    # every rank makes the groups now
     dev = resolve_device(device)
+    mesh.make_device_mesh(dev.type)     # every rank makes the groups now
     low_precision = cfg.param_dtype != cfg.dtype
     sr = weights == "sr-bf16" and low_precision
     master = low_precision and not sr
@@ -775,4 +902,5 @@ def make_sharded_train_step(cfg: GPTConfig, mesh, lr: float = 1e-4,
             lambda a: a.to(cfg.dtype) if a.dim() >= 2 else a, params)
     params = shard_gpt_params(params, cfg, mesh)
     opt_state = shard_opt_state(opt_state, cfg, mesh, zero1)
-    return _ShardedStep(cfg, mesh, lr, sr, dev, seed), params, opt_state
+    step = _ShardedStep(cfg, mesh, lr, sr, dev, seed, n_microbatches)
+    return step, params, opt_state

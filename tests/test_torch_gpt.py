@@ -23,6 +23,7 @@ from paddle_tpu.models import gpt as jg
 from paddle_tpu_torch import compiler as tcompiler
 from paddle_tpu_torch.models import gpt as tg
 from paddle_tpu_torch.utils.convert import params_from_jax
+from torch_sharded_common import count_flash
 
 SHAPE = dict(vocab_size=1024, hidden=256, n_layers=4, n_heads=4,
              seq_len=256)
@@ -128,16 +129,28 @@ def test_loss_and_grads_match_the_fused_reference(monkeypatch, remat):
     _check_loss_and_grads(512, remat, monkeypatch)
 
 
-def test_later_slices_raise():
-    # MoE has come (tests/test_torch_moe.py); ring attention is the
-    # pipeline slice's, and the GSPMD layout hooks give way to the sharded
-    # step's own forward
-    tc = tg.GPTConfig(**SHAPE, ring_axis="mp")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tg.init_params(tc, torch.Generator().manual_seed(0), "cpu")
+def test_later_slices_raise(monkeypatch):
+    # ring_axis on one device has come: no mesh axis to ring over, so the
+    # fused-qkv entry is skipped and attention goes through
+    # flash_attention_raw on the split q, k, v (K1-sep forward, K3-sep
+    # backward), as the reference's; the loss is the fused entry's. The
+    # GSPMD layout hooks still give way to the sharded step's own forward
     _, tc = _cfgs()
-    tp = tg.init_params(tc, torch.Generator().manual_seed(0), "cpu")
+    ring = dataclasses.replace(tc, ring_axis="mp")
+    tp = tg.init_params(ring, torch.Generator().manual_seed(0), "cpu")
     tok, lab = (torch.from_numpy(a) for a in _batch())
+    base = tg.loss_fn(tp, tok, lab, tc)
+    counts = count_flash(monkeypatch)
+    leaves = [v for d in (tp, tp["blocks"]) for v in d.values()
+              if isinstance(v, torch.Tensor)]
+    for t in leaves:
+        t.requires_grad_(True)
+    loss = tg.loss_fn(tp, tok, lab, ring)
+    torch.autograd.grad(loss, leaves)
+    L = SHAPE["n_layers"]
+    assert counts == {"flash_fwd": 0, "flash_fwd_sep": L,
+                      "flash_bwd_sep": L}
+    np.testing.assert_allclose(loss.item(), base.item(), rtol=1e-5)
     with pytest.raises(NotImplementedError, match="make_sharded_train_step"):
         tg.loss_fn(tp, tok, lab, tc, sp_constraint=lambda x: x)
 

@@ -79,6 +79,10 @@ def test_port_imports_without_jax_or_reference():
             "paddle_tpu_torch.distributed.sharding",
             "paddle_tpu_torch.distributed.autograd_collectives",
             "paddle_tpu_torch.parallel.train_step",
+            "paddle_tpu_torch.parallel.pipeline",
+            "paddle_tpu_torch.parallel.ring_attention",
+            "paddle_tpu_torch.distributed.topology",
+            "paddle_tpu_torch.distributed.collective",
             } <= mods
 
 

@@ -1,7 +1,9 @@
 """Checkpoints of sharded training state, across packages: the
 reference's fp32 AdamW state of ``make_sharded_train_step`` (one step
-taken, so that every moment is nonzero) at dp 2 with ZeRO-1 and at mp 2
-(the fused qkv columns in the port's head-aligned order) is saved by
+taken, so that every moment is nonzero) at dp 2 with ZeRO-1, at mp 2
+(the fused qkv columns in the port's head-aligned order) and at pp 2
+(each rank its stage's layers of the blocks, carried in by the
+converter and gathered back by ``gather_tree``) is saved by
 the reference (one chunk a shard) and by the port's two gloo ranks (each
 its blocks at their global offsets; the first replica only; a rank's
 qkv block as three chunks, q, k and v), and each package loads what the
@@ -23,7 +25,8 @@ from paddle_tpu.distributed import checkpoint as jck
 CFG = dict(C.SMALL)
 CASES = [dict(name=f"ckpt_{tag}", kind="checkpoint", mesh=mesh, cfg=CFG,
               step=dict(lr=1e-3), steps=1, batch=8)
-         for tag, mesh in (("dp2_zero1", [2, 1, 1]), ("mp2", [1, 1, 2]))]
+         for tag, mesh in (("dp2_zero1", [2, 1, 1]), ("mp2", [1, 1, 2]),
+                           ("pp2", [1, 2, 1]))]
 
 
 def _targets(tree):
@@ -111,4 +114,5 @@ def test_the_reference_loads_the_ports_sharded_checkpoint(runs, case):
         offs = sorted(ch["global_offset"][-1] for chs in qkv for ch in chs)
         assert offs == [0, H // 2, H, 3 * H // 2, 2 * H, 5 * H // 2]
     else:
-        assert [len(chs) for chs in qkv] == [1]
+        # one chunk a stage of the pipeline
+        assert [len(chs) for chs in qkv] == [1] * case["mesh"][1]

@@ -13,7 +13,13 @@ cross-entropy gate let through on the CPU. Per rank and step: K6 at
   sharded tests' bar (tests/torch_sharded_common.py).
 - Over two gloo ranks, against the reference as the other sharded
   tests: dp 2 with the experts over dp, and mp 2 with SP and the
-  vocab-parallel loss through K4/K5 on each rank's vocab slab.
+  vocab-parallel loss through K4/K5 on each rank's vocab slab; pp 2
+  with M microbatches, dense and MoE, where each stage runs its Ls
+  blocks twice a microbatch (the forward, then the backward's replay):
+  K6 4 Ls M and K7 2 Ls M a rank, and the last stage's tail once a
+  microbatch (dense: K6, K4, K5 M times) or, with MoE, once a step (K6
+  at the MoE and final LayerNorms, K4 and K5 once); each rank sends M
+  tensors a step to its neighbour (activations on, cotangents back).
 
 The config is the smallest whose rows pass the kernels' gates (hidden
 128, 256-row multiples at every LayerNorm and gelu)."""
@@ -35,14 +41,27 @@ CASES = [
            ce_kernels=True),
     C.case("mp2_moe_kernels", [1, 1, 2], cfg=KCFG, batch=4, count=True,
            ce_kernels=True),
+    C.case("pp2_moe_kernels", [1, 2, 1], cfg=KCFG, batch=4, count=True,
+           ce_kernels=True, step=dict(n_microbatches=2), moment1=True),
+    C.case("pp2_kernels", [1, 2, 1],
+           cfg=dict(KCFG, n_experts=0, n_moe_layers=0), batch=4, count=True,
+           ce_kernels=True, step=dict(n_microbatches=2), moment1=True),
 ]
 
 
-def _want(cfg: dict, steps: int) -> dict:
+def _want(cfg: dict, steps: int, stage: int = 0, n_stages: int = 1,
+          micro: int = 1) -> dict:
     L, M = cfg["n_layers"], cfg["n_moe_layers"]
-    return {"fused_norm_epilogue": (2 * L + M + 1) * steps,
-            "fused_bias_act": L * steps, "fused_ce_fwd": steps,
-            "fused_ce_bwd": steps}
+    if n_stages == 1:
+        return {"fused_norm_epilogue": (2 * L + M + 1) * steps,
+                "fused_bias_act": L * steps, "fused_ce_fwd": steps,
+                "fused_ce_bwd": steps}
+    Ls = L // n_stages
+    tails = (1 if M else micro) if stage == n_stages - 1 else 0
+    return {"fused_norm_epilogue": (4 * Ls * micro + tails * (M + 1))
+            * steps, "fused_bias_act": 2 * Ls * micro * steps,
+            "fused_ce_fwd": tails * steps, "fused_ce_bwd": tails * steps,
+            "ppermute_sends": micro * steps}
 
 
 @pytest.fixture(scope="module")
@@ -55,11 +74,16 @@ def runs(tmp_path_factory):
 def test_two_ranks_place_the_kernels(runs, case):
     root, results = runs
     C.check_case(case, results[case["name"]], root)
+    pp = case["mesh"][1]
     for rank in range(2):
         npz = np.load(f"{root}/{case['name']}.r{rank}.npz")
         got = {k[len("count/"):]: int(npz[k]) for k in npz.files
                if k.startswith("count/")}
-        assert got == _want(case["cfg"], case["steps"]), (rank, got)
+        if pp == 1:
+            assert got.pop("ppermute_sends") == 0
+        assert got == _want(case["cfg"], case["steps"], rank, pp,
+                            case["step"].get("n_microbatches", 1)), \
+            (rank, got)
 
 
 def _paths(tree, pre=()):
@@ -90,7 +114,7 @@ def test_one_rank_sharded_step_matches_make_train_step():
                 losses.append(loss.item())
         runs[name] = losses, dict(_paths(params)), counts
     (lo, po, _), (ls, ps, counts) = runs["make_train_step"], runs["sharded"]
-    assert counts == _want(KCFG, 3)
+    assert counts == dict(_want(KCFG, 3), ppermute_sends=0)
     np.testing.assert_allclose(ls, lo, rtol=C.LOSS_RTOL["float32"])
     H = cfg.hidden
     for path, want in po.items():

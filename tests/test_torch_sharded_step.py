@@ -15,7 +15,10 @@ tests/test_torch_sharded_quant.py, the four-rank meshes in
 tests/test_torch_sharded_mp.py.)
 
 In one process: the one-device mesh is ``make_train_step`` bit for bit
-(dense and MoE), and the later slices' options are refused."""
+(dense and MoE), the options the port leaves out are refused, and
+``ring_axis`` on the one-device mesh routes attention to K1-sep /
+K3-sep; in the two ranks, a pp mesh builds the pipelined step
+(tests/test_torch_pipeline.py holds it to the reference)."""
 
 import dataclasses
 
@@ -42,12 +45,16 @@ CASES = [
            cfg=dict(MOE, tie_embeddings=False, remat=True)),
     C.case("dp2_master_bf16", [2, 1, 1], cfg=dict(SMALL, dtype="bfloat16")),
 ]
+# a (1, 2, 1) mesh's step, built and not run
+BUILD = dict(name="build_pp2", kind="build", mesh=[1, 2, 1], cfg=SMALL,
+             step=dict(n_microbatches=2))
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("sharded2"))
-    return root, C.run_all(root, CASES, nprocs=2)
+    return root, C.run_all(root, CASES + [BUILD], nprocs=2,
+                           prepare=lambda case, root: lambda: None)
 
 
 @pytest.mark.parametrize("case", CASES, ids=[c["name"] for c in CASES])
@@ -83,7 +90,7 @@ def test_one_device_mesh_is_make_train_step(cfg):
         assert torch.equal(x, y)
 
 
-def test_later_slices_and_bad_options_are_refused():
+def test_later_slices_and_bad_options_are_refused(runs, monkeypatch):
     from paddle_tpu.distributed.autograd_collectives import \
         QUANT_SYNC_PP_REFUSAL as JMSG
     from paddle_tpu_torch.distributed.autograd_collectives import \
@@ -91,10 +98,16 @@ def test_later_slices_and_bad_options_are_refused():
 
     assert QUANT_SYNC_PP_REFUSAL == JMSG
     tc = tg.GPTConfig(**SMALL, dtype=torch.float32)
-    pp = build_mesh((1, 2, 1), ("dp", "pp", "mp"))
-    with pytest.raises(NotImplementedError, match="later slice.*pipeline"):
-        make_sharded_train_step(tc, pp, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice.*abstract"):
+    # pp > 1 has come: each of the two ranks built the pipelined step with
+    # its stage's layer of the blocks
+    root, _ = runs
+    for r in range(2):
+        got = np.load(f"{root}/{BUILD['name']}.r{r}.npz")
+        assert str(got["kind"]) == "_ShardedStep"
+        assert got["pipe"].tolist() == [2, 2, r]      # stages, M, stage
+        assert got["qkv_w_local"].tolist() == [1, SMALL["hidden"],
+                                               3 * SMALL["hidden"]]
+    with pytest.raises(NotImplementedError, match="abstract.*ROADMAP"):
         make_sharded_train_step(tc, build_mesh((1, 1, 1),
                                                ("dp", "pp", "mp")),
                                 abstract=True, device="cpu")
@@ -111,10 +124,25 @@ def test_later_slices_and_bad_options_are_refused():
         make_sharded_train_step(tc, build_mesh((1, 1, 1),
                                                ("dp", "pp", "mp")),
                                 v_dtype="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="pipeline slice"):
-        make_sharded_train_step(dataclasses.replace(tc, ring_axis="mp"),
-                                build_mesh((1, 1, 1), ("dp", "pp", "mp")),
+    # ring_axis has come: over an axis the port does not ring over it is
+    # refused by name; on the one-device mesh attention takes the split
+    # q, k, v through K1-sep and K3-sep, not the fused-qkv entry
+    with pytest.raises(NotImplementedError, match="ring_axis='dp'"):
+        make_sharded_train_step(dataclasses.replace(tc, ring_axis="dp"),
+                                build_mesh((2, 1, 1), ("dp", "pp", "mp")),
                                 device="cpu")
+    counts = C.count_flash(monkeypatch)
+    # the flash gates' smallest shape: S 128, head dim 64
+    flash = dataclasses.replace(tc, use_flash=True, ring_axis="mp",
+                                hidden=128, n_heads=2, seq_len=128)
+    step, p, o = make_sharded_train_step(
+        flash, build_mesh((1, 1, 1), ("dp", "pp", "mp")), device="cpu")
+    rng = np.random.RandomState(0)
+    tok = rng.randint(0, tc.vocab_size, size=(2, flash.seq_len))
+    loss, p, o = step(p, o, tok, tok)
+    assert np.isfinite(loss.item())
+    assert counts == {"flash_fwd": 0, "flash_fwd_sep": SMALL["n_layers"],
+                      "flash_bwd_sep": SMALL["n_layers"]}
     with pytest.raises(NotImplementedError, match="make_sharded_train_step"):
         tg.model_apply({}, torch.zeros((1, 4), dtype=torch.long), tc,
                        sp_constraint=lambda x: x)

@@ -15,8 +15,11 @@ equal to its fused path) and, where the JAX compiler runs (it needs
   per master leaf, sum |torch - JAX| at most 5% of sum |JAX's update|
   (measured at most 2.3%): a master left in place or moved the wrong way
   is off by 100% or more.
-- the paths of later slices raise (``weights="sr-bf16"``, which has
-  come, in tests/test_torch_sr_bf16.py; MoE in tests/test_torch_moe.py).
+- the paths of later slices: ``weights="sr-bf16"`` in
+  tests/test_torch_sr_bf16.py, MoE in tests/test_torch_moe.py; an
+  unknown weights mode and int8 second moments raise;
+  ``n_microbatches`` is ignored on one device (the same step, bit for
+  bit) and ``ring_axis`` routes attention to K1-sep / K3-sep.
 """
 
 import dataclasses
@@ -36,6 +39,7 @@ from paddle_tpu_torch import compiler as tcompiler
 from paddle_tpu_torch.models import gpt as tg
 from paddle_tpu_torch.parallel import train_step as tts
 from paddle_tpu_torch.utils.convert import opt_state_from_jax, params_from_jax
+from torch_sharded_common import count_flash
 
 MODES = [(None, None), ("bfloat16", "bfloat16"), ("int8", "bfloat16")]
 SMALL = dict(vocab_size=512, hidden=128, n_layers=2, n_heads=2, seq_len=128)
@@ -161,19 +165,35 @@ def _check_trajectory(bf16, monkeypatch):
             assert drift <= 0.05, (name, drift.item())
 
 
-def test_later_slices_raise():
+def test_later_slices_raise(monkeypatch):
     tc = tg.GPTConfig(**SMALL, dtype=torch.float32)
     # weights="sr-bf16" has come (tests/test_torch_sr_bf16.py); a mode of
     # no slice is refused
     with pytest.raises(ValueError):
         tts.make_train_step(tc, weights="sr-fp8", device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tts.make_train_step(tc, n_microbatches=2, device="cpu")
-    # MoE has come (tests/test_torch_moe.py); ring attention is the
-    # pipeline slice's
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tts.make_train_step(dataclasses.replace(tc, ring_axis="mp"),
-                            device="cpu")
+    # microbatches have come with the pipeline: one device has no pp axis,
+    # so n_microbatches is ignored, as the reference ignores it without
+    # pp: the same step, bit for bit
+    rng = np.random.RandomState(0)
+    tok = rng.randint(0, tc.vocab_size, size=(4, tc.seq_len))
+    lab = rng.randint(0, tc.vocab_size, size=(4, tc.seq_len))
+    (sa, pa, oa), (sb, pb, ob) = (
+        tts.make_train_step(tc, lr=1e-3, device="cpu", n_microbatches=m)
+        for m in (2, 1))
+    for _ in range(2):
+        la, pa, oa = sa(pa, oa, tok, lab)
+        lb, pb, ob = sb(pb, ob, tok, lab)
+        assert la.item() == lb.item()
+    # ring_axis on one device has come: attention on the split q, k, v
+    # through K1-sep forward and K3-sep backward, not the fused-qkv entry
+    counts = count_flash(monkeypatch)
+    step, p, o = tts.make_train_step(
+        dataclasses.replace(tc, ring_axis="mp"), device="cpu")
+    loss, p, o = step(p, o, tok, lab)
+    assert np.isfinite(loss.item())
+    L = SMALL["n_layers"]
+    assert counts == {"flash_fwd": 0, "flash_fwd_sep": L,
+                      "flash_bwd_sep": L}
     with pytest.raises(ValueError):
         tts.make_train_step(tc, v_dtype="int8", device="cpu")
 

@@ -4,9 +4,14 @@ tests/conftest.py, its compiler off) and the port's side (gloo ranks
 of tests/torch_sharded_worker.py started by the port's launcher).
 
 A case is a dict: ``name``, ``mesh`` (dp, pp, mp), ``cfg`` (GPTConfig
-fields, ``dtype`` by name), ``step`` (make_sharded_train_step keywords),
-``steps``, ``batch`` and optionally ``quant`` (FLAGS_dist_allreduce_quant)
-and ``zero3`` (every parameter through ``shard_array_over(.., "dp")``).
+fields, ``dtype`` by name), ``step`` (make_sharded_train_step
+keywords), ``steps``, ``batch`` and optionally ``quant``
+(FLAGS_dist_allreduce_quant), ``zero3`` (every parameter through
+``shard_array_over(.., "dp")``), ``count`` (the worker counts kernel
+wrapper calls and ppermute sends), ``schedule`` (the port's pipelined
+step runs it: ``step.pipe.schedule``; the reference runs its one,
+"1f1b") and ``moment1`` (the first moments after step 1 are compared
+too).
 """
 
 import json
@@ -52,6 +57,22 @@ def unpack(npz, prefix: str) -> dict:
                 name, a = name[:-len(BF16)], a.view(np.uint16)
             out[name] = a
     return out
+
+
+def count_flash(monkeypatch) -> dict:
+    """Calls of the flash wrappers while the test runs (on the CPU their
+    plain versions): K1 on the fused projection, K1-sep and K3-sep on
+    split q, k, v."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    counts = dict.fromkeys(("flash_fwd", "flash_fwd_sep", "flash_bwd_sep"),
+                           0)
+    for name in counts:
+        def wrapped(*a, _name=name, _fn=getattr(fa, name), **kw):
+            counts[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(fa, name, wrapped)
+    return counts
 
 
 def jcfg(case):
@@ -101,19 +122,24 @@ def reference_init(case, root: str):
 
 
 def reference_run(case, step, params, opt, mesh):
-    """The reference's losses and final parameters (numpy)."""
+    """The reference's losses, final parameters and, with ``moment1``,
+    first moments after step 1 (numpy; else None)."""
     from paddle_tpu.core.flags import GLOBAL_FLAGS as JFLAGS
 
     tok, lab = batch(case)
-    losses = []
+    losses, m1 = [], None
     JFLAGS.set("dist_allreduce_quant", bool(case.get("quant")))
     try:
-        for _ in range(case["steps"]):
+        for i in range(case["steps"]):
             loss, params, opt = step(params, opt, tok, lab)
             losses.append(float(loss))
+            if i == 0 and case.get("moment1"):
+                # copies: the next step may reuse the state's buffers
+                m1 = {k: np.array(v) for k, v in
+                      pack(opt["m"], "m1", {}).items()}
     finally:
         JFLAGS.set("dist_allreduce_quant", False)
-    return np.asarray(losses), pack(params, "params", {})
+    return np.asarray(losses), pack(params, "params", {}), m1
 
 
 def launch(root: str, cases: list, nprocs: int, timeout: float = 240.0):
@@ -138,14 +164,21 @@ def logs(root: str) -> str:
 
 
 def port_result(root: str, name: str, rank: int):
+    """A rank's (losses, gathered params, gathered first moments after
+    step 1: {} without ``moment1``)."""
     npz = np.load(os.path.join(root, f"{name}.r{rank}.npz"))
-    return npz["losses"], unpack(npz, "params")
+    return npz["losses"], unpack(npz, "params"), unpack(npz, "m1")
 
 
-def run_all(tmp_root: str, cases: list, nprocs: int, timeout: float = 240.0):
-    """The port's ranks (in a thread) and the reference's steps (here)
-    side by side: {name: (reference losses, reference params, initial
-    params)}, after the ranks have finished; asserts they exited 0."""
+def run_all(tmp_root: str, cases: list, nprocs: int, timeout: float = 240.0,
+            prepare=None):
+    """The port's ranks (in a thread) and the reference's side (here)
+    side by side, after the ranks have finished; asserts they exited 0.
+    A step case gives (reference losses, reference params, initial
+    params, reference first moments after step 1 or None); a case of
+    another kind is ``prepare(case, root)``'s: it writes the case's
+    inputs before the launch and returns a function that computes the
+    reference's side while the ranks run."""
     import threading
 
     from paddle_tpu.core.flags import GLOBAL_FLAGS as JFLAGS
@@ -153,26 +186,40 @@ def run_all(tmp_root: str, cases: list, nprocs: int, timeout: float = 240.0):
     old = JFLAGS.get("use_auto_fusion")
     JFLAGS.set("use_auto_fusion", False)
     try:
-        built = {c["name"]: reference_init(c, tmp_root) for c in cases}
+        built = {}
+        for c in cases:
+            if c.get("kind", "step") != "step":
+                built[c["name"]] = prepare(c, tmp_root)
+            else:
+                built[c["name"]] = reference_init(c, tmp_root)
         rc = []
         t = threading.Thread(target=lambda: rc.append(
             launch(tmp_root, cases, nprocs, timeout)))
         t.start()
         out = {}
         for c in cases:
-            losses, params = reference_run(c, *built.pop(c["name"]))
+            if c.get("kind", "step") != "step":
+                out[c["name"]] = built.pop(c["name"])()
+                continue
+            losses, params, m1 = reference_run(c, *built.pop(c["name"]))
             init = unpack(np.load(os.path.join(tmp_root,
                                                f"{c['name']}.in.npz")),
                           "params")
-            ref = {k[len("params/"):]: v for k, v in params.items()}
-            out[c["name"]] = (losses, {k.removesuffix(BF16): (
-                v.view(np.uint16) if k.endswith(BF16) else v)
-                for k, v in ref.items()}, init)
+            out[c["name"]] = (losses, _leaves(params, "params"), init,
+                              m1 and _leaves(m1, "m1"))
         t.join()
     finally:
         JFLAGS.set("use_auto_fusion", old)
     assert rc == [0], logs(tmp_root)
     return out
+
+
+def _leaves(packed: dict, prefix: str) -> dict:
+    """``pack``'s entries as {key path: array}, bf16 as its uint16
+    patterns (``unpack``'s form)."""
+    return {k[len(prefix) + 1:].removesuffix(BF16): (
+        v.view(np.uint16) if k.endswith(BF16) else v)
+        for k, v in packed.items()}
 
 
 def _f64(a):
@@ -198,23 +245,39 @@ DRIFT = {"float32": 5e-4, "bfloat16": 0.05}
 
 
 def check_case(case, result, root: str) -> None:
-    """Every rank's losses and gathered parameters bitwise equal to rank
-    0's; rank 0's against the reference's."""
-    ref_losses, ref_params, init = result
+    """Every rank's losses and gathered parameters (and, with
+    ``moment1``, first moments after step 1) bitwise equal to rank 0's;
+    rank 0's against the reference's."""
+    ref_losses, ref_params, init, ref_m1 = result
     n = int(np.prod(case["mesh"]))
-    losses, params = port_result(root, case["name"], 0)
+    losses, params, m1 = port_result(root, case["name"], 0)
     for r in range(1, n):
-        lr_, pr = port_result(root, case["name"], r)
+        lr_, pr, mr = port_result(root, case["name"], r)
         assert lr_.tobytes() == losses.tobytes(), (r, lr_, losses)
         for k in params:
             assert pr[k].tobytes() == params[k].tobytes(), (r, k)
+        assert set(mr) == set(m1), r
+        for k in m1:
+            assert mr[k].tobytes() == m1[k].tobytes(), (r, "m1", k)
     dt = case["cfg"].get("dtype", "float32")
     np.testing.assert_allclose(losses, ref_losses, rtol=LOSS_RTOL[dt])
     assert losses[-1] < losses[0]
-    assert set(params) == set(ref_params)
+    _within_drift(params, ref_params, init, case)
+    if case.get("moment1"):
+        # m = (1 - b1) g after step 1: it scales with the gradient, where
+        # AdamW's update does not; m starts at 0
+        _within_drift(m1, ref_m1, None, case)
+
+
+def _within_drift(got_tree, ref_tree, init, case) -> None:
+    """Each leaf's summed difference to the reference within DRIFT of the
+    reference's summed move from ``init`` (None: from 0)."""
+    dt = case["cfg"].get("dtype", "float32")
     H = case["cfg"]["hidden"]
-    for k, want in ref_params.items():
-        got, start, want = _f64(params[k]), _f64(init[k]), _f64(want)
+    assert set(got_tree) == set(ref_tree)
+    for k, want in ref_tree.items():
+        got, want = _f64(got_tree[k]), _f64(want)
+        start = np.zeros_like(want) if init is None else _f64(init[k])
         assert got.shape == want.shape, k
         if k.endswith("qkv_b"):
             # the key third's gradient is 0 in exact arithmetic (softmax
