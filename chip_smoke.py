@@ -237,8 +237,25 @@ Phases, each failing loudly (any failure exits nonzero):
    the packed qkv; then 3 steps, K1-sep 24 and K3-sep 48 a step, no K1
    or K2, each loss within PIPE_LOSS_RTOL of the fused-qkv step's.
 
+20. ``eager``: the Paddle eager API on the card. (a) The eager
+    ``models.gpt.GPT`` Layer at gpt3-350m (B 16, S 1024, bf16 compute,
+    fp32 parameters; ``to_tensor``, ``optimizer.AdamW`` with
+    ``nn.ClipGradByGlobalNorm(1.0)``, ``loss.backward(); opt.step();
+    opt.clear_grad()``) for three steps on phase train's batch: its
+    first loss bit-equal to ``make_train_step``'s, its launches a step
+    phase train's (K1 24, K2 24, K4 2, K5 21, K6 49, K7 24), one funnel
+    op a step; step ms, ``opt.step()`` ms, peak memory. (b)
+    ``nn.functional.scaled_dot_product_attention`` at BERT-base's
+    attention shape, [8, 512, 12, 64] bf16, causal and not, through the
+    funnel: K1-sep once and K3-sep twice a call, held against their
+    plain versions; the flag-off route (the reference's expression)
+    beside it; K1-sep, K3-sep and SDPA timed non-causal. (c)
+    ``check_nan_inf`` at levels 0 and 1 and off. (d) AMP: O1 casts, the
+    fp16 GradScaler's skipped step, O2 decoration. (e) An fp32 Layer
+    (2 layers, hidden 256) three AdamW steps on the card and the CPU.
+
 After each of the phases train, train_13b, llama_train, decode, paged,
-resilient, dist and pipe (the ranks' launches included) every bf16
+resilient, dist, pipe (the ranks' launches included) and eager every bf16
 flash launch at head dim 64 or 128 must have taken
 the TMA + wgmma variant, as the C launchers report what they launched
 (``flash_attention.LAUNCHES_BY_PLAN``), and at every shape launched the
@@ -272,7 +289,7 @@ PHASES = ("kernels", "engine", "int8", "cpu", "train_kernels", "train",
           "train_cpu", "train_13b", "llama_train", "decode_kernels",
           "decode", "decode_cpu", "serving_kernels", "serving",
           "paged_kernels", "paged", "fleet", "rollout", "resilient",
-          "dist", "pipe")
+          "dist", "pipe", "eager")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12         # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12          # fp32 outside the tensor cores (K6, K7)
@@ -337,7 +354,7 @@ def _bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
 # phases whose every bf16 flash launch at head dim 64 or 128 must take the
 # TMA + wgmma variant (flash_attention.flash_plan)
 FLASH_WGMMA_PHASES = ("train", "train_13b", "llama_train", "decode", "paged",
-                      "resilient", "dist", "pipe")
+                      "resilient", "dist", "pipe", "eager")
 
 
 def _flash_launch_counts() -> collections.Counter:
@@ -6136,6 +6153,385 @@ def run_pipe(dev) -> dict:
     return dict(total)
 
 
+EAGER_SDPA_SHAPE = (8, 512, 12, 64)     # BERT-base attention: B S h d
+
+
+def _eager_gpt(dev, cfg, toks_np, labs_np) -> dict:
+    """(a) The eager Layer at gpt3-350m: three steps of the user's loop
+    on phase train's batch; returns its record."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import dispatch
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused_ce as ce
+    from paddle_tpu_torch.parallel.train_step import make_train_step
+
+    # make_train_step's losses on the same weights and batch (its own
+    # AdamW: fp32 moments, no clip), the first of which must be the
+    # eager loop's bit for bit
+    step, params, opt = make_train_step(cfg, lr=1e-4, seed=0, device=dev)
+    toks, labs = step.put_batch(toks_np), step.put_batch(labs_np)
+    ref = []
+    for _ in range(3):
+        loss, params, opt = step(params, opt, toks, labs)
+        ref.append(loss.item())
+    del step, params, opt, loss
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    model = GPT(cfg, seed=0)
+    optim = pt.optimizer.AdamW(learning_rate=1e-4,
+                               parameters=model.parameters(),
+                               grad_clip=pt.nn.ClipGradByGlobalNorm(1.0))
+    tok, lab = pt.to_tensor(toks_np), pt.to_tensor(labs_np)
+    counters = {**_train_counters(), "flash_fwd_hm": fa.flash_fwd_hm,
+                "flash_bwd_hm": fa.flash_bwd_hm}
+    for fn in counters.values():
+        fn.launches = 0
+    ce_before = collections.Counter(ce.PRODUCTS)
+    ops: list = []
+    dispatch.DISPATCH_HOOKS.append(ops.append)
+    losses, step_s, opt_s = [], [], []
+    try:
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = model.loss(tok, lab)
+            loss.backward()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            optim.step()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            optim.clear_grad()
+            losses.append(loss.item())
+            step_s.append(time.perf_counter() - t0)
+            opt_s.append(t2 - t1)
+    finally:
+        dispatch.DISPATCH_HOOKS.remove(ops.append)
+    if losses[0] != ref[0]:
+        raise AssertionError(f"eager first loss {losses[0]!r} is not "
+                             f"make_train_step's {ref[0]!r}")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    L, steps = cfg.n_layers, 3
+    slabs = -(-cfg.vocab_size // ce.SLAB)
+    per_step = {"flash_fwd": L, "flash_bwd": L, "flash_fwd_hm": 0,
+                "flash_bwd_hm": 0, "fused_ce_fwd": 2,
+                "fused_ce_bwd": 3 * slabs, "fused_norm_epilogue": 2 * L + 1,
+                "fused_bias_act": L}
+    want = {k: n * steps for k, n in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"eager launches {launches} != {want} "
+                             f"(phase train's a step: {per_step})")
+    _check_ce_products("eager", ce_before, steps,
+                       toks_np.size, cfg.hidden, cfg.vocab_size)
+    if ops != ["gpt_loss"] * steps:
+        raise AssertionError(f"eager funnel ops {collections.Counter(ops)}")
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"eager losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rec = {"step_ms": float(np.median(step_s[1:])) * 1e3,
+           "opt_step_ms": float(np.median(opt_s[1:])) * 1e3,
+           "funnel_ops_per_step": len(ops) / steps, "peak_gib": peak,
+           "losses": losses, "make_train_step_losses": ref}
+    print(f"eager GPT gpt3-350m B{toks_np.shape[0]} S{cfg.seq_len} (bf16 "
+          f"compute, fp32 parameters, AdamW + global-norm clip): step "
+          f"{rec['step_ms']:.2f} ms (median of steps 2-3, host clock, "
+          f"synchronized), opt.step() {rec['opt_step_ms']:.2f} ms, "
+          f"{rec['funnel_ops_per_step']:g} funnel op(s) a step, peak mem "
+          f"{peak:.2f} GiB, losses {losses} vs make_train_step's {ref} "
+          f"(first bit-equal), launches a step {per_step}")
+    del model, optim, loss, tok, lab
+    return rec
+
+
+def _eager_sdpa_grads(pt, arrays, do, causal: bool, flag: bool):
+    """(o, (dq, dk, dv), funnel ops) of SDPA through the funnel with
+    ``use_pallas_attention`` at ``flag``."""
+    from paddle_tpu_torch.core import dispatch
+
+    ops: list = []
+    pt.set_flags({"use_pallas_attention": flag})
+    dispatch.DISPATCH_HOOKS.append(ops.append)
+    try:
+        q, k, v = (pt.to_tensor(a, stop_gradient=False) for a in arrays)
+        o = pt.nn.functional.scaled_dot_product_attention(q, k, v,
+                                                          is_causal=causal)
+        grads = pt.grad([o], [q, k, v], [pt.to_tensor(do)])
+    finally:
+        dispatch.DISPATCH_HOOKS.remove(ops.append)
+        pt.set_flags({"use_pallas_attention": True})
+    return o._data, tuple(g._data for g in grads), ops
+
+
+def _eager_sdpa(dev) -> dict:
+    """(b) SDPA at BERT-base's attention shape through the funnel: K1-sep
+    forward, K3-sep backward, held against the plain versions; the
+    flag-off route (the reference's expression) within BF16_TOL of it;
+    K1-sep and K3-sep timed non-causal beside their bounds and SDPA."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    B, S, h, d = EAGER_SDPA_SHAPE
+    scale = d ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q, k, v, do = (torch.randn((B, S, h, d), generator=gen,
+                               device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for causal in (False, True):
+        tag = f"eager sdpa bf16 B{B} S{S} h{h} d{d} causal={causal}"
+        fa.flash_fwd_sep.launches = fa.flash_bwd_sep.launches = 0
+        o, grads, ops = _eager_sdpa_grads(pt, (q, k, v), do, causal, True)
+        n = (fa.flash_fwd_sep.launches, fa.flash_bwd_sep.launches)
+        if ops != ["pallas_flash_attention"] or n != (1, 2):
+            raise AssertionError(f"{tag}: funnel ops {ops}, K1-sep / K3-sep "
+                                 f"launches {n} (want 1 and 2)")
+        o2, lse = fa.flash_fwd_sep(q, k, v, causal, scale)
+        if not torch.equal(o2, o):
+            raise AssertionError(f"{tag}: the funnel's o is not K1-sep's")
+        po, plse = fa.flash_sep_plain(q, k, v, causal, scale)
+        worst["fwd"] = max(worst["fwd"], _hold(tag + " o", o, po, BF16_TOL))
+        _hold(tag + " lse", lse, plse, FP32_TOL)
+        pg = fa.flash_bwd_sep_plain(q, k, v, o, lse, do, causal, scale)
+        for name, a, b in zip("qkv", grads, pg):
+            worst["bwd"] = max(worst["bwd"], _hold(f"{tag} d{name}", a, b,
+                                                   BF16_TOL))
+        o_off, g_off, ops = _eager_sdpa_grads(pt, (q, k, v), do, causal,
+                                              False)
+        if ops != ["scaled_dot_product_attention"]:
+            raise AssertionError(f"{tag}: flag off took {ops}")
+        # the flag-off route is the reference's expression autodiffed in
+        # bf16: it rounds p and dp where the kernels round o, so where
+        # ds = p (dp - delta) cancels (dq of early queries, dk of late
+        # keys when causal) single rows part by more than an element
+        # bound can hold; o is held element by element, the gradients
+        # as whole tensors (Frobenius norm of the difference)
+        _hold(tag + " flag off vs on: o", o_off, o, BF16_TOL)
+        for name, a, b in zip("qkv", g_off, grads):
+            rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
+            print(f"{tag} flag off vs on: d{name} relative Frobenius "
+                  f"error {rel:.3e} (tol {BF16_TOL:.3e})")
+            if not rel <= BF16_TOL:
+                raise AssertionError(f"{tag}: flag off d{name} {rel}")
+        del o, grads, o_off, g_off, pg, po
+        torch.cuda.empty_cache()
+    # non-causal times: kernel, plain version, SDPA on head-major operands
+    o, lse = fa.flash_fwd_sep(q, k, v, False, scale)
+    f_ms = _time_ms(lambda: fa.flash_fwd_sep(q, k, v, False, scale))
+    b_ms = _time_ms(lambda: fa.flash_bwd_sep(q, k, v, o, lse, do, False,
+                                             scale))
+    f_plain = _time_ms(lambda: fa.flash_sep_plain(q, k, v, False, scale),
+                       iters=3, warmup=1)
+    b_plain = _time_ms(lambda: fa.flash_bwd_sep_plain(
+        q, k, v, o, lse, do, False, scale), iters=3, warmup=1)
+    qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    f_lib = _time_ms(lambda: sdpa(qh, kh, vh))
+    # device times: 20 calls in a CUDA graph, the host's share out
+    f_dev = _graph_ms(lambda: fa.flash_fwd_sep(q, k, v, False, scale))
+    b_dev = _graph_ms(lambda: fa.flash_bwd_sep(q, k, v, o, lse, do, False,
+                                               scale), iters=5)
+    with torch.no_grad():
+        f_lib_dev = _graph_ms(lambda: sdpa(qh, kh, vh))
+    out = sdpa(qh, kh, vh)
+    do_h = do.transpose(1, 2).contiguous()
+    b_lib = _time_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), do_h,
+                                                 retain_graph=True))
+    pairs = B * h * S * S
+    x_b, st_b = B * S * h * d * 2, B * h * S * 4
+    f_bound = _bound(4 * x_b + st_b, 4.0 * d * pairs)
+    b_bound = _bound(2 * 3 * x_b + x_b + 2 * st_b, 10.0 * d * pairs)
+    rec = {"shape": f"B{B} S{S} h{h} d{d} bf16 non-causal",
+           "fwd_ms": f_ms, "fwd_device_ms": f_dev, "bwd_device_ms": b_dev,
+           "fwd_sdpa_device_ms": f_lib_dev,
+           "fwd_plain_ms": f_plain, "fwd_sdpa_ms": f_lib,
+           "fwd_bound_ms": f_bound[0], "fwd_bound_by": f_bound[1],
+           "bwd_ms": b_ms, "bwd_plain_ms": b_plain, "bwd_sdpa_ms": b_lib,
+           "bwd_bound_ms": b_bound[0], "bwd_bound_by": b_bound[1],
+           "fwd_max_abs_err": worst["fwd"], "bwd_max_abs_err": worst["bwd"]}
+    print(f"eager sdpa device times (CUDA graph): K1-sep {f_dev:.4f} ms, "
+          f"K3-sep {b_dev:.4f} ms, sdpa fwd {f_lib_dev:.4f} ms")
+    print(f"eager sdpa {rec['shape']}: K1-sep {f_ms:.4f} ms (plain "
+          f"{f_plain:.4f}, sdpa fwd {f_lib:.4f}, bound {f_bound[0]:.4f} ms "
+          f"{f_bound[1]}); K3-sep {b_ms:.4f} ms (plain {b_plain:.4f}, sdpa "
+          f"bwd {b_lib:.4f}, bound {b_bound[0]:.4f} ms {b_bound[1]})")
+    print("eager sdpa record " + json.dumps(rec))
+    return rec
+
+
+def _eager_nan_inf(dev) -> None:
+    """(c) check_nan_inf on the card: level 0 raises naming the op, level
+    1 warns and goes on, off checks nothing."""
+    import contextlib
+    import io
+
+    import paddle_tpu_torch as pt
+
+    x = pt.to_tensor([1.0, float("inf")])
+    if x.place != str(dev) and not x.place.startswith("cuda"):
+        raise AssertionError(f"eager nan/inf: tensor on {x.place}")
+    try:
+        pt.set_flags({"check_nan_inf": True, "check_nan_inf_level": 0})
+        try:
+            pt.exp(x)
+        except FloatingPointError as e:
+            if "'exp'" not in str(e):
+                raise AssertionError(f"eager nan/inf: {e} names no op")
+        else:
+            raise AssertionError("eager nan/inf: level 0 did not raise")
+        pt.set_flags({"check_nan_inf_level": 1})
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            y = pt.exp(x)
+        if "'exp'" not in buf.getvalue() or \
+                not math.isinf(y.numpy()[1]):
+            raise AssertionError("eager nan/inf: level 1 did not warn")
+    finally:
+        pt.set_flags({"check_nan_inf": False, "check_nan_inf_level": 0})
+    if not math.isinf(pt.exp(x).numpy()[1]):
+        raise AssertionError("eager nan/inf: flag off changed the output")
+    print("eager check_nan_inf on the card: level 0 raises naming 'exp', "
+          "level 1 warns, off checks nothing")
+
+
+def _eager_linear(pt, i: int, o: int):
+    class Lin(pt.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.weight = self.create_parameter([i, o])
+            self.bias = self.create_parameter([o], is_bias=True)
+
+        def forward(self, x):
+            return pt.matmul(x, self.weight) + self.bias
+
+    return Lin()
+
+
+def _eager_amp(dev) -> None:
+    """(d) AMP on the card: O1 bf16 matmul out in bf16 and a black-list
+    op in fp32; GradScaler in fp16 skips the step on an inf; decorate O2
+    casts the parameters."""
+    import paddle_tpu_torch as pt
+
+    x, w = pt.randn([64, 64]), pt.randn([64, 64])
+    with pt.amp.auto_cast(level="O1", dtype="bfloat16"):
+        y = pt.matmul(x, w)
+        e = pt.exp(x.astype("bfloat16"))
+    if y.dtype != torch.bfloat16 or e.dtype != torch.float32:
+        raise AssertionError(f"eager amp O1: matmul {y.dtype}, exp {e.dtype}")
+    m = _eager_linear(pt, 64, 8)
+    opt = pt.optimizer.SGD(learning_rate=0.1, parameters=m.parameters())
+    scaler = pt.amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    w0 = m.weight.numpy().copy()
+    with pt.amp.auto_cast(level="O1", dtype="float16"):
+        h = pt.matmul(pt.full([4, 64], 300.0), m.weight)
+        out = m(pt.full([4, 64], 300.0))
+    if h.dtype != torch.float16:
+        raise AssertionError(f"eager amp fp16: matmul out {h.dtype}")
+    # d loss / d out is ~1e7 after scaling: past fp16's range in the
+    # matmul's backward, so the weight gradient is inf
+    scaler.scale(out.mean() * 1e4).backward()
+    scaler.step(opt)
+    scaler.update()
+    if not np.array_equal(m.weight.numpy(), w0) or \
+            scaler.get_loss_scaling() >= 2.0 ** 15:
+        raise AssertionError("eager amp: GradScaler did not skip the inf "
+                             "step")
+    pt.amp.decorate(m, level="O2", dtype="bfloat16")
+    if m.weight.dtype != torch.bfloat16 or m.weight.stop_gradient:
+        raise AssertionError("eager amp: decorate O2 did not cast")
+    if not pt.amp.is_bfloat16_supported():
+        raise AssertionError("eager amp: bf16 reported unsupported")
+    print("eager amp on the card: O1 matmul bf16, exp fp32, fp16 "
+          "GradScaler skipped the inf step (scale "
+          f"{scaler.get_loss_scaling():g}), decorate O2 bf16")
+
+
+def _eager_card_vs_cpu(dev) -> None:
+    """(e) An fp32 GPT Layer (2 layers, hidden 256, 4 heads of 64, S 256,
+    B 2) takes three AdamW steps on the card and on the CPU from the same
+    weights: losses within TRAIN_CPU_RTOL, parameters within
+    TRAIN_CPU_ATOL."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+
+    cfg = GPTConfig(vocab_size=1024, hidden=256, n_layers=2, n_heads=4,
+                    seq_len=256, dtype=torch.float32,
+                    param_dtype=torch.float32)
+    rng = np.random.RandomState(12)
+    toks = rng.randint(0, cfg.vocab_size, size=(2, cfg.seq_len))
+    labs = rng.randint(0, cfg.vocab_size, size=(2, cfg.seq_len))
+    runs = {}
+    state = None
+    try:
+        for where in ("cpu", "gpu:0"):
+            pt.set_device(where)
+            model = GPT(cfg, seed=7)
+            if state is None:
+                state = {k: v.numpy() for k, v in model.state_dict().items()}
+            else:
+                model.set_state_dict(state)
+            opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                                     parameters=model.parameters(),
+                                     grad_clip=pt.nn.ClipGradByGlobalNorm(1.0))
+            losses = []
+            for _ in range(3):
+                loss = model.loss(pt.to_tensor(toks), pt.to_tensor(labs))
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                losses.append(loss.item())
+            runs[where] = (losses, [p.numpy() for p in model.parameters()])
+    finally:
+        pt.set_device("gpu:0")
+    (lc, pc), (lg, pg) = runs["cpu"], runs["gpu:0"]
+    if not np.allclose(lg, lc, rtol=TRAIN_CPU_RTOL, atol=0):
+        raise AssertionError(f"eager cpu/cuda: losses {lg} vs {lc}")
+    worst = max(float(np.abs(a - b).max()) for a, b in zip(pg, pc))
+    if not worst <= TRAIN_CPU_ATOL:
+        raise AssertionError(f"eager cpu/cuda: params differ by {worst}")
+    print(f"eager GPT Layer cpu/cuda (fp32): losses {lg} vs {lc}, params "
+          f"max diff {worst:.3e}")
+
+
+def run_eager(dev) -> dict:
+    """Phase eager: the Paddle eager API on the card. (a) the eager GPT
+    Layer at gpt3-350m (``to_tensor``, ``GPT(cfg, seed=0)``, AdamW with
+    the global-norm clip, ``loss.backward(); opt.step();
+    opt.clear_grad()``) on phase train's batch: its first loss bit-equal
+    to ``make_train_step``'s, its launches a step phase train's; (b)
+    ``scaled_dot_product_attention`` at BERT-base's attention shape
+    through the funnel (K1-sep, K3-sep); (c) ``check_nan_inf``; (d) AMP;
+    (e) the card against the CPU. Returns the launches of (a)'s three
+    steps and of one (b) call."""
+    import dataclasses
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.gpt import gpt_presets
+
+    pt.set_device("gpu:0")
+    cfg = dataclasses.replace(gpt_presets("gpt3-350m"), unroll=True,
+                              remat=False)
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, cfg.vocab_size, size=(16, cfg.seq_len))
+    labs = rng.randint(0, cfg.vocab_size, size=(16, cfg.seq_len))
+    gpt = _eager_gpt(dev, cfg, toks, labs)
+    torch.cuda.empty_cache()
+    _eager_sdpa(dev)
+    torch.cuda.empty_cache()
+    _eager_nan_inf(dev)
+    _eager_amp(dev)
+    _eager_card_vs_cpu(dev)
+    L = cfg.n_layers
+    return {"gpt3-350m steps": 3, "flash_fwd": 3 * L, "flash_bwd": 3 * L,
+            "fused_norm_epilogue": 3 * (2 * L + 1),
+            "fused_bias_act": 3 * L, "flash_fwd_sep (a call)": 1,
+            "flash_bwd_sep (a call)": 2, "step_ms": gpt["step_ms"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -6323,6 +6719,10 @@ def main(argv=None) -> int:
         for k, n in ln.items():
             launches[k] = launches.get(k, 0) + n
         done("pipe")
+    if "eager" in phases:
+        print(f"eager launches {run_eager(dev)}")
+        torch.cuda.empty_cache()
+        done("eager")
     if set(phases) != set(PHASES):
         print(f"phases {phases} only: no result line")
         return 0

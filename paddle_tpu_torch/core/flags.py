@@ -18,7 +18,7 @@ import os
 import threading
 from typing import Any
 
-__all__ = ["FlagRegistry", "GLOBAL_FLAGS"]
+__all__ = ["FlagRegistry", "GLOBAL_FLAGS", "get_flags", "set_flags"]
 
 
 class FlagRegistry:
@@ -56,8 +56,43 @@ class FlagRegistry:
                 value = self._parse(str(value), ty)
             self._flags[name] = (ty, value)
 
+    def has(self, name: str) -> bool:
+        with self._lock:
+            return name in self._flags
+
+    def all(self) -> dict[str, Any]:
+        with self._lock:
+            return {k: v for k, (_, v) in self._flags.items()}
+
 
 GLOBAL_FLAGS = FlagRegistry()
+
+
+def _bare(name: str) -> str:
+    return name[len("FLAGS_"):] if name.startswith("FLAGS_") else name
+
+
+def get_flags(flags) -> dict[str, Any]:
+    """Query one flag name or a list of names (``FLAGS_`` prefix
+    optional); returns a dict keyed as asked."""
+    if isinstance(flags, str):
+        flags = [flags]
+    return {name: GLOBAL_FLAGS.get(_bare(name)) for name in flags}
+
+
+def set_flags(flags: dict[str, Any]) -> None:
+    for name, value in flags.items():
+        GLOBAL_FLAGS.set(_bare(name), value)
+
+
+# the eager op funnel (core/dispatch.py): check every op's floating
+# outputs for NaN/Inf; level 0 raises FloatingPointError naming the op,
+# a level above 0 prints a warning and goes on
+GLOBAL_FLAGS.define("check_nan_inf", False)
+GLOBAL_FLAGS.define("check_nan_inf_level", 0)
+# nn.functional.scaled_dot_product_attention: with no mask and no
+# dropout, shapes the flash gate takes go to the flash kernels
+GLOBAL_FLAGS.define("use_pallas_attention", True)
 
 
 # serving-engine defaults, read when the caller passes None

@@ -58,7 +58,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..compiler import fused_call, remat_call
+from ..core import device as _device
+from ..core.dispatch import op
 from ..core.flags import GLOBAL_FLAGS
+from ..core.tensor import Parameter, Tensor
 from ..distributed.autograd_collectives import (all_gather_dim,
                                                 all_reduce_sum,
                                                 all_to_all_dim,
@@ -73,12 +76,13 @@ from ..ops.kernels.fused_ce import (fused_ce_bwd, fused_ce_fwd,
                                     fused_ce_supported, fused_softmax_ce)
 from ..ops.kernels.fused_norm_epilogue import (fused_norm_epilogue,
                                                fused_norm_epilogue_supported)
+from ..nn.layer.layers import Layer
 
 __all__ = ["GPTConfig", "gpt_presets", "init_params", "block_apply",
            "moe_block_apply", "moe_route", "moe_dispatch", "moe_combine",
            "moe_dispatch_dense", "moe_combine_dense", "model_apply",
            "loss_fn", "sharded_loss_fn", "sharded_embed", "sharded_block",
-           "sharded_tail", "Shards", "gpt_flops_per_token"]
+           "sharded_tail", "Shards", "gpt_flops_per_token", "GPT"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -781,3 +785,72 @@ def gpt_flops_per_token(cfg: GPTConfig) -> float:
     p_dense = V * H + L * (4 * H * H + 2 * H * Fd) + (
         0 if cfg.tie_embeddings else H * V)
     return 6 * p_dense + 6 * L * S * H
+
+
+# ---------------------------------------------------------------------------
+# the eager Layer
+# ---------------------------------------------------------------------------
+
+
+def _sorted_leaves(tree, out: list) -> list:
+    """A nested dict's leaves in sorted-key order, the order
+    ``jax.tree.flatten`` gives the reference's parameters."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            _sorted_leaves(tree[k], out)
+    else:
+        out.append(tree)
+    return out
+
+
+def _unflatten_sorted(tree, leaves):
+    """The inverse of ``_sorted_leaves`` on a tree of the same shape."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        return next(it)
+
+    return build(tree)
+
+
+@op("gpt_forward")
+def _gpt_forward_op(params, tokens, *, cfg):
+    logits, aux = model_apply(params, tokens, cfg)
+    return logits
+
+
+@op("gpt_loss")
+def _gpt_loss_op(params, tokens, labels, *, cfg):
+    return loss_fn(params, tokens, labels, cfg)
+
+
+class GPT(Layer):
+    """The eager model (reference gpt.py:478-518): owns the parameter
+    tree as Parameters ``p0``...``pN`` in the reference's order and
+    dispatches the whole forward (``gpt_forward``) or the loss
+    (``gpt_loss``) as one op through the funnel, so autograd, AMP and the
+    dispatch hooks compose as for any op. The weights are the ones
+    ``make_train_step(cfg, seed=seed)`` draws: ``init_params`` from a
+    ``torch.Generator`` on the current device seeded with ``seed``."""
+
+    def __init__(self, cfg: GPTConfig, seed: int = 0):
+        super().__init__()
+        self.cfg = cfg
+        dev = _device.current_device()
+        raw = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                          dev)
+        self._tree = raw
+        for i, leaf in enumerate(_sorted_leaves(raw, [])):
+            self.add_parameter(f"p{i}", Parameter(leaf))
+
+    def _params_pytree(self):
+        return _unflatten_sorted(self._tree, self.parameters())
+
+    def forward(self, tokens: Tensor) -> Tensor:
+        return _gpt_forward_op(self._params_pytree(), tokens, cfg=self.cfg)
+
+    def loss(self, tokens: Tensor, labels: Tensor) -> Tensor:
+        return _gpt_loss_op(self._params_pytree(), tokens, labels,
+                            cfg=self.cfg)

@@ -5,11 +5,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "opt_state_from_jax", "paged_cache_from_jax"]
+__all__ = ["params_from_jax", "opt_state_from_jax", "paged_cache_from_jax",
+           "layer_state_from_jax", "optimizer_state_from_jax"]
 
 _NP_TO_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "float16": torch.float16, "int8": torch.int8,
-                "int32": torch.int32}
+                "int32": torch.int32, "int64": torch.int64,
+                "float64": torch.float64, "bool": torch.bool}
 
 
 def _leaf(a, device, dtype) -> torch.Tensor:
@@ -88,4 +90,37 @@ def paged_cache_from_jax(cache, device):
     out.block_table = _leaf(np.asarray(cache.block_table, np.int32), device,
                             None)
     out.seq_lens = _leaf(np.asarray(cache.seq_lens, np.int32), device, None)
+    return out
+
+
+def layer_state_from_jax(state_dict, device) -> dict:
+    """A reference ``Layer.state_dict()`` (its Tensors, or numpy arrays)
+    as a state dict of the port's Tensors on ``device``, ready for the
+    port's ``Layer.set_state_dict``: same structured names, same dtypes
+    (bf16 bits carried as they are)."""
+    from ..core.tensor import Tensor
+
+    return {k: Tensor(_leaf(np.asarray(getattr(v, "_data", v)), device,
+                            None))
+            for k, v in state_dict.items()}
+
+
+def optimizer_state_from_jax(state_dict, optimizer, device=None) -> dict:
+    """A reference ``Optimizer.state_dict()`` as the port optimizer's:
+    the reference's per-parameter entries, in its parameter order, go to
+    ``optimizer``'s parameters in order (the two packages name
+    parameters from separate counters); the step count and the
+    scheduler's state carry as they are."""
+    named = state_dict.get("state", {})
+    params = optimizer._parameter_list
+    if len(named) > len(params):
+        raise ValueError(f"{len(named)} reference parameter states for "
+                         f"{len(params)} parameters")
+    out = {"step_count": int(state_dict.get("step_count", 0)), "state": {}}
+    for i, (p, slots) in enumerate(zip(params, named.values())):
+        dev = device if device is not None else p._data.device
+        out["state"][p.name or f"param_{i}"] = {
+            k: _leaf(np.asarray(v), dev, None) for k, v in slots.items()}
+    if "LR_Scheduler" in state_dict:
+        out["LR_Scheduler"] = dict(state_dict["LR_Scheduler"])
     return out
