@@ -254,8 +254,30 @@ Phases, each failing loudly (any failure exits nonzero):
     fp16 GradScaler's skipped step, O2 decoration. (e) An fp32 Layer
     (2 layers, hidden 256) three AdamW steps on the card and the CPU.
 
+21. ``bert``: BERT-base pretraining through the Paddle API
+    (``models.bert``: ``nn.Embedding``, ``nn.TransformerEncoder`` and
+    its ``MultiHeadAttention``, ``nn.LayerNorm``, ``F.cross_entropy``).
+    (a) ``bert_base()`` with attention dropout 0 (hidden dropout 0.1),
+    B 32, S 512, fp32 parameters, AMP O1 bf16, AdamW (lr 1e-4, weight
+    decay 0.01): one warm-up step and 3 timed ones, each with 12 funnel
+    ops ``pallas_flash_attention`` and none ``scaled_dot_product_
+    attention``, K1-sep 12 and K3-sep 24 launches, all wgmma; the first
+    loss finite and within BERT_LOSS_RTOL of the same weights' with
+    ``use_pallas_attention`` off (the same dropout draws); K1-sep and
+    K3-sep at [32, 512, 12, 64] bf16 held against their plain versions
+    and timed beside SDPA; step ms, tokens/s, ``opt.step()`` ms, peak
+    memory, MFU. (b) ``model.eval()`` at the default config (dropouts
+    0.1): K1-sep 12 and K3-sep 0 launches, the logits within BF16_TOL
+    (scaled) of the flag-off route's. (c) Training at the default
+    config: attention dropout 0.1 takes the plain expression, no flash
+    launch; its step ms beside (a)'s. One more step of (a) runs under
+    torch.profiler (device busy share, launches, time by kernel kind of
+    the forward + backward and of ``opt.step()``). (d) A small fp32 BERT (2 layers,
+    hidden 256, 4 heads of 64, S 128): three AdamW steps on the card
+    and on the CPU from the same weights, losses within TRAIN_CPU_RTOL.
+
 After each of the phases train, train_13b, llama_train, decode, paged,
-resilient, dist, pipe (the ranks' launches included) and eager every bf16
+resilient, dist, pipe (the ranks' launches included), eager and bert every bf16
 flash launch at head dim 64 or 128 must have taken
 the TMA + wgmma variant, as the C launchers report what they launched
 (``flash_attention.LAUNCHES_BY_PLAN``), and at every shape launched the
@@ -289,7 +311,7 @@ PHASES = ("kernels", "engine", "int8", "cpu", "train_kernels", "train",
           "train_cpu", "train_13b", "llama_train", "decode_kernels",
           "decode", "decode_cpu", "serving_kernels", "serving",
           "paged_kernels", "paged", "fleet", "rollout", "resilient",
-          "dist", "pipe", "eager")
+          "dist", "pipe", "eager", "bert")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12         # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12          # fp32 outside the tensor cores (K6, K7)
@@ -354,7 +376,7 @@ def _bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
 # phases whose every bf16 flash launch at head dim 64 or 128 must take the
 # TMA + wgmma variant (flash_attention.flash_plan)
 FLASH_WGMMA_PHASES = ("train", "train_13b", "llama_train", "decode", "paged",
-                      "resilient", "dist", "pipe", "eager")
+                      "resilient", "dist", "pipe", "eager", "bert")
 
 
 def _flash_launch_counts() -> collections.Counter:
@@ -1863,6 +1885,26 @@ TRAIN_CATEGORIES = (
 )
 
 
+def _device_us_by_kind(prof) -> tuple[dict, int]:
+    """({kind: device µs} over TRAIN_CATEGORIES and the rest, kernel
+    launches) of a torch.profiler run."""
+    cuda = torch.autograd.DeviceType.CUDA
+    sums = {name: 0.0 for name, _ in TRAIN_CATEGORIES}
+    rest, launches = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type != cuda or e.self_device_time_total <= 0:
+            continue
+        launches += e.count
+        for name, keys in TRAIN_CATEGORIES:
+            if any(k in e.key for k in keys):
+                sums[name] += e.self_device_time_total
+                break
+        else:
+            rest += e.self_device_time_total
+    sums["elementwise, copies, reductions (incl. AdamW)"] = rest
+    return sums, launches
+
+
 def _profile_train(step, params, opt, toks, labs, tag: str,
                    n: int = 2) -> None:
     """Device time of n flagship steps by kind of kernel, the device's
@@ -1880,19 +1922,7 @@ def _profile_train(step, params, opt, toks, labs, tag: str,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     _print_profile(prof, {"wall_s": wall})
-    cuda = torch.autograd.DeviceType.CUDA
-    sums = {name: 0.0 for name, _ in TRAIN_CATEGORIES}
-    rest = 0.0
-    for e in prof.key_averages():
-        if e.device_type != cuda or e.self_device_time_total <= 0:
-            continue
-        for name, keys in TRAIN_CATEGORIES:
-            if any(k in e.key for k in keys):
-                sums[name] += e.self_device_time_total
-                break
-        else:
-            rest += e.self_device_time_total
-    sums["elementwise, copies, reductions (incl. AdamW)"] = rest
+    sums, _ = _device_us_by_kind(prof)
     for name, us in sums.items():
         print(f"train profile ({tag}): {name}: {us / 1e3 / n:.2f} ms/step")
     gtree = _map_leaves(params, torch.zeros_like)
@@ -6531,6 +6561,360 @@ def run_eager(dev) -> dict:
             "fused_bias_act": 3 * L, "flash_fwd_sep (a call)": 1,
             "flash_bwd_sep (a call)": 2, "step_ms": gpt["step_ms"]}
 
+BERT_SHAPE = (32, 512)                  # B, S: pretraining's phase 2
+BERT_LOSS_RTOL = 2 ** -8                # the flash route's first loss vs
+                                        # the plain expression's: fp32 CE
+                                        # over bf16 logits, the two routes
+                                        # rounding attention apart
+BERT_SMALL = dict(vocab_size=1024, hidden_size=256, num_hidden_layers=2,
+                  num_attention_heads=4, intermediate_size=1024,
+                  hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+
+
+def _bert_batch(cfg, B: int, S: int, seed: int = 0):
+    """ids, token types (segment B from a random cut), MLM labels (-100
+    but on 15% of positions), NSP labels."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, cfg.vocab_size, (B, S))
+    tt = (np.arange(S)[None, :] >= rng.randint(S // 4, S, (B, 1))).astype(
+        np.int64)
+    mlm = rng.randint(0, cfg.vocab_size, (B, S))
+    mlm[rng.rand(B, S) >= 0.15] = -100
+    return ids, tt, mlm, rng.randint(0, 2, (B,))
+
+
+def bert_flops_per_token(cfg, S: int) -> float:
+    """Training FLOPs a token: 6 x the parameters of every product
+    (L (4 H^2 + 2 H F) in the layers, H^2 in the MLM transform, V H in
+    the tied decoder over every position) plus attention's scores and
+    values, 12 L S H (2 products of 2 S H a token forward, x3 with the
+    backward). The pooler and the NSP head touch one row a sequence."""
+    H, L, F, V = (cfg.hidden_size, cfg.num_hidden_layers,
+                  cfg.intermediate_size, cfg.vocab_size)
+    return 6.0 * (L * (4 * H * H + 2 * H * F) + H * H + V * H) + \
+        12.0 * L * S * H
+
+
+def _bert_forward(pt, model, crit, batch, flag: bool, seed: int):
+    """One forward under AMP O1 bf16 with ``use_pallas_attention`` at
+    ``flag``, the generator reseeded (the same dropout draws on both
+    routes): (loss, logits, funnel ops)."""
+    from paddle_tpu_torch.core import dispatch
+
+    ids, tt, mlm, nsp = batch
+    ops: list = []
+    pt.set_flags({"use_pallas_attention": flag})
+    pt.seed(seed)
+    dispatch.DISPATCH_HOOKS.append(ops.append)
+    try:
+        with pt.amp.auto_cast(level="O1", dtype="bfloat16"):
+            logits = model(ids, tt)
+            loss = crit(*logits, mlm, nsp)
+    finally:
+        dispatch.DISPATCH_HOOKS.remove(ops.append)
+        pt.set_flags({"use_pallas_attention": True})
+    return loss, logits, ops
+
+
+def _bert_steps(pt, model, crit, opt, batch, n: int, tag: str,
+                flash: bool) -> dict:
+    """``n`` steps of the user's loop (the generator reseeded to the step
+    number each time); each step's launches and funnel ops checked:
+    K1-sep L and K3-sep 2L with every launch wgmma and L
+    ``pallas_flash_attention`` ops when ``flash``, no flash launch and L
+    ``scaled_dot_product_attention`` ops otherwise. Returns losses and
+    host times and each step's launch counts (set to 0 before the step,
+    read after it)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    L = model.bert.config.num_hidden_layers
+    losses, step_s, opt_s, reads = [], [], [], []
+    for i in range(n):
+        for fn in (fa.flash_fwd_sep, fa.flash_bwd_sep, fa.flash_fwd,
+                   fa.flash_bwd, fa.flash_fwd_hm, fa.flash_bwd_hm):
+            fn.launches = 0
+        wg = (fa.flash_fwd_sep.launches_wgmma, fa.flash_bwd_sep.launches_wgmma)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _, ops = _bert_forward(pt, model, crit, batch, True, i)
+        loss.backward()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        got = {"flash_fwd_sep": fa.flash_fwd_sep.launches,
+               "flash_bwd_sep": fa.flash_bwd_sep.launches,
+               "other flash": fa.flash_fwd.launches + fa.flash_bwd.launches
+               + fa.flash_fwd_hm.launches + fa.flash_bwd_hm.launches}
+        want = ({"flash_fwd_sep": L, "flash_bwd_sep": 2 * L,
+                 "other flash": 0} if flash else
+                {"flash_fwd_sep": 0, "flash_bwd_sep": 0, "other flash": 0})
+        if got != want:
+            raise AssertionError(f"{tag} step {i}: launches {got} != {want}")
+        wg_got = (fa.flash_fwd_sep.launches_wgmma - wg[0],
+                  fa.flash_bwd_sep.launches_wgmma - wg[1])
+        if flash and wg_got != (L, 2 * L):
+            raise AssertionError(f"{tag} step {i}: wgmma launches {wg_got}")
+        op = "pallas_flash_attention" if flash else \
+            "scaled_dot_product_attention"
+        other = "scaled_dot_product_attention" if flash else \
+            "pallas_flash_attention"
+        if ops.count(op) != L or other in ops:
+            raise AssertionError(f"{tag} step {i}: funnel ops "
+                                 f"{collections.Counter(ops)}")
+        losses.append(loss.item())
+        step_s.append(t2 - t0)
+        opt_s.append(t2 - t1)
+        reads.append(got)
+    return {"losses": losses, "step_s": step_s, "opt_s": opt_s,
+            "launches": reads}
+
+
+def _bert_profile(pt, model, crit, opt, batch) -> None:
+    """One more step of (a)'s loop under torch.profiler, the forward +
+    backward and ``opt.step()`` traced apart: each part's device busy
+    share of its wall time (the profiler's cost included), kernel
+    launches, the top kernels and the device time by kind."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for part in ("forward + backward", "opt.step()"):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            if part == "opt.step()":
+                opt.step()
+                opt.clear_grad()
+            else:
+                loss, _, _ = _bert_forward(pt, model, crit, batch, True, 9)
+                loss.backward()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        print(f"bert profile, {part}:")
+        _print_profile(prof, {"wall_s": wall})
+        sums, n = _device_us_by_kind(prof)
+        print(f"bert profile, {part}: {n} kernel "
+              "launches; device ms by kind: " + ", ".join(
+                  f"{k} {v / 1e3:.2f}" for k, v in sums.items()))
+
+
+def _bert_kernels(dev) -> dict:
+    """K1-sep and K3-sep at the BERT-base step's attention, [32, 512, 12,
+    64] bf16 non-causal: held against their plain versions at BF16_TOL
+    (scaled), timed eager and on the device beside the plain versions
+    and SDPA, with their bounds."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    B, S = BERT_SHAPE
+    h, d = 12, 64
+    scale = d ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(31)
+    q, k, v, do = (torch.randn((B, S, h, d), generator=gen,
+                               device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    tag = f"bert K1-sep/K3-sep bf16 B{B} S{S} h{h} d{d}"
+    o, lse = fa.flash_fwd_sep(q, k, v, False, scale)
+    po, plse = fa.flash_sep_plain(q, k, v, False, scale)
+    f_err = _hold(tag + " o", o, po, BF16_TOL)
+    _hold(tag + " lse", lse, plse, FP32_TOL)
+    grads = fa.flash_bwd_sep(q, k, v, o, lse, do, False, scale)
+    pg = fa.flash_bwd_sep_plain(q, k, v, o, lse, do, False, scale)
+    b_err = max(_hold(f"{tag} d{n}", a, b, BF16_TOL)
+                for n, a, b in zip("qkv", grads, pg))
+    del po, plse, pg, grads
+    torch.cuda.empty_cache()
+    f_ms = _time_ms(lambda: fa.flash_fwd_sep(q, k, v, False, scale))
+    b_ms = _time_ms(lambda: fa.flash_bwd_sep(q, k, v, o, lse, do, False,
+                                             scale))
+    f_dev = _graph_ms(lambda: fa.flash_fwd_sep(q, k, v, False, scale))
+    b_dev = _graph_ms(lambda: fa.flash_bwd_sep(q, k, v, o, lse, do, False,
+                                               scale), iters=5)
+    f_plain = _time_ms(lambda: fa.flash_sep_plain(q, k, v, False, scale),
+                       iters=3, warmup=1)
+    b_plain = _time_ms(lambda: fa.flash_bwd_sep_plain(
+        q, k, v, o, lse, do, False, scale), iters=3, warmup=1)
+    torch.cuda.empty_cache()
+    qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    f_lib = _time_ms(lambda: sdpa(qh, kh, vh))
+    out = sdpa(qh, kh, vh)
+    do_h = do.transpose(1, 2).contiguous()
+    b_lib = _time_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), do_h,
+                                                 retain_graph=True))
+    pairs = B * h * S * S
+    x_b, st_b = B * S * h * d * 2, B * h * S * 4
+    f_bound = _bound(4 * x_b + st_b, 4.0 * d * pairs)
+    b_bound = _bound(2 * 3 * x_b + x_b + 2 * st_b, 10.0 * d * pairs)
+    rec = {"shape": f"B{B} S{S} h{h} d{d} bf16 non-causal",
+           "fwd_ms": f_ms, "fwd_device_ms": f_dev, "fwd_plain_ms": f_plain,
+           "fwd_sdpa_ms": f_lib, "fwd_bound_ms": f_bound[0],
+           "fwd_bound_by": f_bound[1], "bwd_ms": b_ms,
+           "bwd_device_ms": b_dev, "bwd_plain_ms": b_plain,
+           "bwd_sdpa_ms": b_lib, "bwd_bound_ms": b_bound[0],
+           "bwd_bound_by": b_bound[1], "fwd_max_abs_err": f_err,
+           "bwd_max_abs_err": b_err}
+    print(f"{tag}: K1-sep {f_ms:.4f} ms (device {f_dev:.4f}, plain "
+          f"{f_plain:.4f}, sdpa fwd {f_lib:.4f}, bound {f_bound[0]:.4f} ms "
+          f"{f_bound[1]}); K3-sep {b_ms:.4f} ms (device {b_dev:.4f}, plain "
+          f"{b_plain:.4f}, sdpa bwd {b_lib:.4f}, bound {b_bound[0]:.4f} ms "
+          f"{b_bound[1]})")
+    print("bert kernels record " + json.dumps(rec))
+    return rec
+
+
+def _bert_card_vs_cpu(pt) -> None:
+    """(d) A small fp32 BERT takes three AdamW steps on the card and on
+    the CPU from the same weights: losses within TRAIN_CPU_RTOL."""
+    from paddle_tpu_torch.models import bert as tb
+
+    cfg = tb.BertConfig(**BERT_SMALL)
+    arrays = _bert_batch(cfg, 2, 128, seed=3)
+    runs, state = {}, None
+    try:
+        for where in ("cpu", "gpu:0"):
+            pt.set_device(where)
+            model = tb.BertForPretraining(cfg)
+            if state is None:
+                state = {k: v.numpy() for k, v in model.state_dict().items()}
+            else:
+                model.set_state_dict(state)
+            crit = tb.BertPretrainingCriterion(cfg.vocab_size)
+            opt = pt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                     parameters=model.parameters())
+            batch = [pt.to_tensor(a) for a in arrays]
+            losses = []
+            for _ in range(3):
+                loss = crit(*model(*batch[:2]), *batch[2:])
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                losses.append(loss.item())
+            runs[where] = losses
+    finally:
+        pt.set_device("gpu:0")
+    lc, lg = runs["cpu"], runs["gpu:0"]
+    if not np.allclose(lg, lc, rtol=TRAIN_CPU_RTOL, atol=0):
+        raise AssertionError(f"bert cpu/cuda: losses {lg} vs {lc}")
+    print(f"bert small fp32 cpu/cuda: losses {lg} vs {lc} (rtol "
+          f"{TRAIN_CPU_RTOL:g})")
+
+
+def run_bert(dev) -> dict:
+    """Phase bert: BERT-base pretraining through the Paddle API. Returns
+    the launches of (a)'s three timed steps."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import bert as tb
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    pt.set_device("gpu:0")
+    B, S = BERT_SHAPE
+    cfg = dataclasses.replace(tb.bert_base(), attention_probs_dropout_prob=0.0)
+    L = cfg.num_hidden_layers
+    arrays = _bert_batch(cfg, B, S)
+    batch = [pt.to_tensor(a) for a in arrays]
+    pt.seed(0)
+    model = tb.BertForPretraining(cfg)
+    crit = tb.BertPretrainingCriterion(cfg.vocab_size)
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                             parameters=model.parameters())
+    n_params = sum(p.size for p in model.parameters())
+    # (a) the flag-off route's first loss on the same weights and draws
+    with pt.no_grad():
+        off, _, ops = _bert_forward(pt, model, crit, batch, False, 0)
+    if ops.count("scaled_dot_product_attention") != L:
+        raise AssertionError(f"bert flag off: {collections.Counter(ops)}")
+    off = off.item()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    warm = _bert_steps(pt, model, crit, opt, batch, 1, "bert (a) warm-up",
+                       True)
+    first = warm["losses"][0]
+    if not math.isfinite(first) or \
+            not abs(first - off) <= BERT_LOSS_RTOL * abs(off):
+        raise AssertionError(f"bert first loss {first!r} vs the flag-off "
+                             f"route's {off!r} (rtol {BERT_LOSS_RTOL})")
+    before = _flash_launch_counts()
+    timed = _bert_steps(pt, model, crit, opt, batch, 3, "bert (a)", True)
+    _check_flash_variants("bert (a)", before)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = warm["losses"] + timed["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"bert losses {losses}")
+    step_ms = float(np.median(timed["step_s"])) * 1e3
+    opt_ms = float(np.median(timed["opt_s"])) * 1e3
+    tokens = B * S
+    flops = bert_flops_per_token(cfg, S) * tokens
+    mfu = flops / (step_ms / 1e3) / BF16_FLOP_PER_S
+    print(f"bert-base pretraining B{B} S{S} (AMP O1 bf16, fp32 parameters, "
+          f"{n_params / 1e6:.2f}M parameters, AdamW; attention dropout 0, "
+          f"hidden 0.1): step {step_ms:.2f} ms (median of 3 timed steps, "
+          f"host clock, synchronized; {timed['step_s']}), "
+          f"{tokens / (step_ms / 1e3):.0f} tokens/s, opt.step() "
+          f"{opt_ms:.2f} ms, peak mem {peak:.2f} GiB, MFU {mfu:.4f} "
+          f"(FLOPs a token 6 (L (4H^2 + 2HF) + H^2 + VH) + 12 L S H = "
+          f"{bert_flops_per_token(cfg, S):.4e}, x {tokens} tokens over "
+          f"{BF16_FLOP_PER_S:.3e} FLOP/s); losses {losses}; first loss vs "
+          f"flag off {first!r} / {off!r} (rtol {BERT_LOSS_RTOL}); "
+          f"launches a step K1-sep {L}, K3-sep {2 * L}, all wgmma")
+    launches = {k: sum(r[k] for r in timed["launches"])
+                for k in ("flash_fwd_sep", "flash_bwd_sep")}
+    _bert_profile(pt, model, crit, opt, batch)
+    torch.cuda.empty_cache()
+    rec = _bert_kernels(dev)
+    # (b) eval at the default config: 12 K1-sep launches, no backward
+    default = tb.bert_base()
+    ev = tb.BertForPretraining(default)
+    ev.set_state_dict(model.state_dict())
+    del opt
+    ev.eval()
+    fa.flash_fwd_sep.launches = fa.flash_bwd_sep.launches = 0
+    with pt.no_grad():
+        _, on, ops = _bert_forward(pt, ev, crit, batch, True, 0)
+        n = (fa.flash_fwd_sep.launches, fa.flash_bwd_sep.launches)
+        if n != (L, 0) or ops.count("pallas_flash_attention") != L:
+            raise AssertionError(f"bert eval: launches {n}, ops "
+                                 f"{collections.Counter(ops)}")
+        _, offl, _ = _bert_forward(pt, ev, crit, batch, False, 0)
+        # the two routes round attention apart in every layer and the
+        # difference compounds through 12 bf16 layers: the logits are
+        # held as whole tensors (relative Frobenius norm), as phase eager
+        # holds the two routes' gradients
+        for name, a, b in zip(("mlm", "nsp"), on, offl):
+            a, b = a._data.float(), b._data.float()
+            rel = ((a - b).norm() / b.norm()).item()
+            print(f"bert (b) eval {name} logits flag on vs off: relative "
+                  f"Frobenius error {rel:.3e} (tol {BF16_TOL:.3e}), "
+                  f"largest scaled element error "
+                  f"{_scaled_err(a, b)[1]:.3e}")
+            if not rel <= BF16_TOL:
+                raise AssertionError(f"bert eval {name} logits: {rel}")
+    del on, offl
+    torch.cuda.empty_cache()
+    # (c) training at the default config: attention dropout 0.1 takes the
+    # plain expression
+    del model
+    ev.train()
+    opt_c = pt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                               parameters=ev.parameters())
+    plain = _bert_steps(pt, ev, crit, opt_c, batch, 2,
+                        "bert (c) attention dropout 0.1", False)
+    plain_ms = plain["step_s"][-1] * 1e3
+    print(f"bert (c) default config (attention dropout 0.1, the plain "
+          f"expression): step {plain_ms:.2f} ms against (a)'s "
+          f"{step_ms:.2f} ms; losses {plain['losses']}")
+    del ev, opt_c
+    torch.cuda.empty_cache()
+    _bert_card_vs_cpu(pt)
+    summary = {"step_ms": step_ms, "tokens_per_s": tokens / (step_ms / 1e3),
+               "opt_step_ms": opt_ms, "peak_gib": peak, "mfu": mfu,
+               "losses": losses, "first_loss_flag_off": off,
+               "plain_route_step_ms": plain_ms, "kernels": rec,
+               "launches": launches}
+    print("bert record " + json.dumps(summary))
+    return launches
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -6723,6 +7107,13 @@ def main(argv=None) -> int:
         print(f"eager launches {run_eager(dev)}")
         torch.cuda.empty_cache()
         done("eager")
+    if "bert" in phases:
+        ln = run_bert(dev)
+        print(f"bert launches {ln}")
+        for k in ("flash_fwd_sep", "flash_bwd_sep"):
+            launches[k] = launches.get(k, 0) + ln[k]
+        torch.cuda.empty_cache()
+        done("bert")
     if set(phases) != set(PHASES):
         print(f"phases {phases} only: no result line")
         return 0

@@ -14,6 +14,7 @@ time, as the reference's are.
 
 from __future__ import annotations
 
+import copy
 import weakref
 from typing import Optional
 
@@ -22,7 +23,17 @@ import torch
 
 from . import device as _device
 
-__all__ = ["Tensor", "Parameter", "live_parameters"]
+__all__ = ["Tensor", "Parameter", "live_parameters", "unique_name"]
+
+_name_counters: dict[str, int] = {}
+
+
+def unique_name(prefix: str) -> str:
+    """``prefix_N``, N counting up per prefix: the names of Layers,
+    parameters and variables."""
+    n = _name_counters.get(prefix, 0)
+    _name_counters[prefix] = n + 1
+    return f"{prefix}_{n}"
 
 
 def _grad_dtype(dtype: torch.dtype) -> bool:
@@ -235,6 +246,16 @@ class Tensor:
         return (_unpickle_tensor, (self.numpy(), self.stop_gradient,
                                    self.name))
 
+    def __deepcopy__(self, memo):
+        """A copy with storage of its own on the same device, in the same
+        dtype and autograd state (pickling goes through the host)."""
+        new = Tensor(self._data.detach().clone(),
+                     stop_gradient=self.stop_gradient, name=self.name)
+        memo[id(self)] = new
+        new.persistable = self.persistable
+        new.__dict__.update(copy.deepcopy(self.__dict__, memo))
+        return new
+
     # ---- mutation ----------------------------------------------------------
     def set_value(self, value):
         """Assign new values. Same shape, dtype and device: written into
@@ -309,6 +330,24 @@ class Parameter(Tensor):
         self.need_clip = True
         self.persistable = True
         _LIVE_PARAMETERS.add(self)
+
+    def __deepcopy__(self, memo):
+        """A Parameter with storage of its own on the same device, its
+        data, ``stop_gradient`` and attributes, and a fresh name, as
+        Paddle names a copied parameter. (The reference's deep copy is a
+        plain Tensor keeping the original's name, so its optimizer's
+        state dict keys the copies' moments as one.)"""
+        new = Parameter(self._data.detach().clone(),
+                        trainable=self.trainable, name=unique_name("param"))
+        memo[id(self)] = new
+        new.stop_gradient = self.stop_gradient
+        new.optimize_attr = copy.deepcopy(self.optimize_attr, memo)
+        new.regularizer = copy.deepcopy(self.regularizer, memo)
+        new.is_distributed = self.is_distributed
+        new.need_clip = self.need_clip
+        new.persistable = self.persistable
+        new.__dict__.update(copy.deepcopy(self.__dict__, memo))
+        return new
 
     def __repr__(self):
         return "Parameter containing:\n" + super().__repr__()

@@ -15,7 +15,7 @@ import torch
 
 from ...core import device as _device
 from ...core.dtype import convert_dtype
-from ...core.tensor import Parameter, Tensor, as_torch
+from ...core.tensor import Parameter, Tensor, as_torch, unique_name
 from .. import initializer as I
 
 __all__ = ["Layer", "ParamAttr"]
@@ -72,13 +72,7 @@ class HookRemoveHelper:
         self._hooks.pop(self._hook_id, None)
 
 
-_name_counters: dict[str, int] = {}
-
-
-def _unique_name(prefix: str) -> str:
-    n = _name_counters.get(prefix, 0)
-    _name_counters[prefix] = n + 1
-    return f"{prefix}_{n}"
+_unique_name = unique_name
 
 
 class Layer:

@@ -105,21 +105,44 @@ def layer_state_from_jax(state_dict, device) -> dict:
             for k, v in state_dict.items()}
 
 
-def optimizer_state_from_jax(state_dict, optimizer, device=None) -> dict:
-    """A reference ``Optimizer.state_dict()`` as the port optimizer's:
-    the reference's per-parameter entries, in its parameter order, go to
-    ``optimizer``'s parameters in order (the two packages name
-    parameters from separate counters); the step count and the
-    scheduler's state carry as they are."""
+def optimizer_state_from_jax(state_dict, optimizer, device=None,
+                             names=None) -> dict:
+    """A reference ``Optimizer.state_dict()`` as the port optimizer's.
+
+    The reference keys its per-parameter entries by parameter name, and
+    the two packages name parameters from separate counters. With
+    ``names``, the reference optimizer's ``_parameter_names`` in its
+    parameter order, entry ``names[i]`` goes to the port optimizer's
+    i-th parameter; a name that appears twice (the reference's deep
+    copies keep the original's name, so their moments share one entry)
+    raises. Without ``names`` the entries pair by position, which needs
+    exactly one entry a parameter. The step count and the scheduler's
+    state carry as they are."""
     named = state_dict.get("state", {})
     params = optimizer._parameter_list
-    if len(named) > len(params):
-        raise ValueError(f"{len(named)} reference parameter states for "
-                         f"{len(params)} parameters")
+    if names is not None:
+        names = list(names)
+        dup = sorted({n for n in names if names.count(n) > 1})
+        if dup:
+            raise ValueError(f"reference parameter names appear more than "
+                             f"once, so their states cannot be told apart: "
+                             f"{dup}")
+        if len(names) != len(params):
+            raise ValueError(f"{len(names)} reference parameter names for "
+                             f"{len(params)} parameters")
+        pairs = [(p, named[n]) for p, n in zip(params, names) if n in named]
+    else:
+        if len(named) != len(params):
+            raise ValueError(f"{len(named)} reference parameter states for "
+                             f"{len(params)} parameters: cannot pair them "
+                             f"by position (pass the reference's "
+                             f"_parameter_names as names=)")
+        pairs = list(zip(params, named.values()))
     out = {"step_count": int(state_dict.get("step_count", 0)), "state": {}}
-    for i, (p, slots) in enumerate(zip(params, named.values())):
+    index = {id(p): i for i, p in enumerate(params)}
+    for p, slots in pairs:
         dev = device if device is not None else p._data.device
-        out["state"][p.name or f"param_{i}"] = {
+        out["state"][p.name or f"param_{index[id(p)]}"] = {
             k: _leaf(np.asarray(v), dev, None) for k, v in slots.items()}
     if "LR_Scheduler" in state_dict:
         out["LR_Scheduler"] = dict(state_dict["LR_Scheduler"])

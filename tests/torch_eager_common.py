@@ -1,6 +1,6 @@
 """Shared by the eager-API parity tests (tests/test_torch_{core,ops,
-optimizer,amp,eager_gpt}.py): import the two fixtures into a test module
-to use them.
+optimizer,amp,eager_gpt,nn_*,bert}.py): import the fixtures into a test
+module to use them.
 
 The suite's per-test ``gc.collect()`` (tests/conftest.py) walks every
 object the two frameworks hold, ~0.2 s a test once both are loaded.
@@ -26,3 +26,17 @@ def frozen_heap():
 def freeze_after_case():
     yield
     gc.freeze()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def reference_ops_restored():
+    """Some reference Layers register a funnel op when first called (the
+    spectral and weight norms' power iteration and recompute); drop what
+    a module's cases registered in the reference's registry, which its
+    own tests inventory (tests/test_grad_coverage.py)."""
+    from paddle_tpu.core import dispatch
+
+    before = set(dispatch.OP_REGISTRY)
+    yield
+    for name in set(dispatch.OP_REGISTRY) - before:
+        dispatch.unregister_op(name)
