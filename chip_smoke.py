@@ -276,6 +276,25 @@ Phases, each failing loudly (any failure exits nonzero):
     hidden 256, 4 heads of 64, S 128): three AdamW steps on the card
     and on the CPU from the same weights, losses within TRAIN_CPU_RTOL.
 
+22. ``resnet``: ResNet-50 training through the Paddle API
+    (``vision.models.resnet50``: ``nn.Conv2D`` / ``F.conv2d`` on cuDNN,
+    ``nn.BatchNorm2D``, ``nn.MaxPool2D``, ``nn.AdaptiveAvgPool2D``,
+    ``optimizer.Momentum``). (a) 1000 classes, B 64 of 3 x 224 x 224 from
+    seed 0, AMP O1 bf16, Momentum (lr 0.1, momentum 0.9, weight decay
+    1e-4): 2 warm-up steps and 5 timed ones; step ms, images/s, peak
+    memory, MFU (conv and fc FLOPs), the funnel ops a step, no launch of
+    the 21 port kernels; the first loss within RESNET_LOSS_RTOL of the
+    fp32 route's on the same weights; the losses finite; one more step
+    under torch.profiler. (b) ``save`` / ``load`` of the model's and the
+    Momentum state after the warm-up, into a fresh model and optimizer:
+    the next step's loss and every tensor bitwise equal to the
+    uninterrupted run's (cuDNN deterministic for both). (c) fp32 card
+    against CPU: resnet18 (B 4, 64 x 64) logits and first conv gradient,
+    the conv / pooling / grid_sample cases that differ from torch's
+    defaults, a 2-layer bidirectional LSTM and GRU (hidden 256, T 64, B 8).
+    (d) PyLayer, saved_tensors_hooks and jacobian / hessian / vjp / jvp on
+    CUDA tensors against the CPU.
+
 After each of the phases train, train_13b, llama_train, decode, paged,
 resilient, dist, pipe (the ranks' launches included), eager and bert every bf16
 flash launch at head dim 64 or 128 must have taken
@@ -311,7 +330,7 @@ PHASES = ("kernels", "engine", "int8", "cpu", "train_kernels", "train",
           "train_cpu", "train_13b", "llama_train", "decode_kernels",
           "decode", "decode_cpu", "serving_kernels", "serving",
           "paged_kernels", "paged", "fleet", "rollout", "resilient",
-          "dist", "pipe", "eager", "bert")
+          "dist", "pipe", "eager", "bert", "resnet")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12         # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12          # fp32 outside the tensor cores (K6, K7)
@@ -6916,6 +6935,479 @@ def run_bert(dev) -> dict:
     return launches
 
 
+RESNET_B = 64                   # the per-card batch of Paddle's ImageNet
+                                # ResNet-50 recipe
+RESNET_WARMUP, RESNET_TIMED = 2, 5
+RESNET_LOSS_RTOL = 1e-2         # AMP O1 bf16 first loss vs the fp32 route's
+# card vs CPU, fp32, TF32 off: sum order only (scaled, _scaled_err)
+RESNET_CPU_TOL = 1e-3           # resnet18 logits / first conv's gradient
+                                # through 8 train-mode BatchNorms
+VISION_CPU_TOL = 1e-5           # one conv, pool or grid_sample
+RNN_CPU_TOL = 1e-4              # 2-layer bidirectional, T 64 recurrences
+AUTOGRAD_CPU_TOL = 1e-5
+
+
+def _port_kernel_launches() -> dict:
+    """{module.wrapper: launches} of every kernel wrapper of the port (a
+    callable of ``paddle_tpu_torch.ops.kernels`` with a ``launches``
+    count)."""
+    import importlib
+    import pkgutil
+
+    from paddle_tpu_torch.ops import kernels
+
+    out = {}
+    for m in pkgutil.iter_modules(kernels.__path__):
+        if m.name.startswith("_"):
+            continue
+        mod = importlib.import_module(f"{kernels.__name__}.{m.name}")
+        for name, fn in vars(mod).items():
+            if callable(fn) and isinstance(getattr(fn, "launches", None),
+                                           int):
+                out[f"{m.name}.{name}"] = fn.launches
+    return out
+
+
+def resnet_flops(model, pt, image_shape) -> float:
+    """Training FLOPs of one image: 3 x the forward's 2 x multiply-adds
+    of every convolution (N Cout Hout Wout Cin / groups kh kw, output
+    shapes read by forward post-hooks on one image) and of the fc; the
+    elementwise work (BatchNorm, relu, the residual adds, pooling) is
+    left out."""
+    from paddle_tpu_torch.nn import Conv2D, Linear
+
+    macs, hooks = [0.0], []
+
+    def conv_hook(layer, inputs, out):
+        w = layer.weight
+        macs[0] += out.size * w.shape[1] * w.shape[2] * w.shape[3]
+
+    def fc_hook(layer, inputs, out):
+        macs[0] += out.size * layer.weight.shape[0]
+
+    for layer in model.sublayers():
+        if isinstance(layer, Conv2D):
+            hooks.append(layer.register_forward_post_hook(conv_hook))
+        elif isinstance(layer, Linear):
+            hooks.append(layer.register_forward_post_hook(fc_hook))
+    state = {k: v._data.clone() for k, v in model.state_dict().items()}
+    try:
+        with pt.no_grad():
+            model(pt.to_tensor(np.zeros((1,) + image_shape, np.float32)))
+    finally:
+        for h in hooks:
+            h.remove()
+        with torch.no_grad():                     # BatchNorm's statistics
+            for k, v in model.state_dict().items():
+                v._data.copy_(state[k])
+    return 3 * 2 * macs[0]
+
+
+def _resnet_step(pt, model, opt, x, y, ops=None) -> float:
+    """The user's loop, one step: (loss value). ``ops`` collects the
+    funnel's op names."""
+    from paddle_tpu_torch.core import dispatch
+
+    F = pt.nn.functional
+    if ops is not None:
+        dispatch.DISPATCH_HOOKS.append(ops.append)
+    try:
+        model.train()
+        with pt.amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+    finally:
+        if ops is not None:
+            dispatch.DISPATCH_HOOKS.remove(ops.append)
+    return loss.item()
+
+
+RESNET_CATEGORIES = (
+    ("convolutions and the fc (cuDNN, cuBLAS)",
+     ("conv", "cudnn", "xmma", "implicit", "dgrad", "wgrad", "gemm",
+      "nhwc", "nchw", "cutlass", "nvjet", "sm90_")),
+    ("reductions (BatchNorm statistics and its backward, the loss)",
+     ("reduce_kernel",)),
+    ("casts and copies (AMP)", ("copy_kernel",)),
+)
+
+
+def _resnet_profile(pt, model, opt, x, y) -> None:
+    """One more step under torch.profiler: the device's busy share of
+    the step's wall time (the profiler's cost included), kernel launches
+    and the top device operations; then the forward + backward and
+    ``opt.step()`` traced apart for their device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        _resnet_step(pt, model, opt, x, y)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print("resnet profile, one step:")
+    _print_profile(prof, {"wall_s": wall})
+    cuda = torch.autograd.DeviceType.CUDA
+    sums = {name: 0.0 for name, _ in RESNET_CATEGORIES}
+    sums["elementwise (BatchNorm apply, relu, adds, Momentum)"] = 0.0
+    launches = 0
+    for e in prof.key_averages():
+        if e.device_type != cuda or e.self_device_time_total <= 0:
+            continue
+        launches += e.count
+        name = next((n for n, keys in RESNET_CATEGORIES
+                     if any(k in e.key.lower() for k in keys)),
+                    "elementwise (BatchNorm apply, relu, adds, Momentum)")
+        sums[name] += e.self_device_time_total
+    print(f"resnet profile: {launches} kernel launches a step; device ms "
+          "by kind: " + ", ".join(f"{k} {v / 1e3:.2f}"
+                                   for k, v in sums.items()))
+    F = pt.nn.functional
+    for part in ("forward + backward", "opt.step()"):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            if part == "opt.step()":
+                opt.step()
+                opt.clear_grad()
+            else:
+                with pt.amp.auto_cast(level="O1", dtype="bfloat16"):
+                    loss = F.cross_entropy(model(x), y)
+                loss.backward()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == cuda) / 1e3
+        print(f"resnet profile, {part}: device {busy:.2f} ms of "
+              f"{wall * 1e3:.2f} ms wall")
+
+
+def _resnet_save_load(pt, model, opt, x, y, root) -> dict:
+    """(b) Save the model's and the optimizer's state after the warm-up
+    steps, load both into a fresh model and optimizer on the card, run
+    the next step on each (cuDNN deterministic for both): the losses and
+    every parameter and buffer bitwise equal. The optimizer's entries
+    are keyed by parameter name and the fresh model's parameters have
+    names of their own: the state is carried over by position."""
+    import os
+
+    from paddle_tpu_torch.vision.models import resnet50
+
+    mpath, opath = os.path.join(root, "r50.pdparams"), \
+        os.path.join(root, "r50.pdopt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pt.save(model.state_dict(), mpath)
+    pt.save(opt.state_dict(), opath)
+    save_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(mpath) + os.path.getsize(opath)
+    fresh = resnet50()
+    fresh_opt = pt.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                      weight_decay=1e-4,
+                                      parameters=fresh.parameters())
+    t0 = time.perf_counter()
+    fresh.set_state_dict(pt.load(mpath))
+    saved = pt.load(opath)
+    by_pos = [saved["state"][n] for n in opt._parameter_names]
+    fresh_opt.set_state_dict({"step_count": saved["step_count"], "state": {
+        p.name: s for p, s in zip(fresh_opt._parameter_list, by_pos)}})
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        a = _resnet_step(pt, model, opt, x, y)
+        b = _resnet_step(pt, fresh, fresh_opt, x, y)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    if a != b:
+        raise AssertionError(f"resnet (b) resumed step loss {b!r} vs the "
+                             f"uninterrupted one's {a!r}")
+    ms, fs = model.state_dict(), fresh.state_dict()
+    diff = [k for k in ms if not torch.equal(ms[k]._data, fs[k]._data)]
+    if diff:
+        raise AssertionError(f"resnet (b) after the resumed step "
+                             f"{len(diff)} tensors differ: {diff[:5]}")
+    print(f"resnet (b) save / load: {nbytes / 2 ** 20:.1f} MiB "
+          f"(model + Momentum state), save {save_s * 1e3:.1f} ms, load "
+          f"{load_s * 1e3:.1f} ms (to the card; warm page cache); the "
+          f"resumed step's loss {b!r} and all {len(ms)} tensors bitwise "
+          f"equal to the uninterrupted step's")
+    return {"file_mib": nbytes / 2 ** 20, "save_ms": save_s * 1e3,
+            "load_ms": load_s * 1e3, "loss": a}
+
+
+def _on(dev, *arrays):
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+def _resnet_card_vs_cpu(pt, dev) -> None:
+    """(c) fp32, TF32 off, the same inputs on the card and the CPU."""
+    from paddle_tpu_torch.core.tensor import Tensor
+    from paddle_tpu_torch.utils.convert import layer_state_from_jax
+    from paddle_tpu_torch.vision.models import resnet18
+
+    F = pt.nn.functional
+    rng = np.random.default_rng(1)
+    # resnet18, B 4 at 64 x 64: layer4's train-mode BatchNorm normalises
+    # over B x 2 x 2 = 16 values a channel (at 32 x 32 over 4; over 2,
+    # the CPU tests saw sum-order noise grow to 17% of the logits)
+    x = rng.standard_normal((4, 3, 64, 64)).astype(np.float32)
+    y = rng.integers(0, 1000, (4,)).astype(np.int64)
+    res = {}
+    state = None
+    try:
+        for where in ("cpu", "gpu:0"):
+            pt.set_device(where)
+            m = resnet18()
+            if state is None:
+                state = {k: v.numpy() for k, v in m.state_dict().items()}
+            else:
+                m.set_state_dict(layer_state_from_jax(state, dev))
+            logits = m(pt.to_tensor(x))
+            F.cross_entropy(logits, pt.to_tensor(y)).backward()
+            res[where] = (logits._data.cpu(), m.conv1.weight.grad._data.cpu())
+    finally:
+        pt.set_device("gpu:0")
+    for name, i in (("logits", 0), ("conv1 weight gradient", 1)):
+        _hold(f"resnet (c) resnet18 B4 64x64 fp32 card vs cpu {name}",
+              res["gpu:0"][i], res["cpu"][i], RESNET_CPU_TOL)
+
+    def both(fn, *arrays, **kw):
+        """fn on the card's and the CPU's tensors: (card, cpu) outputs."""
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            o = fn(*[Tensor(t) for t in _on(d, *arrays)], **kw)
+            o = o if isinstance(o, (tuple, list)) else (o,)
+            outs.append([t._data.cpu() for t in o])
+        return outs
+
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    x2, x3 = f(2, 8, 33, 35), f(1, 4, 9, 10, 11)
+    cases = [
+        ("conv2d SAME stride 2", F.conv2d, (x2, f(16, 4, 3, 3)),
+         dict(stride=2, padding="SAME", groups=2)),
+        ("conv2d asymmetric pairs", F.conv2d, (x2, f(16, 8, 5, 3)),
+         dict(stride=(2, 1), padding=[[2, 1], [0, 2]], dilation=(1, 2))),
+        ("conv2d_transpose output_padding", F.conv2d_transpose,
+         (x2, f(8, 6, 3, 3)), dict(stride=2, padding=[1, 0, 2, 1],
+                                   output_padding=1)),
+        ("conv2d_transpose output_size", F.conv2d_transpose,
+         (x2, f(8, 6, 4, 4)), dict(stride=2, padding=1,
+                                   output_size=[65, 69])),
+        ("conv3d SAME stride 2", F.conv3d, (x3, f(6, 4, 3, 3, 3)),
+         dict(stride=2, padding="SAME")),
+        ("avg_pool2d ceil_mode exclusive=False", F.avg_pool2d, (x2,),
+         dict(kernel_size=3, stride=2, padding=1, ceil_mode=True,
+              exclusive=False)),
+        ("max_pool2d ceil_mode return_mask", F.max_pool2d, (x2,),
+         dict(kernel_size=3, stride=2, padding=1, ceil_mode=True,
+              return_mask=True)),
+        ("adaptive_avg_pool2d non-uniform", F.adaptive_avg_pool2d, (x2,),
+         dict(output_size=(5, 7))),
+        ("adaptive_max_pool2d non-uniform", F.adaptive_max_pool2d, (x2,),
+         dict(output_size=(6, 4))),
+        ("grid_sample bilinear reflection", F.grid_sample,
+         (x2, rng.uniform(-1.2, 1.2, (2, 9, 7, 2)).astype(np.float32)),
+         dict(mode="bilinear", padding_mode="reflection",
+              align_corners=False)),
+        ("grid_sample nearest border", F.grid_sample,
+         (x2, rng.uniform(-1.2, 1.2, (2, 9, 7, 2)).astype(np.float32)),
+         dict(mode="nearest", padding_mode="border")),
+    ]
+    for name, fn, arrays, kw in cases:
+        card, cpu = both(fn, *arrays, **kw)
+        for j, (a, b) in enumerate(zip(card, cpu)):
+            if a.dtype.is_floating_point:
+                _hold(f"resnet (c) {name} output {j}", a, b, VISION_CPU_TOL)
+            elif not torch.equal(a, b):
+                raise AssertionError(f"resnet (c) {name} output {j}: "
+                                     "integer outputs differ")
+    # 2-layer bidirectional LSTM and GRU, hidden 256, T 64, B 8
+    xs = f(8, 64, 128)
+    for cls in ("LSTM", "GRU"):
+        outs, state = {}, None
+        try:
+            for where in ("cpu", "gpu:0"):
+                pt.set_device(where)
+                layer = getattr(pt.nn, cls)(128, 256, num_layers=2,
+                                            direction="bidirect")
+                if state is None:
+                    state = {k: v.numpy()
+                             for k, v in layer.state_dict().items()}
+                else:
+                    layer.set_state_dict(layer_state_from_jax(state, dev))
+                xt = pt.to_tensor(xs, stop_gradient=False)
+                out, _ = layer(xt)
+                out.sum().backward()
+                outs[where] = (out._data.cpu(), xt.grad._data.cpu(),
+                               layer.weight_hh_l0.grad._data.cpu())
+        finally:
+            pt.set_device("gpu:0")
+        for name, i in (("output", 0), ("input gradient", 1),
+                        ("weight_hh_l0 gradient", 2)):
+            _hold(f"resnet (c) {cls} 2-layer bidirect H256 T64 B8 {name}",
+                  outs["gpu:0"][i], outs["cpu"][i], RNN_CPU_TOL)
+
+
+def _resnet_autograd(pt, dev) -> None:
+    """(d) PyLayer, saved_tensors_hooks and the functional transforms on
+    CUDA tensors."""
+    PyLayer = pt.autograd.PyLayer
+
+    class Tanh(PyLayer):
+        @staticmethod
+        def forward(ctx, x):
+            y = pt.tanh(x)
+            ctx.save_for_backward(y)
+            return y
+
+        @staticmethod
+        def backward(ctx, dy):
+            (y,) = ctx.saved_tensor
+            return dy * (1 - y * y)
+
+    rng = np.random.default_rng(2)
+    xs = rng.standard_normal((64, 256)).astype(np.float32)
+    x = pt.to_tensor(xs, stop_gradient=False)
+    packed = []
+
+    def pack(t):
+        packed.append(1)
+        return t
+
+    with pt.autograd.saved_tensors_hooks(pack, lambda t: t):
+        y = Tanh.apply(x)
+        (y * y).sum().backward()
+    x2 = pt.to_tensor(xs, stop_gradient=False)
+    (pt.tanh(x2) ** 2).sum().backward()
+    if x.grad._data.device.type != dev.type or len(packed) != 1:
+        raise AssertionError(f"resnet (d) PyLayer: device "
+                             f"{x.grad._data.device}, packs {len(packed)}")
+    _hold("resnet (d) PyLayer Tanh gradient vs autograd's", x.grad._data,
+          x2.grad._data, AUTOGRAD_CPU_TOL)
+    a, b = (rng.standard_normal((3, 4)).astype(np.float32),
+            rng.standard_normal((4,)).astype(np.float32))
+    fn = lambda u, v: pt.matmul(pt.tanh(u), v * v)  # noqa: E731
+    scalar = lambda u, v: (fn(u, v) ** 2).sum()  # noqa: E731
+    got = {}
+    try:
+        for where in ("cpu", "gpu:0"):
+            pt.set_device(where)
+            u, v = pt.to_tensor(a), pt.to_tensor(b)
+            outs = [pt.autograd.jacobian(fn, [u, v]),
+                    pt.autograd.hessian(scalar, [u, v]),
+                    pt.autograd.vjp(fn, [u, v])[1],
+                    pt.autograd.jvp(fn, [u, v])[1]]
+            flat = []
+
+            def walk(t):
+                if isinstance(t, (tuple, list)):
+                    for s in t:
+                        walk(s)
+                else:
+                    flat.append(t._data)
+            walk(outs)
+            got[where] = flat
+    finally:
+        pt.set_device("gpu:0")
+    if any(t.device.type != dev.type for t in got["gpu:0"]):
+        raise AssertionError("resnet (d) a transform's result left the card")
+    for i, (c, h) in enumerate(zip(got["gpu:0"], got["cpu"])):
+        _hold(f"resnet (d) jacobian/hessian/vjp/jvp block {i}", c.cpu(), h,
+              AUTOGRAD_CPU_TOL)
+
+
+def run_resnet(dev) -> dict:
+    """Phase resnet: ResNet-50 training through the Paddle API. Returns
+    the phase's record."""
+    import tempfile
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.vision.models import resnet50
+
+    t_phase = time.perf_counter()
+    pt.set_device("gpu:0")
+    pt.seed(0)
+    model = resnet50()
+    opt = pt.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                weight_decay=1e-4,
+                                parameters=model.parameters())
+    n_params = sum(p.size for p in model.parameters())
+    flops_img = resnet_flops(model, pt, (3, 224, 224))
+    rng = np.random.default_rng(0)
+    B = RESNET_B
+    x = pt.to_tensor(rng.standard_normal((B, 3, 224, 224)).astype(
+        np.float32))
+    y = pt.to_tensor(rng.integers(0, 1000, (B,)).astype(np.int64))
+    # the fp32 route's first loss on the same weights (train mode: batch
+    # statistics; the BatchNorm buffers it moves are put back)
+    state = {k: v._data.clone() for k, v in model.state_dict().items()}
+    with pt.no_grad():
+        fp32 = pt.nn.functional.cross_entropy(model(x), y).item()
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            v._data.copy_(state[k])
+    del state
+    before = _port_kernel_launches()
+    losses, ops = [], []
+    for i in range(RESNET_WARMUP):
+        losses.append(_resnet_step(pt, model, opt, x, y,
+                                   ops if i == 0 else None))
+    if not abs(losses[0] - fp32) <= RESNET_LOSS_RTOL * abs(fp32):
+        raise AssertionError(f"resnet first loss {losses[0]!r} vs the fp32 "
+                             f"route's {fp32!r} (rtol {RESNET_LOSS_RTOL})")
+    with tempfile.TemporaryDirectory() as root:
+        saved = _resnet_save_load(pt, model, opt, x, y, root)
+    losses.append(saved["loss"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for _ in range(RESNET_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(_resnet_step(pt, model, opt, x, y))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    after = _port_kernel_launches()
+    ran = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    if ran:
+        raise AssertionError(f"resnet: port kernels launched {ran}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"resnet losses {losses}")
+    step_ms = float(np.median(step_s)) * 1e3
+    flops = flops_img * B
+    mfu = flops / (step_ms / 1e3) / BF16_FLOP_PER_S
+    counts = collections.Counter(ops)
+    print(f"resnet-50 training B{B} 3x224x224 (AMP O1 bf16, fp32 "
+          f"parameters, {n_params} parameters, Momentum lr 0.1 momentum "
+          f"0.9 weight decay 1e-4, cuDNN convolutions): step {step_ms:.2f} "
+          f"ms (median of {RESNET_TIMED} timed steps, host clock, "
+          f"synchronized; {step_s}), {B / (step_ms / 1e3):.1f} images/s, "
+          f"peak mem {peak:.2f} GiB, MFU {mfu:.4f} (training FLOPs an "
+          f"image 6 x conv + fc multiply-adds = {flops_img:.4e}, x {B} "
+          f"over {BF16_FLOP_PER_S:.3e} FLOP/s); losses {losses}; first "
+          f"loss vs the fp32 route's {losses[0]!r} / {fp32!r} (rtol "
+          f"{RESNET_LOSS_RTOL}); funnel ops a step {sum(counts.values())} "
+          f"({dict(counts.most_common(8))}); port kernel launches a step 0 "
+          "(none of the 21 lies on this path)")
+    _resnet_profile(pt, model, opt, x, y)
+    del model, opt, x
+    torch.cuda.empty_cache()
+    _resnet_card_vs_cpu(pt, dev)
+    _resnet_autograd(pt, dev)
+    rec = {"step_ms": step_ms, "images_per_s": B / (step_ms / 1e3),
+           "peak_gib": peak, "mfu": mfu, "flops_per_image": flops_img,
+           "losses": losses, "first_loss_fp32": fp32,
+           "funnel_ops_a_step": sum(counts.values()), "save_load": saved,
+           "phase_s": time.perf_counter() - t_phase}
+    print("resnet record " + json.dumps(rec))
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -6952,7 +7444,7 @@ def main(argv=None) -> int:
     print(f"built {sorted(_build.build_all())} in "
           f"{_build.last_build_seconds:.1f} s")
     kernels = {}
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     flash_before = _flash_launch_counts()
     rpa_before = _rpa_launch_counts()
 
@@ -7114,6 +7606,12 @@ def main(argv=None) -> int:
             launches[k] = launches.get(k, 0) + ln[k]
         torch.cuda.empty_cache()
         done("bert")
+    if "resnet" in phases:
+        run_resnet(dev)
+        torch.cuda.empty_cache()
+        done("resnet")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of phases "
+          f"after the build ({_build.last_build_seconds:.1f} s)")
     if set(phases) != set(PHASES):
         print(f"phases {phases} only: no result line")
         return 0

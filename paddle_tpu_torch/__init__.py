@@ -8,8 +8,9 @@ anything of ``paddle_tpu``.
 The eager Paddle API sits at the top level, as the reference's does:
 ``Tensor``, ``Parameter``, ``to_tensor``, the dtypes, grad mode,
 ``grad``/``backward``, flags, ``seed``, the device calls and the ops;
-``nn``, ``optimizer``, ``amp`` and the other subpackages load on first
-use. Entry points run on ``cuda`` unless the caller passes
+``nn``, ``optimizer``, ``amp``, ``autograd``, ``vision`` and the other
+subpackages, and ``save`` / ``load`` / ``in_dynamic_mode``
+(``framework``), load on first use. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"`` or calls ``set_device("cpu")``; without a GPU and
 without that request they raise.
 """
@@ -33,7 +34,9 @@ from .ops import make_inplace_wrapper  # noqa: F401
 
 _LAZY_SUBMODULES = ("nn", "optimizer", "amp", "models", "compiler",
                     "distributed", "incubate", "inference", "parallel",
-                    "testing", "utils", "obs")
+                    "testing", "utils", "obs", "autograd", "framework",
+                    "version", "vision", "hapi")
+_FRAMEWORK_NAMES = ("save", "load", "in_dynamic_mode")
 
 
 def __getattr__(name):
@@ -47,5 +50,14 @@ def __getattr__(name):
         from .nn.layer.layers import ParamAttr
 
         return ParamAttr
+    if name in _FRAMEWORK_NAMES:
+        from . import framework
+
+        globals()[name] = getattr(framework, name)
+        return globals()[name]
+    if name == "__version__":
+        from .version import __version__
+
+        return __version__
     raise AttributeError(f"module 'paddle_tpu_torch' has no attribute "
                          f"{name!r}")

@@ -97,7 +97,11 @@ def layer_state_from_jax(state_dict, device) -> dict:
     """A reference ``Layer.state_dict()`` (its Tensors, or numpy arrays)
     as a state dict of the port's Tensors on ``device``, ready for the
     port's ``Layer.set_state_dict``: same structured names, same dtypes
-    (bf16 bits carried as they are)."""
+    (bf16 bits carried as they are). Every entry goes across as it is:
+    conv weights in their layouts (``[out, in / groups, *k]``; ``[in,
+    out / groups, *k]`` transposed), the RNNs' ``weight_ih_l{k}`` ...
+    ``bias_hh_l{k}_reverse``, BatchNorm's ``_mean`` / ``_variance``
+    buffers; the two packages share them all."""
     from ..core.tensor import Tensor
 
     return {k: Tensor(_leaf(np.asarray(getattr(v, "_data", v)), device,

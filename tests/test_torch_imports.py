@@ -112,6 +112,57 @@ def test_port_imports_without_jax_or_reference():
             } <= mods
 
 
+_BLOCKED_ALL = _BLOCKED.replace('("jax", "jaxlib", "paddle_tpu")',
+                               '("jax", "jaxlib", "paddle_tpu", "ml_dtypes")')
+_BLOCKED_ALL = _BLOCKED_ALL.replace('in ("jax", "paddle_tpu")',
+                                    'in ("jax", "paddle_tpu", "ml_dtypes")')
+
+_API_MODULES = {"paddle_tpu_torch.autograd", "paddle_tpu_torch.framework",
+             "paddle_tpu_torch.version", "paddle_tpu_torch.vision",
+             "paddle_tpu_torch.vision.models",
+             "paddle_tpu_torch.vision.models.resnet",
+             "paddle_tpu_torch.hapi", "paddle_tpu_torch.hapi.weights",
+             "paddle_tpu_torch.nn.functional.conv",
+             "paddle_tpu_torch.nn.functional.pooling",
+             "paddle_tpu_torch.nn.functional.vision",
+             "paddle_tpu_torch.nn.layer.conv",
+             "paddle_tpu_torch.nn.layer.pooling",
+             "paddle_tpu_torch.nn.layer.rnn",
+             "paddle_tpu_torch.nn.layer.extra"}
+
+
+def test_port_imports_without_jax_reference_or_ml_dtypes():
+    """Every module, the autograd / nn conv, pooling, vision, rnn, extra
+    / framework / vision ones among them, imports with ``ml_dtypes``
+    blocked too (the card's host has none)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_ALL], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert _API_MODULES <= set(out.stdout.split()[:-1])
+
+
+def test_namespaces_are_the_references():
+    """``nn`` and ``nn.functional`` hold every public name of the
+    reference's; the top level has autograd, framework, save, load,
+    in_dynamic_mode, version and vision."""
+    import paddle_tpu as ref
+    import paddle_tpu.nn  # noqa: F401
+    import paddle_tpu_torch as port
+
+    def public(m):
+        return {n for n in dir(m) if not n.startswith("_")}
+
+    assert public(ref.nn) - public(port.nn) == set()
+    assert public(ref.nn.functional) - public(port.nn.functional) == set()
+    for name in ("autograd", "framework", "save", "load",
+                 "in_dynamic_mode", "version", "vision"):
+        assert getattr(port, name) is not None, name
+        assert hasattr(ref, name), name
+    assert port.__version__ == ref.__version__
+
+
 def test_no_silent_cpu_fallback():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid")

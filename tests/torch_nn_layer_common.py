@@ -1,6 +1,7 @@
 """Shared by the Layer parity tests (tests/test_torch_nn_layers.py,
-test_torch_nn_norm.py, test_torch_nn_transformer.py): build a layer in
-both packages with the reference's state carried across, and hold the
+test_torch_nn_norm.py, test_torch_nn_transformer.py, test_torch_nn_conv.py,
+test_torch_nn_pooling.py, test_torch_nn_rnn.py, test_torch_nn_extra.py):
+build a layer in both packages with the reference's state carried across, and hold the
 port's forward and gradients to the reference's at fp32 rtol 1e-5 (and
 1e-5 of the tensor's largest magnitude).
 
@@ -8,7 +9,8 @@ Attention's key-projection bias has a gradient of 0 in exact arithmetic
 (the softmax over keys ignores a shift common to every key, and q . b
 is one), so both packages return rounding noise there: those gradients
 are held to within 1e-5 of the largest gradient of the layer on both
-sides, not to each other."""
+sides, not to each other. ``hold_fn`` holds a functional the same way.
+"""
 
 import numpy as np
 
@@ -111,3 +113,56 @@ def hold(rl, pl, inputs, train=False, what=""):
                     what, name, side)
         else:
             close(pg, rg, f"{what} grad of {name}")
+
+
+def hold_fn(fn_name, arrays, kwargs=None, what=""):
+    """``nn.functional.<fn_name>(*arrays, **kwargs)`` in both packages:
+    numpy arrays become tensors (float ones requiring grad), other
+    arguments pass as they are. Float outputs are held by ``close``,
+    others exactly (as int64); then the gradients of a seeded cotangent with
+    respect to every float input. Returns the port's outputs."""
+    kwargs = kwargs or {}
+    what = what or fn_name
+
+    def call(pkg):
+        ins, ts = [], []
+        for a in arrays:
+            if isinstance(a, np.ndarray):
+                t = pkg.to_tensor(a, stop_gradient=a.dtype.kind != "f")
+                if a.dtype.kind == "f":
+                    ins.append(t)
+                ts.append(t)
+            else:
+                ts.append(a)
+        out = getattr(pkg.nn.functional, fn_name)(*ts, **kwargs)
+        return (list(out) if isinstance(out, (tuple, list)) else [out]), ins
+
+    r_outs, r_in = call(ref)
+    p_outs, p_in = call(port)
+    assert len(p_outs) == len(r_outs), what
+    for j, (po, ro) in enumerate(zip(p_outs, r_outs)):
+        a, b = po.numpy(), ro.numpy()
+        if b.dtype.kind == "f":
+            close(a, b, f"{what} output {j}")
+        else:
+            # the reference's integers are 32-bit (jax without x64)
+            assert a.shape == b.shape and a.dtype.kind == b.dtype.kind, (
+                what, j, a.shape, b.shape, a.dtype, b.dtype)
+            np.testing.assert_array_equal(a.astype(np.int64),
+                                          b.astype(np.int64), err_msg=what)
+    pairs = [(po, ro) for po, ro in zip(p_outs, r_outs)
+             if not ro.stop_gradient]
+    if not pairs or not r_in:
+        return p_outs
+    rng = np.random.default_rng(1)
+    cots = [rng.standard_normal(tuple(ro.shape)).astype(np.float32)
+            for _, ro in pairs]
+    r_g = ref.grad([ro for _, ro in pairs], r_in,
+                   [ref.to_tensor(c) for c in cots], allow_unused=True)
+    p_g = port.grad([po for po, _ in pairs], p_in,
+                    [port.to_tensor(c) for c in cots], allow_unused=True)
+    for j, (pg, rg, x) in enumerate(zip(p_g, r_g, p_in)):
+        zero = np.zeros(tuple(x.shape), np.float32)
+        close(zero if pg is None else pg.numpy(),
+              zero if rg is None else rg.numpy(), f"{what} grad {j}")
+    return p_outs
