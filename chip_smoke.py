@@ -295,9 +295,27 @@ Phases, each failing loudly (any failure exits nonzero):
     (d) PyLayer, saved_tensors_hooks and jacobian / hessian / vjp / jvp on
     CUDA tensors against the CPU.
 
+23. ``ops``: the op library's long tail (``ops/linalg.py``, ``extra.py``,
+    ``extra2.py``, ``parity.py``). (a) Every op of the four modules, on
+    the cases of the CPU tests (``tests/torch_ops_cases.py``), on CUDA
+    tensors against the same op on CPU tensors: integers exact, floats
+    within FP32_TOL of the largest magnitude, decompositions by their
+    invariants. (b) The slice at full width, each row's error, bar and
+    time on one line: ``flash_attn_qkvpacked`` at gpt3-350m's attention
+    ([16, 1024, 3, 16, 64] bf16, causal, forward and backward through
+    K1-sep / K3-sep, one and two launches) against the plain versions at
+    BF16_TOL, beside SDPA; ``top_p_sampling`` at llama3-8b's vocabulary
+    with a seed (the card's ids the CPU's, each in its nucleus);
+    ``llm_int8_linear`` at llama3-8b's MLP against the CPU, beside
+    torch.matmul; the MoE auxiliaries at the GPT-MoE routing, equal to
+    the CPU; ``svd_lowrank`` / ``pca_lowrank`` of a rank-16 [4096, 4096]
+    matrix; ``einsum("bhqd,bhkd->bhqk")`` at [16, 16, 1024, 64] bf16;
+    ``cholesky`` / ``solve`` / ``inverse`` / ``slogdet`` of a [1024,
+    1024] SPD matrix; ``multiclass_nms3`` at 80 classes x 1000 boxes.
+
 After each of the phases train, train_13b, llama_train, decode, paged,
-resilient, dist, pipe (the ranks' launches included), eager and bert every bf16
-flash launch at head dim 64 or 128 must have taken
+resilient, dist, pipe (the ranks' launches included), eager, bert and
+ops every bf16 flash launch at head dim 64 or 128 must have taken
 the TMA + wgmma variant, as the C launchers report what they launched
 (``flash_attention.LAUNCHES_BY_PLAN``), and at every shape launched the
 C launchers' plan must be ``flash_plan``'s. After each of the phases
@@ -330,7 +348,7 @@ PHASES = ("kernels", "engine", "int8", "cpu", "train_kernels", "train",
           "train_cpu", "train_13b", "llama_train", "decode_kernels",
           "decode", "decode_cpu", "serving_kernels", "serving",
           "paged_kernels", "paged", "fleet", "rollout", "resilient",
-          "dist", "pipe", "eager", "bert", "resnet")
+          "dist", "pipe", "eager", "bert", "resnet", "ops")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12         # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12          # fp32 outside the tensor cores (K6, K7)
@@ -395,7 +413,7 @@ def _bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
 # phases whose every bf16 flash launch at head dim 64 or 128 must take the
 # TMA + wgmma variant (flash_attention.flash_plan)
 FLASH_WGMMA_PHASES = ("train", "train_13b", "llama_train", "decode", "paged",
-                      "resilient", "dist", "pipe", "eager", "bert")
+                      "resilient", "dist", "pipe", "eager", "bert", "ops")
 
 
 def _flash_launch_counts() -> collections.Counter:
@@ -7408,6 +7426,582 @@ def run_resnet(dev) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# ops: the op library's long tail (ops/linalg.py, extra.py, extra2.py,
+# parity.py) on the card
+# ---------------------------------------------------------------------------
+
+OPS_PACKED = (16, 1024, 16, 64)      # gpt3-350m attention: B S h d
+OPS_VOCAB = (16, 128256)             # llama3-8b's vocabulary, 16 rows
+OPS_TOP_P = 0.9
+OPS_INT8 = (512, 4096, 14336)        # llama3-8b MLP: tokens, hidden, ffn
+OPS_INT8_CPU_ROWS = 64               # rows the CPU recomputes
+OPS_MOE_TOKENS = 16 * 1024           # GPT-MoE routing: B 16 x S 1024
+OPS_LOWRANK = (4096, 16)             # llama3-8b q_proj width, rank q
+OPS_LOWRANK_OVER = 8                 # oversampling of the held U S V^T:
+                                     # at q = rank the fp32 range finder's
+                                     # error scales with the conditioning
+                                     # of the square sketch V^T Omega
+                                     # (1.8e-5 to 4.3e-3 of the largest
+                                     # magnitude over draws), at q = rank
+                                     # + 8 it is ~1e-5
+OPS_EINSUM = (16, 16, 1024, 64)      # [B, h, S, d] bf16
+OPS_EINSUM_CPU_B = 2                 # batches the CPU recomputes
+OPS_SPD = 1024
+OPS_NMS = (80, 1000, 100)            # COCO classes, boxes, keep_top_k
+
+
+def _ops_cases_module():
+    """tests/torch_ops_cases.py: the op cases of the CPU tests, numpy
+    only (imports nothing of JAX)."""
+    import importlib
+    import os
+
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    return importlib.import_module("torch_ops_cases")
+
+
+def _on_device(pt, device: str, fn):
+    """``fn()`` with ``device`` the package's current device."""
+    pt.set_device(device)
+    try:
+        return fn()
+    finally:
+        pt.set_device("gpu:0")
+
+
+def _to_numpy(out) -> list:
+    outs = list(out) if isinstance(out, (list, tuple)) else [out]
+    res = []
+    for o in outs:
+        if isinstance(o, (list, tuple)):
+            res.extend(_to_numpy(o))
+        elif o is None:
+            res.append(None)
+        else:
+            t = o._data if hasattr(o, "_data") else o
+            if isinstance(t, torch.Tensor):
+                if t.dtype == torch.bfloat16:
+                    t = t.float()
+                res.append(t.detach().resolve_conj().cpu().numpy())
+            else:
+                res.append(np.asarray(t))
+    return res
+
+
+def _ops_card_vs_cpu(pt, dev) -> dict:
+    """(a) Every op case of the four modules (the CPU tests' cases) on
+    CUDA tensors against the same port op on CPU tensors: integer and
+    boolean outputs exact, floating outputs within FP32_TOL of the
+    output's largest magnitude (TF32 off), decompositions by their
+    invariants (the cases' checks)."""
+    from paddle_tpu_torch.core.dispatch import OP_REGISTRY, op_call
+
+    oc = _ops_cases_module()
+    tables = {**oc.LINALG_CASES, **oc.EXTRA_CASES, **oc.PARITY_CASES}
+    rows, worst = [], 0.0
+
+    def tensors(obj):
+        if isinstance(obj, np.ndarray):
+            return pt.to_tensor(obj)
+        if isinstance(obj, list) and obj and isinstance(obj[0], np.ndarray):
+            return [pt.to_tensor(o) for o in obj]
+        return obj
+
+    def compare(tag, card, cpu, check=None):
+        nonlocal worst
+        if check is not None:
+            check(card, cpu)
+            rows.append((tag, "invariants"))
+            return
+        if len(card) != len(cpu):
+            raise AssertionError(f"ops {tag}: {len(card)} outputs on the "
+                                 f"card, {len(cpu)} on the CPU")
+        err = 0.0
+        for i, (a, b) in enumerate(zip(card, cpu)):
+            if a is None or b is None:
+                if (a is None) != (b is None):
+                    raise AssertionError(f"ops {tag} output {i}: None")
+                continue
+            oc.assert_same(a, b, FP32_TOL, f"ops {tag} output {i}")
+            if b.dtype.kind in "fc" and b.size:
+                d = np.abs(a.astype(np.complex128) - b.astype(np.complex128))
+                err = max(err, float(np.nanmax(d)) if d.size else 0.0)
+        worst = max(worst, err)
+        rows.append((tag, f"{err:.2e}"))
+
+    unordered = []
+    for name in sorted(tables):
+        opdef = OP_REGISTRY[name]
+        for cid, factory, opts in tables[name]:
+            if opts.get("unordered"):
+                unordered.append(f"{name}[{cid}]")
+                continue
+            if factory is None or isinstance(factory, tuple):
+                args, kwargs = oc.contract_case(name, opdef.impl,
+                                                domain=factory)
+            else:
+                args, kwargs = factory()
+
+            def call(args=args, kwargs=kwargs, opdef=opdef):
+                a = [tensors(x) for x in args]
+                k = {n: tensors(v) for n, v in kwargs.items()}
+                if opdef.name == "view_dtype":
+                    return _to_numpy(pt.view(*a, **k))
+                return _to_numpy(op_call(opdef, a, k))
+
+            card = _on_device(pt, "gpu:0", call)
+            cpu = _on_device(pt, "cpu", call)
+            compare(f"{name}[{cid}]", card, cpu, opts.get("check"))
+    for name, fn in sorted(oc.EXTRA_FUNCS.items()):
+        compare(name, _on_device(pt, "gpu:0", lambda: _to_numpy(fn(pt))),
+                _on_device(pt, "cpu", lambda: _to_numpy(fn(pt))))
+    for name, (mk, kw) in sorted(oc.FFT_CASES.items()):
+        x = mk()
+        x = x.astype(np.complex64) if np.iscomplexobj(x) else x
+
+        def fft(name=name, x=x, kw=kw):
+            return _to_numpy(getattr(pt.fft, name)(pt.to_tensor(x), **kw))
+
+        compare(f"fft.{name}", _on_device(pt, "gpu:0", fft),
+                _on_device(pt, "cpu", fft))
+    # the functions and random ops the tables hold elsewhere, by their
+    # deterministic parts
+    f32 = oc.f32
+    extra = {
+        "fractional_max_pool2d": lambda: pt.ops.parity.fractional_max_pool2d(
+            pt.to_tensor(f32(2, 3, 17, 19)), (5, 7), random_u=0.3),
+        "fractional_max_pool3d": lambda: pt.ops.parity.fractional_max_pool3d(
+            pt.to_tensor(f32(1, 2, 7, 8, 9)), (3, 3, 4)),
+        "random_routing": lambda: pt.ops.parity.random_routing(
+            pt.to_tensor(f32(64, lo=0, hi=1)),
+            pt.to_tensor(f32(64, 2, lo=0, hi=0.5, seed=1)),
+            pt.to_tensor(np.arange(128).reshape(64, 2))),
+        "flash_attn_varlen_qkvpacked": lambda:
+            pt.ops.parity.flash_attn_varlen_qkvpacked(
+                pt.to_tensor(f32(96, 3, 2, 32)),
+                pt.to_tensor(np.array([0, 40, 96], np.int32)),
+                pt.to_tensor(np.array([0, 40, 96], np.int32)),
+                causal=True)[0],
+        "flashmask_attention": lambda: pt.ops.parity.flashmask_attention(
+            *[pt.to_tensor(f32(2, 32, 2, 16, seed=s)) for s in range(3)],
+            causal=True),
+        "fp8_fp8_half_gemm_fused": lambda: pt.linalg.fp8_fp8_half_gemm_fused(
+            pt.to_tensor(torch.from_numpy(np.round(f32(8, 32) * 4) / 4)
+                         .to(torch.float8_e4m3fn)),
+            pt.to_tensor(torch.from_numpy(np.round(f32(16, 32, seed=1) * 4)
+                                          / 4).to(torch.float8_e4m3fn)),
+            transpose_y=True, scale=0.5, output_dtype="bfloat16"),
+    }
+    for name, fn in sorted(extra.items()):
+        compare(name, _on_device(pt, "gpu:0", lambda: _to_numpy(fn())),
+                _on_device(pt, "cpu", lambda: _to_numpy(fn())))
+    pt.seed(5)
+    z = pt.ops.parity.truncated_gaussian_random((1 << 20,), a=-1.0, b=2.0)
+    zc = z._data
+    if not (zc.device.type == dev.type and zc.min().item() > -1.0
+            and zc.max().item() < 2.0
+            and abs(zc.mean().item() - 0.2296) < 0.01):
+        raise AssertionError("ops truncated_gaussian_random on the card: "
+                             f"{zc.device} {zc.min().item()} "
+                             f"{zc.max().item()} {zc.mean().item()}")
+    rows.append(("truncated_gaussian_random", "mean 0.2296 +- 0.01"))
+    print(f"ops (a) card vs CPU: {len(rows)} cases of "
+          f"{len(tables) + len(oc.EXTRA_FUNCS) + len(oc.FFT_CASES)} ops "
+          f"and functions held (bar: integers exact, floats FP32_TOL "
+          f"{FP32_TOL:.0e} of the largest magnitude, decompositions by "
+          f"their invariants at {oc.DECOMP_RTOL:.0e}); largest float "
+          f"difference {worst:.3e}; not run (a scatter writing one place "
+          f"twice, unordered on the card): {unordered}")
+    for i in range(0, len(rows), 6):
+        print("  " + "; ".join(f"{t} {e}" for t, e in rows[i:i + 6]))
+    return {"cases": len(rows), "max_abs_err": worst}
+
+
+def _ops_row(rec: dict, name: str, err: float, bar: str, ms: float,
+             extra: str = "", cpu_ms: float | None = None) -> None:
+    rec[name] = {"max_abs_err": err, "bar": bar, "ms": ms, "cpu_ms": cpu_ms}
+    cpu = "" if cpu_ms is None else f" (the CPU {cpu_ms:.3f} ms)"
+    print(f"ops {name}: err {err:.3e} (bar {bar}), {ms:.4f} ms{cpu}{extra}")
+
+
+def _cpu_ms(pt, fn, reps: int = 3) -> float:
+    """Median host-clock ms of ``fn()`` with the CPU the package's
+    device, after one warm-up call."""
+    def timed():
+        fn()
+        out = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(out))
+
+    return _on_device(pt, "cpu", timed)
+
+
+def _ops_packed_flash(pt, dev, rec: dict) -> dict:
+    """flash_attn_qkvpacked at gpt3-350m's attention: K1-sep forward and
+    K3-sep backward through flash_attention_raw, held against the plain
+    versions, timed beside SDPA on the same tensors."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    B, S, h, d = OPS_PACKED
+    scale = d ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(31)
+    qkv = torch.randn((B, S, 3, h, d), generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    do = torch.randn((B, S, h, d), generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    x = pt.to_tensor(qkv, stop_gradient=False)
+    n0 = (fa.flash_fwd_sep.launches, fa.flash_bwd_sep.launches)
+    out = pt.ops.parity.flash_attn_qkvpacked(x, causal=True)
+    (g,) = pt.grad([out], [x], [pt.to_tensor(do)])
+    n = (fa.flash_fwd_sep.launches - n0[0], fa.flash_bwd_sep.launches - n0[1])
+    if n != (1, 2):
+        raise AssertionError(f"ops packed flash: K1-sep / K3-sep launches "
+                             f"{n}, want (1, 2)")
+    q, k, v = qkv.unbind(2)
+    po, plse = fa.flash_sep_plain(q, k, v, True, scale)
+    tag = f"packed flash [{B}, {S}, 3, {h}, {d}] bf16 causal"
+    e_f = _hold(tag + " o", out._data, po, BF16_TOL)
+    pg = fa.flash_bwd_sep_plain(q, k, v, po.to(torch.bfloat16), plse, do,
+                                True, scale)
+    e_b = max(_hold(f"{tag} d{c}", g._data[:, :, i], pg[i], BF16_TOL)
+              for i, c in enumerate("qkv"))
+    del po, plse, pg, g
+    torch.cuda.empty_cache()
+    qkv_r = qkv.clone().requires_grad_(True)
+
+    def packed_fwd():
+        with torch.no_grad():
+            return pt.ops.parity.flash_attn_qkvpacked(qkv, causal=True)
+
+    def packed_fwd_bwd():
+        o = pt.ops.parity.flash_attn_qkvpacked(qkv_r, causal=True)
+        return torch.autograd.grad(o, qkv_r, do)
+
+    qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    do_h = do.transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return sdpa(qh, kh, vh, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        o = sdpa(qh, kh, vh, is_causal=True)
+        return torch.autograd.grad(o, (qh, kh, vh), do_h)
+
+    f_ms, fb_ms = _time_ms(packed_fwd), _time_ms(packed_fwd_bwd)
+    s_f, s_fb = _time_ms(sdpa_fwd), _time_ms(sdpa_fwd_bwd)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    o, lse = fa.flash_fwd_sep(qc, kc, vc, True, scale)
+    f_dev = _graph_ms(lambda: fa.flash_fwd_sep(qc, kc, vc, True, scale))
+    b_dev = _graph_ms(lambda: fa.flash_bwd_sep(qc, kc, vc, o, lse, do,
+                                               True, scale), iters=5)
+    s_dev = _graph_ms(sdpa_fwd)
+    pairs = B * h * S * (S + 1) / 2
+    x_b, st_b = B * S * h * d * 2, B * h * S * 4
+    f_bound = _bound(4 * x_b + st_b, 4.0 * d * pairs)
+    b_bound = _bound(2 * 3 * x_b + x_b + 2 * st_b, 10.0 * d * pairs)
+    _ops_row(rec, "flash_attn_qkvpacked fwd", e_f, f"BF16_TOL "
+             f"{BF16_TOL:.3e} scaled", f_ms,
+             f" eager (SDPA {s_f:.4f}); device K1-sep {f_dev:.4f}, SDPA "
+             f"{s_dev:.4f}, bound {f_bound[0]:.4f} ({f_bound[1]})")
+    _ops_row(rec, "flash_attn_qkvpacked fwd+bwd", e_b, f"BF16_TOL "
+             f"{BF16_TOL:.3e} scaled", fb_ms,
+             f" eager (SDPA {s_fb:.4f}); device K3-sep {b_dev:.4f}, bound "
+             f"{b_bound[0]:.4f} ({b_bound[1]})")
+    rec["flash_attn_qkvpacked fwd"].update(
+        sdpa_ms=s_f, k1_sep_device_ms=f_dev, sdpa_device_ms=s_dev,
+        bound_ms=f_bound[0])
+    rec["flash_attn_qkvpacked fwd+bwd"].update(
+        sdpa_ms=s_fb, k3_sep_device_ms=b_dev, bound_ms=b_bound[0])
+    del qkv_r, qh, kh, vh, o, lse
+    torch.cuda.empty_cache()
+    # the entry's one forward and backward; the timing calls after it
+    # are not the path's
+    return {"flash_fwd_sep": n[0], "flash_bwd_sep": n[1]}
+
+
+def _ops_top_p(pt, dev, rec: dict) -> None:
+    """top_p_sampling at llama3-8b's vocabulary with a seed: the card's
+    ids equal the CPU's, and every id lies in its row's nucleus."""
+    B, V = OPS_VOCAB
+    gen = torch.Generator(device=dev).manual_seed(41)
+    probs = torch.softmax(torch.randn((B, V), generator=gen, device=dev)
+                          * 4, dim=-1)
+    ps = torch.full((B,), OPS_TOP_P, device=dev)
+
+    def card():
+        return pt.top_p_sampling(pt.to_tensor(probs), pt.to_tensor(ps),
+                                 seed=7)
+
+    vals, ids = card()
+    pc, psc = probs.cpu(), ps.cpu()
+    pt.set_device("cpu")
+    try:
+        cvals, cids = pt.top_p_sampling(pt.to_tensor(pc), pt.to_tensor(psc),
+                                        seed=7)
+    finally:
+        pt.set_device("gpu:0")
+    ids_c = ids._data.cpu()
+    if not torch.equal(ids_c, cids._data) or not torch.equal(
+            vals._data.cpu(), cvals._data):
+        raise AssertionError(f"ops top_p: card ids {ids_c.view(-1)} vs CPU "
+                             f"{cids._data.view(-1)}")
+    p = pc.double().numpy()
+    for b in range(B):
+        order = np.argsort(-p[b], kind="stable")
+        before = np.concatenate([[0.0], np.cumsum(p[b][order])[:-1]])
+        nucleus = set(order[before < OPS_TOP_P].tolist())
+        if int(ids_c[b, 0]) not in nucleus:
+            raise AssertionError(f"ops top_p: row {b} id {int(ids_c[b, 0])} "
+                                 f"outside its nucleus of {len(nucleus)}")
+    ms = _time_ms(card, iters=10, warmup=2)
+    cpu_ms = _cpu_ms(pt, lambda: pt.top_p_sampling(
+        pt.to_tensor(pc), pt.to_tensor(psc), seed=7))
+    _ops_row(rec, "top_p_sampling", 0.0, "ids equal, in the nucleus", ms,
+             f" ([{B}, {V}] fp32, ps {OPS_TOP_P}, seed 7; ids "
+             f"{ids_c.view(-1).tolist()})", cpu_ms)
+
+
+def _ops_int8(pt, dev, rec: dict) -> None:
+    """llm_int8_linear at llama3-8b's MLP against the CPU (its first
+    rows), timed beside torch.matmul with the weight dequantized
+    beforehand."""
+    M, K, N = OPS_INT8
+    gen = torch.Generator(device=dev).manual_seed(51)
+    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randint(-127, 128, (N, K), generator=gen, device=dev,
+                      dtype=torch.int8)
+    s = torch.rand((N,), generator=gen, device=dev) * 0.04 + 0.01
+    xt, wt, st = pt.to_tensor(x), pt.to_tensor(w), pt.to_tensor(s)
+    out = pt.ops.parity.llm_int8_linear(xt, wt, st)._data
+    r = OPS_INT8_CPU_ROWS
+    pt.set_device("cpu")
+    try:
+        cpu = pt.ops.parity.llm_int8_linear(
+            pt.to_tensor(x[:r].cpu()), pt.to_tensor(w.cpu()),
+            pt.to_tensor(s.cpu()))._data
+    finally:
+        pt.set_device("gpu:0")
+    err = _hold(f"llm_int8_linear [{M}, {K}] x int8 [{N}, {K}] rows 0-{r - 1}"
+                " card vs CPU", out[:r], cpu.to(dev), BF16_TOL)
+    w_deq = w.to(torch.bfloat16) * (s.to(torch.bfloat16) / 127.0)[:, None]
+    ms = _time_ms(lambda: pt.ops.parity.llm_int8_linear(xt, wt, st))
+    lib = _time_ms(lambda: torch.matmul(x, w_deq.mT))
+    bound = _bound(M * K * 2 + N * K + M * N * 2, 2.0 * M * N * K)
+    _ops_row(rec, "llm_int8_linear", err, f"BF16_TOL {BF16_TOL:.3e} scaled",
+             ms, f" (torch.matmul of the dequantized bf16 weight {lib:.4f};"
+             f" bound {bound[0]:.4f} {bound[1]})")
+    rec["llm_int8_linear"].update(library_ms=lib, bound_ms=bound[0])
+
+
+def _ops_moe(pt, dev, rec: dict) -> None:
+    """The MoE auxiliaries at the GPT-MoE routing (8 experts, capacity
+    1.25, 16 x 1024 tokens, top-1 of skewed router logits): card equal to
+    the CPU."""
+    N, E = OPS_MOE_TOKENS, MOE_EXPERTS
+    gen = torch.Generator(device=dev).manual_seed(61)
+    skew = torch.linspace(0.0, 1.0, E, device=dev)
+    gate = (torch.randn((N, E), generator=gen, device=dev) + skew) \
+        .argmax(-1)
+    cap = int(MOE_CAPACITY * N / E)
+    P = pt.ops.parity
+
+    def chain(g):
+        counts = P.number_count(g, E)
+        lim = P.limit_by_capacity(counts, pt.full([E], cap, "int64"), 1)
+        pruned = P.prune_gate_by_capacity(g, lim, E)
+        pos = P.assign_pos(g, pt.cumsum(counts, 0))
+        return counts, lim, pruned, pos
+
+    card = [t._data.cpu() for t in chain(pt.to_tensor(gate))]
+    pt.set_device("cpu")
+    try:
+        cpu = [t._data for t in chain(pt.to_tensor(gate.cpu()))]
+    finally:
+        pt.set_device("gpu:0")
+    for name, a, b in zip(("number_count", "limit_by_capacity",
+                           "prune_gate_by_capacity", "assign_pos"), card,
+                          cpu):
+        if not torch.equal(a, b):
+            raise AssertionError(f"ops moe {name}: card != CPU")
+    gt = pt.to_tensor(gate)
+    ms = _time_ms(lambda: chain(gt), iters=10)
+    gc_ = gate.cpu()
+    cpu_ms = _cpu_ms(pt, lambda: chain(pt.to_tensor(gc_)))
+    dropped = int((card[2] < 0).sum())
+    _ops_row(rec, "moe auxiliaries", 0.0, "equal to the CPU", ms,
+             f" (the four in a chain; N {N}, {E} experts, capacity {cap}; "
+             f"loads {card[0].tolist()}, {dropped} tokens pruned)", cpu_ms)
+
+
+def _ops_lowrank(pt, dev, rec: dict) -> None:
+    """svd_lowrank and pca_lowrank of an exactly rank-16 [4096, 4096]
+    fp32 matrix, card and CPU alike: at q 16 the singular values are the
+    known ones within FP32_TOL; at q 16 + OPS_LOWRANK_OVER the leading
+    16 too, and U S Vᵀ is the matrix within FP32_TOL of its largest
+    magnitude. U's columns are orthogonal to the ones vector, so the
+    matrix's columns have mean 0 and pca_lowrank's centring keeps the
+    rank at 16."""
+    n, r = OPS_LOWRANK
+    gen = torch.Generator(device=dev).manual_seed(71)
+    g = torch.randn((n, r), generator=gen, device=dev)
+    u = torch.linalg.qr(g - g.mean(0, keepdim=True))[0]
+    v = torch.linalg.qr(torch.randn((n, r), generator=gen, device=dev))[0]
+    s_true = torch.linspace(2.0, 1.0, r, device=dev)
+    a = (u * s_true) @ v.mT
+
+    def errors(fn, q):
+        """(singular values, U S Vᵀ) relative errors, worst of card and
+        CPU."""
+        out = []
+        for device in ("gpu:0", "cpu"):
+            src = a if device == "gpu:0" else a.cpu()
+            U, S, Vt = _on_device(pt, device, lambda: getattr(pt.linalg, fn)(
+                pt.to_tensor(src), q=q))
+            U, S, Vt = (t._data.to(dev) for t in (U, S, Vt))
+            out.append((((S[:r] - s_true).abs() / s_true).max().item(),
+                        ((U * S) @ Vt.mT - a).abs().max().item()
+                        / a.abs().max().item()))
+        return tuple(max(e) for e in zip(*out))
+
+    q_over = r + OPS_LOWRANK_OVER
+    for fn in ("svd_lowrank", "pca_lowrank"):
+        e_s, e_rec16 = errors(fn, r)
+        e_s_over, e_rec = errors(fn, q_over)
+        if not (max(e_s, e_s_over) <= FP32_TOL and e_rec <= FP32_TOL):
+            raise AssertionError(f"ops {fn}: singular values {e_s} (q {r}) "
+                                 f"{e_s_over} (q {q_over}), U S V^T {e_rec}"
+                                 f" (q {q_over})")
+        at = pt.to_tensor(a)
+        ms = _time_ms(lambda: getattr(pt.linalg, fn)(at, q=r), iters=5,
+                      warmup=1)
+        ac = a.cpu()
+        cpu_ms = _cpu_ms(pt, lambda: getattr(pt.linalg, fn)(
+            pt.to_tensor(ac), q=r))
+        _ops_row(rec, fn, max(e_s, e_s_over, e_rec), f"FP32_TOL "
+                 f"{FP32_TOL:.0e} relative", ms,
+                 f" at q {r} ([{n}, {n}] fp32 rank {r}, niter 2; card and "
+                 f"CPU): singular values {e_s:.3e} at q {r}, {e_s_over:.3e} "
+                 f"at q {q_over}; U S V^T {e_rec:.3e} at q {q_over} ("
+                 f"{e_rec16:.3e} at q {r}, not held: the square sketch)",
+                 cpu_ms)
+
+
+def _ops_einsum(pt, dev, rec: dict) -> None:
+    B, h, S, d = OPS_EINSUM
+    gen = torch.Generator(device=dev).manual_seed(81)
+    q, k = (torch.randn((B, h, S, d), generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    qt, kt = pt.to_tensor(q), pt.to_tensor(k)
+    eq = "bhqd,bhkd->bhqk"
+    out = pt.einsum(eq, qt, kt)._data
+    b = OPS_EINSUM_CPU_B
+    qc, kc = q[:b].cpu(), k[:b].cpu()
+    cpu = _on_device(pt, "cpu", lambda: pt.einsum(
+        eq, pt.to_tensor(qc), pt.to_tensor(kc)))._data
+    err = _hold(f"einsum {eq} [{B}, {h}, {S}, {d}] bf16 batches 0-{b - 1} "
+                "card vs CPU", out[:b], cpu.to(dev), BF16_TOL)
+    ms = _time_ms(lambda: pt.einsum(eq, qt, kt))
+    lib = _time_ms(lambda: torch.matmul(q, k.mT))
+    bound = _bound(2 * B * h * S * d * 2 + B * h * S * S * 2,
+                   2.0 * B * h * S * S * d)
+    _ops_row(rec, "einsum", err, f"BF16_TOL {BF16_TOL:.3e} scaled", ms,
+             f" (torch.matmul {lib:.4f}; bound {bound[0]:.4f} {bound[1]})")
+    rec["einsum"].update(library_ms=lib, bound_ms=bound[0])
+
+
+def _ops_spd(pt, dev, rec: dict) -> None:
+    n = OPS_SPD
+    gen = torch.Generator(device=dev).manual_seed(91)
+    m = torch.randn((n, n), generator=gen, device=dev)
+    a = m @ m.mT / n + torch.eye(n, device=dev)
+    rhs = torch.randn((n, 16), generator=gen, device=dev)
+    cases = {
+        "cholesky": lambda A, R: pt.cholesky(A),
+        "solve": lambda A, R: pt.solve(A, R),
+        "inverse": lambda A, R: pt.inverse(A),
+        "slogdet": lambda A, R: pt.slogdet(A),
+    }
+    for name, fn in cases.items():
+        card = fn(pt.to_tensor(a), pt.to_tensor(rhs))._data
+        cpu = _on_device(pt, "cpu", lambda: fn(pt.to_tensor(a.cpu()),
+                                        pt.to_tensor(rhs.cpu())))._data
+        err = (card.cpu() - cpu).abs().max().item()
+        bar = FP32_TOL * cpu.abs().max().item()
+        if not err <= bar:
+            raise AssertionError(f"ops {name} [{n}, {n}] SPD: card vs CPU "
+                                 f"{err} > {bar}")
+        at, rt = pt.to_tensor(a), pt.to_tensor(rhs)
+        ms = _time_ms(lambda: fn(at, rt), iters=10)
+        ac, rc = a.cpu(), rhs.cpu()
+        cpu_ms = _cpu_ms(pt, lambda: fn(pt.to_tensor(ac), pt.to_tensor(rc)))
+        _ops_row(rec, name, err, f"FP32_TOL {FP32_TOL:.0e} of the largest "
+                 "magnitude", ms, f" ([{n}, {n}] SPD fp32, card vs CPU)",
+                 cpu_ms)
+
+
+def _ops_nms(pt, dev, rec: dict) -> None:
+    C, N, top = OPS_NMS
+    gen = torch.Generator(device=dev).manual_seed(101)
+    xy = torch.rand((N, 2), generator=gen, device=dev) * 600
+    wh = torch.rand((N, 2), generator=gen, device=dev) * 120 + 8
+    boxes = torch.cat([xy, xy + wh], 1)
+    scores = torch.rand((C, N), generator=gen, device=dev)
+    bt, st = pt.to_tensor(boxes), pt.to_tensor(scores)
+    card = pt.ops.parity.multiclass_nms3(bt, st, keep_top_k=top)._data
+    cpu = _on_device(pt, "cpu", lambda: pt.ops.parity.multiclass_nms3(
+        pt.to_tensor(boxes.cpu()), pt.to_tensor(scores.cpu()),
+        keep_top_k=top))._data
+    if not torch.equal(card.cpu(), cpu):
+        raise AssertionError("ops multiclass_nms3: card != CPU")
+    ms = _time_ms(lambda: pt.ops.parity.multiclass_nms3(bt, st,
+                                                        keep_top_k=top),
+                  iters=3, warmup=1)
+    bc, sc = boxes.cpu(), scores.cpu()
+    cpu_ms = _cpu_ms(pt, lambda: pt.ops.parity.multiclass_nms3(
+        pt.to_tensor(bc), pt.to_tensor(sc), keep_top_k=top), reps=1)
+    _ops_row(rec, "multiclass_nms3", 0.0, "equal to the CPU", ms,
+             f" ({C} classes x {N} boxes, keep_top_k {top}; the classes' "
+             f"greedy loops batched: {N} steps)", cpu_ms)
+
+
+def run_ops(dev) -> dict:
+    """Phase ops: the op library's long tail on the card. (a) every op of
+    ops/linalg.py, extra.py, extra2.py and parity.py against the same op
+    on the CPU; (b) the slice at full width, each row with its error, its
+    bar and its time. Returns the launches of K1-sep / K3-sep."""
+    import paddle_tpu_torch as pt
+
+    t_phase = time.perf_counter()
+    print("ops on " + subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+    pt.set_device("gpu:0")
+    rec = {"card_vs_cpu": _ops_card_vs_cpu(pt, dev)}
+    launches = _ops_packed_flash(pt, dev, rec)
+    _ops_top_p(pt, dev, rec)
+    _ops_int8(pt, dev, rec)
+    _ops_moe(pt, dev, rec)
+    _ops_lowrank(pt, dev, rec)
+    _ops_einsum(pt, dev, rec)
+    _ops_spd(pt, dev, rec)
+    _ops_nms(pt, dev, rec)
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print("ops record " + json.dumps(rec))
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -7610,6 +8204,12 @@ def main(argv=None) -> int:
         run_resnet(dev)
         torch.cuda.empty_cache()
         done("resnet")
+    if "ops" in phases:
+        ln = run_ops(dev)
+        print(f"ops launches {ln}")
+        for k in ("flash_fwd_sep", "flash_bwd_sep"):
+            launches[k] = launches.get(k, 0) + ln[k]
+        done("ops")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of phases "
           f"after the build ({_build.last_build_seconds:.1f} s)")
     if set(phases) != set(PHASES):

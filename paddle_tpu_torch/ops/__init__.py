@@ -1,5 +1,6 @@
-"""The eager op library: creation, math and manipulation, and the Tensor
-method install (port of paddle_tpu/ops/__init__.py).
+"""The eager op library: creation, math, manipulation, linalg, the long
+tail (extra, extra2, parity), and the Tensor method install (port of
+paddle_tpu/ops/__init__.py).
 
 Every public op is exported here; the operator dunders, a hand-written
 method table, the in-place variants (``x.add_(y)``) and every name of
@@ -14,8 +15,12 @@ import torch as _torch
 
 from ..core import autograd as _autograd
 from ..core.tensor import Tensor
-from . import creation, manipulation, math
+from . import creation, extra, extra2, linalg, manipulation, math, parity
 from .creation import *  # noqa: F401,F403
+from .extra import *  # noqa: F401,F403
+from .extra2 import *  # noqa: F401,F403
+from .parity import *  # noqa: F401,F403
+from .linalg import *  # noqa: F401,F403
 from .manipulation import *  # noqa: F401,F403
 from .math import *  # noqa: F401,F403
 from .manipulation import slice  # noqa: F401,A004
@@ -53,27 +58,11 @@ def make_inplace_wrapper(fn, name=None):
     return inplace
 
 
-# the in-place variants the reference generates (ops/extra2.py
-# _INPLACE_SOURCES), for the ops the port has
-_INPLACE_SOURCES = (
-    "abs", "acos", "asin", "atan", "atanh", "cast", "ceil", "clip",
-    "copysign", "cos", "cosh", "cumprod", "cumsum", "digamma", "divide",
-    "equal", "erf", "erfinv", "exp", "expm1", "flatten", "floor",
-    "floor_divide", "floor_mod", "frac", "gammainc", "gammaincc",
-    "gammaln", "gcd", "greater_equal", "greater_than", "hypot", "i0",
-    "lcm", "less_equal", "less_than", "lgamma", "log", "log10", "log1p",
-    "log2", "logical_and", "logical_not", "logical_or", "logical_xor",
-    "logit", "masked_fill", "maximum", "minimum", "mod", "multiply",
-    "nan_to_num", "neg", "pow", "reciprocal", "remainder", "reshape",
-    "round", "rsqrt", "scale", "scatter", "sigmoid", "sign", "sin", "sinh",
-    "sqrt", "square", "squeeze", "subtract", "t", "tan", "tanh",
-    "transpose", "tril", "triu", "trunc", "unsqueeze", "add",
-    "bitwise_and", "bitwise_not", "bitwise_or", "bitwise_xor", "addmm",
-)
-
-
 def _install_inplace_variants(namespace: dict) -> None:
-    for base in _INPLACE_SOURCES:
+    """The in-place variants the reference generates
+    (``extra2.INPLACE_SOURCES``), for the names the namespace has, and
+    ``where_``."""
+    for base in extra2.INPLACE_SOURCES:
         fn = namespace.get(base)
         if fn is not None:
             namespace[base + "_"] = make_inplace_wrapper(fn, base + "_")
@@ -189,6 +178,9 @@ def _install_tensor_methods():
         "repeat_interleave": manipulation.repeat_interleave,
         "tril": creation.tril, "triu": creation.triu,
         "where": manipulation.where, "clone": creation.clone,
+        "norm": linalg.norm, "inverse": linalg.inverse,
+        "cholesky": linalg.cholesky, "matrix_power": linalg.matrix_power,
+        "det": linalg.det,
     }
     for name, fn in method_table.items():
         setattr(T, name, fn)
@@ -247,5 +239,8 @@ def _install_reference_method_surface() -> None:
 
 _install_tensor_methods()
 _install_reference_method_surface()
-# the reference's method names whose functions are not ported yet
+# the reference's method names the port does not install: ``stft`` and
+# ``istft`` (signal.py, not ported yet) and the eight the reference's own
+# Tensor lacks (acosh_, asinh_, index_fill_, index_put_, lerp_,
+# not_equal_, put_along_axis_, uniform_)
 MISSING_METHODS = tuple(n for n in TENSOR_METHODS if not hasattr(Tensor, n))

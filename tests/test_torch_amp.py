@@ -6,6 +6,7 @@ same weights; the reference's softmax (not ported yet) is replaced by
 ``exp``, another black-list op, and its ``nn.Linear`` by a two-parameter
 Layer of the same function."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 

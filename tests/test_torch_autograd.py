@@ -12,6 +12,7 @@ and values of the reference's for one and for several ``xs`` and for
 one and several outputs, at fp32 rtol 1e-6 (1e-6 of the largest
 magnitude)."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 

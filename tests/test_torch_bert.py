@@ -27,6 +27,7 @@ moments into every copy; the port's names are its own, and
 pair it by position.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 

@@ -20,6 +20,7 @@ written in place: where a test needs two copies of a port cache it takes
 ``copy.deepcopy`` (a shallow ``copy.copy`` would share the pages).
 """
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import copy
 import math
 

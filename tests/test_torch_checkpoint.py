@@ -23,6 +23,7 @@
   reference cannot resume it.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import json
 import os
 import threading

@@ -9,6 +9,7 @@ same unrolled JAX config.
 
 Tolerance: none, everything here is bitwise (torch.equal)."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import dataclasses
 import functools
 

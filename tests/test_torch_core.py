@@ -11,6 +11,7 @@ the two packages' values and gradients within rtol 1e-6 of each other,
 and the same exception types.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import threading
 
 import numpy as np

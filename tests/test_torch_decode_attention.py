@@ -8,6 +8,7 @@ Tolerance: fp32 atol 1e-5 and rtol 1e-5 (o is O(1); the plain arm's one
 softmax against the kernel's blockwise online softmax differ in summation
 order only)."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import math
 
 import numpy as np

@@ -9,6 +9,7 @@ split and its static pin (tests/test_disagg.py and
 tests/test_disagg_wire.py hold the reference to the same cases). Every
 stream also equals a lone port engine's."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 

@@ -22,6 +22,7 @@ Dropout 0.1: the kept share within 0.01 of 0.9, kept values scaled by
 1 / 0.9.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 import torch

@@ -6,6 +6,7 @@ gradient against ``jax.grad`` of ``flash_attention_qkv_raw``. B 2, S 256,
 (h 4, d 64) and (h 2, d 128), causal and not, fp32; tolerance atol and
 rtol 1e-5 (summation order only)."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 import torch

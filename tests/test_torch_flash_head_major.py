@@ -18,6 +18,7 @@ the CPU), and the routes that reach it.
   gradients under the flag (unfused rope, then K17).
 """
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 import torch

@@ -15,6 +15,7 @@ kernels (interpret mode on the CPU):
 B 2, S 256, (h 4, d 64) and (h 2, d 128), causal and not, fp32; atol and
 rtol 1e-5 (summation order only)."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import os
 import subprocess
 import sys

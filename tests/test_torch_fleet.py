@@ -10,6 +10,7 @@ tests/test_fleet.py holds the reference's: every resumed stream equals a
 lone port engine's uninterrupted one, and the 7-class page ledger sums
 per engine and fleet-wide on every tick."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 

@@ -16,6 +16,7 @@ they are loaded across by parameter position
 values and ``return_numpy`` round-trip in both directions.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import os
 import subprocess
 import sys

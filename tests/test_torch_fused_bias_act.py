@@ -15,6 +15,7 @@ values rounds once); fp32 within rtol 1e-6 and atol 1e-6 (the last bit of
 exp); its gradients as the gelu's.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 import torch

@@ -6,6 +6,7 @@ last vocab tile), the autograd function against ``jax.grad``, and the
 chunked loss against ``_chunked_ce``. fp32; tolerance rtol 1e-5 with
 atol 1e-5 (gradients: 1e-5 of their largest magnitude)."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 import torch

@@ -15,6 +15,7 @@ PyTorch computes it in fp32 and rounds once). Gradients of every operand in fp32
 atol 1e-5 of each gradient's largest value (summation order only).
 """
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 import torch

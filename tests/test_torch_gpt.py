@@ -9,6 +9,7 @@ equal to its fused path, and, where the JAX compiler runs (it needs
 interpret mode. Tolerance: rtol 1e-5 on the loss; gradients rtol 1e-5
 with atol 1e-5 of each leaf's largest gradient (summation order only)."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import dataclasses
 
 import numpy as np

@@ -2,6 +2,7 @@
 and ``chip_smoke.py`` import with ``jax`` and ``paddle_tpu`` blocked, and
 the entry points never drop to the CPU on their own."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import os
 import subprocess
 import sys

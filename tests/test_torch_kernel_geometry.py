@@ -51,6 +51,7 @@ v producers stage every tile of every page once, in table order, a
 page's k tiles consumed before its v tiles.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import collections
 import re
 from pathlib import Path
@@ -66,6 +67,10 @@ from paddle_tpu_torch.ops.kernels import fused_ce as ce
 from paddle_tpu_torch.ops.kernels import lora_matmul as lm
 from paddle_tpu_torch.ops.kernels import quant_matmul as qmm
 from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+
+# 950 cases that make no garbage cycles: the heap stays frozen, so the
+# suite's per-test collection does not walk both frameworks' objects
+from torch_eager_common import freeze_after_case, frozen_heap  # noqa: F401
 
 ENGINE_SHAPES = [(512, 4096, 4096), (512, 4096, 1024), (512, 4096, 14336),
                  (512, 14336, 4096), (32, 4096, 128256)]

@@ -65,6 +65,7 @@ stream, copy into pinned memory on a side stream) ships the synchronous
 export's bytes, writes enqueued after the staging do not reach it, and
 a deferred adoption commit lands before the next step reads the page."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import collections
 
 import numpy as np

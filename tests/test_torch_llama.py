@@ -3,6 +3,7 @@
 last bits of transcendental functions), and the parameter tree's
 names, shapes and dtypes."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 import torch

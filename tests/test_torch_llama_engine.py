@@ -30,6 +30,7 @@ gumbel-perturbed scores (times the temperature) when both are in the
 reference's nucleus, else the excluded pick's distance to the nucleus
 cutoff. The test prints the gap where a token differs."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 import torch

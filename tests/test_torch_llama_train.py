@@ -15,6 +15,7 @@
   (its Pallas kernels in interpret mode), q rotated alone, k alone and
   both, atol/rtol 1e-5; cos and sin get no gradient."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 import torch

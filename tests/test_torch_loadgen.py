@@ -8,6 +8,7 @@ and with every fleet, disaggregation and wire flag turned on a lone
 engine's streams, counters and ledger are unchanged (the engine reads
 none of them) and equal the reference engine's."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import dataclasses
 import inspect
 

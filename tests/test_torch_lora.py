@@ -7,6 +7,7 @@ products of the same values, summed in another order), slot-0 rows
 exactly 0. The store's refcounting, content-hash dedup and idle-LRU
 eviction follow the reference's test of its own store."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 import torch

@@ -21,6 +21,7 @@
   only, ``paddle_tpu/compiler/catalog.py::match_bias_gelu``).
 """
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 import torch

@@ -14,6 +14,7 @@ with the reference's state carried across, and their default
 initialisers' shapes and bounds.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 

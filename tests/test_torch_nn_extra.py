@@ -17,6 +17,7 @@ cell with an embedding and an output layer: the ids equal the
 reference's and the scores within rtol 1e-5.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -12,6 +12,7 @@ modes), the feature and alpha dropouts' masks and moments, rrelu's
 slopes, gumbel-softmax's rows, class-center sampling's contract.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 

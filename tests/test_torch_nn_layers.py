@@ -13,6 +13,7 @@ the containers' bookkeeping equals the reference's. The norm layers and
 module ``tests/test_torch_nn_transformer.py``'s.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 

@@ -5,6 +5,7 @@ with ``ignore_index``, weights, ``axis``, label smoothing and soft
 labels, and the CTC and transducer losses; forward within rtol 1e-6,
 vjp within rtol 1e-5), and the loss functions that are not one op."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import pytest
 
 from torch_eager_common import (freeze_after_case, frozen_heap,  # noqa: F401

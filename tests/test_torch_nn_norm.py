@@ -9,6 +9,7 @@ outputs, input gradients, the ranks' summed weight gradients and the
 running statistics.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import os
 import subprocess
 import sys

@@ -19,6 +19,7 @@ fewer windows than its output; the port's mask covers every window of
 the output and equals the reference's on the windows both have.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 import torch

@@ -14,6 +14,7 @@ draws from the port's generator: held by its kept share and by the
 eval output equal to the reference's.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 

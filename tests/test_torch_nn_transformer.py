@@ -15,6 +15,7 @@ storage, and in the port have parameter names of their own (the
 reference's keep the original's; ROADMAP Queue 3, defect D).
 """
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import copy
 
 import numpy as np

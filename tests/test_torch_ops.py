@@ -16,6 +16,7 @@ policy equal the reference's registration, and the ported names are the
 reference's.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import ast
 import json
 import re

@@ -13,6 +13,7 @@ continues the reference's trajectory.
 """
 
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 

@@ -15,6 +15,7 @@ stage in fp32, 64 in bf16, at pages of 128). In bf16 K15's plain version rounds 
 does and is held at 2e-2, the port's bf16 attention tolerance.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import math
 
 import jax.numpy as jnp

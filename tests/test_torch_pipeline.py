@@ -23,6 +23,7 @@ whose value is rounding noise of a sum that cancels has no relative
 precision in either package).
 """
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import os
 
 import numpy as np

@@ -16,6 +16,7 @@ first moments after step 1, (1 - b1) times the gradient, held alike to
 the reference's (AdamW's update does not change with the gradient's
 scale; m does)."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 

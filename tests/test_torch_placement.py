@@ -8,6 +8,7 @@ reference's ``make_sharded_train_step`` returns, on the meshes (1,1,1),
 and MoE with an untied one; and the placement <-> DTensor placements
 round trip."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 import torch

@@ -4,6 +4,7 @@ bit: the same fp32 expressions in the same order (true divides, round
 half to even, the SCALE_EPS clamp), so every int8 value and every scale
 must be equal, including ties at .5 and zero scales."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 import torch

@@ -7,6 +7,7 @@ at n 2 and 4: sizes n does not divide (padding), sum and mean, an all-zero
 input (exact zeros), the absmax edge (entries of +-1e30), every rank's
 result the same; and n 1 returns its input untouched."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import os
 
 import numpy as np

@@ -4,6 +4,7 @@ the Pallas kernel in interpret mode (fp32 atol/rtol 1e-5, another
 summation order); ``absmax_quantize_int8`` bit-equal in values and
 scales; the CUDA kernel vs the plain version on a card."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 import torch

@@ -2,6 +2,7 @@
 fold_in and float32 gumbel are bit-equal to JAX (threefry2x32, the
 partitionable bit layout this JAX runs with, and XLA's CPU log)."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 import torch

@@ -13,6 +13,7 @@
   backward never recomputes it), and 2L without a policy, which shows
   the count sees a recompute; the flash backward runs L times."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import dataclasses
 
 import numpy as np

@@ -10,6 +10,7 @@ timeout, barrier key reuse, dropped heartbeats, rank-targeted faults,
 resume through the port's ``run_elastic`` with a port worker
 (tests/torch_chaos_worker.py)."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import os
 import re
 import socket

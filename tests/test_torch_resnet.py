@@ -22,6 +22,7 @@ apart by up to 17%, so the images are 64 x 64 (8 values a channel).
 The reference resnet18 is built once for the file.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 

@@ -19,6 +19,7 @@ the reference on the fake CPU devices with its compiler off.
   same mesh sends none.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import os
 
 import numpy as np

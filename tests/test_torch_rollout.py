@@ -13,6 +13,7 @@ converges to one version, and the 7-class ledger sums on every tick.
 Also: ``WeightCatalog`` ids equal across the packages (fp32, bf16 and
 weight-only int8 trees) and ``FleetDriver.run(deploys=...)``."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import functools
 
 import numpy as np

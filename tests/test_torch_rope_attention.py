@@ -9,6 +9,7 @@ Tolerance: fp32 rtol 1e-5 with atol 1e-5 (o is O(1); the plain arm's one
 softmax against the kernel's blockwise online softmax differ in summation
 order only). The tables are bit-equal."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 import torch

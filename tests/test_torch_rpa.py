@@ -6,6 +6,7 @@ CUDA kernel vs the plain version on a card.
 Inputs come from numpy with a seed. Tolerance: fp32 atol/rtol 1e-5 (the
 same function, summed in another order)."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 import torch

@@ -8,6 +8,7 @@ sampled, a shared prefix, more requests than slots), give identical token
 streams, page ledgers and counters, for fp and weight-only int8 weights.
 The reference's own output is the oracle (not ``LlamaForCausalLM``)."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 import torch

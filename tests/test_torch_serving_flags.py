@@ -13,6 +13,7 @@ and its scale planes within rtol 1e-6 (the absmax, the scales and the
 divides are the same fp32 expressions; only the summation order of the
 projections differs). The reference's output is the oracle."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import string
 
 import numpy as np

@@ -10,6 +10,7 @@ qkv block as three chunks, q, k and v), and each package loads what the
 other wrote, bitwise. bf16 stays out: the reference cannot read a bf16
 chunk (ROADMAP.md, Queue 3, defect A)."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import json
 import os
 

@@ -24,6 +24,7 @@ cross-entropy gate let through on the CPU. Per rank and step: K6 at
 The config is the smallest whose rows pass the kernels' gates (hidden
 128, 256-row multiples at every LayerNorm and gelu)."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,7 @@ reference's weights and state:
   layer, fp32, batch 4, flash attention and remat on (the port's flash
   runs its plain version on the CPU)."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import pytest
 
 import torch_sharded_common as C

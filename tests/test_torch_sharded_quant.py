@@ -4,6 +4,7 @@ over dp, the int8-wire gradient sync (``FLAGS_dist_allreduce_quant``)
 with and without MoE, and the lean moments (bf16 m and v, int8 m), 3
 steps from the reference's weights and state."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import pytest
 
 import torch_sharded_common as C

@@ -20,6 +20,7 @@ In one process: the one-device mesh is ``make_train_step`` bit for bit
 K3-sep; in the two ranks, a pp mesh builds the pipelined step
 (tests/test_torch_pipeline.py holds it to the reference)."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import dataclasses
 
 import numpy as np

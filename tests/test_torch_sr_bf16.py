@@ -2,6 +2,7 @@
 back by stochastic rounding, against the JAX reference on the CPU.
 
 The port's noise comes from a ``torch.Generator`` and the reference's
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 from rbg keys, whose bits its backend defines, so the two are held to the
 reference's own statistical checks (tests/test_lean_optimizer.py), not
 to each other's bits:

@@ -8,6 +8,7 @@ check group hold the process group of the ranks that share the other
 coordinates (an all-reduce over it sums its size), and the rank getters
 return the calling process's coordinates on the row-major mesh."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import os
 
 import numpy as np

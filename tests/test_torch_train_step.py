@@ -22,6 +22,7 @@ equal to its fused path) and, where the JAX compiler runs (it needs
   bit) and ``ring_axis`` routes attention to K1-sep / K3-sep.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import dataclasses
 
 import numpy as np

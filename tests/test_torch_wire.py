@@ -18,6 +18,7 @@ both ways with equal pages, crcs and salts; v1 shipments adopt; redelivery skips
 leave no leak in either fleet; the ledger sums mid-stage and
 mid-deferred-commit."""
 
+import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
 import zlib
 
 import ml_dtypes
