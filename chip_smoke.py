@@ -313,9 +313,42 @@ Phases, each failing loudly (any failure exits nonzero):
     ``cholesky`` / ``solve`` / ``inverse`` / ``slogdet`` of a [1024,
     1024] SPD matrix; ``multiclass_nms3`` at 80 classes x 1000 boxes.
 
+24. ``dp_mp``: the collective API, ``DataParallel`` and the fleet's
+    tensor-parallel Layers on two gloo ranks that share the card
+    (``fleet.init`` joins them over gloo: NCCL refuses two ranks on one
+    device, so the times are not a dp or mp speed). (a) BASELINE.md
+    configuration 2: BERT-base pretraining (dropouts 0, 80 MLM labels a
+    sequence) under ``fleet.distributed_model`` (``DataParallel``), dp 2
+    x B 16, S 512, AMP O1 bf16, AdamW, 3 steps: the mean of the ranks'
+    first losses within BERT_LOSS_RTOL of one rank's at B 32 on the same
+    weights, the synced gradients bitwise the average of the two B 16
+    halves' gradients taken on one rank, and that average (in fp32)
+    within FP32_TOL of the B 32 gradient (relative Frobenius; under AMP
+    the B 16 and B 32 runs round apart: reported by leaf), the
+    parameters bitwise equal on both ranks after 3 steps,
+    the bytes all-reduced a step exactly the gradients' bytes, K1-sep 12
+    and K3-sep 24 launches a rank a step, all wgmma. (b) Configuration
+    3: a GPT at GPT-3 1.3B's widths (hidden 2048, 24 layers, 16 heads
+    of 128, vocab 50304; tests/torch_mp_gpt.py) of
+    ``VocabParallelEmbedding``, ``ColumnParallelLinear``,
+    ``RowParallelLinear`` and ``ParallelCrossEntropy`` at mp 2, B 4, S
+    1024, AMP O1, AdamW with ``ClipGradByGlobalNorm`` through
+    ``fleet.distributed_optimizer``, 3 steps: the first loss and clip
+    norm within DP_MP_RTOL of the same global weights' at mp 1 on one
+    rank, K1-sep 24 and K3-sep 48 a rank a step on its 8 heads, all
+    wgmma; every block under ``fleet.recompute`` from the same weights:
+    its gradients within BF16_TOL (scaled) of the plain step's, its
+    peak under the plain forward + backward's. (c) Small fp32 cases, a
+    BERT under DataParallel at dp 2 and the mp GPT at mp 2, 3 steps on
+    the card and on the CPU over the same ranks: losses within
+    TRAIN_CPU_RTOL, parameters within TRAIN_CPU_ATOL. (d) DataParallel
+    over NCCL at world 1: the wrapped step bitwise the unwrapped one.
+    Prints each part's step ms, tokens/s, peaks, the all-reduce ms of
+    (a) and the mp all-reduce ms of (b).
+
 After each of the phases train, train_13b, llama_train, decode, paged,
-resilient, dist, pipe (the ranks' launches included), eager, bert and
-ops every bf16 flash launch at head dim 64 or 128 must have taken
+resilient, dist, pipe and dp_mp (the ranks' launches included), eager,
+bert and ops every bf16 flash launch at head dim 64 or 128 must have taken
 the TMA + wgmma variant, as the C launchers report what they launched
 (``flash_attention.LAUNCHES_BY_PLAN``), and at every shape launched the
 C launchers' plan must be ``flash_plan``'s. After each of the phases
@@ -348,7 +381,7 @@ PHASES = ("kernels", "engine", "int8", "cpu", "train_kernels", "train",
           "train_cpu", "train_13b", "llama_train", "decode_kernels",
           "decode", "decode_cpu", "serving_kernels", "serving",
           "paged_kernels", "paged", "fleet", "rollout", "resilient",
-          "dist", "pipe", "eager", "bert", "resnet", "ops")
+          "dist", "pipe", "eager", "bert", "resnet", "ops", "dp_mp")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12         # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12          # fp32 outside the tensor cores (K6, K7)
@@ -413,7 +446,8 @@ def _bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
 # phases whose every bf16 flash launch at head dim 64 or 128 must take the
 # TMA + wgmma variant (flash_attention.flash_plan)
 FLASH_WGMMA_PHASES = ("train", "train_13b", "llama_train", "decode", "paged",
-                      "resilient", "dist", "pipe", "eager", "bert", "ops")
+                      "resilient", "dist", "pipe", "eager", "bert", "ops",
+                      "dp_mp")
 
 
 def _flash_launch_counts() -> collections.Counter:
@@ -7454,14 +7488,7 @@ OPS_NMS = (80, 1000, 100)            # COCO classes, boxes, keep_top_k
 def _ops_cases_module():
     """tests/torch_ops_cases.py: the op cases of the CPU tests, numpy
     only (imports nothing of JAX)."""
-    import importlib
-    import os
-
-    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                         "tests")
-    if tests not in sys.path:
-        sys.path.insert(0, tests)
-    return importlib.import_module("torch_ops_cases")
+    return _test_module("torch_ops_cases")
 
 
 def _on_device(pt, device: str, fn):
@@ -8002,6 +8029,674 @@ def run_ops(dev) -> dict:
     return launches
 
 
+DP_MP_WORKER = "--dp-mp-worker"
+DP_MP_B, DP_MP_S = 16, 512           # (a) a rank's batch: dp 2 x B 16 is
+                                     # phase bert's global batch of 32
+DP_MP_MASKED = 80                    # MLM labels a sequence at S 512 (BERT
+                                     # pretraining's max_predictions_per_seq)
+DP_MP_GPT_B = 4                      # (b) GPT-3 1.3B at mp 2, S 1024
+DP_MP_STEPS = 3
+DP_MP_RTOL = 1e-3                    # (b) mp 2 vs mp 1: first loss and clip
+                                     # norm (the row layers sum bf16 partials)
+DP_MP_CLIP = 1.0
+DP_MP_SMALL_GPT = dict(vocab_size=1024, hidden=256, n_layers=2, n_heads=4,
+                       seq_len=128)
+
+
+def _test_module(name: str):
+    """A module of tests/ that imports nothing of JAX (the cases and
+    models the CPU tests share with this script)."""
+    import importlib
+    import os
+
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    return importlib.import_module(name)
+
+
+def _dp_mp_bert_cfg():
+    """BERT-base with both dropouts 0: the ranks and the one-rank
+    reference draw no masks, so they compute one function."""
+    from paddle_tpu_torch.models import bert as tb
+
+    return dataclasses.replace(tb.bert_base(), hidden_dropout_prob=0.0,
+                               attention_probs_dropout_prob=0.0)
+
+
+def _dp_mp_bert_batch(cfg, B: int):
+    """ids, token types, MLM labels (DP_MP_MASKED a sequence), NSP labels:
+    every rank's mean MLM loss averages over the same count, so the mean
+    of the ranks' losses is the global batch's."""
+    return _test_module("torch_dist_common").bert_batch(
+        cfg.vocab_size, B, DP_MP_S, DP_MP_MASKED, seed=0)
+
+
+def _bert_amp_loss(pt, model, crit, arrays):
+    ids, tt, mlm, nsp = (a if hasattr(a, "_data") else pt.to_tensor(a)
+                         for a in arrays)
+    with pt.amp.auto_cast(level="O1", dtype="bfloat16"):
+        return crit(*model(ids, tt), mlm, nsp)
+
+
+def _reset_topology() -> None:
+    from paddle_tpu_torch.distributed import parallel, topology
+
+    topology.set_hybrid_communicate_group(None)
+    parallel._DEFAULT_GROUP = None
+
+
+def _fleet_init(dp: int = 1, mp: int = 1):
+    from paddle_tpu_torch.distributed import fleet
+
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = dict(s.hybrid_configs, dp_degree=dp, mp_degree=mp)
+    return fleet.init(strategy=s)
+
+
+def _sep_counts(fa) -> tuple:
+    return (fa.flash_fwd_sep.launches, fa.flash_bwd_sep.launches,
+            fa.flash_fwd_sep.launches_wgmma, fa.flash_bwd_sep.launches_wgmma)
+
+
+def _zero_sep_counts(fa) -> tuple:
+    for fn in (fa.flash_fwd_sep, fa.flash_bwd_sep, fa.flash_fwd,
+               fa.flash_bwd):
+        fn.launches = 0
+    return _sep_counts(fa)
+
+
+def _sep_step_counts(fa, before: tuple) -> dict:
+    now = _sep_counts(fa)
+    return {"flash_fwd_sep": now[0], "flash_bwd_sep": now[1],
+            "wgmma": [now[2] - before[2], now[3] - before[3]],
+            "other": fa.flash_fwd.launches + fa.flash_bwd.launches}
+
+
+def _params_digest(model) -> str:
+    """crc32 of every parameter's bytes, in order."""
+    crc = 0
+    for p in model.parameters():
+        crc = zlib.crc32(p._data.detach().contiguous().view(torch.uint8)
+                         .cpu().numpy().tobytes(), crc)
+    return f"{crc:08x}"
+
+
+def _dp_mp_bert_rank(pt, root: str, out: dict) -> None:
+    """(a) BERT-base pretraining under ``fleet.distributed_model``
+    (DataParallel) at dp 2, B 16 a rank, AMP O1 bf16, AdamW: the first
+    step's synced gradients (rank 0 writes them), each step's launches,
+    the buckets' bytes, step times and the parameters' digest after
+    DP_MP_STEPS steps."""
+    import os
+
+    from paddle_tpu_torch.distributed import all_reduce, fleet
+    from paddle_tpu_torch.models import bert as tb
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    hcg = _fleet_init(dp=2)
+    cfg = _dp_mp_bert_cfg()
+    model = tb.BertForPretraining(cfg)
+    model.set_state_dict({k: pt.to_tensor(v) for k, v in torch.load(
+        os.path.join(root, "bert_init.pt")).items()})
+    dp = fleet.distributed_model(model)
+    crit = tb.BertPretrainingCriterion(cfg.vocab_size)
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                             parameters=dp.parameters())
+    batch = [dp.scale_batch(a) for a in _dp_mp_bert_batch(
+        cfg, 2 * DP_MP_B)]
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"kind": type(dp).__name__, "losses": [], "step_s": [],
+           "launches": [], "buckets": len(dp._buckets),
+           "grad_bytes": sum(p._data.numel() * p._data.element_size()
+                             for p in model.parameters())}
+    for i in range(DP_MP_STEPS):
+        before = _zero_sep_counts(fa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = _bert_amp_loss(pt, dp, crit, batch)
+        loss.backward()
+        if i == 0 and hcg.get_data_parallel_rank() == 0:
+            torch.save({n: p._data.grad.detach().cpu()
+                        for n, p in model.named_parameters()},
+                       os.path.join(root, "bert_grads.pt"))
+        opt.step()
+        opt.clear_grad()
+        rec["losses"].append(loss.item())
+        torch.cuda.synchronize()
+        rec["step_s"].append(time.perf_counter() - t0)
+        rec["launches"].append(_sep_step_counts(fa, before))
+    rec.update(stats=dict(dp.stats), digest=_params_digest(model),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    # one all-reduce of the gradients' bytes, by itself
+    flat = torch.ones(rec["grad_bytes"] // 4,
+                      device=model.parameters()[0]._data.device)
+    all_reduce(flat, group=dp.group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    all_reduce(flat, group=dp.group)
+    torch.cuda.synchronize()
+    rec["allreduce_ms"] = (time.perf_counter() - t0) * 1e3
+    out["bert"] = rec
+    del model, dp, opt, batch, flat, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _timed_allreduces():
+    """Wrap the mp Layers' all-reduce (both directions of the autograd
+    pairs) with synchronized host timers: returns the list of ms."""
+    from paddle_tpu_torch.distributed.fleet import mp_layers
+
+    times, plain = [], mp_layers._KINDS["allreduce"]
+
+    def timed(x, dim, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = plain(x, dim, group)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return y
+
+    mp_layers._KINDS["allreduce"] = timed
+    return times, lambda: mp_layers._KINDS.__setitem__("allreduce", plain)
+
+
+def _gpt_amp_loss(pt, model, tok, lab):
+    with pt.amp.auto_cast(level="O1", dtype="bfloat16"):
+        return model.loss(tok, lab)
+
+
+def _dp_mp_gpt_rank(pt, out: dict) -> None:
+    """(b) GPT-3 1.3B of the fleet's mp Layers at mp 2 (8 of the 16 heads
+    a rank), B 4, S 1024, AMP O1 bf16, through ``distributed_model`` and
+    ``distributed_optimizer`` (AdamW, ClipGradByGlobalNorm): the first
+    loss and clip norm, each step's launches and time, the forward +
+    backward peak, the mp all-reduces' time; then every block under
+    ``fleet.recompute`` from the same weights: its gradients against the
+    plain first step's (BF16_TOL scaled) and its peak."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    G = _test_module("torch_mp_gpt")
+    _fleet_init(mp=2)
+    cfg = G.gpt3_1p3b()
+    pt.seed(0)
+    pm = G.build(pt, cfg)
+    init = {k: v._data.detach().clone() for k, v in pm.state_dict().items()}
+    model = fleet.distributed_model(pm)
+    opt = fleet.distributed_optimizer(pt.optimizer.AdamW(
+        learning_rate=1e-4, parameters=model.parameters(),
+        grad_clip=pt.nn.ClipGradByGlobalNorm(DP_MP_CLIP)))
+    tok, lab = (pt.to_tensor(a) for a in G.batch(cfg, DP_MP_GPT_B))
+    rec = {"kind": type(model).__name__, "losses": [], "norms": [],
+           "step_s": [], "launches": [],
+           "params": sum(p.size for p in pm.parameters())}
+    grads = None
+    for i in range(DP_MP_STEPS):
+        before = _zero_sep_counts(fa)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = _gpt_amp_loss(pt, model, tok, lab)
+        loss.backward()
+        if i == 0:
+            torch.cuda.synchronize()
+            rec["fwd_bwd_peak_gib"] = \
+                torch.cuda.max_memory_allocated() / 2 ** 30
+            grads = {n: p._data.grad.detach().clone()
+                     for n, p in pm.named_parameters()}
+        opt.step()
+        opt.clear_grad()
+        rec["losses"].append(loss.item())
+        rec["norms"].append(float(opt._inner_opt._grad_clip.last_norm))
+        torch.cuda.synchronize()
+        rec["step_s"].append(time.perf_counter() - t0)
+        rec["launches"].append(_sep_step_counts(fa, before))
+    rec["step_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    times, restore = _timed_allreduces()
+    try:
+        _gpt_amp_loss(pt, model, tok, lab).backward()
+    finally:
+        restore()
+    rec["mp_allreduce_ms"] = sum(times)
+    rec["mp_allreduces"] = len(times)
+    del opt, model
+    pm.clear_gradients()
+    del pm
+    gc.collect()
+    torch.cuda.empty_cache()
+    # every block under fleet.recompute, from the same weights and batch
+    rc = G.build(pt, cfg, recompute=True)
+    rc.set_state_dict({k: pt.to_tensor(v) for k, v in init.items()})
+    del init
+    torch.cuda.empty_cache()
+    before = _zero_sep_counts(fa)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss = _gpt_amp_loss(pt, rc, tok, lab)
+    loss.backward()
+    torch.cuda.synchronize()
+    rec["recompute_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec["recompute_launches"] = _sep_step_counts(fa, before)
+    rec["recompute_loss"] = loss.item()
+    rec["recompute_grad_scaled_err"] = max(
+        [_scaled_err(p._data.grad.reshape(-1), grads[n].reshape(-1))[1], n]
+        for n, p in rc.named_parameters())
+    out["gpt"] = rec
+    del rc, grads, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _dp_mp_small_rank(pt, out: dict) -> None:
+    """(c) small fp32 cases on the card and on the CPU over the same gloo
+    ranks: a BERT under DataParallel at dp 2 and the mp GPT at mp 2, 3
+    AdamW steps each; each rank's largest loss (relative) and parameter
+    differences card vs CPU."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import bert as tb
+
+    G = _test_module("torch_mp_gpt")
+    res = {}
+    for case, dims in (("bert dp 2", {"dp": 2}), ("gpt mp 2", {"mp": 2})):
+        runs, state = {}, None
+        for where in ("cpu", "gpu:0"):
+            pt.set_device(where)
+            try:
+                hcg = _fleet_init(**dims)
+                pt.seed(3)
+                if case.startswith("bert"):
+                    cfg = tb.BertConfig(**BERT_SMALL)
+                    model = tb.BertForPretraining(cfg)
+                    crit = tb.BertPretrainingCriterion(cfg.vocab_size)
+                    wrapped = fleet.distributed_model(model)
+                    arrays = _test_module("torch_dist_common").bert_batch(
+                        cfg.vocab_size, 4, 128, 20, seed=3)
+                    batch = [wrapped.scale_batch(a) for a in arrays]
+
+                    def loss_fn():
+                        return crit(*wrapped(*batch[:2]), *batch[2:])
+                else:
+                    cfg = G.MPGPTConfig(**DP_MP_SMALL_GPT)
+                    model = G.build(pt, cfg)
+                    wrapped = fleet.distributed_model(model)
+                    tok, lab = (pt.to_tensor(a) for a in G.batch(cfg, 2))
+
+                    def loss_fn():
+                        return wrapped.loss(tok, lab)
+                # the CPU's draws, on the card too (the generators of the
+                # two devices draw apart)
+                if state is None:
+                    state = {k: v._data.detach().clone()
+                             for k, v in model.state_dict().items()}
+                else:
+                    model.set_state_dict({k: pt.to_tensor(v)
+                                          for k, v in state.items()})
+                if hcg.get_model_parallel_world_size() > 1:
+                    assert type(wrapped).__name__ == "TensorParallel"
+                opt = fleet.distributed_optimizer(pt.optimizer.AdamW(
+                    learning_rate=1e-4, parameters=model.parameters(),
+                    grad_clip=pt.nn.ClipGradByGlobalNorm(DP_MP_CLIP)))
+                losses = []
+                for _ in range(3):
+                    loss = loss_fn()
+                    loss.backward()
+                    opt.step()
+                    opt.clear_grad()
+                    losses.append(loss.item())
+                runs[where] = (losses, [p._data.detach().cpu()
+                                        for p in model.parameters()])
+            finally:
+                pt.set_device("gpu:0")
+        (lg, pg), (lc, pc) = runs["gpu:0"], runs["cpu"]
+        res[case] = {"losses": [lg, lc], "loss_rel": max(
+            abs(a - b) / abs(b) for a, b in zip(lg, lc)),
+            "param_diff": max((a - b).abs().max().item()
+                              for a, b in zip(pg, pc))}
+    out["small"] = res
+
+
+def _dp_mp_worker(root: str) -> int:
+    """One of phase dp_mp's two gloo ranks sharing the card: (a), (b)
+    and (c) in turn; writes ``root/rank<r>.json``."""
+    import os
+
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pt.set_device("gpu:0")
+    # fleet.init joins the launcher's world: gloo, the ranks outnumbering
+    # the card
+    _fleet_init(dp=2)
+    rank = dist.get_rank()
+    out = {"rank": rank, "backend": dist.get_backend()}
+    _dp_mp_bert_rank(pt, root, out)
+    _dp_mp_gpt_rank(pt, out)
+    _dp_mp_small_rank(pt, out)
+    out["flash_by_plan"] = [[list(k), n]
+                            for k, n in fa.LAUNCHES_BY_PLAN.items()]
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _dp_mp_references(pt, dev, root: str) -> dict:
+    """The one-rank sides: (a) BERT-base at B 32 from the weights the
+    ranks load (written to ``root``), its first loss and gradients, and
+    the average of the gradients of its two B 16 halves (each rank's
+    rows);
+    (b) GPT-3 1.3B of the mp Layers at mp 1 from the ranks' seed, its
+    first loss and global gradient norm."""
+    import os
+
+    from paddle_tpu_torch.models import bert as tb
+
+    G = _test_module("torch_mp_gpt")
+    cfg = _dp_mp_bert_cfg()
+    pt.seed(0)
+    model = tb.BertForPretraining(cfg)
+    torch.save({k: v._data.detach().cpu()
+                for k, v in model.state_dict().items()},
+               os.path.join(root, "bert_init.pt"))
+    crit = tb.BertPretrainingCriterion(cfg.vocab_size)
+    arrays = _dp_mp_bert_batch(cfg, 2 * DP_MP_B)
+    refs = {}
+    loss = _bert_amp_loss(pt, model, crit, arrays)
+    loss.backward()
+    refs["bert_grads"] = {n: p._data.grad.detach().cpu()
+                          for n, p in model.named_parameters()}
+    refs["bert_loss"] = loss.item()
+    model.clear_gradients()
+    halves = {}
+    for r in range(2):
+        part = [a[r * DP_MP_B:(r + 1) * DP_MP_B] for a in arrays]
+        _bert_amp_loss(pt, model, crit, part).backward()
+        for n, p in model.named_parameters():
+            g = p._data.grad.detach().cpu()
+            halves[n] = g if r == 0 else (halves[n] + g) / 2
+        model.clear_gradients()
+    refs["bert_halves"] = halves
+    # the same in fp32 (AMP off): the halves' average against B 32
+    def fp32_grads(part):
+        ids, tt, mlm, nsp = (pt.to_tensor(a) for a in part)
+        crit(*model(ids, tt), mlm, nsp).backward()
+        out = {n: p._data.grad.detach().double().cpu()
+               for n, p in model.named_parameters()}
+        model.clear_gradients()
+        return out
+
+    b32 = fp32_grads(arrays)
+    h0, h1 = (fp32_grads([a[r * DP_MP_B:(r + 1) * DP_MP_B] for a in arrays])
+              for r in range(2))
+    num = sum(((h0[n] + h1[n]) / 2 - g).norm().item() ** 2
+              for n, g in b32.items())
+    den = sum(g.norm().item() ** 2 for g in b32.values())
+    refs["fp32_halves_rel"] = math.sqrt(num / den)
+    del model, loss
+    torch.cuda.empty_cache()
+    _fleet_init()
+    try:
+        gcfg = G.gpt3_1p3b()
+        pt.seed(0)
+        gm = G.build(pt, gcfg)
+        tok, lab = (pt.to_tensor(a) for a in G.batch(gcfg, DP_MP_GPT_B))
+        loss = _gpt_amp_loss(pt, gm, tok, lab)
+        loss.backward()
+        sq = sum(p._data.grad.float().pow(2).sum() for p in gm.parameters())
+        refs.update(gpt_loss=loss.item(), gpt_norm=sq.sqrt().item())
+        del gm, loss, sq
+    finally:
+        _reset_topology()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return refs
+
+
+def _dp_mp_nccl_one_rank(pt, dev) -> dict:
+    """(d) DataParallel over NCCL at world 1: an fp32 MLP's AdamW step
+    through the wrapper (its bucket all-reduced over the NCCL world of
+    one rank) bitwise the unwrapped step from the same weights."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import DataParallel, init_parallel_env
+    from paddle_tpu_torch.distributed.launch import _free_port
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        init_parallel_env()
+        x = pt.to_tensor(np.random.RandomState(4).randn(64, 1024)
+                         .astype(np.float32))
+        params, stats = [], None
+        for wrap in (False, True):
+            pt.seed(4)
+            net = pt.nn.Sequential(pt.nn.Linear(1024, 4096), pt.nn.GELU(),
+                                   pt.nn.Linear(4096, 1024),
+                                   pt.nn.LayerNorm(1024))
+            model = DataParallel(net) if wrap else net
+            opt = pt.optimizer.AdamW(learning_rate=1e-3,
+                                     parameters=net.parameters())
+            (model(x) ** 2).mean().backward()
+            opt.step()
+            params.append([p._data.detach().clone()
+                           for p in net.parameters()])
+            if wrap:
+                stats = dict(model.stats)
+        same = all(torch.equal(a, b) for a, b in zip(*params))
+        return {"backend": dist.get_backend(), "bitwise": same,
+                "stats": stats}
+    finally:
+        _reset_topology()
+        dist.destroy_process_group()
+
+
+def run_dp_mp(dev) -> dict:
+    """Phase dp_mp: (a) BASELINE configuration 2, BERT-base pretraining
+    under DataParallel at dp 2; (b) configuration 3, GPT-3 1.3B of the
+    fleet's mp Layers at mp 2; (c) small fp32 cases card vs CPU; on two
+    gloo ranks sharing the card (NCCL refuses two ranks on one device:
+    the times are not a dp or mp speed); (d) DataParallel over NCCL at
+    world 1. Returns the ranks' K1-sep / K3-sep launches of (a) and
+    (b)."""
+    import os
+    import tempfile
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed.launch import launch_procs
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    pt.set_device("gpu:0")
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_mp_")
+    refs = _dp_mp_references(pt, dev, root)
+    t0 = time.perf_counter()
+    rc = launch_procs(os.path.abspath(__file__), [DP_MP_WORKER, root], 2,
+                      log_dir=os.path.join(root, "logs"), timeout=400)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        for name in sorted(os.listdir(os.path.join(root, "logs"))):
+            print(open(os.path.join(root, "logs", name)).read()[-4000:])
+        raise AssertionError(f"dp_mp: a rank exited {rc}")
+    ranks = [json.load(open(os.path.join(root, f"rank{r}.json")))
+             for r in range(2)]
+    for got in ranks:
+        for k, n in got["flash_by_plan"]:
+            fa.LAUNCHES_BY_PLAN[tuple(k)] += n
+        if got["backend"] != "gloo":
+            raise AssertionError(f"dp_mp: backend {got['backend']}")
+    cfg = _dp_mp_bert_cfg()
+    L = cfg.num_hidden_layers
+    total = collections.Counter()
+    # (a)
+    bert = [g["bert"] for g in ranks]
+    for r, b in enumerate(bert):
+        if b["kind"] != "DataParallel":
+            raise AssertionError(f"dp_mp (a): wrapped as {b['kind']}")
+        for i, ln in enumerate(b["launches"]):
+            want = {"flash_fwd_sep": L, "flash_bwd_sep": 2 * L,
+                    "wgmma": [L, 2 * L], "other": 0}
+            if ln != want:
+                raise AssertionError(f"dp_mp (a) rank {r} step {i}: "
+                                     f"launches {ln} != {want}")
+            total.update({k: ln[k] for k in ("flash_fwd_sep",
+                                             "flash_bwd_sep")})
+        st = b["stats"]
+        if st["steps"] != DP_MP_STEPS or \
+                st["allreduce_bytes"] != DP_MP_STEPS * b["grad_bytes"]:
+            raise AssertionError(f"dp_mp (a) rank {r}: stats {st}, "
+                                 f"gradient bytes {b['grad_bytes']}")
+    if bert[0]["digest"] != bert[1]["digest"]:
+        raise AssertionError(f"dp_mp (a): the ranks' parameters differ "
+                             f"after {DP_MP_STEPS} steps: "
+                             f"{bert[0]['digest']} vs {bert[1]['digest']}")
+    loss0 = (bert[0]["losses"][0] + bert[1]["losses"][0]) / 2
+    if not abs(loss0 - refs["bert_loss"]) <= \
+            BERT_LOSS_RTOL * abs(refs["bert_loss"]):
+        raise AssertionError(f"dp_mp (a): first loss {loss0} vs one rank "
+                             f"at B 32 {refs['bert_loss']}")
+    synced = torch.load(os.path.join(root, "bert_grads.pt"))
+    # the synced gradients are the average of the two halves' gradients,
+    # each half's taken by one rank of this process: bitwise
+    for n, h in refs["bert_halves"].items():
+        if not torch.equal(synced[n], h):
+            raise AssertionError(f"dp_mp (a): synced gradient {n} != the "
+                                 "average of the halves' gradients")
+    # and the halves' average is the B 32 gradient: in fp32 to FP32_TOL
+    if not refs["fp32_halves_rel"] <= FP32_TOL:
+        raise AssertionError(f"dp_mp (a): fp32 halves' average vs B 32: "
+                             f"{refs['fp32_halves_rel']} > {FP32_TOL}")
+    # under AMP the B 16 and B 32 runs round apart (the same in the halves
+    # taken on one rank): reported by leaf, relative Frobenius
+    leaves = sorted((((synced[n].double() - g.double()).norm()
+                      / g.double().norm().clamp_min(1e-30)).item(), n)
+                    for n, g in refs["bert_grads"].items())[::-1]
+    tokens = 2 * DP_MP_B * DP_MP_S
+    step_ms = [np.median(b["step_s"][1:]) * 1e3 for b in bert]
+    print(f"dp_mp (a) BERT-base pretraining under fleet.distributed_model "
+          f"(DataParallel) dp 2 x B{DP_MP_B} S{DP_MP_S}, AMP O1 bf16, "
+          f"AdamW, 2 gloo ranks sharing one H100: first loss (mean of the "
+          f"ranks') {loss0:.6f} vs one rank at B 32 {refs['bert_loss']:.6f} "
+          f"(rtol {BERT_LOSS_RTOL}); synced gradients bitwise the average "
+          f"of the two B 16 halves' gradients taken on one rank; in fp32 "
+          f"that average vs B 32 {refs['fp32_halves_rel']:.3e} relative "
+          f"Frobenius (tol {FP32_TOL:g}); under AMP vs one rank at B 32 by "
+          f"leaf (relative Frobenius, not held: the B 16 and B 32 runs "
+          f"round apart) median {leaves[len(leaves) // 2][0]:.3e}, worst "
+          + ", ".join(f"{n} {e:.3e}" for e, n in leaves[:4]) + "; "
+          f"parameters after {DP_MP_STEPS} steps bitwise equal on both "
+          f"ranks (crc32 {bert[0]['digest']}); {bert[0]['buckets']} "
+          f"buckets, {bert[0]['stats']['allreduce_bytes'] // DP_MP_STEPS} B "
+          f"all-reduced a step = the gradients' {bert[0]['grad_bytes']} B; "
+          f"step " + ", ".join(f"rank {r} {m:.1f} ms" for r, m in
+                               enumerate(step_ms))
+          + f" (median of steps 2-{DP_MP_STEPS}; "
+          f"{tokens / (max(step_ms) / 1e3):.0f} tokens/s over both ranks); "
+          f"bucket waits in the backward's callback "
+          + ", ".join(f"{b['stats']['wait_ms'] / DP_MP_STEPS:.1f}"
+                      for b in bert)
+          + " ms a step; one all-reduce of the gradients' bytes "
+          + ", ".join(f"{b['allreduce_ms']:.1f}" for b in bert)
+          + " ms; peak mem " + ", ".join(f"rank {r} {b['peak_gib']:.2f} GiB"
+                                         for r, b in enumerate(bert))
+          + f"; losses {bert[0]['losses']} / {bert[1]['losses']}; launches "
+          f"a rank a step K1-sep {L}, K3-sep {2 * L}, all wgmma")
+    # (b)
+    gpt = [g["gpt"] for g in ranks]
+    G = _test_module("torch_mp_gpt")
+    GL = G.gpt3_1p3b().n_layers
+    for r, b in enumerate(gpt):
+        if b["kind"] != "TensorParallel":
+            raise AssertionError(f"dp_mp (b): wrapped as {b['kind']}")
+        for i, ln in enumerate(b["launches"]):
+            want = {"flash_fwd_sep": GL, "flash_bwd_sep": 2 * GL,
+                    "wgmma": [GL, 2 * GL], "other": 0}
+            if ln != want:
+                raise AssertionError(f"dp_mp (b) rank {r} step {i}: "
+                                     f"launches {ln} != {want}")
+            total.update({k: ln[k] for k in ("flash_fwd_sep",
+                                             "flash_bwd_sep")})
+        want = {"flash_fwd_sep": 2 * GL, "flash_bwd_sep": 2 * GL,
+                "wgmma": [2 * GL, 2 * GL], "other": 0}
+        if b["recompute_launches"] != want:
+            raise AssertionError(f"dp_mp (b) rank {r} recompute: launches "
+                                 f"{b['recompute_launches']} != {want}")
+        for key, ref_v in (("losses", refs["gpt_loss"]),
+                           ("norms", refs["gpt_norm"])):
+            if not abs(b[key][0] - ref_v) <= DP_MP_RTOL * abs(ref_v):
+                raise AssertionError(f"dp_mp (b) rank {r}: first "
+                                     f"{key[:-1]} {b[key][0]} vs mp 1's "
+                                     f"{ref_v}")
+        if not b["recompute_grad_scaled_err"][0] <= BF16_TOL:
+            raise AssertionError(f"dp_mp (b) rank {r}: recompute gradients "
+                                 f"{b['recompute_grad_scaled_err']}")
+        if not b["recompute_peak_gib"] < b["fwd_bwd_peak_gib"]:
+            raise AssertionError(f"dp_mp (b) rank {r}: recompute peak "
+                                 f"{b['recompute_peak_gib']} not under "
+                                 f"{b['fwd_bwd_peak_gib']}")
+    if gpt[0]["losses"] != gpt[1]["losses"]:
+        raise AssertionError(f"dp_mp (b): the ranks' losses differ")
+    gms = [np.median(b["step_s"][1:]) * 1e3 for b in gpt]
+    gtok = DP_MP_GPT_B * G.gpt3_1p3b().seq_len
+    print(f"dp_mp (b) GPT-3 1.3B widths (hidden 2048, 24 layers, 16 heads "
+          f"of 128, vocab 50304; {gpt[0]['params'] / 1e6:.1f}M parameters a "
+          f"rank) of VocabParallelEmbedding / ColumnParallelLinear / "
+          f"RowParallelLinear / ParallelCrossEntropy at mp 2, B{DP_MP_GPT_B} "
+          f"S{G.gpt3_1p3b().seq_len}, AMP O1 bf16, AdamW with "
+          f"ClipGradByGlobalNorm({DP_MP_CLIP}) through "
+          f"fleet.distributed_optimizer, 2 gloo ranks sharing one H100: "
+          f"first loss {gpt[0]['losses'][0]:.6f} vs mp 1 "
+          f"{refs['gpt_loss']:.6f}, clip norm {gpt[0]['norms'][0]:.6f} vs "
+          f"mp 1 {refs['gpt_norm']:.6f} (rtol {DP_MP_RTOL}); losses "
+          f"{gpt[0]['losses']}; step "
+          + ", ".join(f"rank {r} {m:.1f} ms" for r, m in enumerate(gms))
+          + f" (median of steps 2-{DP_MP_STEPS}; "
+          f"{gtok / (max(gms) / 1e3):.0f} tokens/s); mp all-reduces of one "
+          f"forward + backward "
+          + ", ".join(f"{b['mp_allreduces']} taking {b['mp_allreduce_ms']:.1f}"
+                      for b in gpt)
+          + " ms; forward + backward peak "
+          + ", ".join(f"rank {r} {b['fwd_bwd_peak_gib']:.2f} GiB"
+                      for r, b in enumerate(gpt))
+          + " (step " + ", ".join(f"{b['step_peak_gib']:.2f}" for b in gpt)
+          + " GiB); under fleet.recompute on every block: peak "
+          + ", ".join(f"rank {r} {b['recompute_peak_gib']:.2f} GiB"
+                      for r, b in enumerate(gpt))
+          + ", gradients vs recompute off worst scaled error "
+          + ", ".join(f"{b['recompute_grad_scaled_err'][0]:.3e} "
+                      f"({b['recompute_grad_scaled_err'][1]})" for b in gpt)
+          + f" (tol {BF16_TOL:.3e}); launches a rank a step K1-sep {GL}, "
+          f"K3-sep {2 * GL} (recompute: K1-sep {2 * GL}), all wgmma")
+    # (c)
+    for r, got in enumerate(ranks):
+        for case, res in got["small"].items():
+            if not (res["loss_rel"] <= TRAIN_CPU_RTOL
+                    and res["param_diff"] <= TRAIN_CPU_ATOL):
+                raise AssertionError(f"dp_mp (c) rank {r} {case}: card vs "
+                                     f"CPU {res}")
+    print("dp_mp (c) small fp32, card vs CPU over the same gloo ranks: "
+          + "; ".join(f"rank {r} {case} losses {res['losses'][0]} vs "
+                      f"{res['losses'][1]}, params max diff "
+                      f"{res['param_diff']:.3e}"
+                      for r, got in enumerate(ranks)
+                      for case, res in got["small"].items())
+          + f" (rtol {TRAIN_CPU_RTOL:g}, atol {TRAIN_CPU_ATOL:g})")
+    # (d)
+    d = _dp_mp_nccl_one_rank(pt, dev)
+    if not (d["backend"] == "nccl" and d["bitwise"]
+            and d["stats"]["allreduce_calls"] > 0):
+        raise AssertionError(f"dp_mp (d): {d}")
+    print(f"dp_mp (d) DataParallel over NCCL at world 1: the wrapped AdamW "
+          f"step bitwise the unwrapped one; stats {d['stats']}; the ranks' "
+          f"launch to exit {wall:.1f} s")
+    return dict(total)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -8014,6 +8709,8 @@ def main(argv=None) -> int:
         return _resilient_worker()       # run_resilient's elastic children
     if len(rest) == 2 and rest[0] == PIPE_WORKER:
         return _pipe_worker(rest[1])     # run_pipe's gloo ranks
+    if len(rest) == 2 and rest[0] == DP_MP_WORKER:
+        return _dp_mp_worker(rest[1])    # run_dp_mp's gloo ranks
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
     phases = args.phases.split(",")
@@ -8210,6 +8907,13 @@ def main(argv=None) -> int:
         for k in ("flash_fwd_sep", "flash_bwd_sep"):
             launches[k] = launches.get(k, 0) + ln[k]
         done("ops")
+    if "dp_mp" in phases:
+        ln = run_dp_mp(dev)
+        print(f"dp_mp launches {ln}")
+        for k in ("flash_fwd_sep", "flash_bwd_sep"):
+            launches[k] = launches.get(k, 0) + ln[k]
+        torch.cuda.empty_cache()
+        done("dp_mp")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of phases "
           f"after the build ({_build.last_build_seconds:.1f} s)")
     if set(phases) != set(PHASES):

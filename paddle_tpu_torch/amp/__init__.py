@@ -160,6 +160,10 @@ class GradScaler:
                 finite = f if finite is None else finite & f
                 g.copy_(g32)
         self._found_inf = finite is not None and not bool(finite)
+        # the fleet's optimizer agrees on it over every rank
+        agree = getattr(optimizer, "_found_inf_all_reduce", None)
+        if agree is not None:
+            self._found_inf = agree(self._found_inf)
         self._unscaled_opts.add(id(optimizer))
 
     def step(self, optimizer):

@@ -29,11 +29,12 @@ __all__ = ["main", "init_from_env", "launch_procs"]
 def init_from_env(device=None, backend: str | None = None) -> bool:
     """Join the process group the launcher's environment describes
     (``tcp://`` rendezvous at the master's address). ``backend`` None:
-    gloo when ``device`` is the CPU, nccl on the card (the default).
-    ``backend="gloo"`` on the card lets several ranks share one device,
-    which NCCL refuses (a communicator needs one device a rank): each
-    rank's tensors stay on the card, the collectives run through gloo
-    and its point-to-point sends through host copies
+    gloo when ``device`` is the CPU, nccl on the card (the default) when
+    every rank has a card of its own, gloo when the ranks outnumber the
+    cards. ``backend="gloo"`` on the card lets several ranks share one
+    device, which NCCL refuses (a communicator needs one device a rank):
+    each rank's tensors stay on the card, the collectives run through
+    gloo and its point-to-point sends through host copies
     (``autograd_collectives.ppermute``). Returns True if a multi-process
     group was found and joined."""
     master = os.environ.get("PADDLE_MASTER") or os.environ.get("MASTER_ADDR")
@@ -51,13 +52,15 @@ def init_from_env(device=None, backend: str | None = None) -> bool:
     from ..core.device import resolve_device
 
     dev = resolve_device(device)
-    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if dev.type == "cuda":
         import torch
 
+        shared = nnodes > torch.cuda.device_count()
+        backend = backend or ("gloo" if shared else "nccl")
         local = int(os.environ.get("PADDLE_LOCAL_RANK", rank))
         # ranks beyond the cards share them (gloo only)
         torch.cuda.set_device(local % torch.cuda.device_count())
+    backend = backend or "gloo"
     dist.init_process_group(backend,
                             init_method=f"tcp://{master}",
                             world_size=nnodes, rank=rank)

@@ -6,7 +6,8 @@ import numpy as np
 import torch
 
 __all__ = ["params_from_jax", "opt_state_from_jax", "paged_cache_from_jax",
-           "layer_state_from_jax", "optimizer_state_from_jax"]
+           "layer_state_from_jax", "optimizer_state_from_jax",
+           "layer_shards_from_global", "layer_global_state"]
 
 _NP_TO_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "float16": torch.float16, "int8": torch.int8,
@@ -150,4 +151,56 @@ def optimizer_state_from_jax(state_dict, optimizer, device=None,
             k: _leaf(np.asarray(v), dev, None) for k, v in slots.items()}
     if "LR_Scheduler" in state_dict:
         out["LR_Scheduler"] = dict(state_dict["LR_Scheduler"])
+    return out
+
+
+def _split_params(layer) -> dict:
+    """{structured name: (split axis, its group)} of ``layer``'s
+    ``is_distributed`` parameters (the fleet's mp Layers record both)."""
+    out = {}
+    for lname, sub in layer.named_sublayers(include_self=True):
+        group = getattr(sub, "_group", None)
+        for pname, p in sub._parameters.items():
+            if p is not None and getattr(p, "is_distributed", False):
+                key = f"{lname}.{pname}" if lname else pname
+                out[key] = (p.split_axis, group)
+    return out
+
+
+def layer_shards_from_global(state_dict, layer, device) -> dict:
+    """A global state dict (the reference's, numpy arrays or Tensors)
+    as this rank's state dict of ``layer`` (the port's mp Layers): each
+    ``is_distributed`` parameter's block along its ``split_axis`` for
+    this rank of its group, every other entry whole; ready for
+    ``layer.set_state_dict``."""
+    from ..core.tensor import Tensor
+
+    split = _split_params(layer)
+    out = {}
+    for k, v in state_dict.items():
+        a = np.asarray(getattr(v, "_data", v))
+        if k in split:
+            axis, group = split[k]
+            a = np.split(a, group.nranks, axis=axis)[group.rank]
+        out[k] = Tensor(_leaf(np.ascontiguousarray(a), device, None))
+    return out
+
+
+def layer_global_state(layer) -> dict:
+    """The inverse of ``layer_shards_from_global``: ``layer``'s state
+    dict as numpy arrays, each split parameter's blocks gathered from
+    its group along its axis (every rank of the group must call it)."""
+    from ..distributed.collective import all_gather
+
+    split = _split_params(layer)
+    out = {}
+    for k, v in layer.state_dict().items():
+        t = v._data.detach()
+        if k in split:
+            axis, group = split[k]
+            whole = all_gather(t.movedim(axis, 0).contiguous(),
+                               group=group).wait()
+            t = whole.movedim(0, axis)
+        out[k] = t.cpu().numpy() if t.dtype != torch.bfloat16 else \
+            t.float().cpu().numpy()
     return out

@@ -110,6 +110,17 @@ def test_port_imports_without_jax_or_reference():
             "paddle_tpu_torch.nn.layer.loss",
             "paddle_tpu_torch.nn.layer.transformer",
             "paddle_tpu_torch.nn.utils", "paddle_tpu_torch.models.bert",
+            "paddle_tpu_torch.distributed.parallel",
+            "paddle_tpu_torch.distributed.fleet.mp_layers",
+            "paddle_tpu_torch.distributed.fleet.random",
+            "paddle_tpu_torch.distributed.fleet.recompute",
+            "paddle_tpu_torch.distributed.fleet.sequence_parallel_utils",
+            "paddle_tpu_torch.distributed.fleet.hybrid_parallel_optimizer",
+            "paddle_tpu_torch.distributed.fleet.meta_parallel",
+            "paddle_tpu_torch.distributed.fleet.meta_parallel."
+            "tensor_parallel",
+            "paddle_tpu_torch.distributed.fleet.meta_parallel."
+            "segment_parallel",
             } <= mods
 
 
