@@ -73,7 +73,8 @@ def spawn(func, args=(), nprocs: int = -1, join: bool = True,
     ``func(*args)`` (reference: python/paddle/distributed/spawn.py:463;
     the reference's single controller runs ``func`` once on the whole
     mesh). ``device`` is where each rank's tensors go ("cpu" for gloo
-    ranks on the host). Returns torch.multiprocessing's context."""
+    ranks on the host). With ``join`` it returns once every rank has
+    exited (None); without, torch.multiprocessing's context."""
     import torch
     import torch.multiprocessing as mp
 

@@ -10,6 +10,15 @@ step gives each rank the part of the global loss its own tokens carry,
 and no Megatron-style identity regions are needed. Every function is the
 identity when its group is None (an axis of one rank).
 
+The fleet's tensor-parallel Layers are Megatron's instead: every mp rank
+repeats the computation around a parallel product, so a collective's
+backward is the transpose for that repeated computation (Paddle's mp
+ops): ``c_identity`` passes its input and sums the gradient over the
+group, ``mp_allreduce`` sums and passes the gradient, ``c_split`` keeps
+this rank's block and all-gathers the gradient, ``c_concat``
+all-gathers and keeps the gradient's block. Every all-reduce of the
+module goes through ``_reduce``.
+
 ``ppermute`` is the transport of the pipeline and of ring attention
 (the counterpart of ``lax.ppermute``): each rank of a group sends to the
 rank a permutation names and receives from the rank that names it, all
@@ -31,6 +40,7 @@ import torch
 
 __all__ = ["dist_allreduce_quant", "QUANT_SYNC_PP_REFUSAL",
            "all_reduce_sum", "all_gather_dim", "reduce_scatter_dim",
+           "c_identity", "mp_allreduce", "c_split", "c_concat",
            "ppermute", "all_to_all_dim"]
 
 # the reference's message, word for word: make_sharded_train_step raises
@@ -129,6 +139,86 @@ def _group_rank(group) -> int:
     import torch.distributed as dist
 
     return dist.get_group_rank(group, dist.get_rank())
+
+
+def _block(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim``."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {n} ranks")
+    k = x.shape[dim] // n
+    return x.narrow(dim, _group_rank(group) * k, k).contiguous()
+
+
+class _CIdentity(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.group), None
+
+
+class _MpAllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _block(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.dim, ctx.group), None, None
+
+
+class _CConcat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, ctx.dim, ctx.group), None, None
+
+
+def c_identity(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself; its gradient summed over the group (the input of a
+    column-parallel product)."""
+    return x if group is None else _CIdentity.apply(x, group)
+
+
+def mp_allreduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the group's ranks; the gradient passed as it is (the
+    partial outputs of a row-parallel product)."""
+    return x if group is None else _MpAllReduce.apply(x, group)
+
+
+def c_split(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block along ``dim``; the gradient all-gathered."""
+    return x if group is None else _CSplit.apply(x, dim % x.dim(), group)
+
+
+def c_concat(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' blocks concatenated along ``dim``; this rank's block of
+    the gradient."""
+    return x if group is None else _CConcat.apply(x, dim % x.dim(), group)
+
+
 
 
 def _send_recv(x: torch.Tensor, group, perm, tag: int = 0) -> torch.Tensor:

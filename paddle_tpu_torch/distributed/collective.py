@@ -44,12 +44,15 @@ index into the group's blocks). Each collective takes the port's
 ``Tensor`` (or a torch tensor) and works in place where the reference
 does. ``sync_op=False`` returns a pending :class:`Task`; ``wait()`` ends
 it. ``AVG`` is a sum divided by n. Over gloo (ranks that share a card:
-NCCL refuses two ranks on one device) every collective takes CUDA
-tensors but ``send`` / ``recv``, whose sockets would be handed a device
-pointer: there the tensor travels through pinned host memory
-explicitly, the transport of ranks that share a card, and
-``staged.copies`` / ``staged.bytes`` count it. A collective that fails
-raises; nothing falls back.
+NCCL refuses two ranks on one device) the collectives hand CUDA tensors
+to gloo, which copies them through the host itself; ``send`` / ``recv``
+would hand its sockets a device pointer, so there the tensor travels
+through pinned host memory explicitly, counted with the pipeline's
+copies in ``autograd_collectives.ppermute.staged_copies`` /
+``staged_bytes``. ``chip_smoke.py``'s phase ``dp_mp`` runs every
+collective of this module on CUDA tensors over gloo, the split
+all-to-all with uneven splits included. A collective that fails raises;
+nothing falls back.
 """
 
 from __future__ import annotations
@@ -59,6 +62,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .autograd_collectives import _note_staged
 from .process_mesh import Mesh, build_mesh, this_rank
 
 __all__ = ["Group", "ReduceOp", "Task", "new_group", "get_group",
@@ -187,14 +191,6 @@ def get_group(gid: int) -> Optional[Group]:
 # Eager collectives
 # ---------------------------------------------------------------------------
 
-def staged(n: int) -> None:
-    staged.copies += 1
-    staged.bytes += n
-
-
-staged.copies = staged.bytes = 0
-
-
 class Task:
     """A collective's handle (reference: ProcessGroup::Task). ``wait()``
     waits for the ``torch.distributed`` work (none: already done), then
@@ -270,10 +266,10 @@ def _global(pg, group_rank: int) -> int:
 
 
 def _host(t: torch.Tensor) -> torch.Tensor:
-    """A pinned host copy of ``t`` (counted in ``staged``)."""
+    """A pinned host copy of ``t`` (counted)."""
     h = torch.empty(t.shape, dtype=t.dtype, device="cpu", pin_memory=True)
     h.copy_(t)
-    staged(t.numel() * t.element_size())
+    _note_staged(h)
     return h
 
 
@@ -283,7 +279,7 @@ def _host_like(t: torch.Tensor) -> torch.Tensor:
 
 
 def _back(dst: torch.Tensor, h: torch.Tensor) -> None:
-    staged(h.numel() * h.element_size())
+    _note_staged(h)
     dst.copy_(h)
 
 

@@ -14,10 +14,11 @@ it is accumulated: a rank's gradient covers the tokens of its segment.
 from __future__ import annotations
 
 from ....core.tensor import Tensor
+from ...autograd_collectives import c_concat, c_split
 from ...collective import _pg, all_reduce
+from ...parallel import MetaParallelBase, broadcast_parameters
 from ...topology import get_hybrid_communicate_group
-from ..mp_layers import _comm
-from ._wrapper import MetaParallelBase, broadcast_parameters
+from ..mp_layers import _on
 
 __all__ = ["SegmentParallel", "split_sequence", "concat_sequence"]
 
@@ -31,14 +32,12 @@ def _hcg():
 
 def split_sequence(x: Tensor, axis: int = 1) -> Tensor:
     """This sep rank's block of the sequence dim ``axis``."""
-    return _comm(x, "split", "gather", axis,
-                 _hcg().get_sep_parallel_group())
+    return _on(c_split, x, axis, _hcg().get_sep_parallel_group())
 
 
 def concat_sequence(x: Tensor, axis: int = 1) -> Tensor:
     """The sep ranks' blocks concatenated along ``axis``."""
-    return _comm(x, "gather", "split", axis,
-                 _hcg().get_sep_parallel_group())
+    return _on(c_concat, x, axis, _hcg().get_sep_parallel_group())
 
 
 class SegmentParallel(MetaParallelBase):

@@ -13,7 +13,7 @@ same ones (the mp Layers' collectives carry the partial sums).
 
 from __future__ import annotations
 
-from ._wrapper import MetaParallelBase, broadcast_parameters
+from ...parallel import MetaParallelBase, broadcast_parameters
 
 __all__ = ["TensorParallel"]
 

@@ -9,10 +9,9 @@ over the "mp" axis, and XLA partitions the products and inserts the
 collectives. Here every rank holds its own block of a sharded parameter
 (``is_distributed`` True over more than one rank, ``split_axis`` the
 dim it is split on) and the collectives are explicit, as in Paddle:
-autograd pairs whose backward is the forward's transpose for a
-computation every mp rank repeats (``_comm``: identity / all-reduce,
-all-reduce / identity, split / all-gather, all-gather / split,
-all-gather / reduce-scatter, reduce-scatter / all-gather). A layer
+``autograd_collectives``' Megatron pairs, whose backward is the
+forward's transpose for a computation every mp rank repeats
+(``c_identity``, ``mp_allreduce``, ``c_split``, ``c_concat``). A layer
 draws its parameter at the global shape from the port's generator and
 keeps its block, so that the same seed gives every mp degree the same
 global weights.
@@ -26,7 +25,8 @@ from ...core.tensor import Tensor
 from ...nn import functional as F
 from ...nn import initializer as I
 from ...nn.layer.layers import Layer
-from ..collective import ReduceOp, _pg, all_gather, all_reduce, reduce_scatter
+from ..autograd_collectives import c_concat, c_identity, c_split, mp_allreduce
+from ..collective import ReduceOp, _pg, all_reduce
 from ..topology import get_hybrid_communicate_group
 
 __all__ = ["VocabParallelEmbedding", "ColumnParallelLinear",
@@ -59,58 +59,13 @@ def _shard_param(param, axis: int, group):
     return param
 
 
-# -- the collectives' autograd pairs ------------------------------------------
-
-def _identity(x, dim, group):
-    return x.view_as(x)
-
-
-def _allreduce(x, dim, group):
-    y = x.detach().contiguous().clone()
-    all_reduce(y, group=group)
-    return y
-
-
-def _split(x, dim, group):
-    k = x.shape[dim] // group.nranks
-    return x.narrow(dim, group.rank * k, k).contiguous()
-
-
-def _gather(x, dim, group):
-    whole = all_gather(x.detach().movedim(dim, 0).contiguous(),
-                       group=group).wait()
-    return whole.movedim(0, dim).contiguous()
-
-
-def _reduce_scatter(x, dim, group):
-    part = reduce_scatter(x.detach().movedim(dim, 0).contiguous(),
-                          group=group).wait()
-    return part.movedim(0, dim).contiguous()
-
-
-_KINDS = {"identity": _identity, "allreduce": _allreduce, "split": _split,
-          "gather": _gather, "reduce_scatter": _reduce_scatter}
-
-
-class _Comm(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, fwd, bwd, dim, group):
-        ctx.bwd, ctx.dim, ctx.group = bwd, dim, group
-        return _KINDS[fwd](x, dim, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _KINDS[ctx.bwd](g, ctx.dim, ctx.group), None, None, None, None
-
-
-def _comm(x: Tensor, fwd: str, bwd: str, dim: int, group) -> Tensor:
-    """``fwd`` on ``x`` over ``group``, ``bwd`` on its gradient (the
-    identity over one rank)."""
-    if _pg(group) is None:
-        return x
-    dim = dim % x.ndim
-    out = _Comm.apply(x._data, fwd, bwd, dim, group)
-    return Tensor(out, stop_gradient=not out.requires_grad)
+def _on(fn, x: Tensor, *args) -> Tensor:
+    """``autograd_collectives``' ``fn`` on ``x``'s data over ``args``
+    (the last one a Group, passed as its process group)."""
+    *rest, group = args
+    out = fn(x._data, *rest, _pg(group))
+    return x if out is x._data else Tensor(
+        out, stop_gradient=not out.requires_grad)
 
 
 class VocabParallelEmbedding(Layer):
@@ -138,7 +93,7 @@ class VocabParallelEmbedding(Layer):
         miss = (local < 0) | (local >= per)
         out = F.embedding(Tensor(torch.where(miss, 0, local)), self.weight)
         out = out * Tensor((~miss)[..., None].to(out.dtype))
-        return _comm(out, "allreduce", "identity", 0, self._group)
+        return _on(mp_allreduce, out, self._group)
 
 
 class ColumnParallelLinear(Layer):
@@ -166,10 +121,10 @@ class ColumnParallelLinear(Layer):
         self.gather_output = gather_output
 
     def forward(self, x):
-        x = _comm(x, "identity", "allreduce", 0, self._group)
+        x = _on(c_identity, x, self._group)
         y = F.linear(x, self.weight, self.bias)
         if self.gather_output:
-            y = _comm(y, "gather", "split", -1, self._group)
+            y = _on(c_concat, y, -1, self._group)
         return y
 
 
@@ -197,9 +152,9 @@ class RowParallelLinear(Layer):
 
     def forward(self, x):
         if not self.input_is_parallel:
-            x = _comm(x, "split", "gather", -1, self._group)
+            x = _on(c_split, x, -1, self._group)
         y = F.linear(x, self.weight)
-        y = _comm(y, "allreduce", "identity", 0, self._group)
+        y = _on(mp_allreduce, y, self._group)
         if self.bias is not None:
             y = y + self.bias.astype(y.dtype)
         return y

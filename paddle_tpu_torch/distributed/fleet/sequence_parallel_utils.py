@@ -7,18 +7,19 @@ ColumnSequenceParallelLinear:427, RowSequenceParallelLinear:562).
 Between tensor-parallel blocks the activations are split along the
 sequence dim (dim 0, [s, b, h]) over mp. The reference reshards a
 global array and XLA reduces partial sums where its products make them;
-here every rank holds its block and each op is an autograd pair over
-the mp group, as Paddle's: ``ScatterOp`` splits (backward all-gather),
-``GatherOp`` all-gathers (backward split), ``AllGatherOp``
-all-gathers in front of a column-parallel product, whose input
-gradient is a partial sum on each rank (backward reduce-scatter), and
+here every rank holds its block and each op is an autograd pair of
+``autograd_collectives`` over the mp group, as Paddle's: ``ScatterOp``
+splits (``c_split``: backward all-gather), ``GatherOp`` all-gathers
+(``c_concat``: backward split), ``AllGatherOp`` all-gathers in front of
+a column-parallel product, whose input gradient is a partial sum on
+each rank (``all_gather_dim``: backward reduce-scatter), and
 ``ReduceScatterOp`` sums a row-parallel product's partial outputs and
-keeps this rank's block (backward all-gather), where the reference's
-only reshards. A parameter applied to the split activations (a
-LayerNorm's, a row layer's bias) gets its gradient from this rank's
-tokens alone: ``mark_as_sequence_parallel_parameter`` marks it and
-``register_sequence_parallel_allreduce_hooks`` sums its gradient over
-mp, where the reference's hook is a no-op.
+keeps this rank's block (``reduce_scatter_dim``: backward all-gather),
+where the reference's only reshards. A parameter applied to the split
+activations (a LayerNorm's, a row layer's bias) gets its gradient from
+this rank's tokens alone: ``mark_as_sequence_parallel_parameter`` marks
+it and ``register_sequence_parallel_allreduce_hooks`` sums its gradient
+over mp, where the reference's hook is a no-op.
 """
 
 from __future__ import annotations
@@ -27,8 +28,10 @@ from ...core.tensor import Tensor
 from ...nn import functional as F
 from ...nn import initializer as I
 from ...nn.layer.layers import Layer
+from ..autograd_collectives import (all_gather_dim, c_concat, c_split,
+                                    reduce_scatter_dim)
 from ..collective import _pg, all_reduce
-from .mp_layers import _comm, _mp_group, _shard_param
+from .mp_layers import _mp_group, _on, _shard_param
 
 __all__ = [
     "ScatterOp", "GatherOp", "AllGatherOp", "ReduceScatterOp",
@@ -44,7 +47,7 @@ class ScatterOp:
 
     @staticmethod
     def apply(x: Tensor, axis: int = 0) -> Tensor:
-        return _comm(x, "split", "gather", axis, _mp_group())
+        return _on(c_split, x, axis, _mp_group())
 
 
 class GatherOp:
@@ -52,7 +55,7 @@ class GatherOp:
 
     @staticmethod
     def apply(x: Tensor, axis: int = 0) -> Tensor:
-        return _comm(x, "gather", "split", axis, _mp_group())
+        return _on(c_concat, x, axis, _mp_group())
 
 
 class AllGatherOp:
@@ -61,7 +64,7 @@ class AllGatherOp:
 
     @staticmethod
     def apply(x: Tensor, axis: int = 0) -> Tensor:
-        return _comm(x, "gather", "reduce_scatter", axis, _mp_group())
+        return _on(all_gather_dim, x, axis, _mp_group())
 
 
 class ReduceScatterOp:
@@ -70,7 +73,7 @@ class ReduceScatterOp:
 
     @staticmethod
     def apply(x: Tensor, axis: int = 0) -> Tensor:
-        return _comm(x, "reduce_scatter", "gather", axis, _mp_group())
+        return _on(reduce_scatter_dim, x, axis, _mp_group())
 
 
 def mark_as_sequence_parallel_parameter(param):
@@ -131,7 +134,7 @@ class ColumnSequenceParallelLinear(Layer):
         x = AllGatherOp.apply(x)
         y = F.linear(x, self.weight, self.bias)
         if self.gather_output:
-            y = _comm(y, "gather", "split", -1, self._group)
+            y = _on(c_concat, y, -1, self._group)
         return y
 
 

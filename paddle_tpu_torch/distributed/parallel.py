@@ -41,7 +41,8 @@ from .topology import (HYBRID_AXES, CommunicateTopology,
                        set_hybrid_communicate_group)
 
 __all__ = ["init_parallel_env", "get_rank", "get_world_size",
-           "is_initialized", "ParallelEnv", "DataParallel"]
+           "is_initialized", "ParallelEnv", "DataParallel",
+           "MetaParallelBase"]
 
 _DEFAULT_GROUP: Optional[Group] = None
 _ALIAS = {"dp": "data", "pp": "pipe", "sharding": "sharding", "sep": "sep",
@@ -141,6 +142,62 @@ class ParallelEnv:
     dev_id = device_id
 
 
+def broadcast_parameters(layers, group, distributed_too: bool) -> None:
+    """Every parameter (the ``is_distributed`` ones only with
+    ``distributed_too``) and buffer of ``layers`` from ``group``'s rank
+    0 to its other ranks: one logical copy, as the reference's."""
+    if _pg(group) is None:
+        return
+    for p in layers.parameters():
+        if distributed_too or not getattr(p, "is_distributed", False):
+            broadcast(p, src=0, group=group)
+    for b in layers.buffers():
+        if b is not None:
+            broadcast(b, src=0, group=group)
+
+
+class MetaParallelBase:
+    """What the parallel model wrappers share (``DataParallel`` and the
+    fleet's meta-parallel ones): the call and the wrapped Layer's
+    surface."""
+
+    def __init__(self, layers, hcg, strategy=None):
+        self._layers = layers
+        self._hcg = hcg
+        self._strategy = strategy
+
+    def forward(self, *inputs, **kwargs):
+        return self._layers(*inputs, **kwargs)
+
+    def __call__(self, *inputs, **kwargs):
+        return self.forward(*inputs, **kwargs)
+
+    def parameters(self, *a, **k):
+        return self._layers.parameters(*a, **k)
+
+    def named_parameters(self, *a, **k):
+        return self._layers.named_parameters(*a, **k)
+
+    def state_dict(self, *a, **k):
+        return self._layers.state_dict(*a, **k)
+
+    def set_state_dict(self, *a, **k):
+        return self._layers.set_state_dict(*a, **k)
+
+    def train(self):
+        self._layers.train()
+        return self
+
+    def eval(self):
+        self._layers.eval()
+        return self
+
+    def __getattr__(self, name):
+        if name == "_layers":
+            raise AttributeError(name)
+        return getattr(self._layers, name)
+
+
 class _Bucket:
     __slots__ = ("params", "ready", "work", "flat", "nbytes")
 
@@ -173,7 +230,7 @@ def _buckets(params, comm_mb: float, last_mb: float) -> list:
     return [_Bucket(b) for b in reversed(out)]
 
 
-class DataParallel:
+class DataParallel(MetaParallelBase):
     """Data-parallel model wrapper (reference: distributed/parallel.py:123;
     Paddle's distributed/parallel.py:219 with its EagerReducer).
 
@@ -186,8 +243,8 @@ class DataParallel:
                  last_comm_buffer_size: float = 1,
                  find_unused_parameters: bool = False,
                  group: Optional[Group] = None):
-        self._layers = layers
         hcg = get_hybrid_communicate_group()
+        super().__init__(layers, hcg, strategy)
         self.group = group or (hcg.get_data_parallel_group()
                                if hcg is not None else
                                _ensure_default_group())
@@ -197,7 +254,7 @@ class DataParallel:
         self._pending = False
         self.stats = {"steps": 0, "allreduce_bytes": 0, "allreduce_calls": 0,
                       "wait_ms": 0.0}
-        self._sync_params_buffers()
+        broadcast_parameters(layers, self.group, distributed_too=True)
         self._params = [p for p in layers.parameters() if not p.stop_gradient]
         self._buckets = _buckets(self._params, comm_buffer_size,
                                  last_comm_buffer_size)
@@ -208,18 +265,6 @@ class DataParallel:
         self._next = 0
         self._hooked = {}
         self._register_hooks()
-
-    # -- wrap time ------------------------------------------------------------
-    def _sync_params_buffers(self) -> None:
-        """The group's rank 0 copy of every parameter and buffer on every
-        rank: one logical copy, as the reference's."""
-        if self.group.nranks == 1:
-            return
-        for p in self._layers.parameters():
-            broadcast(p, src=0, group=self.group)
-        for b in self._layers.buffers():
-            if b is not None:
-                broadcast(b, src=0, group=self.group)
 
     def _register_hooks(self) -> None:
         """A post-accumulate hook on each leaf's current buffer (the
@@ -312,8 +357,6 @@ class DataParallel:
         self._register_hooks()
         return self._layers(*inputs, **kwargs)
 
-    __call__ = forward
-
     @contextlib.contextmanager
     def no_sync(self):
         """Backwards inside accumulate gradients locally; the next synced
@@ -340,28 +383,3 @@ class DataParallel:
         if isinstance(t, Tensor):
             return Tensor(block, stop_gradient=t.stop_gradient)
         return Tensor(block)
-
-    def state_dict(self, *a, **k):
-        return self._layers.state_dict(*a, **k)
-
-    def set_state_dict(self, *a, **k):
-        return self._layers.set_state_dict(*a, **k)
-
-    def parameters(self, *a, **k):
-        return self._layers.parameters(*a, **k)
-
-    def named_parameters(self, *a, **k):
-        return self._layers.named_parameters(*a, **k)
-
-    def train(self):
-        self._layers.train()
-        return self
-
-    def eval(self):
-        self._layers.eval()
-        return self
-
-    def __getattr__(self, name):
-        if name == "_layers":
-            raise AttributeError(name)
-        return getattr(self._layers, name)

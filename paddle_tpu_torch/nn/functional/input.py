@@ -4,7 +4,11 @@ paddle_tpu/nn/functional/input.py).
 ``embedding`` is a row gather whose backward scatter-adds into the
 table, as the reference's. Indices keep their integer type (the
 reference truncates them to int32); they follow ``jnp.take``'s rules: a
-negative index counts from the end, one outside [-n, n) reads NaN.
+negative index counts from the end, one outside [-n, n) reads NaN. A
+bf16 / fp16 table (AMP casts it) sums its gradient in fp32 and rounds
+it once: torch's index backward would add the rows one at a time in the
+table's dtype, and a row that thousands of tokens share (a token type,
+a position) would lose its digits.
 """
 
 from __future__ import annotations
@@ -25,13 +29,35 @@ def one_hot(x, num_classes: int):
     return (idx[..., None] == classes).to(torch.float32)
 
 
+class _LowPrecisionRows(torch.autograd.Function):
+    """``weight[idx]`` whose table gradient is summed in fp32."""
+
+    @staticmethod
+    def forward(ctx, weight, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape, ctx.dtype = weight.shape, weight.dtype
+        return weight[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        gw = torch.zeros(ctx.shape, dtype=torch.float32, device=g.device)
+        gw.index_put_((idx,), g.float(), accumulate=True)
+        return gw.to(ctx.dtype), None
+
+
 @op("embedding", amp="cast")
 def embedding(x, weight, padding_idx=None, sparse: bool = False):
     idx = x.to(torch.int64)
     n = weight.shape[0]
     wrapped = torch.where(idx < 0, idx + n, idx)
     valid = (wrapped >= 0) & (wrapped < n)
-    out = weight[torch.clamp(wrapped, 0, n - 1)]
+    rows = torch.clamp(wrapped, 0, n - 1)
+    if weight.dtype in (torch.bfloat16, torch.float16) and \
+            weight.requires_grad:
+        out = _LowPrecisionRows.apply(weight, rows)
+    else:
+        out = weight[rows]
     # no host sync to ask whether any index is out of range
     out = torch.where(valid[..., None], out,
                       torch.full((), float("nan"), dtype=out.dtype,

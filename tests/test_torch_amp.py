@@ -161,3 +161,26 @@ def test_bfloat16_support_query():
         else None
     assert paddle_tpu_torch.amp.is_bfloat16_supported() == (
         cap is not None and cap >= (8, 0))
+
+
+def test_amp_embedding_table_gradient_sums_in_fp32():
+    """Under O1 bf16 the port looks an embedding up in the bf16 cast of
+    its table and sums the table's gradient in fp32, rounding it once:
+    two rows shared by 8192 tokens (BERT's token types) get their exact
+    sum within 2^-8 relative Frobenius (torch's index backward, adding
+    the rows one at a time in bf16, lands 0.05-0.07 away)."""
+    pk = paddle_tpu_torch
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 2, (4, 2048))
+    g = rng.standard_normal((4, 2048, 64)).astype(np.float32)
+    emb = pk.nn.Embedding(2, 64)
+    with pk.amp.auto_cast(level="O1", dtype="bfloat16"):
+        out = emb(pk.to_tensor(ids))
+    assert _dt(out) == "bfloat16"
+    (out.astype("float32") * pk.to_tensor(g)).sum().backward()
+    got = emb.weight.grad.numpy().astype(np.float64)
+    rows = pk.to_tensor(g).astype("bfloat16").astype("float32").numpy()
+    for r in range(2):
+        want = rows[ids == r].astype(np.float64).sum(0)
+        err = np.linalg.norm(got[r] - want) / np.linalg.norm(want)
+        assert err <= 2 ** -8, (r, err)

@@ -210,3 +210,17 @@ def test_objects_async_and_barrier(runs):
         assert got["objects"].tolist() == list(range(N))
         assert got["async"].tolist() == [True, True]
         np.testing.assert_array_equal(got["async_value"], np.full(2, 4.0))
+
+
+def test_spawn_two_ranks(tmp_path):
+    """``distributed.spawn`` starts the ranks (torch.multiprocessing), each
+    joined through ``init_parallel_env`` (gloo on the CPU), and runs the
+    function on every one of them."""
+    from paddle_tpu_torch import distributed as pdist
+
+    assert pdist.spawn(C.spawned_rank, args=(str(tmp_path),), nprocs=2,
+                       device="cpu") is None
+    for r in range(2):
+        got = np.load(tmp_path / f"spawn.r{r}.npz")
+        assert got["world"].tolist() == [2, r]
+        np.testing.assert_array_equal(got["sum"], np.full(3, 3.0, np.float32))

@@ -372,3 +372,40 @@ def test_recompute_replays_the_dropout_mask():
             p.clear_gradient()
     for a, b in zip(*grads):
         np.testing.assert_array_equal(a, b)
+
+
+def test_mp_layers_at_one_rank_under_amp():
+    """At mp 1 (one process, no process group) the mp Layers are the
+    plain layers: under O1 bf16, on an fp32 activation (a LayerNorm's
+    output) and on ids, the column and row layers and the embedding give,
+    bitwise, what ``F.linear`` and ``F.embedding`` of the same weights
+    give."""
+    from paddle_tpu_torch.distributed import fleet as pfleet
+    from paddle_tpu_torch.distributed import parallel, topology
+
+    F = port.nn.functional
+    old = (topology.get_hybrid_communicate_group(), parallel._DEFAULT_GROUP,
+           dict(pfleet._FLEET_STATE))
+    try:
+        pfleet.init(strategy=pfleet.DistributedStrategy())
+        port.seed(0)
+        emb = pfleet.VocabParallelEmbedding(64, 16)
+        col = pfleet.ColumnParallelLinear(16, 32, gather_output=False)
+        row = pfleet.RowParallelLinear(32, 8, input_is_parallel=True)
+        rng = np.random.RandomState(0)
+        ids = port.to_tensor(rng.randint(0, 64, (2, 5)))
+        x = port.to_tensor(rng.randn(2, 5, 16).astype(np.float32))
+        with port.amp.auto_cast(level="O1", dtype="bfloat16"):
+            got = [row(col(x)), emb(ids)]
+            want = F.linear(F.linear(x, col.weight, col.bias), row.weight)
+            want = [want + row.bias.astype(want.dtype),
+                    F.embedding(ids, emb.weight)]
+        for a, b in zip(got, want):
+            assert str(a.dtype) == "torch.bfloat16"
+            np.testing.assert_array_equal(a.astype("float32").numpy(),
+                                          b.astype("float32").numpy())
+    finally:
+        topology.set_hybrid_communicate_group(old[0])
+        parallel._DEFAULT_GROUP = old[1]
+        pfleet._FLEET_STATE.clear()
+        pfleet._FLEET_STATE.update(old[2])

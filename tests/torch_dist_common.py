@@ -68,6 +68,20 @@ def load_inputs(root: str, name: str) -> dict:
     return {k: npz[k] for k in npz.files}
 
 
+def spawned_rank(root: str) -> None:
+    """A function for ``paddle_tpu_torch.distributed.spawn``: each rank
+    writes ``root/spawn.r<rank>.npz`` with the world's size, its rank and
+    an all-reduce of (rank + 1) over the world."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import distributed as dist
+
+    r = dist.get_rank()
+    t = pt.to_tensor(np.full(3, r + 1.0, np.float32))
+    dist.all_reduce(t)
+    np.savez(os.path.join(root, f"spawn.r{r}.npz"),
+             world=np.array([dist.get_world_size(), r]), sum=t.numpy())
+
+
 # -- inputs --------------------------------------------------------------------
 
 def tp_arrays(seed: int, shapes: dict) -> dict:
