@@ -172,7 +172,8 @@ Phases, each failing loudly (any failure exits nonzero):
    decode replica over the wire (overlapped and synchronous), two
    colocated replicas under bench.py's fleet traffic with one killed, an
    int8 prefill replica into a bf16 one.
-16. ``rollout``: llama3-8b at the serving settings, v1 (seed 0) and v2
+16. ``rollout``: llama3-8b's widths at the serving settings, depth cut
+   to ROLLOUT_LAYERS of 32 (the phase is host-bound), v1 (seed 0) and v2
    (seed 1): a deploy of v2 fired mid-decode by ``FleetDriver(deploys=)``
    under the same traffic, every stream equal to a lone engine's on the
    version it was pinned to; a ``rollout.canary`` failure (one rollback,
@@ -183,7 +184,8 @@ Phases, each failing loudly (any failure exits nonzero):
    ``WeightCatalog.put`` ms and GB/s, ``rollout_ms``,
    ``rollout_stall_ms``, each ``set_params`` swap, goodput, TTFT p50 / p99
    and peak memory.
-17. ``resilient``: gpt3-350m at the train phase's settings under
+17. ``resilient``: gpt3-350m at the train phase's settings, depth cut to
+   RESILIENT_LAYERS of 24 (the phase is host-bound), under
    ResilientTrainLoop (``donated_step``; save_every 2, keep 2): 6 steps
    through a NaN at step 3 (restored bitwise from the step-2 checkpoint),
    a torn step-6 save, a new loop resuming at step 4 with the
@@ -355,10 +357,39 @@ Phases, each failing loudly (any failure exits nonzero):
     send / recv through pinned host memory). Prints each part's step
     ms, tokens/s, peaks, the all-reduce ms of (a) and the mp all-reduce
     ms of (b).
+25. ``pp_moe``: the fleet's pipeline Layers and the incubate MoE Layer
+    on gloo ranks that share the card (not a pp or ep speed). (a)
+    BASELINE.md configuration 4's Layer path: the GPT of (b) above at
+    GPT-3 1.3B's widths as a ``PipelineLayer`` of ``LayerDesc``s (the
+    embedding, 24 blocks, ln_f + head; ``seg_method="layer:Block"``,
+    depth not cut) at pp 2 x mp 1 on two ranks, accumulate 4 x micro
+    batch 2, S 1024, AMP O1, AdamW with ``ClipGradByGlobalNorm``
+    through ``fleet.distributed_model`` / ``distributed_optimizer``, 3
+    steps each of 1F1B, interleaved (V 2) and ZBH1 from the same
+    weights (drawn by layer index, whatever the layout): the first loss
+    and clip norm within PP_MOE_RTOL of one process accumulating the 4
+    microbatches, the other schedules' losses within PP_MOE_RTOL of
+    1F1B's and their step-1 gradients within BF16_TOL (scaled), the
+    stash at most pp - s, ZBH1's order its ``static_scheduler()``'s
+    with weight gradients deferred, K1-sep 48 and K3-sep 96 a rank a
+    step, all wgmma. (b) ``MoELayer``, a GShard top-2 gate over 8
+    experts of Linear(1024, 4096)-GELU-Linear(4096, 1024), capacity
+    1.25, at a moe group of 2 (4 experts a rank), B 8 x S 1024 tokens a
+    rank, AMP O1, against one process holding all 8 experts on the
+    16,384-token concatenation: at most PP_MOE_TIES of the tokens
+    routed apart, outputs and expert gradients within BF16_TOL (scaled)
+    on the tokens routed alike, the auxiliary loss within PP_MOE_RTOL.
+    (c) Small fp32 cases card vs CPU on four ranks: the GPT as a
+    ``PipelineLayer`` with a ``SharedLayerDesc`` tied head at pp 2 x mp
+    2 through the three schedules and the MoE Layer at a group of 2, 3
+    SGD steps each: losses within TRAIN_CPU_RTOL, parameters within
+    TRAIN_CPU_ATOL. Prints each schedule's step ms, tokens/s, peaks and
+    staged p2p bytes and ms, and the MoE all-to-all's bytes and ms and
+    its dropped share.
 
 After each of the phases train, train_13b, llama_train, decode, paged,
-resilient, dist, pipe and dp_mp (the ranks' launches included), eager,
-bert and ops every bf16 flash launch at head dim 64 or 128 must have taken
+resilient, dist, pipe, dp_mp and pp_moe (the ranks' launches included),
+eager, bert and ops every bf16 flash launch at head dim 64 or 128 must have taken
 the TMA + wgmma variant, as the C launchers report what they launched
 (``flash_attention.LAUNCHES_BY_PLAN``), and at every shape launched the
 C launchers' plan must be ``flash_plan``'s. After each of the phases
@@ -391,7 +422,8 @@ PHASES = ("kernels", "engine", "int8", "cpu", "train_kernels", "train",
           "train_cpu", "train_13b", "llama_train", "decode_kernels",
           "decode", "decode_cpu", "serving_kernels", "serving",
           "paged_kernels", "paged", "fleet", "rollout", "resilient",
-          "dist", "pipe", "eager", "bert", "resnet", "ops", "dp_mp")
+          "dist", "pipe", "eager", "bert", "resnet", "ops", "dp_mp",
+          "pp_moe")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12         # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12          # fp32 outside the tensor cores (K6, K7)
@@ -457,7 +489,7 @@ def _bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
 # TMA + wgmma variant (flash_attention.flash_plan)
 FLASH_WGMMA_PHASES = ("train", "train_13b", "llama_train", "decode", "paged",
                       "resilient", "dist", "pipe", "eager", "bert", "ops",
-                      "dp_mp")
+                      "dp_mp", "pp_moe")
 
 
 def _flash_launch_counts() -> collections.Counter:
@@ -4544,6 +4576,8 @@ def run_fleet(dev) -> dict:
 
 # -- the runtime plane: rollout, autoscale, SLO shed -------------------------
 
+ROLLOUT_LAYERS = 8            # llama3-8b's depth cut from 32: the phase is
+                              # host-bound (the router, sha1 of the weights)
 ROLLOUT_TRAFFIC = dict(       # the fleet phase's bench.py traffic, no deadlines
     n_requests=48, seed=7, process="poisson", rate=30.0, prefix_len=512,
     n_prefixes=1, shared_frac=0.9, tail_log_mean=5.3, tail_log_sigma=0.6,
@@ -4681,8 +4715,9 @@ def _params_bytes(tree) -> int:
 
 
 def run_rollout(dev) -> dict:
-    """The fleet's zero-downtime operations at llama3-8b (random bf16
-    weights: v1 from seed 0, v2 from seed 1; replicas at the serving
+    """The fleet's zero-downtime operations at llama3-8b's widths,
+    ROLLOUT_LAYERS of its 32 layers (random bf16 weights: v1 from seed
+    0, v2 from seed 1; replicas at the serving
     settings sharing one params dict a version): (a) a rollout to v2
     fired mid-decode by ``FleetDriver(deploys=...)`` under the fleet
     phase's bench.py traffic, converging to v2, every stream equal to a
@@ -4700,7 +4735,8 @@ def run_rollout(dev) -> dict:
     from paddle_tpu_torch.models.llama import init_llama_params, llama_presets
     from paddle_tpu_torch.testing import chaos
 
-    cfg = llama_presets("llama3-8b")
+    cfg = dataclasses.replace(llama_presets("llama3-8b"),
+                              n_layers=ROLLOUT_LAYERS)
     L = cfg.n_layers
     _release()
     torch.cuda.reset_peak_memory_stats()
@@ -4915,6 +4951,8 @@ def run_rollout(dev) -> dict:
 # -- the runtime plane: training's self-healing loop --------------------------
 
 RESILIENT_WORKER = "--resilient-worker"
+RESILIENT_LAYERS = 6          # gpt3-350m's depth cut from 24: the phase is
+                              # host-bound (checkpoints, the loop's guards)
 
 
 def _gpt350m(n_layers=None):
@@ -5018,8 +5056,9 @@ def _resilient_worker() -> int:
 
 def run_resilient(dev) -> dict:
     """Training's self-healing loop on the card: gpt3-350m at the train
-    phase's settings (24 layers, B 16, S 1024, bf16 moments, fp32 masters,
-    fusion on) under ResilientTrainLoop over the port's in-place step
+    phase's settings but its depth (RESILIENT_LAYERS of 24 layers; B 16,
+    S 1024, bf16 moments, fp32 masters, fusion on) under
+    ResilientTrainLoop over the port's in-place step
     (``donated_step``), checkpoints on local disk (save_every 2, keep 2):
     (a) 6 committed steps with a ``nan`` fault at step 3, restored from
     the step-2 checkpoint bitwise and continued; (b) the step-6 save torn
@@ -5040,7 +5079,7 @@ def run_resilient(dev) -> dict:
     from paddle_tpu_torch.ops.kernels import fused_ce as ce
     from paddle_tpu_torch.testing import chaos
 
-    cfg = _gpt350m()
+    cfg = _gpt350m(RESILIENT_LAYERS)
     batch = _train_batch(cfg)
     _release()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_resilient_")
@@ -8959,6 +8998,755 @@ def run_dp_mp(dev) -> dict:
     return dict(total)
 
 
+PP_MOE_WORKER = "--pp-moe-worker"
+PP_MOE_N, PP_MOE_MB = 4, 2           # (a) accumulate_steps x micro batch
+PP_MOE_STEPS = 3
+PP_MOE_RTOL = 1e-3                   # (a) vs one process: first loss, clip
+                                     # norm; schedules vs 1F1B: losses
+PP_MOE_CLIP = 1.0
+PP_MOE_SCHEDULES = (("1f1b", 1), ("vpp", 2), ("zbh1", 1))
+PP_MOE_B, PP_MOE_S = 8, 1024         # (b) a rank's tokens: B 8 x S 1024
+PP_MOE_D, PP_MOE_H = 1024, 4096      # (b) GPT-MoE widths (phase dist)
+PP_MOE_TIES = 1e-3                   # (b) share of tokens routed apart
+PP_MOE_SMALL_CLIP = 0.5             # (c) the MoE step's global-norm clip
+PP_MOE_SMALL_GPT = dict(vocab_size=1024, hidden=256, n_layers=4, n_heads=4,
+                        seq_len=128)
+
+
+def _pp_cfg(dims: dict, n: int = PP_MOE_N, mb: int = PP_MOE_MB,
+            schedule: str = ""):
+    from paddle_tpu_torch.distributed import fleet
+
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = dict(s.hybrid_configs, **dims)
+    s.pipeline_configs = {"accumulate_steps": n, "micro_batch_size": mb,
+                          "schedule_mode": schedule}
+    return fleet.init(strategy=s)
+
+
+def _pp_seed(pipe, gen_device, seed: int = 0) -> None:
+    """Every 2-D parameter of the layer built from desc i (a shared
+    layer's at its key's first desc) drawn from N(0, 0.02^2) by a
+    generator on ``gen_device`` seeded from (seed, i, its index in the
+    layer): the same global weights whatever the stage layout; the 1-D
+    ones keep their constant initialisation."""
+    first = {}
+    for i, d in enumerate(pipe._layers_desc):
+        key = getattr(d, "layer_name", None)
+        if key is not None:
+            first.setdefault(key, i)
+    for i, lyr in pipe._built_by_index.items():
+        key = getattr(pipe._layers_desc[i], "layer_name", None)
+        if key is not None:
+            i, lyr = first[key], pipe._shared_layers[key]
+        for j, (_, p) in enumerate(lyr.named_parameters()):
+            if p._data.dim() < 2:
+                continue
+            g = torch.Generator(device=gen_device).manual_seed(
+                seed + 1000 * i + j)
+            w = torch.empty(p._data.shape, device=gen_device).normal_(
+                0.0, 0.02, generator=g)
+            with torch.no_grad():
+                p._data.copy_(w)
+
+
+def _pp_build(pt, cfg, V: int, tied: bool = False, gen_device=None):
+    """The mp GPT's PipelineLayer (``layer:Block``, V virtual stages) on
+    the current device, its weights from ``_pp_seed`` (drawn on
+    ``gen_device``, by default the current device)."""
+    from paddle_tpu_torch.core.device import current_device
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        PipelineLayer
+
+    G = _test_module("torch_mp_gpt")
+    descs, loss_fn = G.pipeline(pt, cfg, tied=tied)
+    pipe = PipelineLayer(descs, loss_fn=loss_fn, seg_method="layer:Block",
+                         num_virtual_pipeline_stages=V if V > 1 else None)
+    _pp_seed(pipe, gen_device or current_device())
+    return pipe
+
+
+def _canonical_grads(pipe) -> dict:
+    """{(desc index, parameter name): gradient} of this rank's layers."""
+    out = {}
+    for i, lyr in pipe._built_by_index.items():
+        if not hasattr(lyr, "named_parameters"):
+            continue
+        for n, p in lyr.named_parameters():
+            if p._data.grad is not None:
+                out[(i, n)] = p._data.grad.detach()
+    return out
+
+
+def _pp_gpt_rank(pt, root: str, out: dict) -> None:
+    """(a) GPT-3 1.3B of the mp Layers as a PipelineLayer (embedding, 24
+    blocks, ln_f + head; ``layer:Block``) at pp 2 x mp 1, accumulate 4 x
+    micro batch 2, S 1024, AMP O1 bf16, AdamW with ClipGradByGlobalNorm
+    through ``fleet.distributed_model`` / ``distributed_optimizer``:
+    PP_MOE_STEPS steps each of 1F1B, interleaved (V 2) and ZBH1 from the
+    same weights. Each schedule's first step runs as ``train_batch``
+    does, its gradients held against 1F1B's (a layer another rank held
+    under 1F1B through a file); the later ones through
+    ``train_batch``."""
+    import os
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.autograd_collectives import ppermute
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    G = _test_module("torch_mp_gpt")
+    cfg = G.gpt3_1p3b()
+    tok, lab = G.batch(cfg, PP_MOE_N * PP_MOE_MB)
+    rank = dist.get_rank()
+    ref1f1b, recs = None, {}
+    for name, V in PP_MOE_SCHEDULES:
+        _reset_topology()
+        _pp_cfg({"pp_degree": 2}, schedule="ZBH1" if name == "zbh1" else "")
+        pipe = _pp_build(pt, cfg, V)
+        model = fleet.distributed_model(pipe)
+        opt = fleet.distributed_optimizer(pt.optimizer.AdamW(
+            learning_rate=1e-4, parameters=pipe.parameters(),
+            grad_clip=pt.nn.ClipGradByGlobalNorm(PP_MOE_CLIP)))
+        data = (pt.to_tensor(tok), pt.to_tensor(lab))
+        rec = {"kind": type(model).__name__, "losses": [], "norms": [],
+               "step_s": [], "launches": [], "p2p": [], "staged": [],
+               "segments": pipe.own_segments(),
+               "params": sum(p.size for p in pipe.parameters())}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(PP_MOE_STEPS):
+            before = _zero_sep_counts(fa)
+            p2p0, staged0 = dict(model.p2p_stats), ppermute.staged_bytes
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with pt.amp.auto_cast(level="O1", dtype="bfloat16"):
+                if i == 0:
+                    loss = model.forward_backward_pipeline(data)
+                    pipe.allreduce_shared_weight_gradients()
+                else:
+                    loss = model.train_batch(data, opt)
+            if i == 0:
+                torch.cuda.synchronize()
+                grads = _canonical_grads(pipe)
+                if ref1f1b is None:
+                    ref1f1b = {k: g.clone() for k, g in grads.items()}
+                    rec["grad_err"] = None
+                else:
+                    rec["grad_err"] = _pp_grad_errs(root, rank, name, grads,
+                                                    ref1f1b)
+                del grads
+                opt.step()
+                opt.clear_grad()
+            rec["losses"].append(loss.item())
+            rec["norms"].append(float(opt._inner_opt._grad_clip.last_norm))
+            torch.cuda.synchronize()
+            rec["step_s"].append(time.perf_counter() - t0)
+            rec["launches"].append(_sep_step_counts(fa, before))
+            p2p = model.p2p_stats
+            rec["p2p"].append({k: p2p[k] - p2p0[k] for k in p2p})
+            rec["staged"].append(ppermute.staged_bytes - staged0)
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        rec["stash"] = model.max_stash
+        rec["log"] = ";".join(model.schedule_log)
+        if name == "zbh1":
+            rec["static"] = model.static_scheduler()[model.stage_id]
+            rec["deferred"] = model.deferred
+        rec["stage"] = model.stage_id
+        recs[name] = rec
+        if name == "1f1b":
+            # the 1F1B gradients another layout puts on the other rank
+            vpp = _pp_owned(cfg, 2, rank)
+            torch.save({k: g.cpu() for k, g in ref1f1b.items()
+                        if k[0] not in vpp},
+                       os.path.join(root, f"g1f1b.r{rank}.pt"))
+        del model, opt, pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+    del ref1f1b
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["gpt"] = recs
+
+
+def _pp_owned(cfg, V: int, rank: int) -> set:
+    """The desc indices stage ``rank`` owns at pp 2 with V virtual
+    stages (``layer:Block``), from the metadata alone."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.pp_layers import \
+        SegmentLayers
+
+    G = _test_module("torch_mp_gpt")
+    import paddle_tpu_torch as pt
+
+    descs, _ = G.pipeline(pt, cfg)
+    parts = SegmentLayers(descs, 2, "layer:Block",
+                          V if V > 1 else None).do_segment()
+    return {i for g in range(2 * V) if g % 2 == rank
+            for i in range(parts[g], parts[g + 1])}
+
+
+def _pp_grad_errs(root, rank, name, grads, ref1f1b) -> list:
+    """The largest scaled errors of ``grads`` against 1F1B's (the peer's
+    file for a layer this rank did not hold under 1F1B)."""
+    import os
+
+    import torch.distributed as dist
+
+    peer = None
+    errs = []
+    for k, g in grads.items():
+        r = ref1f1b.get(k)
+        if r is None:
+            if peer is None:
+                peer = torch.load(os.path.join(
+                    root, f"g1f1b.r{1 - rank}.pt"))
+            r = peer[k].to(g.device)
+        errs.append((_scaled_err(g.reshape(-1), r.reshape(-1))[1],
+                     f"{k[0]}:{k[1]}"))
+    dist.barrier()
+    del peer
+    return sorted(errs)[::-1][:3] + [len(errs)]
+
+
+def _moe_global(dev, seed: int = 11) -> dict:
+    """The (b) Layer's global state by the reference's names: 8 experts
+    of Linear(1024, 4096)-GELU-Linear(4096, 1024) and the gate, drawn on
+    the card from a seed."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    D, H, E = PP_MOE_D, PP_MOE_H, MOE_EXPERTS
+
+    def draw(*shape, std):
+        return torch.empty(shape, device=dev).normal_(0.0, std, generator=g)
+
+    out = {"gate.gate.weight": draw(D, E, std=D ** -0.5),
+           "gate.gate.bias": draw(E, std=0.0)}
+    for e in range(E):
+        out[f"experts.{e}.0.weight"] = draw(D, H, std=D ** -0.5)
+        out[f"experts.{e}.0.bias"] = draw(H, std=0.02)
+        out[f"experts.{e}.2.weight"] = draw(H, D, std=H ** -0.5)
+        out[f"experts.{e}.2.bias"] = draw(D, std=0.02)
+    return out
+
+
+def _moe_tokens(dev, seed: int = 12):
+    """The concatenated batch (16,384 tokens of 1024) and a cotangent."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = 2 * PP_MOE_B * PP_MOE_S
+    return (torch.randn(n, PP_MOE_D, device=dev, generator=g),
+            torch.randn(n, PP_MOE_D, device=dev, generator=g))
+
+
+def _moe_build(pt, n_experts: int, group=None, d: int = 0, h: int = 0):
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+
+    d, h = d or PP_MOE_D, h or PP_MOE_H
+    experts = [pt.nn.Sequential(pt.nn.Linear(d, h), pt.nn.GELU(),
+                                pt.nn.Linear(h, d))
+               for _ in range(n_experts)]
+    return MoELayer(d, experts, gate={"type": "gshard", "top_k": 2},
+                    moe_group=group, capacity_factor=MOE_CAPACITY)
+
+
+def _timed_exchanges():
+    """Wrap ``moe_utils._exchange`` (the all-to-all of global_scatter /
+    global_gather) with synchronized host timers."""
+    from paddle_tpu_torch.distributed.utils import moe_utils
+
+    times, plain = [], moe_utils._exchange
+
+    def timed(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = plain(*a)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return y
+
+    moe_utils._exchange = timed
+    return times, lambda: setattr(moe_utils, "_exchange", plain)
+
+
+def _pp_moe_rank(pt, root: str, out: dict) -> None:
+    """(b) MoELayer, GShard top-2 over 8 experts, capacity 1.25, at a moe
+    group of 2 (4 experts a rank), B 8 x S 1024 tokens a rank, AMP O1:
+    the routing against the one-process reference's (written to
+    ``root``), the outputs on the tokens routed alike, the auxiliary
+    loss; the backward of a cotangent kept on those tokens (the
+    reference's backward of the union follows in the parent); the
+    all-to-all's bytes and time, the dropped share."""
+    import os
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.core.device import current_device
+    from paddle_tpu_torch.distributed.utils import moe_utils
+    from paddle_tpu_torch.utils.convert import moe_shards_from_global
+
+    _reset_topology()
+    hcg = _pp_cfg({"dp_degree": 2})
+    group = hcg.get_data_parallel_group()
+    r = group.rank
+    dev = current_device()
+    ref = torch.load(os.path.join(root, "moe_ref.pt"), map_location=dev)
+    layer = _moe_build(pt, MOE_EXPERTS // 2, group)
+    layer.set_state_dict(moe_shards_from_global(_moe_global(dev), layer,
+                                                dev))
+    X, cot = _moe_tokens(dev)
+    n = PP_MOE_B * PP_MOE_S
+    rows = slice(r * n, (r + 1) * n)
+    x = pt.to_tensor(X[rows])
+    x.stop_gradient = False
+    stats0 = dict(moe_utils.STATS)
+    times, restore = _timed_exchanges()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with pt.amp.auto_cast(level="O1", dtype="bfloat16"):
+            y = layer(x)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        rt = layer.last_routing
+        alike = (rt["idx"] == ref["idx"][rows]).all(-1) & \
+            (rt["keep"] == ref["keep"][rows]).all(-1)
+        aux = layer.gate.get_loss().item()
+        err = _scaled_err(y._data[alike].float(),
+                          ref["y"][rows][alike].float())[1]
+        t0 = time.perf_counter()
+        (y * pt.to_tensor(cot[rows] * alike[:, None])).sum().backward()
+        torch.cuda.synchronize()
+        bwd_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        restore()
+    torch.save({"alike": alike.cpu(), "grads": {
+        k: p._data.grad.detach().cpu()
+        for k, p in layer.named_parameters() if k.startswith("experts")}},
+        os.path.join(root, f"moe.r{r}.pt"))
+    out["moe"] = {
+        "rank": r, "tokens": n, "apart": int((~alike).sum()),
+        "y_err": err, "aux": aux, "capacity": rt["capacity"],
+        "kept_rows": rt["rows"], "slots": 2 * n,
+        "dropped": 1.0 - rt["rows"] / (2 * n),
+        "a2a_ms": times, "a2a_bytes": moe_utils.STATS["bytes"]
+        - stats0["bytes"], "a2a_calls": moe_utils.STATS["calls"]
+        - stats0["calls"], "fwd_ms": fwd_ms, "bwd_ms": bwd_ms}
+    dist.barrier()
+    del layer, ref, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _pp_moe_worker(root: str) -> int:
+    """One of phase pp_moe's gloo ranks sharing the card: (a) and (b) on
+    2 ranks, or (c) on 4; writes ``root/<part>.r<rank>.json``."""
+    import os
+
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pt.set_device("gpu:0")
+    from paddle_tpu_torch.core.device import current_device
+    from paddle_tpu_torch.distributed.launch import init_from_env
+
+    assert init_from_env(device=current_device().type)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    # the ranks share the host's cores ((c) runs on the CPU too)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    out = {"rank": rank, "backend": dist.get_backend()}
+    if world == 2:
+        _pp_gpt_rank(pt, root, out)
+        _pp_moe_rank(pt, root, out)
+        part = "ab"
+    else:
+        _pp_small_rank(pt, out)
+        part = "c"
+    out["flash_by_plan"] = [[list(k), n]
+                            for k, n in fa.LAUNCHES_BY_PLAN.items()]
+    with open(os.path.join(root, f"{part}.r{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _pp_small_rank(pt, out: dict) -> None:
+    """(c) small fp32 cases on the card and on the CPU over the same 4
+    gloo ranks: the mp GPT as a PipelineLayer with a tied head
+    (SharedLayerDesc) at pp 2 x mp 2 through 1F1B, interleaved and ZBH1,
+    and the MoE Layer at a moe group of 2, 3 SGD steps each; the largest
+    loss (relative) and parameter differences card vs CPU."""
+    from paddle_tpu_torch.core.device import current_device
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.utils.convert import moe_shards_from_global
+
+    G = _test_module("torch_mp_gpt")
+    C = _test_module("torch_dist_common")
+    cfg = G.MPGPTConfig(**PP_MOE_SMALL_GPT)
+    tok, lab = G.batch(cfg, 8, seed=3)
+    res = {}
+    cases = [(f"gpt pp 2 x mp 2 {name}", name, V)
+             for name, V in PP_MOE_SCHEDULES] + [("moe group 2", None, 0)]
+    for case, sched, V in cases:
+        runs = {}
+        for where in ("cpu", "gpu:0"):
+            pt.set_device(where)
+            dev = current_device()
+            try:
+                _reset_topology()
+                if sched is not None:
+                    _pp_cfg({"pp_degree": 2, "mp_degree": 2},
+                            schedule="ZBH1" if sched == "zbh1" else "")
+                    pipe = _pp_build(pt, cfg, V, tied=True, gen_device="cpu")
+                    model = fleet.distributed_model(pipe)
+                    params = pipe.parameters()
+                    data = (pt.to_tensor(tok), pt.to_tensor(lab))
+                else:
+                    hcg = _pp_cfg({"dp_degree": 2, "mp_degree": 2})
+                    group = hcg.get_model_parallel_group()
+                    layer = _moe_build(pt, 2, group, d=64, h=128)
+                    state = C.moe_arrays(7, 64, 128, 4)
+                    layer.set_state_dict(moe_shards_from_global(
+                        state, layer, dev))
+                    params = layer.parameters()
+                    # each dp replica a batch of its own, mp rank r its
+                    # rows r
+                    xs = np.random.RandomState(8).randn(
+                        2, 2, 256, 64).astype(np.float32)
+                    x = pt.to_tensor(xs[hcg.get_data_parallel_rank(),
+                                        group.rank])
+                clip = pt.nn.ClipGradByGlobalNorm(PP_MOE_SMALL_CLIP) \
+                    if sched is None else None
+                opt = fleet.distributed_optimizer(pt.optimizer.SGD(
+                    learning_rate=0.1, parameters=params, grad_clip=clip))
+                losses, norms = [], []
+                for _ in range(3):
+                    if sched is not None:
+                        losses.append(model.train_batch(data, opt).item())
+                    else:
+                        y = layer(x)
+                        loss = (y * y).sum() * 1e-3 + \
+                            layer.gate.get_loss()
+                        loss.backward()
+                        opt.step()
+                        norms.append(float(
+                            opt._inner_opt._grad_clip.last_norm))
+                        opt.clear_grad()
+                        losses.append(loss.item())
+                runs[where] = (losses, [p._data.detach().cpu()
+                                        for p in params], norms)
+            finally:
+                pt.set_device("gpu:0")
+        (lg, pg, ng), (lc, pc, nc) = runs["gpu:0"], runs["cpu"]
+        res[case] = {"losses": [lg, lc], "loss_rel": max(
+            abs(a - b) / abs(b) for a, b in zip(lg, lc)),
+            "param_diff": max((a - b).abs().max().item()
+                              for a, b in zip(pg, pc))}
+        if sched is None:
+            # the clip's norms card vs CPU; the parameters' sums, which
+            # the dp replicas of one mp rank must share
+            res[case].update(norms=[ng, nc], norm_rel=max(
+                abs(a - b) / b for a, b in zip(ng, nc)),
+                dp_rank=hcg.get_data_parallel_rank(), mp_rank=group.rank,
+                param_sums=[float(p.double().sum()) for p in pg])
+    out["small"] = res
+
+
+def _pp_moe_references(pt, dev, root: str) -> dict:
+    """The one-process sides: (a) GPT-3 1.3B of the mp Layers as a
+    PipelineLayer of one stage from the ranks' weights, 4 microbatches
+    of 2 accumulated under AMP O1: the mean loss and the gradients'
+    global norm; (b) the MoE Layer holding all 8 experts on the
+    16,384-token concatenation under AMP O1: its routing, outputs and
+    auxiliary loss (written to ``root``), its graph kept for the
+    backward of the ranks' alike tokens."""
+    import os
+
+    G = _test_module("torch_mp_gpt")
+    cfg = G.gpt3_1p3b()
+    tok, lab = G.batch(cfg, PP_MOE_N * PP_MOE_MB)
+    refs = {}
+    _reset_topology()
+    _pp_cfg({}, n=1, mb=PP_MOE_N * PP_MOE_MB)
+    try:
+        pipe = _pp_build(pt, cfg, 1)
+        _, loss_fn = G.pipeline(pt, cfg)
+        tot = 0.0
+        for k in range(PP_MOE_N):
+            rows = slice(k * PP_MOE_MB, (k + 1) * PP_MOE_MB)
+            with pt.amp.auto_cast(level="O1", dtype="bfloat16"):
+                loss = loss_fn(pipe(pt.to_tensor(tok[rows])),
+                               pt.to_tensor(lab[rows]))
+            loss.scale(1.0 / PP_MOE_N).backward()
+            tot += loss.item()
+        sq = sum(p._data.grad.float().pow(2).sum() for p in pipe.parameters()
+                 if p._data.grad is not None)
+        refs.update(gpt_loss=tot / PP_MOE_N, gpt_norm=sq.sqrt().item())
+        del pipe, loss, sq
+        gc.collect()
+        torch.cuda.empty_cache()
+        layer = _moe_build(pt, MOE_EXPERTS)
+        layer.set_state_dict({k: pt.to_tensor(v)
+                              for k, v in _moe_global(dev).items()})
+        X, cot = _moe_tokens(dev)
+        x = pt.to_tensor(X)
+        x.stop_gradient = False
+        with pt.amp.auto_cast(level="O1", dtype="bfloat16"):
+            y = layer(x)
+        rt = layer.last_routing
+        torch.save({"idx": rt["idx"], "keep": rt["keep"],
+                    "y": y._data.detach()}, os.path.join(root, "moe_ref.pt"))
+        refs["moe"] = {"layer": layer, "y": y, "cot": cot,
+                       "aux": layer.gate.get_loss().item(),
+                       "capacity": rt["capacity"], "rows": rt["rows"]}
+    finally:
+        _reset_topology()
+    return refs
+
+
+def run_pp_moe(dev) -> dict:
+    """Phase pp_moe: (a) BASELINE configuration 4's Layer path, GPT-3 1.3B
+    as a PipelineLayer at pp 2 through 1F1B, interleaved and ZBH1; (b)
+    the GShard MoE Layer at a moe group of 2; on two gloo ranks sharing
+    the card (the times are not a pp or ep speed); (c) small fp32 cases
+    card vs CPU on four gloo ranks. Returns the ranks' K1-sep / K3-sep
+    launches of (a)."""
+    import shutil
+    import tempfile
+
+    import paddle_tpu_torch as pt
+
+    pt.set_device("gpu:0")
+    root = tempfile.mkdtemp(prefix="chip_smoke_pp_moe_")
+    try:
+        return _pp_moe_checked(pt, dev, root)
+    finally:
+        # the ranks' fp32 gradients of (a) and (b): gigabytes
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _pp_moe_checked(pt, dev, root: str) -> dict:
+    """run_pp_moe's body, its files under ``root``."""
+    import os
+
+    from paddle_tpu_torch.distributed.launch import launch_procs
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    G = _test_module("torch_mp_gpt")
+    cfg = G.gpt3_1p3b()
+    refs = _pp_moe_references(pt, dev, root)
+    ranks = {}
+    for part, n in (("ab", 2), ("c", 4)):
+        t0 = time.perf_counter()
+        rc = launch_procs(os.path.abspath(__file__), [PP_MOE_WORKER, root],
+                          n, log_dir=os.path.join(root, f"logs_{part}"),
+                          timeout=400)
+        if rc != 0:
+            d = os.path.join(root, f"logs_{part}")
+            for name in sorted(os.listdir(d)):
+                print(open(os.path.join(d, name)).read()[-4000:])
+            raise AssertionError(f"pp_moe ({part}): a rank exited {rc}")
+        print(f"pp_moe ({part}): {n} ranks, launch to exit "
+              f"{time.perf_counter() - t0:.1f} s")
+        ranks[part] = [json.load(open(os.path.join(root,
+                                                   f"{part}.r{r}.json")))
+                       for r in range(n)]
+        for got in ranks[part]:
+            for k, c in got["flash_by_plan"]:
+                fa.LAUNCHES_BY_PLAN[tuple(k)] += c
+            if got["backend"] != "gloo":
+                raise AssertionError(f"pp_moe: backend {got['backend']}")
+    late = []
+    # (a)
+    L = cfg.n_layers // 2 * PP_MOE_N
+    total = collections.Counter()
+    gpt = [g["gpt"] for g in ranks["ab"]]
+    kinds = {"1f1b": "PipelineParallel",
+             "vpp": "PipelineParallelWithInterleave",
+             "zbh1": "PipelineParallelZeroBubble"}
+    base = gpt[0]["1f1b"]["losses"]
+    for r, recs in enumerate(gpt):
+        for name, rec in recs.items():
+            if rec["kind"] != kinds[name]:
+                raise AssertionError(f"pp_moe (a) {name}: wrapped as "
+                                     f"{rec['kind']}")
+            for i, ln in enumerate(rec["launches"]):
+                want = {"flash_fwd_sep": L, "flash_bwd_sep": 2 * L,
+                        "wgmma": [L, 2 * L], "other": 0}
+                if ln != want:
+                    raise AssertionError(f"pp_moe (a) {name} rank {r} step "
+                                         f"{i}: launches {ln} != {want}")
+                total.update({k: ln[k] for k in ("flash_fwd_sep",
+                                                 "flash_bwd_sep")})
+            for key, ref_v in (("losses", refs["gpt_loss"]),
+                               ("norms", refs["gpt_norm"])):
+                if not abs(rec[key][0] - ref_v) <= PP_MOE_RTOL * abs(ref_v):
+                    raise AssertionError(f"pp_moe (a) {name} rank {r}: "
+                                         f"first {key[:-1]} {rec[key][0]} "
+                                         f"vs one process {ref_v}")
+            for a, b in zip(rec["losses"], base):
+                if not abs(a - b) <= PP_MOE_RTOL * abs(b):
+                    raise AssertionError(f"pp_moe (a) {name} rank {r}: "
+                                         f"losses {rec['losses']} vs 1F1B "
+                                         f"{base}")
+            if rec["grad_err"] is not None and \
+                    not rec["grad_err"][0][0] <= BF16_TOL:
+                raise AssertionError(f"pp_moe (a) {name} rank {r}: step-1 "
+                                     f"gradients vs 1F1B {rec['grad_err']}")
+            if name != "vpp" and rec["stash"] > 2 - rec["stage"]:
+                raise AssertionError(f"pp_moe (a) {name} rank {r}: stash "
+                                     f"{rec['stash']} > pp - s")
+        zb = recs["zbh1"]
+        if zb["log"] != zb["static"] or zb["deferred"] == 0:
+            raise AssertionError(f"pp_moe (a) ZBH1 rank {r}: ran "
+                                 f"{zb['log']}, static_scheduler "
+                                 f"{zb['static']}, {zb['deferred']} "
+                                 f"deferred")
+    tokens = PP_MOE_N * PP_MOE_MB * cfg.seq_len
+    lines = []
+    for name, _ in PP_MOE_SCHEDULES:
+        ms = [np.median(g[name]["step_s"][1:]) * 1e3 for g in gpt]
+        p2p = [g[name]["p2p"][-1] for g in gpt]
+        lines.append(
+            f"{name} step " + ", ".join(f"rank {r} {m:.1f} ms"
+                                        for r, m in enumerate(ms))
+            + f" ({tokens / (max(ms) / 1e3):.0f} tokens/s), peak "
+            + ", ".join(f"{g[name]['peak_gib']:.2f}" for g in gpt)
+            + " GiB, p2p a step " + ", ".join(
+                f"rank {r} {p['sends']} sends + {p['recvs']} receives, "
+                f"{p['bytes'] / 2 ** 20:.1f} MiB, {p['ms']:.1f} ms (waits "
+                f"included), staged {g[name]['staged'][-1] / 2 ** 20:.1f} "
+                "MiB" for r, (p, g) in enumerate(zip(p2p, gpt)))
+            + f", losses {gpt[0][name]['losses']}, stash "
+            + ", ".join(str(g[name]["stash"]) for g in gpt)
+            + (f", step-1 gradients vs 1F1B worst scaled "
+               + ", ".join(f"{g[name]['grad_err'][0][0]:.3e} "
+                           f"({g[name]['grad_err'][0][1]}, "
+                           f"{g[name]['grad_err'][-1]} leaves)"
+                           for g in gpt)
+               if gpt[0][name]["grad_err"] is not None else ""))
+    print(f"pp_moe (a) GPT-3 1.3B widths (hidden {cfg.hidden}, "
+          f"{cfg.n_layers} layers, {cfg.n_heads} heads of "
+          f"{cfg.hidden // cfg.n_heads}, vocab {cfg.vocab_size}; "
+          f"{gpt[0]['1f1b']['params'] / 1e6:.1f}M / "
+          f"{gpt[1]['1f1b']['params'] / 1e6:.1f}M parameters on stage 0 / "
+          f"1) as a PipelineLayer (layer:Block) at pp 2 x mp 1, accumulate "
+          f"{PP_MOE_N} x micro batch {PP_MOE_MB}, S {cfg.seq_len}, AMP O1 "
+          f"bf16, AdamW with ClipGradByGlobalNorm({PP_MOE_CLIP}) through "
+          f"fleet.distributed_model / distributed_optimizer, 2 gloo ranks "
+          f"sharing one H100: first loss {gpt[0]['1f1b']['losses'][0]:.6f} "
+          f"vs one process {refs['gpt_loss']:.6f}, clip norm "
+          f"{gpt[0]['1f1b']['norms'][0]:.6f} vs {refs['gpt_norm']:.6f} "
+          f"(rtol {PP_MOE_RTOL}); " + "; ".join(lines)
+          + f" (step medians of steps 2-{PP_MOE_STEPS}); ZBH1 ran "
+          f"static_scheduler's order on both stages ("
+          + " / ".join(g["zbh1"]["log"] for g in gpt)
+          + f"), {gpt[0]['zbh1']['deferred']} / "
+          f"{gpt[1]['zbh1']['deferred']} weight-gradient thunks deferred a "
+          f"step; launches a rank a step K1-sep {L}, K3-sep {2 * L}, all "
+          "wgmma")
+    # (b): the reference's backward of the tokens both ranks routed alike
+    moe = [g["moe"] for g in ranks["ab"]]
+    parts = [torch.load(os.path.join(root, f"moe.r{r}.pt"))
+             for r in range(2)]
+    alike = torch.cat([p["alike"] for p in parts]).to(dev)
+    ref = refs["moe"]
+    (ref["y"] * pt.to_tensor(ref["cot"] * alike[:, None])).sum().backward()
+    E2 = MOE_EXPERTS // 2
+    g_err = []
+    for r, p in enumerate(parts):
+        for k, g in p["grads"].items():
+            e, rest = k.split(".", 2)[1:]
+            rk = f"experts.{int(e) + r * E2}.{rest}"
+            rg = dict(ref["layer"].named_parameters())[rk]._data.grad
+            g_err.append((_scaled_err(g.to(dev).reshape(-1),
+                                      rg.reshape(-1))[1], rk))
+    g_err.sort(reverse=True)
+    apart = sum(m["apart"] for m in moe)
+    n_tok = sum(m["tokens"] for m in moe)
+    if not apart <= PP_MOE_TIES * n_tok:
+        late.append(f"pp_moe (b): {apart} of {n_tok} tokens routed apart")
+    if not max(m["y_err"] for m in moe) <= BF16_TOL:
+        late.append(f"pp_moe (b): outputs {[m['y_err'] for m in moe]}")
+    if not g_err[0][0] <= BF16_TOL:
+        late.append(f"pp_moe (b): expert gradients {g_err[:3]}")
+    for m in moe:
+        if not abs(m["aux"] - ref["aux"]) <= PP_MOE_RTOL * abs(ref["aux"]):
+            late.append(f"pp_moe (b): aux {m['aux']} vs {ref['aux']}")
+        if m["capacity"] != ref["capacity"]:
+            late.append(f"pp_moe (b): capacity {m['capacity']} vs "
+                        f"{ref['capacity']}")
+    print(f"pp_moe (b) MoELayer, GShard top-2 over {MOE_EXPERTS} experts of "
+          f"Linear({PP_MOE_D}, {PP_MOE_H})-GELU-Linear({PP_MOE_H}, "
+          f"{PP_MOE_D}), capacity factor {MOE_CAPACITY} (capacity "
+          f"{ref['capacity']} a slot), moe group 2 (4 experts a rank), "
+          f"B{PP_MOE_B} x S{PP_MOE_S} tokens a rank, AMP O1 bf16, 2 gloo "
+          f"ranks sharing one H100, against one process holding all 8 "
+          f"experts on the {n_tok} tokens: {apart} tokens routed apart "
+          f"(tol {PP_MOE_TIES:g} of the tokens), outputs on the tokens "
+          f"routed alike worst scaled "
+          + ", ".join(f"{m['y_err']:.3e}" for m in moe)
+          + f", expert gradients worst scaled "
+          + ", ".join(f"{e:.3e} ({k})" for e, k in g_err[:2])
+          + f" (tol {BF16_TOL:.3e}), aux loss "
+          + ", ".join(f"{m['aux']:.6f}" for m in moe)
+          + f" vs {ref['aux']:.6f} (rtol {PP_MOE_RTOL}); dropped share "
+          + ", ".join(f"{m['dropped']:.4f}" for m in moe)
+          + f" of the (token, slot) pairs (one process "
+          f"{1 - ref['rows'] / (2 * n_tok):.4f}); all-to-alls "
+          + ", ".join(f"rank {m['rank']} {m['a2a_calls']} moving "
+                      f"{m['a2a_bytes'] / 2 ** 20:.1f} MiB in "
+                      f"{sum(m['a2a_ms']):.1f} ms" for m in moe)
+          + " (forward + backward, synchronized); forward "
+          + ", ".join(f"{m['fwd_ms']:.1f}" for m in moe) + " ms, backward "
+          + ", ".join(f"{m['bwd_ms']:.1f}" for m in moe) + " ms")
+    del refs, ref, parts
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c)
+    for r, got in enumerate(ranks["c"]):
+        for case, res in got["small"].items():
+            if not (res["loss_rel"] <= TRAIN_CPU_RTOL
+                    and res["param_diff"] <= TRAIN_CPU_ATOL
+                    and res.get("norm_rel", 0.0) <= TRAIN_CPU_RTOL):
+                raise AssertionError(f"pp_moe (c) rank {r} {case}: card vs "
+                                     f"CPU {res}")
+    moe_c = [g["small"]["moe group 2"] for g in ranks["c"]]
+    if not all(min(m["norms"][0]) > PP_MOE_SMALL_CLIP for m in moe_c):
+        raise AssertionError(f"pp_moe (c): the MoE clip never clipped: "
+                             f"{[m['norms'] for m in moe_c]}")
+    for a in moe_c:
+        for b in moe_c:
+            if a["mp_rank"] == b["mp_rank"] and \
+                    a["dp_rank"] < b["dp_rank"] and not np.allclose(
+                        a["param_sums"], b["param_sums"], rtol=1e-6,
+                        atol=0):
+                raise AssertionError(
+                    f"pp_moe (c): the MoE's dp replicas of mp rank "
+                    f"{a['mp_rank']} drifted apart: {a['param_sums']} vs "
+                    f"{b['param_sums']}")
+    print("pp_moe (c) small fp32, card vs CPU over the same 4 gloo ranks "
+          "(worst over the ranks): " + "; ".join(
+              f"{case} losses {ranks['c'][0]['small'][case]['losses'][0]} "
+              f"vs {ranks['c'][0]['small'][case]['losses'][1]} (rank 0), "
+              f"relative "
+              f"{max(g['small'][case]['loss_rel'] for g in ranks['c']):.3e},"
+              f" params max diff "
+              f"{max(g['small'][case]['param_diff'] for g in ranks['c']):.3e}"
+              for case in ranks["c"][0]["small"])
+          + f" (rtol {TRAIN_CPU_RTOL:g}, atol {TRAIN_CPU_ATOL:g}); the MoE "
+          f"step's clip norms (card, rank 0) {moe_c[0]['norms'][0]} against "
+          f"clip {PP_MOE_SMALL_CLIP}, card vs CPU relative "
+          f"{max(m['norm_rel'] for m in moe_c):.3e}; each mp rank's dp "
+          f"replicas, on batches of their own, agree")
+    if late:
+        raise AssertionError("; ".join(late))
+    return dict(total)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -8973,6 +9761,8 @@ def main(argv=None) -> int:
         return _pipe_worker(rest[1])     # run_pipe's gloo ranks
     if len(rest) == 2 and rest[0] == DP_MP_WORKER:
         return _dp_mp_worker(rest[1])    # run_dp_mp's gloo ranks
+    if len(rest) == 2 and rest[0] == PP_MOE_WORKER:
+        return _pp_moe_worker(rest[1])   # run_pp_moe's gloo ranks
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
     phases = args.phases.split(",")
@@ -9176,6 +9966,13 @@ def main(argv=None) -> int:
             launches[k] = launches.get(k, 0) + ln[k]
         torch.cuda.empty_cache()
         done("dp_mp")
+    if "pp_moe" in phases:
+        ln = run_pp_moe(dev)
+        print(f"pp_moe launches {ln}")
+        for k in ("flash_fwd_sep", "flash_bwd_sep"):
+            launches[k] = launches.get(k, 0) + ln[k]
+        torch.cuda.empty_cache()
+        done("pp_moe")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of phases "
           f"after the build ({_build.last_build_seconds:.1f} s)")
     if set(phases) != set(PHASES):

@@ -16,9 +16,8 @@ the reference's engine guarantees holds here too:
   are on the tape (double and triple grad).
 
 Grad mode is thread-local (``_GradState``) and mirrored into torch's.
-``WeightGradStore``, the zero-bubble split backward of the reference's
-pipeline, is defined and refuses ``enable()``: it waits for the
-Layer-based distributed item of ROADMAP Queue 1 item 3.
+``WeightGradStore`` is the zero-bubble pipeline's split backward (the
+schedule is ``distributed/fleet/meta_parallel/pipeline_parallel.py``).
 """
 
 from __future__ import annotations
@@ -85,35 +84,67 @@ def enable_grad():
 
 class WeightGradStore:
     """The zero-bubble pipeline's deferred weight gradients (reference
-    core/autograd.py:95-158). Nothing defers here: the store is always
-    off, empty, and refuses to turn on."""
+    core/autograd.py:95-158).
+
+    While the store is enabled (the zero-bubble schedule enables it
+    around its forwards and its B passes), the funnel records an op with
+    a split rule (``core/dispatch.py::SPLIT_VJP``: ``linear``,
+    ``matmul``) whose pattern qualifies as a ``torch.autograd.Function``.
+    Its backward returns the activation gradient at once and, while the
+    store is enabled, enqueues a thunk for the parameters' gradients;
+    with the store off it computes both at once. ``flush(limit)`` runs
+    the thunks oldest first and hands each gradient to torch's engine on
+    its leaf (``torch.autograd.backward``), so that tensor hooks and
+    post-accumulate hooks fire as for any gradient. With the store off
+    nothing changes: the ops keep torch's native backward.
+    """
+
+    # process-wide, not thread-local as the reference's: torch runs a
+    # CUDA backward on its engine's device thread, not the caller's
+    _state = {"enabled": False, "queue": []}
+
+    @classmethod
+    def _q(cls) -> list:
+        return cls._state["queue"]
 
     @classmethod
     def enabled(cls) -> bool:
-        return False
+        return cls._state["enabled"]
 
     @classmethod
     def enable(cls) -> None:
-        raise NotImplementedError(
-            "WeightGradStore (the zero-bubble split backward) is not ported: "
-            "it waits for the Layer-based distributed item of ROADMAP "
-            "Queue 1 item 3")
+        cls._state["enabled"] = True
 
     @classmethod
     def disable(cls) -> None:
-        pass
+        cls._state["enabled"] = False
+
+    @classmethod
+    def put(cls, thunk) -> None:
+        cls._q().append(thunk)
 
     @classmethod
     def size(cls) -> int:
-        return 0
+        return len(cls._q())
 
     @classmethod
     def flush(cls, limit: int | None = None) -> int:
-        return 0
+        """Run up to ``limit`` deferred thunks (all if None), oldest
+        first, so that each leaf accumulates in the order of the
+        unsplit backward. Returns the number run."""
+        q = cls._q()
+        n = len(q) if limit is None else min(limit, len(q))
+        for _ in range(n):
+            pairs = q.pop(0)()
+            if pairs:
+                with torch.enable_grad():
+                    torch.autograd.backward([t for t, _ in pairs],
+                                            [g for _, g in pairs])
+        return n
 
     @classmethod
     def clear(cls) -> None:
-        pass
+        cls._q().clear()
 
 
 def _seed_grads(outputs, grad_outputs):

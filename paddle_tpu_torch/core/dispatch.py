@@ -16,7 +16,7 @@ An impl that calls another op's public wrapper runs that op raw (the
 thread-local depth below): the outermost call owns the tape, AMP and
 hooks. The funnel never catches an impl's error. The reference's
 lazy-segment branch (jit/lazy_segments.py) has no counterpart until the
-``jit`` item of ROADMAP Queue 1 item 3.
+``jit`` item of ROADMAP Queue 1 item 5.
 """
 
 from __future__ import annotations
@@ -83,15 +83,19 @@ class _ImplDepth(threading.local):
 
 _IMPL_DEPTH = _ImplDepth()
 
-# The reference's zero-bubble split-backward rules, stored by name; the
-# port's WeightGradStore never turns on (core/autograd.py), so nothing
-# reads them yet.
-SPLIT_VJP: dict[str, Callable] = {}
+# The zero-bubble split-backward rules by op name, read while
+# ``WeightGradStore`` is enabled (core/autograd.py): ``(qualifies,
+# rule)``. ``qualifies(arrays, wslots)`` decides at forward time whether
+# the call's pattern splits (``wslots``: the slots holding leaf
+# parameters); ``rule(arrays, wslots, kwargs, cotangents)`` returns
+# ``(input grads, wgrad)``, the input grads None at the deferred slots
+# and ``wgrad()`` {slot: gradient}.
+SPLIT_VJP: dict[str, tuple] = {}
 
 
-def register_split_vjp(name: str):
+def register_split_vjp(name: str, qualifies: Callable):
     def deco(rule):
-        SPLIT_VJP[name] = rule
+        SPLIT_VJP[name] = (qualifies, rule)
         return rule
 
     return deco
@@ -149,6 +153,71 @@ def _run_raw(opdef: OpDef, t_args, t_kwargs, arrays):
         _IMPL_DEPTH.v -= 1
 
 
+class _SplitSpec(NamedTuple):
+    opdef: OpDef
+    t_args: Any
+    t_kwargs: Any
+    rule: Callable
+    wslots: tuple
+    leaves: tuple          # the op's torch inputs before the AMP cast
+    extras: dict           # the rule's kwargs
+
+
+class _SplitOp(torch.autograd.Function):
+    """An op with a split rule on the tape while the store is enabled:
+    its backward returns the activation gradient and defers the leaf
+    parameters' to ``WeightGradStore`` while the store is enabled, and
+    computes them at once otherwise."""
+
+    @staticmethod
+    def forward(ctx, spec, *arrays):
+        ctx.spec = spec
+        ctx.save_for_backward(*arrays)
+        outs = _run_raw(spec.opdef, spec.t_args, spec.t_kwargs, list(arrays))
+        return tuple(outs) if isinstance(outs, list) else outs
+
+    @staticmethod
+    def backward(ctx, *cots):
+        spec = ctx.spec
+        arrays = list(ctx.saved_tensors)
+        in_grads, wgrad = spec.rule(arrays, spec.wslots, spec.extras,
+                                    list(cots))
+        in_grads = list(in_grads)
+        if autograd.WeightGradStore.enabled():
+            leaves = spec.leaves
+
+            def thunk():
+                return [(leaves[i], g.to(leaves[i].dtype))
+                        for i, g in wgrad().items()]
+
+            autograd.WeightGradStore.put(thunk)
+        else:
+            for i, g in wgrad().items():
+                in_grads[i] = g
+        return (None,) + tuple(
+            None if g is None or not need else g.to(a.dtype)
+            for g, a, need in zip(in_grads, arrays, ctx.needs_input_grad[1:]))
+
+
+def _split_spec(opdef: OpDef, t_args, t_kwargs, leaves):
+    """The split record of this call, or None: the op has a rule, the
+    store is enabled, and the rule's pattern (a leaf parameter in the
+    deferred slots) qualifies. A declined call keeps torch's backward."""
+    entry = SPLIT_VJP.get(opdef.name)
+    if entry is None or not autograd.WeightGradStore.enabled():
+        return None
+    qualifies, rule = entry
+    wslots = tuple(i for i, t in enumerate(leaves)
+                   if t._data.is_leaf and t._data.requires_grad)
+    if not wslots or not qualifies([t._data for t in leaves], wslots):
+        return None
+    extras = dict(t_kwargs) if t_kwargs else {}
+    extras["_positional_extras"] = [a for a in t_args
+                                    if not isinstance(a, _Ph)]
+    return _SplitSpec(opdef, t_args, t_kwargs, rule, wslots,
+                      tuple(t._data for t in leaves), extras)
+
+
 def op_call(opdef: OpDef, args, kwargs):
     leaves: list[Tensor] = []
     t_args = _extract(list(args), leaves)
@@ -164,9 +233,14 @@ def op_call(opdef: OpDef, args, kwargs):
     for hook in DISPATCH_HOOKS:
         hook(opdef.name)
 
+    spec = _split_spec(opdef, t_args, t_kwargs, leaves) \
+        if requires_grad else None
     with torch.set_grad_enabled(requires_grad):
         arrays = _amp_cast_arrays(opdef, [t._data for t in leaves])
-        outs = _run_raw(opdef, t_args, t_kwargs, arrays)
+        if spec is None:
+            outs = _run_raw(opdef, t_args, t_kwargs, arrays)
+        else:
+            outs = _SplitOp.apply(spec, *arrays)
     if isinstance(outs, list):
         outs = tuple(outs)
 

@@ -182,6 +182,8 @@ class Tensor:
         hooks = self._hooks
 
         def run(g):
+            if g is None:           # a deferred (zero-bubble) slot
+                return None
             for h in list(hooks):
                 res = h(Tensor(g, stop_gradient=not g.requires_grad))
                 if res is not None:

@@ -586,7 +586,8 @@ def alltoall_single(tensor, output=None, in_split_sizes=None,
     return _done(result, works, finish, "alltoall_single", sync_op)
 
 
-def _p2p(tensor, peer: int, group, recv: bool, sync_op: bool) -> Task:
+def _p2p(tensor, peer: int, group, recv: bool, sync_op: bool,
+         tag: int = 0) -> Task:
     import torch.distributed as dist
 
     g = _resolve(group)
@@ -602,7 +603,8 @@ def _p2p(tensor, peer: int, group, recv: bool, sync_op: bool) -> Task:
         # sending rank aborts); its collectives take CUDA tensors
         host = _host_like(buf) if recv else _host(buf)
     fn = dist.irecv if recv else dist.isend
-    work = fn(buf if host is None else host, _global(pg, peer), group=pg)
+    work = fn(buf if host is None else host, _global(pg, peer), group=pg,
+              tag=tag)
 
     def finish():
         if recv:
@@ -616,23 +618,26 @@ def _p2p(tensor, peer: int, group, recv: bool, sync_op: bool) -> Task:
 
 
 def send(tensor, dst: int = 0, group: Optional[Group] = None,
-         sync_op: bool = True) -> Task:
-    """Send ``tensor`` to group rank ``dst``."""
-    return _p2p(tensor, dst, group, recv=False, sync_op=sync_op)
+         sync_op: bool = True, tag: int = 0) -> Task:
+    """Send ``tensor`` to group rank ``dst``. Between two ranks the
+    messages of one ``tag`` arrive in the order they were sent."""
+    return _p2p(tensor, dst, group, recv=False, sync_op=sync_op, tag=tag)
 
 
 def recv(tensor, src: int = 0, group: Optional[Group] = None,
-         sync_op: bool = True) -> Task:
+         sync_op: bool = True, tag: int = 0) -> Task:
     """Receive group rank ``src``'s tensor into ``tensor``."""
-    return _p2p(tensor, src, group, recv=True, sync_op=sync_op)
+    return _p2p(tensor, src, group, recv=True, sync_op=sync_op, tag=tag)
 
 
-def isend(tensor, dst: int = 0, group: Optional[Group] = None) -> Task:
-    return send(tensor, dst, group, sync_op=False)
+def isend(tensor, dst: int = 0, group: Optional[Group] = None,
+          tag: int = 0) -> Task:
+    return send(tensor, dst, group, sync_op=False, tag=tag)
 
 
-def irecv(tensor, src: int = 0, group: Optional[Group] = None) -> Task:
-    return recv(tensor, src, group, sync_op=False)
+def irecv(tensor, src: int = 0, group: Optional[Group] = None,
+          tag: int = 0) -> Task:
+    return recv(tensor, src, group, sync_op=False, tag=tag)
 
 
 def barrier(group: Optional[Group] = None) -> None:

@@ -6,11 +6,12 @@ processes (``elastic.py``).
 
 ``fleet.init(strategy)`` joins the launcher's world and lays the hybrid
 topology over it; ``distributed_model`` wraps by parallel mode
-(``DataParallel``, ``TensorParallel``, ``SegmentParallel``) as
-model.py:142-180 dispatches; ``distributed_optimizer`` wraps in
-``HybridParallelOptimizer``. Pipeline mode, and a zero-bubble
-``schedule_mode``, are refused: their Layers (``pp_layers.py``,
-``pipeline_parallel.py``) are a later slice.
+(``DataParallel``, ``TensorParallel``, ``SegmentParallel``, and in
+pipeline mode ``PipelineParallelZeroBubble`` for a ``ZB*``
+``schedule_mode``, ``PipelineParallelWithInterleave`` for a layer of
+virtual stages, ``PipelineParallel`` otherwise) as model.py:142-180
+dispatches; ``distributed_optimizer`` wraps in
+``HybridParallelOptimizer``.
 """
 
 from __future__ import annotations
@@ -100,15 +101,6 @@ def worker_num() -> int:
     return _parallel.get_world_size()
 
 
-def _refuse_pipeline(strategy) -> None:
-    pc = getattr(strategy, "pipeline_configs", {}) or {}
-    mode = str(pc.get("schedule_mode", ""))
-    raise NotImplementedError(
-        f"later slice: pipeline parallel Layers (pp_layers.py, "
-        f"pipeline_parallel.py{', schedule_mode ' + mode if mode else ''}) "
-        "are not ported; fleet.distributed_model refuses pipeline mode")
-
-
 def distributed_model(model):
     """Wrap by parallel mode (reference fleet/model.py:142-180)."""
     hcg = get_hybrid_communicate_group()
@@ -117,10 +109,15 @@ def distributed_model(model):
         hcg = get_hybrid_communicate_group()
     strategy = _FLEET_STATE["strategy"] or DistributedStrategy()
     mode = hcg.get_parallel_mode()
-    pc = getattr(strategy, "pipeline_configs", {}) or {}
-    if mode == ParallelMode.PIPELINE_PARALLEL or \
-            str(pc.get("schedule_mode", "")).upper().startswith("ZB"):
-        _refuse_pipeline(strategy)
+    if mode == ParallelMode.PIPELINE_PARALLEL:
+        pc = getattr(strategy, "pipeline_configs", {}) or {}
+        if str(pc.get("schedule_mode", "")).upper().startswith("ZB"):
+            return meta_parallel.PipelineParallelZeroBubble(model, hcg,
+                                                            strategy)
+        if getattr(model, "_num_virtual", 1) > 1:
+            return meta_parallel.PipelineParallelWithInterleave(
+                model, hcg, strategy)
+        return meta_parallel.PipelineParallel(model, hcg, strategy)
     if mode == ParallelMode.SEGMENT_PARALLEL:
         return meta_parallel.SegmentParallel(model, hcg, strategy)
     if mode == ParallelMode.TENSOR_PARALLEL:

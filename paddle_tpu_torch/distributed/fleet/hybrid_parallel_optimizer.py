@@ -12,7 +12,11 @@ blocks, and the wrapper does what Paddle's does:
   ``fused_allreduce_gradients``, one flat all-reduce a dtype;
 - ``ClipGradByGlobalNorm`` becomes ``HybridParallelClipGrad``: the
   squared norms of the mp-split leaves (``is_distributed``) summed over
-  mp, each replicated leaf counted once;
+  mp, those of MoE experts summed over their moe group (each rank of
+  it holds other experts), each replicated leaf counted once a stage
+  that holds it, and the stages' sums summed over pp (a shared weight,
+  held by several stages, counted on its first owner alone:
+  ``is_firstly_shared``);
 - AMP's found-inf (``GradScaler.unscale_``) is all-reduced MAX over the
   world, so that every rank skips or takes the same step.
 """
@@ -23,13 +27,15 @@ import torch
 
 from ...nn.clip import ClipGradByGlobalNorm
 from ..collective import ReduceOp, _pg, all_reduce
+from ..parallel import held_apart
 
 __all__ = ["HybridParallelOptimizer", "HybridParallelClipGrad",
            "fused_allreduce_gradients"]
 
 
 def fused_allreduce_gradients(parameter_list, hcg) -> None:
-    """Average the gradients of ``parameter_list`` over dp: one flat
+    """Average the gradients of ``parameter_list`` over dp (but an MoE
+    expert the dp ranks hold apart: ``parallel.held_apart``): one flat
     buffer a dtype, summed, divided by dp, written back."""
     group = hcg.get_data_parallel_group()
     if _pg(group) is None:
@@ -37,7 +43,8 @@ def fused_allreduce_gradients(parameter_list, hcg) -> None:
     by_dtype = {}
     for p in parameter_list:
         g = p._data.grad
-        if g is not None and not p.stop_gradient:
+        if g is not None and not p.stop_gradient and \
+                not held_apart(p, group):
             by_dtype.setdefault(g.dtype, []).append(g)
     for grads in by_dtype.values():
         flat = torch.cat([g.reshape(-1) for g in grads])
@@ -51,35 +58,63 @@ def fused_allreduce_gradients(parameter_list, hcg) -> None:
 
 class HybridParallelClipGrad(ClipGradByGlobalNorm):
     """The global-norm clip over a hybrid topology: the mp-split leaves'
-    squared norms summed over mp, the replicated ones' counted once.
-    ``last_norm`` keeps the global norm of the last call."""
+    squared norms summed over mp, the MoE experts' over their moe group,
+    the replicated ones' counted once, and the stages' sums over pp
+    (Paddle's ``_dygraph_clip``). ``last_norm`` keeps the global norm of
+    the last call. ``parameters`` names the moe groups before any
+    gradient exists, so that every rank of one joins its sum each
+    call."""
 
-    def __init__(self, clip, hcg):
+    def __init__(self, clip, hcg, parameters=()):
         super().__init__(clip.clip_norm, clip.group_name,
                          clip.auto_skip_clip)
         self._hcg = hcg
         self.last_norm = None
+        self._moe_groups = {}
+        pipe = set(hcg.get_pipe_parallel_group().ranks)
+        for p in parameters:
+            g = getattr(p, "moe_group", None)
+            if g is not None and tuple(g.ranks) not in self._moe_groups:
+                if len(pipe & set(g.ranks)) != 1:
+                    raise ValueError(
+                        f"moe group {g.ranks} spans pipeline stages "
+                        f"{sorted(pipe)}: an expert's norm would be "
+                        f"summed over pp twice")
+                self._moe_groups[tuple(g.ranks)] = g
 
     def _global_norm_sq(self, params_grads):
         dist_sq = not_dist_sq = None
+        moe_sq = {k: None for k in self._moe_groups}
         for p, g in params_grads:
-            if g is None or getattr(p, "need_clip", True) is False:
+            if g is None or getattr(p, "need_clip", True) is False or \
+                    not getattr(p, "is_firstly_shared", True):
                 continue
             s = torch.sum(torch.square(g._data.float()))
-            if getattr(p, "is_distributed", False):
+            moe = getattr(p, "moe_group", None)
+            if moe is not None:
+                k = tuple(moe.ranks)
+                moe_sq[k] = s if moe_sq[k] is None else moe_sq[k] + s
+            elif getattr(p, "is_distributed", False):
                 dist_sq = s if dist_sq is None else dist_sq + s
             else:
                 not_dist_sq = s if not_dist_sq is None else not_dist_sq + s
-        if dist_sq is None and not_dist_sq is None:
+        found = [t for t in [dist_sq, not_dist_sq, *moe_sq.values()]
+                 if t is not None]
+        if not found:
             return None
-        ref = dist_sq if dist_sq is not None else not_dist_sq
-        if dist_sq is None:
-            dist_sq = torch.zeros_like(ref)
-        if not_dist_sq is None:
-            not_dist_sq = torch.zeros_like(ref)
-        dist_sq = dist_sq.reshape(1).contiguous()
-        all_reduce(dist_sq, group=self._hcg.get_model_parallel_group())
-        sq = dist_sq[0] + not_dist_sq
+
+        def summed(t, group):
+            t = (torch.zeros_like(found[0]) if t is None else t
+                 ).reshape(1).contiguous()
+            all_reduce(t, group=group)
+            return t[0]
+
+        sq = summed(dist_sq, self._hcg.get_model_parallel_group())
+        if not_dist_sq is not None:
+            sq = sq + not_dist_sq
+        for k, group in self._moe_groups.items():
+            sq = sq + summed(moe_sq[k], group)
+        sq = summed(sq, self._hcg.get_pipe_parallel_group())
         self.last_norm = torch.sqrt(sq)
         return sq
 
@@ -96,7 +131,8 @@ class HybridParallelOptimizer:
                            and hcg.get_data_parallel_world_size() > 1)
         clip = getattr(optimizer, "_grad_clip", None)
         if isinstance(clip, ClipGradByGlobalNorm):
-            optimizer._grad_clip = HybridParallelClipGrad(clip, hcg)
+            optimizer._grad_clip = HybridParallelClipGrad(
+                clip, hcg, optimizer._parameter_list)
 
     @property
     def inner_opt(self):

@@ -13,7 +13,8 @@ Here each rank is a process with a copy of its own, so the wrapper does
 what Paddle's EagerReducer does (reference's ancestor
 fluid/distributed/collective/reducer.h:88): at wrap time it broadcasts
 parameters and buffers from the group's rank 0; a hook on every
-trainable leaf, run when its gradient is accumulated, fills buckets of
+trainable leaf (but an MoE expert that the group's ranks hold apart:
+``held_apart``), run when its gradient is accumulated, fills buckets of
 ``comm_buffer_size`` MB (the last, holding the first registered leaves,
 of ``last_comm_buffer_size``), and a full bucket's flat gradient is
 all-reduced asynchronously, in bucket order on every rank; a callback
@@ -142,13 +143,40 @@ class ParallelEnv:
     dev_id = device_id
 
 
+def held_apart(p, group) -> bool:
+    """Whether the ranks of ``group`` hold different copies of ``p``: an
+    MoE expert (``moe_group`` set by ``MoELayer``) whose moe group spans
+    ``group``. Such a leaf is neither broadcast nor averaged over
+    ``group``. An expert whose moe group meets ``group`` in this rank
+    alone (a moe group over mp, ``group`` the dp group) is replicated
+    over ``group``, and synced as any parameter. A moe group that holds
+    some of ``group``'s ranks but not all is refused: its experts would
+    be averaged over a subgroup, which nothing here builds."""
+    moe = getattr(p, "moe_group", None)
+    if moe is None:
+        return False
+    ranks, mine = set(group.ranks), set(moe.ranks)
+    if ranks <= mine:
+        return True
+    if len(ranks & mine) == 1:
+        return False
+    raise ValueError(
+        f"an MoE expert of moe group {sorted(mine)} under group "
+        f"{sorted(ranks)}: the moe group must hold all of the group's "
+        f"ranks (experts apart) or only this rank of it (experts "
+        f"replicated)")
+
+
 def broadcast_parameters(layers, group, distributed_too: bool) -> None:
     """Every parameter (the ``is_distributed`` ones only with
-    ``distributed_too``) and buffer of ``layers`` from ``group``'s rank
-    0 to its other ranks: one logical copy, as the reference's."""
+    ``distributed_too``; never one the group's ranks hold apart) and
+    buffer of ``layers`` from ``group``'s rank 0 to its other ranks: one
+    logical copy, as the reference's."""
     if _pg(group) is None:
         return
     for p in layers.parameters():
+        if held_apart(p, group):
+            continue
         if distributed_too or not getattr(p, "is_distributed", False):
             broadcast(p, src=0, group=group)
     for b in layers.buffers():
@@ -255,7 +283,9 @@ class DataParallel(MetaParallelBase):
         self.stats = {"steps": 0, "allreduce_bytes": 0, "allreduce_calls": 0,
                       "wait_ms": 0.0}
         broadcast_parameters(layers, self.group, distributed_too=True)
-        self._params = [p for p in layers.parameters() if not p.stop_gradient]
+        self._params = [p for p in layers.parameters()
+                        if not p.stop_gradient
+                        and not held_apart(p, self.group)]
         self._buckets = _buckets(self._params, comm_buffer_size,
                                  last_comm_buffer_size)
         self._where = {}

@@ -37,20 +37,21 @@ def linear(x, weight, bias=None):
     return out
 
 
-@register_split_vjp("linear")
-def _linear_split_vjp(arrays, wslots, kwargs, cots):
-    """The zero-bubble split of ``linear``'s backward: dx now, dW and db
-    deferred. Declines (returns None) outside the activation @ 2-D
-    parameter case. Stored for the zero-bubble pipeline, whose
-    ``WeightGradStore`` does not turn on yet (core/autograd.py)."""
-    if 1 not in wslots:
-        return None
+def _linear_splits(arrays, wslots) -> bool:
+    """An activation times a 2-D leaf parameter, with no bias or a leaf
+    bias of the output's width."""
     x, w = arrays[0], arrays[1]
     b = arrays[2] if len(arrays) > 2 else None
-    if w.dim() != 2 or x.dim() < 2:
-        return None
-    if b is not None and (2 not in wslots or tuple(b.shape) != (w.shape[1],)):
-        return None
+    return 1 in wslots and w.dim() == 2 and x.dim() >= 2 and (
+        b is None or (2 in wslots and tuple(b.shape) == (w.shape[1],)))
+
+
+@register_split_vjp("linear", _linear_splits)
+def _linear_split_vjp(arrays, wslots, kwargs, cots):
+    """The zero-bubble split of ``linear``'s backward: dx now, dW and db
+    deferred (core/dispatch.py reads it for the zero-bubble pipeline)."""
+    x, w = arrays[0], arrays[1]
+    b = arrays[2] if len(arrays) > 2 else None
     g = cots[0]
     dx = torch.matmul(g, w.t()).to(x.dtype)
     in_grads = [dx] + [None] * (len(arrays) - 1)

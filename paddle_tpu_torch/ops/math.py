@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.dispatch import op
+from ..core.dispatch import op, register_split_vjp
 from ..core.dtype import convert_dtype
 from ..core.tensor import Tensor
 
@@ -443,6 +443,35 @@ def matmul(x, y, transpose_x=False, transpose_y=False):
     if transpose_y and y.dim() > 1:
         y = y.transpose(-1, -2)
     return torch.matmul(x, y)
+
+
+def _matmul_splits(arrays, wslots) -> bool:
+    """An activation times a 2-D leaf parameter."""
+    return 1 in wslots and arrays[1].dim() == 2 and arrays[0].dim() >= 2
+
+
+@register_split_vjp("matmul", _matmul_splits)
+def _matmul_split_vjp(arrays, wslots, kwargs, cots):
+    """The zero-bubble split of ``matmul``'s backward for an activation
+    times a 2-D parameter: dx now, dy deferred (reference
+    ops/math.py:338)."""
+    extras = kwargs.get("_positional_extras") or []
+    tx = kwargs.get("transpose_x", extras[0] if len(extras) > 0 else False)
+    ty = kwargs.get("transpose_y", extras[1] if len(extras) > 1 else False)
+    x, y = arrays[0], arrays[1]
+    g = cots[0]
+    xm = x.transpose(-1, -2) if tx else x          # [..., m, k]
+    ym = y.t() if ty else y                        # [k, n]
+    dxm = torch.matmul(g, ym.t())                  # [..., m, k]
+    dx = (dxm.transpose(-1, -2) if tx else dxm).to(x.dtype)
+
+    def wgrad():
+        g2 = g.reshape(-1, g.shape[-1])
+        x2 = xm.reshape(-1, xm.shape[-1])
+        dym = torch.matmul(x2.t(), g2)             # [k, n]
+        return {1: (dym.t() if ty else dym).to(y.dtype)}
+
+    return [dx, None], wgrad
 
 
 mm = matmul

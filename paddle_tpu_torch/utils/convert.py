@@ -7,7 +7,9 @@ import torch
 
 __all__ = ["params_from_jax", "opt_state_from_jax", "paged_cache_from_jax",
            "layer_state_from_jax", "optimizer_state_from_jax",
-           "layer_shards_from_global", "layer_global_state"]
+           "layer_shards_from_global", "layer_global_state",
+           "pipeline_shards_from_global", "pipeline_global_state",
+           "moe_shards_from_global", "moe_global_state"]
 
 _NP_TO_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "float16": torch.float16, "int8": torch.int8,
@@ -203,4 +205,91 @@ def layer_global_state(layer) -> dict:
             t = whole.movedim(0, axis)
         out[k] = t.cpu().numpy() if t.dtype != torch.bfloat16 else \
             t.float().cpu().numpy()
+    return out
+
+
+def _canonical(key: str, aliases: dict) -> str:
+    for local, first in aliases.items():
+        if key == local or key.startswith(local + "."):
+            return first + key[len(local):]
+    return key
+
+
+def pipeline_shards_from_global(state_dict, layer, device) -> dict:
+    """The reference's global ``PipelineLayer`` state as this rank's
+    state dict of ``layer`` (its stage's entries, each mp-split
+    parameter's block for this rank's mp coordinate; a shared layer's
+    entries on a later owner stage read from its first owner's name);
+    ready for ``layer.set_state_dict``."""
+    aliases = layer.shared_aliases()
+    mine = {k: state_dict[_canonical(k, aliases)]
+            for k in layer.state_dict()}
+    return layer_shards_from_global(mine, layer, device)
+
+
+def pipeline_global_state(layer) -> dict:
+    """The inverse of ``pipeline_shards_from_global``: the global state
+    (numpy), every stage's entries with the mp blocks gathered, on every
+    rank (every rank of the pp and mp groups must call it)."""
+    from ..distributed.collective import all_gather_object
+
+    aliases = layer.shared_aliases()
+    mine = {k: v for k, v in layer_global_state(layer).items()
+            if _canonical(k, aliases) == k}
+    if layer.get_num_stages() == 1:
+        return mine
+    parts = []
+    all_gather_object(parts, mine,
+                      group=layer._hcg.get_pipe_parallel_group())
+    out = {}
+    for part in parts:
+        out.update(part)
+    return out
+
+
+def _expert_key(key: str, offset: int):
+    head, _, rest = key.partition(".")
+    if head != "experts":
+        return key
+    i, _, tail = rest.partition(".")
+    return f"experts.{int(i) + offset}.{tail}"
+
+
+def moe_shards_from_global(state_dict, layer, device) -> dict:
+    """The reference's ``MoELayer`` state (every expert) as this rank's
+    state dict of ``layer``: its experts (E / W a rank, rank r holding
+    r E / W onwards) and the replicated gate."""
+    from ..core.tensor import Tensor
+
+    off = (layer.group.rank if layer.group is not None else 0) * \
+        layer.num_expert
+    out = {}
+    for k in layer.state_dict():
+        v = state_dict[_expert_key(k, off)]
+        v = getattr(v, "_data", v)
+        out[k] = Tensor(_leaf(v if isinstance(v, torch.Tensor)
+                              else np.asarray(v), device, None))
+    return out
+
+
+def moe_global_state(layer) -> dict:
+    """The inverse of ``moe_shards_from_global``: every rank's experts
+    under the reference's names and the gate (numpy), on every rank of
+    the moe group (each must call it)."""
+    from ..distributed.collective import all_gather_object
+
+    def arrays(off):
+        return {_expert_key(k, off): (v._data.detach().float()
+                                      if v._data.dtype == torch.bfloat16
+                                      else v._data.detach()).cpu().numpy()
+                for k, v in layer.state_dict().items()}
+
+    if layer.group is None:
+        return arrays(0)
+    parts = []
+    all_gather_object(parts, arrays(layer.group.rank * layer.num_expert),
+                      group=layer.group)
+    out = {}
+    for part in parts:
+        out.update(part)
     return out

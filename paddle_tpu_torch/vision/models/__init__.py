@@ -1,5 +1,5 @@
 """Vision model zoo (port of paddle_tpu/vision/models/): the ResNet
-family. The reference's other model files are ROADMAP Queue 1 item 3."""
+family. The reference's other model files are ROADMAP Queue 1 item 7."""
 
 from .resnet import (BasicBlock, BottleneckBlock, ResNet,  # noqa: F401
                      resnet18, resnet34, resnet50, resnet101, resnet152,

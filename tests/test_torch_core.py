@@ -534,12 +534,42 @@ def test_wrapper_survives_unregistration(paddle):
 # -- the port's own surface -------------------------------------------------
 
 
-def test_weight_grad_store_refuses():
+def test_weight_grad_store_defers_and_flushes():
+    """Enabled, the store takes ``linear``'s weight gradient as a thunk
+    (dx at once); ``flush`` runs it into ``.grad``, ``clear`` drops one."""
     from paddle_tpu_torch.core.autograd import WeightGradStore
 
     assert not WeightGradStore.enabled() and WeightGradStore.flush() == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        WeightGradStore.enable()
+    rng = np.random.RandomState(0)
+    xv, wv = rng.randn(3, 4).astype(np.float32), \
+        rng.randn(4, 2).astype(np.float32)
+    grads = []
+    for defer in (False, True):
+        x, w = (paddle_tpu_torch.to_tensor(a) for a in (xv, wv))
+        x.stop_gradient = w.stop_gradient = False
+        if defer:
+            WeightGradStore.enable()
+        try:
+            paddle_tpu_torch.nn.functional.linear(x, w).sum().backward()
+        finally:
+            WeightGradStore.disable()
+        if defer:
+            assert w.grad is None and WeightGradStore.size() == 1
+            assert WeightGradStore.flush(limit=5) == 1
+        grads.append((x.grad.numpy(), w.grad.numpy()))
+    for a, b in zip(*grads):
+        np.testing.assert_allclose(a, b, rtol=1e-6)
+    WeightGradStore.enable()
+    try:
+        x = paddle_tpu_torch.to_tensor(xv)
+        w = paddle_tpu_torch.to_tensor(wv)
+        w.stop_gradient = False
+        paddle_tpu_torch.nn.functional.linear(x, w).sum().backward()
+    finally:
+        WeightGradStore.disable()
+    assert WeightGradStore.size() == 1
+    WeightGradStore.clear()
+    assert WeightGradStore.size() == 0 and w.grad is None
 
 
 def test_flags_defaults_match_the_reference():

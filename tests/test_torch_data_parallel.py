@@ -34,8 +34,8 @@ ranks started by the port's launcher (tests/torch_dist_worker.py) at dp
   where the leaf's run to ~1e-2, within 2 lr a step of its start on both
   sides: AdamW's first step moves it by lr with the noise's sign), the
   ranks' bitwise equal.
-- ``distributed_model`` refuses pipeline mode and a zero-bubble
-  ``schedule_mode``.
+- ``distributed_model`` dispatches pipeline mode (zero-bubble,
+  interleaved, 1F1B) as the reference's does.
 """
 
 import torch_cpu_threads  # noqa: F401  (first: sets torch's CPU threads)
@@ -351,22 +351,41 @@ def test_mp_gpt_at_dp2_mp2(runs):
                                    atol=1e-5, err_msg=k)
 
 
-def test_distributed_model_refuses_pipeline_mode():
+def test_distributed_model_dispatches_pipeline_mode():
+    """Pipeline mode (the reference's fleet/__init__.py:135-148): a
+    ``ZB*`` schedule_mode gives the zero-bubble wrapper, virtual stages
+    the interleaved one, anything else ``PipelineParallel``; a
+    zero-bubble schedule_mode outside pipeline mode is not read."""
     from paddle_tpu_torch.distributed import fleet, topology
+    from paddle_tpu_torch.distributed.fleet import meta_parallel as mp
 
     old = topology.get_hybrid_communicate_group()
     try:
         topology.set_hybrid_communicate_group(topology.HybridCommunicateGroup(
             topology.CommunicateTopology(dims=(1, 2, 1, 1, 1))))
-        with pytest.raises(NotImplementedError, match="pipeline"):
+        for mode, V, want in (("", 1, mp.PipelineParallel),
+                              ("1F1B", 1, mp.PipelineParallel),
+                              ("", 2, mp.PipelineParallelWithInterleave),
+                              ("ZBH1", 1, mp.PipelineParallelZeroBubble)):
+            s = fleet.DistributedStrategy()
+            s.pipeline_configs.update(accumulate_steps=2,
+                                      schedule_mode=mode)
+            fleet._FLEET_STATE["strategy"] = s
+            pipe = mp.PipelineLayer(
+                [mp.LayerDesc(port.nn.Linear, 2, 2) for _ in range(4)],
+                num_virtual_pipeline_stages=V)
+            model = fleet.distributed_model(pipe)
+            assert type(model) is want, (mode, V)
+            assert model.stage_id == 0 and model.accumulate_steps == 2
+        with pytest.raises(TypeError, match="PipelineLayer"):
             fleet.distributed_model(port.nn.Linear(2, 2))
         topology.set_hybrid_communicate_group(topology.HybridCommunicateGroup(
             topology.CommunicateTopology(dims=(1, 1, 1, 1, 1))))
         s = fleet.DistributedStrategy()
         s.pipeline_configs["schedule_mode"] = "ZBH1"
         fleet._FLEET_STATE["strategy"] = s
-        with pytest.raises(NotImplementedError, match="ZBH1"):
-            fleet.distributed_model(port.nn.Linear(2, 2))
+        assert type(fleet.distributed_model(port.nn.Linear(2, 2))) is \
+            port.distributed.DataParallel
     finally:
         fleet._FLEET_STATE["strategy"] = None
         topology.set_hybrid_communicate_group(old)

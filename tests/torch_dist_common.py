@@ -111,3 +111,64 @@ def flat_state(prefix: str, state: dict) -> dict:
 def unflat_state(prefix: str, arrays: dict) -> dict:
     n = len(prefix) + 1
     return {k[n:]: v for k, v in arrays.items() if k.startswith(prefix + "/")}
+
+
+# -- pipelines and MoE ---------------------------------------------------------
+
+def stage_names(parts, pp: int, V: int = 1) -> dict:
+    """{layer desc index: sublayer name} of a ``PipelineLayer`` cut at
+    ``parts`` into pp x V segments (the reference's ``stage{s}_{k}``)."""
+    out = {}
+    for s in range(pp):
+        k = 0
+        for g in range(pp * V):
+            if g % pp != s:
+                continue
+            for i in range(parts[g], parts[g + 1]):
+                out[i] = f"stage{s}_{k}"
+                k += 1
+    return out
+
+
+def rename_stages(state: dict, src: dict, dst: dict) -> dict:
+    """``state``'s keys from one stage naming to another (``stage_names``
+    maps of the same desc list); keys of no desc kept."""
+    by_src = {v: dst[i] for i, v in src.items()}
+    out = {}
+    for k, v in state.items():
+        head, dot, rest = k.partition(".")
+        out[by_src.get(head, head) + dot + rest] = v
+    return out
+
+
+def linear_stack(seed: int, n_layers: int, rows: int):
+    """Weights of ``n_layers`` Linear(8, 8) without bias, inputs [rows, 8]
+    and class labels (tests/test_zero_bubble.py's model)."""
+    rng = np.random.RandomState(seed)
+    ws = [rng.randn(8, 8).astype(np.float32) * 0.4 for _ in range(n_layers)]
+    return ws, rng.randn(rows, 8).astype(np.float32), \
+        rng.randint(0, 8, size=(rows,)).astype(np.int64)
+
+
+def moe_batches(seed: int, batches: int, rows: int, d: int):
+    """``batches`` token batches of ``rows`` x ``d`` and their cotangents
+    (a sum loss ``(y * cot).sum()``), fp32."""
+    rng = np.random.RandomState(seed)
+    return tuple(rng.randn(batches, rows, d).astype(np.float32)
+                 for _ in range(2))
+
+
+def moe_arrays(seed: int, d: int, h: int, E: int) -> dict:
+    """An MoELayer's state (Sequential(Linear(d, h), GELU, Linear(h, d))
+    experts, a gate over E experts) by the reference's names."""
+    rng = np.random.RandomState(seed)
+    out = {"gate.gate.weight": rng.randn(d, E).astype(np.float32),
+           "gate.gate.bias": (0.1 * rng.randn(E)).astype(np.float32)}
+    for e in range(E):
+        out[f"experts.{e}.0.weight"] = (rng.randn(d, h) / np.sqrt(d)).astype(
+            np.float32)
+        out[f"experts.{e}.0.bias"] = (0.1 * rng.randn(h)).astype(np.float32)
+        out[f"experts.{e}.2.weight"] = (rng.randn(h, d) / np.sqrt(h)).astype(
+            np.float32)
+        out[f"experts.{e}.2.bias"] = (0.1 * rng.randn(d)).astype(np.float32)
+    return out

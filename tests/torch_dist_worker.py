@@ -1,11 +1,11 @@
-"""Worker of the collective, fleet-Layer and DataParallel tests: one gloo
-rank of the port, started by the port's launcher
+"""Worker of the collective, fleet-Layer, DataParallel, pipeline and MoE
+tests: one gloo rank of the port, started by the port's launcher
 (``paddle_tpu_torch.distributed.launch.launch_procs``).
 
     python tests/torch_dist_worker.py DIR
 
 ``DIR/cases.json`` lists the cases; each names its ``kind``, a
-function below, which runs the port's side on this rank and returns
+function below or of tests/torch_pp_moe_cases.py, which runs the port's side on this rank and returns
 arrays written to ``DIR/<name>.r<rank>.npz``. Inputs come from the
 seeds of tests/torch_dist_common.py or, where the reference draws
 them (initial weights), from ``DIR/<name>.in.npz``.
@@ -29,6 +29,8 @@ from paddle_tpu_torch.utils.convert import (  # noqa: E402
     layer_global_state, layer_shards_from_global)
 
 import torch_dist_common as C  # noqa: E402
+from torch_pp_moe_cases import (  # noqa: E402,F401  (kinds of cases.json)
+    moe_dp, moe_group, pp_gpt, pp_linear)
 
 
 def _np(t):

@@ -11,7 +11,10 @@ feeding ``ParallelCrossEntropy``. Test code: it names no JAX and no
 torch, only the package it is given (``paddle_tpu`` or
 ``paddle_tpu_torch``), so that both build the same model.
 
-``recompute`` wraps every block in ``fleet.recompute``.
+``recompute`` wraps every block in ``fleet.recompute``. ``pipeline``
+gives the same model as the layer descs of a ``PipelineLayer`` (the
+embedding, the blocks, the head; the head tied to the embedding's table
+through a ``SharedLayerDesc`` where asked) and its loss.
 """
 
 from dataclasses import dataclass
@@ -33,9 +36,8 @@ def gpt3_1p3b() -> MPGPTConfig:
                        n_heads=16, seq_len=1024)
 
 
-def build(pkg, cfg: MPGPTConfig, recompute: bool = False):
-    """The model as a ``pkg.nn.Layer``; its ``loss(tokens, labels)``
-    is the mean cross-entropy of the next-token labels."""
+def _block_class(pkg, cfg: MPGPTConfig):
+    """A pre-LayerNorm block of the mp Layers (see the module's doc)."""
     nn = pkg.nn
     F = nn.functional
     fleet = pkg.distributed.fleet
@@ -63,6 +65,18 @@ def build(pkg, cfg: MPGPTConfig, recompute: bool = False):
             return x + self.fc2(F.gelu(self.fc1(self.ln2(x)),
                                        approximate=True))
 
+    return Block
+
+
+def build(pkg, cfg: MPGPTConfig, recompute: bool = False):
+    """The model as a ``pkg.nn.Layer``; its ``loss(tokens, labels)``
+    is the mean cross-entropy of the next-token labels."""
+    nn = pkg.nn
+    fleet = pkg.distributed.fleet
+    H = cfg.hidden
+
+    Block = _block_class(pkg, cfg)
+
     class MPGPT(nn.Layer):
         def __init__(self):
             super().__init__()
@@ -87,6 +101,86 @@ def build(pkg, cfg: MPGPTConfig, recompute: bool = False):
             return self.ce(self(tokens), labels).mean()
 
     return MPGPT()
+
+
+def pipeline(pkg, cfg: MPGPTConfig, tied: bool = False):
+    """(layer descs, loss function) of the model for
+    ``pkg.distributed.fleet.meta_parallel.PipelineLayer``; cut it with
+    ``seg_method="layer:Block"``. The tied head multiplies by the
+    vocab-parallel table of the embedding (each mp rank its vocabulary
+    block, ``ParallelCrossEntropy``'s input); the port's ranks read the
+    replicated activation through ``c_identity`` there, as a
+    column-parallel layer does (the reference's arrays are global)."""
+    nn = pkg.nn
+    fleet = pkg.distributed.fleet
+    mp = fleet.meta_parallel
+    H = cfg.hidden
+    Block = _block_class(pkg, cfg)
+
+    class Embed(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.wte = fleet.VocabParallelEmbedding(cfg.vocab_size, H)
+            self.wpe = nn.Embedding(cfg.seq_len, H)
+
+        @property
+        def embedding_weight(self):
+            return self.wte.weight
+
+        def forward(self, tokens):
+            pos = pkg.arange(tokens.shape[1], dtype="int64").unsqueeze(0)
+            return self.wte(tokens) + self.wpe(pos)
+
+    class Head(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.ln_f = nn.LayerNorm(H)
+            self.head = fleet.ColumnParallelLinear(H, cfg.vocab_size,
+                                                   has_bias=False,
+                                                   gather_output=False)
+
+        def forward(self, x):
+            return self.head(self.ln_f(x))
+
+    class LnF(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.ln_f = nn.LayerNorm(H)
+
+        def forward(self, x):
+            return self.ln_f(x)
+
+    def tied_head(embed, x):
+        if pkg.__name__ == "paddle_tpu_torch":
+            from paddle_tpu_torch.distributed.autograd_collectives import \
+                c_identity
+            from paddle_tpu_torch.distributed.collective import _pg
+
+            hcg = fleet.get_hybrid_communicate_group()
+            pg = _pg(hcg.get_model_parallel_group()) if hcg and \
+                hcg.get_model_parallel_world_size() > 1 else None
+            if pg is not None:
+                x = pkg.Tensor(c_identity(x._data, pg), stop_gradient=False)
+        return pkg.matmul(x, embed.embedding_weight, transpose_y=True)
+
+    ce = fleet.ParallelCrossEntropy()
+
+    def loss_fn(logits, labels):
+        return ce(logits, labels).mean()
+
+    if tied:
+        descs = [mp.SharedLayerDesc("embed", Embed,
+                                    shared_weight_attr="embedding_weight")]
+    else:
+        descs = [mp.LayerDesc(Embed)]
+    descs += [mp.LayerDesc(Block) for _ in range(cfg.n_layers)]
+    if tied:
+        descs += [mp.LayerDesc(LnF),
+                  mp.SharedLayerDesc("embed", Embed, forward_func=tied_head,
+                                     shared_weight_attr="embedding_weight")]
+    else:
+        descs += [mp.LayerDesc(Head)]
+    return descs, loss_fn
 
 
 def batch(cfg: MPGPTConfig, B: int, seed: int = 0):
