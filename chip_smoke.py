@@ -386,10 +386,52 @@ Phases, each failing loudly (any failure exits nonzero):
     TRAIN_CPU_ATOL. Prints each schedule's step ms, tokens/s, peaks and
     staged p2p bytes and ms, and the MoE all-to-all's bytes and ms and
     its dropped share.
+26. ``incubate``: the incubate API (the fused functionals,
+    fused_parity, the fused Layers, the incubate optimizers, ASP). (a)
+    BASELINE.md configuration 5, LLaMA-2 7B fused inference written from
+    the incubate functionals as a Paddle user writes it
+    (tests/torch_incubate_llama.py): ``llama_presets("llama2-7b")`` at
+    full width and depth (32 layers, bf16, random weights from seed 0),
+    B 8, a 1024-token prompt, 32 greedy tokens; the prefill through
+    ``fused_rms_norm``, ``fused_rotary_position_embedding``,
+    ``fused_dot_product_attention`` (K1-sep 32 times, all wgmma) and
+    ``fused_bias_act(swiglu)``, the decode through
+    ``masked_multihead_attention``; held against the port's own
+    ``llama_apply`` (last-position logits, INCUBATE_LOGIT_TOL scaled)
+    and ``LlamaForCausalLM.generate`` (greedy streams equal except at a
+    near tie, INCUBATE_TIE_ULPS bf16 ulps of the row's largest logit in
+    either route's logits; each step's logits before the streams part
+    within INCUBATE_LOGIT_TOL); prefill ms, decode ms a step,
+    tokens/s, the peak memory and a profiled decode step's split
+    between the masked attention and the products. (b) The same prompt
+    with every linear weight through ``weight_quantize`` /
+    ``weight_only_linear``: the four 7B weight shapes held to
+    dequantize-then-matmul in fp64 (BF16_TOL scaled, timed beside K9 and
+    a bf16 product), the prefill logits within INCUBATE_LOGIT_TOL of
+    the port's own int8 ``llama_apply`` (K9 on the same int8 weights and
+    scales) and, reported, their distance from (a)'s; decode ms a step
+    and the peak. (c) 12
+    ``FusedTransformerEncoderLayer(768, 12, 3072)`` (BERT-base's
+    widths, gelu, no dropout) and a Linear head, B 32 S 512, AMP O1,
+    3 AdamW steps: the first loss within BERT_LOSS_RTOL of the flag-off
+    route's, K1-sep 12 and K3-sep 24 a step, all wgmma; then
+    ``LookAhead(AdamW, k=2)`` (the pull equal to its rule in fp32),
+    ``GradientMergeOptimizer(k_steps=2)`` (no update on odd steps),
+    ``asp.decorate`` after ``prune_model`` (the pruned weights 2:4 after
+    every step) and ``ModelAverage`` (``apply()`` / ``restore()`` bit
+    for bit); step ms and peaks. (d) Every op and function of
+    tests/torch_incubate_cases.py, card against CPU (integers exact,
+    floats FP32_TOL of the largest magnitude), and
+    ``fused_dot_product_attention`` at [8, 1024, 32, 128] bf16 causal
+    against K1-sep's plain version (BF16_TOL scaled), timed beside SDPA.
+    (e) (a) at 2 layers in fp32 (hidden 256, head dim 128, a 128-token
+    prompt), card against CPU: logits within TRAIN_CPU_RTOL and FP32_TOL
+    of the largest, streams equal except where the CPU's top-2 margin is
+    under MARGIN.
 
 After each of the phases train, train_13b, llama_train, decode, paged,
 resilient, dist, pipe, dp_mp and pp_moe (the ranks' launches included),
-eager, bert and ops every bf16 flash launch at head dim 64 or 128 must have taken
+eager, bert, ops and incubate every bf16 flash launch at head dim 64 or 128 must have taken
 the TMA + wgmma variant, as the C launchers report what they launched
 (``flash_attention.LAUNCHES_BY_PLAN``), and at every shape launched the
 C launchers' plan must be ``flash_plan``'s. After each of the phases
@@ -423,7 +465,7 @@ PHASES = ("kernels", "engine", "int8", "cpu", "train_kernels", "train",
           "decode", "decode_cpu", "serving_kernels", "serving",
           "paged_kernels", "paged", "fleet", "rollout", "resilient",
           "dist", "pipe", "eager", "bert", "resnet", "ops", "dp_mp",
-          "pp_moe")
+          "pp_moe", "incubate")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12         # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12          # fp32 outside the tensor cores (K6, K7)
@@ -489,7 +531,7 @@ def _bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
 # TMA + wgmma variant (flash_attention.flash_plan)
 FLASH_WGMMA_PHASES = ("train", "train_13b", "llama_train", "decode", "paged",
                       "resilient", "dist", "pipe", "eager", "bert", "ops",
-                      "dp_mp", "pp_moe")
+                      "dp_mp", "pp_moe", "incubate")
 
 
 def _flash_launch_counts() -> collections.Counter:
@@ -9747,6 +9789,680 @@ def _pp_moe_checked(pt, dev, root: str) -> dict:
     return dict(total)
 
 
+# ---------------------------------------------------------------------------
+# incubate: LLaMA-2 7B fused inference from the incubate functionals, the
+# fused Layers in training, the incubate optimizers and ASP
+# ---------------------------------------------------------------------------
+
+INCUBATE_B, INCUBATE_PROMPT, INCUBATE_NEW = 8, 1024, 32
+INCUBATE_LOGIT_TOL = 0.51        # incubate route vs the port's own fused
+                                 # llama route, bf16 logits scaled: each
+                                 # within DECODE_LOGIT_TOL of the fp32
+                                 # function at 16 layers, x sqrt(2) for
+                                 # 32, x 2 for two routes (PERF.md)
+INCUBATE_TIE_ULPS = 4            # a near tie: the two picks' logits within
+                                 # 4 bf16 ulps of the row's largest logit
+INCUBATE_ENC = (12, 768, 12, 3072)    # layers, d_model, heads, ffn
+INCUBATE_TINY = dict(vocab_size=512, hidden=256, n_layers=2, n_heads=2,
+                     n_kv_heads=2, ffn_hidden=512, max_seq_len=256)
+INCUBATE_TINY_PROMPT, INCUBATE_TINY_NEW = 128, 8
+_INC_MMHA = "incubate::masked_multihead_attention"
+_INC_LINEAR = "incubate::linear"
+
+
+def _flash_reset(fa) -> None:
+    for fn in (fa.flash_fwd_sep, fa.flash_bwd_sep, fa.flash_fwd,
+               fa.flash_bwd, fa.flash_fwd_hm, fa.flash_bwd_hm):
+        fn.launches = 0
+
+
+def _flash_read(fa) -> dict:
+    return {"flash_fwd_sep": fa.flash_fwd_sep.launches,
+            "flash_bwd_sep": fa.flash_bwd_sep.launches,
+            "other flash": fa.flash_fwd.launches + fa.flash_bwd.launches
+            + fa.flash_fwd_hm.launches + fa.flash_bwd_hm.launches}
+
+
+def _bf16_ulp(x: float) -> float:
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
+
+
+def _incubate_generate(pt, IL, w, cfg, prompt, kv, n: int, record: bool):
+    """The composition's prefill and n - 1 greedy decode steps: (picks
+    [B, n], each step's logits when ``record``, prefill s, decode s)."""
+    T = prompt.shape[1]
+    tok = pt.to_tensor(prompt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = IL.prefill(pt, w, tok, cfg, kv)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    picks, rec = [], []
+    for s in range(n):
+        if s:
+            logits = IL.decode_step(pt, w, picks[-1], T + s - 1, cfg, kv)
+        if record:
+            rec.append(logits._data)
+        picks.append(pt.argmax(logits, axis=-1).astype("int32"))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (np.stack([p.numpy() for p in picks], 1), rec, t1 - t0,
+            t2 - t1)
+
+
+def _incubate_streams(inc, inc_logits, gen, gen_logits) -> tuple:
+    """Rows of the two greedy streams equal except from a near tie:
+    at the first token where they part, the picks' logits within
+    INCUBATE_TIE_ULPS bf16 ulps of the row's largest logit in either
+    route's logits; every step up to it (one history) holds the two
+    routes' logits within INCUBATE_LOGIT_TOL (scaled). Returns (tokens
+    equal before the first difference, near ties, the largest scaled
+    logit error)."""
+    same, ties, worst = 0, 0, 0.0
+    n = inc.shape[1]
+    for b in range(inc.shape[0]):
+        diff = np.nonzero(inc[b] != gen[b])[0]
+        j = int(diff[0]) if len(diff) else n
+        same += j
+        for s in range(min(j + 1, n)):
+            worst = max(worst, _scaled_err(inc_logits[s][b:b + 1],
+                                           gen_logits[s][b:b + 1])[1])
+        if j == n:
+            continue
+        a, c = int(inc[b, j]), int(gen[b, j])
+        li, lg = inc_logits[j][b].float(), gen_logits[j][b].float()
+        gaps = ((li[a] - li[c]).item(), (lg[c] - lg[a]).item())
+        margins = tuple(INCUBATE_TIE_ULPS * _bf16_ulp(t.abs().max().item())
+                        for t in (li, lg))
+        print(f"incubate (a) row {b} parts at token {j}: {a} vs {c}, gaps "
+              f"{gaps[0]:.4e} / {gaps[1]:.4e} (margins {margins[0]:.4e} / "
+              f"{margins[1]:.4e})")
+        if not any(0.0 <= g < m for g, m in zip(gaps, margins)):
+            raise AssertionError(f"incubate (a) row {b} parts at token {j} "
+                                 f"with gaps {gaps}, margins {margins}")
+        ties += 1
+    if not worst <= INCUBATE_LOGIT_TOL:
+        raise AssertionError(f"incubate (a) decode logits vs generate: "
+                             f"{worst} > {INCUBATE_LOGIT_TOL}")
+    return same, ties, worst
+
+
+def _incubate_profile(pt, IL, w, cfg, tok, pos: int, kv) -> dict:
+    """One decode step under torch.profiler, the masked attention and the
+    products in ranges of their own: device ms of each, and of the
+    step."""
+    F = pt.incubate.nn.functional
+    mmha, linear = F.masked_multihead_attention, IL.linear
+
+    def mmha_(*a, **k):
+        with torch.profiler.record_function(_INC_MMHA):
+            return mmha(*a, **k)
+
+    def linear_(*a, **k):
+        with torch.profiler.record_function(_INC_LINEAR):
+            return linear(*a, **k)
+
+    F.masked_multihead_attention, IL.linear = mmha_, linear_
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    try:
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            IL.decode_step(pt, w, tok, pos, cfg, kv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        F.masked_multihead_attention, IL.linear = mmha, linear
+    # host-side events: a range's device time is its descendants'
+    # kernels (the device-side annotation spans, gaps included, are left
+    # out), the step's the sum of every kernel
+    cpu = torch.autograd.DeviceType.CPU
+    evs = [e for e in prof.events() if e.device_type == cpu]
+    ranges = {k: sum(e.device_time_total for e in evs if e.name == k) / 1e3
+              for k in (_INC_MMHA, _INC_LINEAR)}
+    busy = sum(k.duration for e in evs for k in e.kernels) / 1e3
+    out = {"mmha_device_ms": ranges[_INC_MMHA],
+           "products_device_ms": ranges[_INC_LINEAR],
+           "step_device_ms": busy, "step_wall_ms": wall * 1e3}
+    print("incubate (a) profiled decode step: device ms masked attention "
+          f"{out['mmha_device_ms']:.3f}, products "
+          f"{out['products_device_ms']:.3f}, all kernels "
+          f"{out['step_device_ms']:.3f}, wall {out['step_wall_ms']:.3f} ms")
+    return out
+
+
+def _incubate_wol_shapes(pt, dev, params) -> dict:
+    """weight_only_linear at the four 7B weight shapes (layer 0's wq,
+    w_gate, w_down and the head), decode rows (B 8) and a prefill slab
+    (1024 rows) of bf16 activations, against dequantize-then-matmul in
+    fp64 (BF16_TOL scaled); timed beside K9 (``quant_matmul``, the fused
+    int8 product the serving path uses) and the bf16 product."""
+    from paddle_tpu_torch.ops.kernels.quant_matmul import quant_matmul
+
+    F = pt.incubate.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(53)
+    b = params["blocks"]
+    rec = {}
+    for w in (b["wq"][0], b["w_gate"][0], b["w_down"][0], params["head"]):
+        K, N = w.shape
+        q, s = F.weight_quantize(pt.to_tensor(w))
+        qd, sd = q._data, s._data
+        want64 = qd.double() * sd.double()
+        for M in (INCUBATE_B, 1024):
+            x = torch.randn((M, K), generator=gen, device=dev).to(
+                torch.bfloat16)
+            xt = pt.to_tensor(x)
+            y = F.weight_only_linear(xt, q, weight_scale=s)._data
+            if y.dtype != torch.float32:
+                raise AssertionError(f"weight_only_linear out {y.dtype}")
+            err = _hold(f"incubate (b) weight_only_linear [{M}, {K}] x "
+                        f"[{K}, {N}] vs fp64", y, x.double() @ want64,
+                        BF16_TOL)
+            ms = _time_ms(lambda: F.weight_only_linear(xt, q,
+                                                       weight_scale=s))
+            k9 = _time_ms(lambda: quant_matmul(x, qd, sd))
+            bf = _time_ms(lambda: x @ w)
+            rec[f"{M}x{K}x{N}"] = {"max_abs_err": err, "ms": ms,
+                                   "k9_ms": k9, "bf16_matmul_ms": bf}
+            print(f"incubate (b) [{M}, {K}] x [{K}, {N}]: weight_only_linear "
+                  f"{ms:.4f} ms, K9 {k9:.4f}, bf16 product {bf:.4f}")
+        del want64
+    return rec
+
+
+def _incubate_llama(pt, dev) -> dict:
+    """(a) and (b). Returns (a)'s first generation's flash launches and
+    the records."""
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               init_llama_params,
+                                               llama_apply, llama_presets)
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    IL = _test_module("torch_incubate_llama")
+    cfg = llama_presets("llama2-7b")
+    L = cfg.n_layers
+    B, T, N = INCUBATE_B, INCUBATE_PROMPT, INCUBATE_NEW
+    S = T + N
+    params = init_llama_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    prompt = np.random.RandomState(0).randint(0, cfg.vocab_size, (B, T))
+    w = IL.weights(pt, params, L)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kv = IL.caches(pt, cfg, B, S, "bfloat16", L)
+    _flash_reset(fa)
+    inc, inc_logits, _, _ = _incubate_generate(pt, IL, w, cfg, prompt, kv,
+                                               N, True)
+    launches = _flash_read(fa)
+    if launches != {"flash_fwd_sep": L, "flash_bwd_sep": 0,
+                    "other flash": 0}:
+        raise AssertionError(f"incubate (a) launches {launches}")
+    _, _, pre_s, dec_s = _incubate_generate(pt, IL, w, cfg, prompt, kv, N,
+                                            False)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec = {"prefill_ms": pre_s * 1e3, "decode_ms_a_step": dec_s * 1e3 /
+           (N - 1), "tokens_per_s": B * (N - 1) / dec_s, "peak_gib": peak,
+           "k1_sep_launches": launches["flash_fwd_sep"]}
+    rec["profile"] = _incubate_profile(pt, IL, w, cfg,
+                                       pt.to_tensor(inc[:, -1]), S - 1, kv)
+    del kv
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        full = llama_apply(params, torch.as_tensor(prompt, device=dev),
+                           cfg)[:, -1].clone()
+    torch.cuda.empty_cache()
+    err, scaled = _scaled_err(inc_logits[0], full)
+    del full
+    print(f"incubate (a) prefill logits vs llama_apply: max abs {err:.4e}, "
+          f"scaled {scaled:.4e} (tol {INCUBATE_LOGIT_TOL})")
+    if not scaled <= INCUBATE_LOGIT_TOL:
+        raise AssertionError(f"incubate (a) prefill logits {scaled}")
+    m = LlamaForCausalLM(cfg, params=params, max_batch=B, max_seq_len=S,
+                         device=dev)
+    gen_logits, sample = [], m._sample
+
+    def tap(logits, *a, **k):
+        gen_logits.append(logits.float().clone())
+        return sample(logits, *a, **k)
+
+    m._sample = tap
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = m.generate(prompt, max_new_tokens=N)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    del m
+    torch.cuda.empty_cache()
+    same, ties, worst = _incubate_streams(inc, inc_logits, out, gen_logits)
+    rec.update(prefill_logits_scaled_err=scaled, stream_tokens_equal=same,
+               near_ties=ties, decode_logits_scaled_err=worst,
+               generate_s=gen_s)
+    print(f"incubate (a) llama2-7b bf16 B{B} prompt {T} + {N} greedy: "
+          f"prefill {rec['prefill_ms']:.2f} ms, decode "
+          f"{rec['decode_ms_a_step']:.2f} ms a step "
+          f"({rec['tokens_per_s']:.1f} tokens/s), peak {peak:.2f} GiB, "
+          f"K1-sep {L} launches a prefill; LlamaForCausalLM.generate "
+          f"{gen_s:.2f} s for the same; streams equal for {same} of "
+          f"{B * N} tokens before a difference, {ties} near ties; logits "
+          f"scaled {scaled:.4e} (prefill), {worst:.4e} (decode)")
+    del w, gen_logits
+    torch.cuda.empty_cache()
+    # (b) weight-only int8
+    rec_b = {"shapes": _incubate_wol_shapes(pt, dev, params)}
+    w8 = IL.weights(pt, params, L, quantize=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kv = IL.caches(pt, cfg, B, S, "bfloat16", L)
+    _, logits8, _, _ = _incubate_generate(pt, IL, w8, cfg, prompt, kv, 2,
+                                          True)
+    _, _, pre8, dec8 = _incubate_generate(pt, IL, w8, cfg, prompt, kv, N,
+                                          False)
+    peak8 = torch.cuda.max_memory_allocated() / 2 ** 30
+    del kv
+    torch.cuda.empty_cache()
+    # the port's own int8 route on the same (int8, fp32 scale) pairs:
+    # llama_apply through K9 (the gate|up pair's columns split back)
+    Fh = cfg.ffn_hidden
+
+    def stacked(name, cols=slice(None)):
+        return tuple(torch.stack([lw[name][j]._data[..., cols]
+                                  for lw in w8["layers"]])
+                     for j in range(2))
+
+    blocks = params["blocks"]
+    p8 = {"wte": params["wte"], "final_norm": params["final_norm"],
+          "head": tuple(t._data for t in w8["head"]),
+          "blocks": {"attn_norm": blocks["attn_norm"],
+                     "ffn_norm": blocks["ffn_norm"],
+                     "wq": stacked("wq"), "wk": stacked("wk"),
+                     "wv": stacked("wv"), "wo": stacked("wo"),
+                     "w_gate": stacked("w_gateup", slice(0, Fh)),
+                     "w_up": stacked("w_gateup", slice(Fh, 2 * Fh)),
+                     "w_down": stacked("w_down")}}
+    with torch.no_grad():
+        full8 = llama_apply(p8, torch.as_tensor(prompt, device=dev), cfg,
+                            remat=False)[:, -1].clone()
+    del p8
+    torch.cuda.empty_cache()
+    err_q, scaled_q = _scaled_err(logits8[0], full8)
+    err8, scaled8 = _scaled_err(logits8[0], inc_logits[0])
+    rec_b.update(prefill_ms=pre8 * 1e3, decode_ms_a_step=dec8 * 1e3 / (N - 1),
+                 peak_gib=peak8, prefill_logits_scaled_err=scaled_q,
+                 vs_bf16_scaled_err=scaled8)
+    print(f"incubate (b) weight-only int8: prefill logits vs the port's "
+          f"int8 llama_apply (K9, the same int8 weights and scales) max abs "
+          f"{err_q:.4e}, scaled {scaled_q:.4e} (tol {INCUBATE_LOGIT_TOL}); "
+          f"vs (a)'s bf16 logits max abs {err8:.4e}, scaled {scaled8:.4e} "
+          f"(reported); prefill {pre8 * 1e3:.2f} ms, decode "
+          f"{rec_b['decode_ms_a_step']:.2f} ms a step, peak {peak8:.2f} GiB")
+    if not scaled_q <= INCUBATE_LOGIT_TOL:
+        raise AssertionError(f"incubate (b) int8 logits {scaled_q}")
+    del w8, params, inc_logits, logits8, full8
+    torch.cuda.empty_cache()
+    return {"launches": launches, "a": rec, "b": rec_b}
+
+
+def _incubate_steps(pt, fa, opt, loss_fn, n: int, tag: str, after=None):
+    """``n`` steps of the user's loop, each step's flash launches checked
+    (set to 0 before the step, read after it): K1-sep L and K3-sep 2L,
+    all wgmma. ``after(i)`` runs after step i. Returns (losses, host
+    seconds, launches)."""
+    L = INCUBATE_ENC[0]
+    losses, secs, total = [], [], collections.Counter()
+    for i in range(n):
+        _flash_reset(fa)
+        wg = (fa.flash_fwd_sep.launches_wgmma, fa.flash_bwd_sep.launches_wgmma)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = loss_fn()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        got = _flash_read(fa)
+        if got != {"flash_fwd_sep": L, "flash_bwd_sep": 2 * L,
+                   "other flash": 0}:
+            raise AssertionError(f"{tag} step {i}: launches {got}")
+        wg = (fa.flash_fwd_sep.launches_wgmma - wg[0],
+              fa.flash_bwd_sep.launches_wgmma - wg[1])
+        if wg != (L, 2 * L):
+            raise AssertionError(f"{tag} step {i}: wgmma launches {wg}")
+        total.update(got)
+        losses.append(loss.item())
+        if after is not None:
+            after(i)
+    return losses, secs, total
+
+
+def _incubate_train(pt, dev) -> dict:
+    """(c): the fused Layers at BERT-base's widths in training, under
+    AdamW, LookAhead, GradientMergeOptimizer, ASP and ModelAverage."""
+    from paddle_tpu_torch.incubate import asp
+    from paddle_tpu_torch.incubate import optimizer as iopt
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    L, D, nH, Fh = INCUBATE_ENC
+    B, S = BERT_SHAPE
+    nn = pt.nn
+    pt.seed(0)
+    model = nn.Sequential(
+        *[pt.incubate.nn.FusedTransformerEncoderLayer(
+            D, nH, Fh, dropout_rate=0.0, activation="gelu")
+          for _ in range(L)], nn.Linear(D, D))
+    init = {k: v._data.detach().clone()
+            for k, v in model.state_dict().items()}
+    gen = torch.Generator(device=dev).manual_seed(41)
+    x = pt.to_tensor(torch.randn((B, S, D), generator=gen, device=dev))
+    y = pt.to_tensor(torch.randn((B, S, D), generator=gen, device=dev))
+
+    def loss_fn(flag: bool = True):
+        pt.set_flags({"use_pallas_attention": flag})
+        try:
+            with pt.amp.auto_cast(level="O1", dtype="bfloat16"):
+                out = model(x)
+            return nn.functional.mse_loss(out.astype("float32"), y)
+        finally:
+            pt.set_flags({"use_pallas_attention": True})
+
+    def reload():
+        with torch.no_grad():
+            for k, v in model.state_dict().items():
+                v._data.copy_(init[k])
+
+    def adamw():
+        return pt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                  parameters=model.parameters())
+
+    params = model.parameters()
+    with pt.no_grad():
+        off = loss_fn(False).item()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs, launches = _incubate_steps(pt, fa, adamw(), loss_fn, 3,
+                                             "incubate (c) AdamW")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not abs(losses[0] - off) <= BERT_LOSS_RTOL * abs(off):
+        raise AssertionError(f"incubate (c) first loss {losses[0]} vs the "
+                             f"flag-off route's {off}")
+    step_ms = float(np.median(secs[1:])) * 1e3
+    rec = {"step_ms": step_ms, "peak_gib": peak, "losses": losses,
+           "first_loss_flag_off": off}
+    # LookAhead: the pull at the second step is slow + alpha (fast - slow)
+    reload()
+    inner = adamw()
+    la = iopt.LookAhead(inner, alpha=0.5, k=2)
+    snap = {}
+    inner_step = inner.step
+
+    def step_and_snap():
+        inner_step()
+        snap["fast"] = [p._data.clone() for p in params]
+
+    inner.step = step_and_snap
+
+    def la_check(i):
+        for p, slow0, fast in zip(params, snap["slow"], snap["fast"]):
+            if i == 1:
+                want = slow0 + 0.5 * (fast - slow0)
+                ok = torch.equal(p._data, want) and \
+                    torch.equal(la._slow[id(p)], want)
+            else:
+                ok = torch.equal(la._slow[id(p)], slow0) and \
+                    torch.equal(p._data, fast)
+            if not ok:
+                raise AssertionError(f"incubate (c) LookAhead step {i}")
+        snap["slow"] = [la._slow[id(p)].clone() for p in params]
+
+    snap["slow"] = [la._slow[id(p)].clone() for p in params]
+    la_losses, la_secs, _ = _incubate_steps(pt, fa, la, loss_fn, 3,
+                                            "incubate (c) LookAhead",
+                                            la_check)
+    del snap["fast"], snap["slow"]
+    # GradientMergeOptimizer: the inner step on even steps only
+    reload()
+    gm = iopt.GradientMergeOptimizer(adamw(), k_steps=2)
+    before = {}
+
+    def gm_snap(i):
+        same = all(torch.equal(p._data, before[id(p)]) for p in params)
+        if same != (i % 2 == 0):
+            raise AssertionError(f"incubate (c) GradientMerge step {i}: "
+                                 f"parameters unchanged {same}")
+        before.update({id(p): p._data.clone() for p in params})
+
+    before.update({id(p): p._data.clone() for p in params})
+    gm_losses, gm_secs, _ = _incubate_steps(pt, fa, gm, loss_fn, 3,
+                                            "incubate (c) GradientMerge",
+                                            gm_snap)
+    before.clear()
+    # ASP: the head's weight pruned 2:4 and kept so
+    reload()
+    masks = asp.prune_model(model, 2, 4)
+    pruned = [model[int(k)].weight for k in masks]
+    if len(pruned) != 1 or pruned[0]._data.device.type != dev.type:
+        raise AssertionError(f"incubate (c) ASP pruned {list(masks)}")
+
+    def asp_check(i):
+        if not all(asp.check_sparsity(w) for w in pruned):
+            raise AssertionError(f"incubate (c) ASP step {i}: not 2:4")
+
+    asp_losses, asp_secs, _ = _incubate_steps(
+        pt, fa, asp.decorate(adamw()), loss_fn, 3, "incubate (c) ASP",
+        asp_check)
+    asp._MASKS.clear()
+    # ModelAverage: apply() and restore() bit for bit
+    reload()
+    opt = adamw()
+    ma = iopt.ModelAverage(parameters=params)
+    ma_losses, ma_secs, _ = _incubate_steps(
+        pt, fa, opt, loss_fn, 3, "incubate (c) ModelAverage",
+        lambda i: ma.step())
+    kept = [p._data.clone() for p in params]
+    with ma.apply():
+        moved = sum(not torch.equal(p._data, k) for p, k in zip(params, kept))
+    back = all(torch.equal(p._data, k) for p, k in zip(params, kept))
+    ma.apply(need_restore=False)
+    ma.restore()
+    back = back and all(torch.equal(p._data, k) for p, k in zip(params,
+                                                                  kept))
+    if not (moved and back):
+        raise AssertionError(f"incubate (c) ModelAverage: {moved} moved, "
+                             f"restored {back}")
+    rec.update(lookahead_step_ms=float(np.median(la_secs[1:])) * 1e3,
+               gradient_merge_step_ms=float(np.median(gm_secs[1:])) * 1e3,
+               asp_step_ms=float(np.median(asp_secs[1:])) * 1e3,
+               model_average_step_ms=float(np.median(ma_secs[1:])) * 1e3,
+               variant_losses={"lookahead": la_losses,
+                               "gradient_merge": gm_losses,
+                               "asp": asp_losses, "model_average": ma_losses})
+    print(f"incubate (c) {L} x FusedTransformerEncoderLayer({D}, {nH}, {Fh}) "
+          f"+ Linear head, B{B} S{S} AMP O1: AdamW step {step_ms:.2f} ms "
+          f"(median of steps 2-3), peak {peak:.2f} GiB, losses {losses}, "
+          f"first loss vs flag off {losses[0]!r} / {off!r} (rtol "
+          f"{BERT_LOSS_RTOL}); LookAhead {rec['lookahead_step_ms']:.2f} ms, "
+          f"GradientMerge {rec['gradient_merge_step_ms']:.2f} ms, ASP "
+          f"{rec['asp_step_ms']:.2f} ms, ModelAverage "
+          f"{rec['model_average_step_ms']:.2f} ms a step; K1-sep {L}, "
+          f"K3-sep {2 * L} a step, all wgmma; {moved} parameters moved by "
+          "ModelAverage.apply(), restored bit for bit")
+    del model, init, x, y
+    torch.cuda.empty_cache()
+    return {"launches": launches, "c": rec}
+
+
+def _incubate_cases(pt, dev) -> dict:
+    """(d): every case of tests/torch_incubate_cases.py, card against CPU,
+    and fused_dot_product_attention at LLaMA-2 7B's attention."""
+    from paddle_tpu_torch.core.dispatch import OP_REGISTRY, op_call
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    ic = _test_module("torch_incubate_cases")
+    oc = _ops_cases_module()
+    F = pt.incubate.nn.functional
+    rows, worst = [], 0.0
+
+    def tensors(obj):
+        if isinstance(obj, np.ndarray):
+            return pt.to_tensor(obj)
+        if isinstance(obj, list) and obj and isinstance(obj[0], np.ndarray):
+            return [pt.to_tensor(o) for o in obj]
+        return obj
+
+    def compare(tag, call):
+        nonlocal worst
+        card = _on_device(pt, "gpu:0", call)
+        cpu = _on_device(pt, "cpu", call)
+        if len(card) != len(cpu):
+            raise AssertionError(f"incubate (d) {tag}: outputs differ")
+        err = 0.0
+        for i, (a, b) in enumerate(zip(card, cpu)):
+            if a is None or b is None:
+                if (a is None) != (b is None):
+                    raise AssertionError(f"incubate (d) {tag} output {i}")
+                continue
+            oc.assert_same(a, b, FP32_TOL, f"incubate (d) {tag} output {i}")
+            if b.dtype.kind == "f" and b.size:
+                err = max(err, float(np.abs(a.astype(np.float64) - b).max()))
+        worst = max(worst, err)
+        rows.append((tag, f"{err:.2e}"))
+
+    for name, cases in sorted(ic.OP_CASES.items()):
+        opdef = OP_REGISTRY[name]
+        for cid, factory, _ in cases:
+            if factory is None or isinstance(factory, tuple):
+                args, kwargs = oc.contract_case(name, opdef.impl,
+                                                domain=factory)
+            else:
+                args, kwargs = factory()
+            compare(f"{name}[{cid}]", lambda a=args, k=kwargs, d=opdef:
+                    _to_numpy(op_call(d, [tensors(x) for x in a],
+                                      {n: tensors(v) for n, v in k.items()})))
+    for name, cases in sorted(ic.FUNC_CASES.items()):
+        for cid, factory, _ in cases:
+            args, kwargs = factory()
+            compare(f"{name}[{cid}]", lambda a=args, k=kwargs, n=name:
+                    _to_numpy(getattr(F, n)(*[tensors(x) for x in a],
+                                            **{m: tensors(v)
+                                               for m, v in k.items()})))
+    print(f"incubate (d) card vs CPU: {len(rows)} cases of "
+          f"{len(ic.OP_CASES)} ops and {len(ic.FUNC_CASES)} functions "
+          f"(integers exact, floats FP32_TOL {FP32_TOL:.0e} of the largest "
+          f"magnitude); largest float difference {worst:.3e}")
+    for i in range(0, len(rows), 6):
+        print("  " + "; ".join(f"{t} {e}" for t, e in rows[i:i + 6]))
+    B, T, h, d = INCUBATE_B, INCUBATE_PROMPT, 32, 128
+    scale = d ** -0.5
+    g = torch.Generator(device=dev).manual_seed(67)
+    q, k, v = (torch.randn((B, T, h, d), generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    qt, kt, vt = (pt.to_tensor(t) for t in (q, k, v))
+    _flash_reset(fa)
+    o = F.fused_dot_product_attention(qt, kt, vt, causal=True)._data
+    if _flash_read(fa)["flash_fwd_sep"] != 1:
+        raise AssertionError(f"incubate (d) flash launches {_flash_read(fa)}")
+    po, _ = fa.flash_sep_plain(q, k, v, True, scale)
+    tag = f"incubate (d) fused_dot_product_attention [{B}, {T}, {h}, {d}] " \
+        "bf16 causal vs K1-sep's plain version"
+    err = _hold(tag, o, po, BF16_TOL)
+    del po
+    torch.cuda.empty_cache()
+    plain_ms = _time_ms(lambda: fa.flash_sep_plain(q, k, v, True, scale),
+                        iters=3, warmup=1)
+    torch.cuda.empty_cache()
+    ms = _time_ms(lambda: F.fused_dot_product_attention(qt, kt, vt,
+                                                        causal=True))
+    dev_ms = _graph_ms(lambda: fa.flash_fwd_sep(q, k, v, True, scale))
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    s_ms = _time_ms(lambda: sdpa(qh, kh, vh, is_causal=True))
+    s_dev = _graph_ms(lambda: sdpa(qh, kh, vh, is_causal=True))
+    pairs = B * h * T * (T + 1) / 2
+    x_b, st_b = B * T * h * d * 2, B * h * T * 4
+    bound = _bound(4 * x_b + st_b, 4.0 * d * pairs)
+    print(f"{tag}: {ms:.4f} ms through the op (K1-sep device {dev_ms:.4f}), "
+          f"plain {plain_ms:.4f}, SDPA {s_ms:.4f} (device {s_dev:.4f}), "
+          f"bound {bound[0]:.4f} ms ({bound[1]})")
+    return {"cases": len(rows), "max_abs_err": worst,
+            "fdpa": {"max_abs_err": err, "ms": ms, "k1_sep_device_ms": dev_ms,
+                     "plain_ms": plain_ms, "sdpa_ms": s_ms,
+                     "sdpa_device_ms": s_dev,
+                     "bound_ms": bound[0], "bound_by": bound[1]}}
+
+
+def _incubate_card_vs_cpu(pt, dev) -> dict:
+    """(e): (a) at 2 layers in fp32, card against CPU from one set of
+    weights: each step's logits within TRAIN_CPU_RTOL and FP32_TOL of the
+    largest, the streams equal except where the CPU's top-2 margin is
+    under MARGIN; the card's prefill through K1-sep."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, init_llama_params
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    IL = _test_module("torch_incubate_llama")
+    cfg = LlamaConfig(**INCUBATE_TINY, dtype=torch.float32,
+                      param_dtype=torch.float32)
+    T, N = INCUBATE_TINY_PROMPT, INCUBATE_TINY_NEW
+    params = init_llama_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    prompt = np.random.RandomState(5).randint(0, cfg.vocab_size, (2, T))
+    runs = {}
+    for where in ("cpu", "gpu:0"):
+        def run(where=where):
+            p = _map_leaves(params, lambda t: t.to(
+                "cpu" if where == "cpu" else dev))
+            w = IL.weights(pt, p, cfg.n_layers)
+            logs = []
+            _flash_reset(fa)
+            picks, _ = IL.generate(pt, w, pt.to_tensor(prompt), cfg, N, T + N,
+                                   "float32", on_logits=lambda s, l:
+                                   logs.append(l._data.float().cpu()))
+            return (np.stack([x.numpy() for x in picks], 1), logs,
+                    fa.flash_fwd_sep.launches)
+
+        runs[where] = _on_device(pt, where, run)
+    (pc, lc, _), (pg, lg, n_card) = runs["cpu"], runs["gpu:0"]
+    if n_card != cfg.n_layers:
+        raise AssertionError(f"incubate (e) card K1-sep launches {n_card}")
+    worst, parted = 0.0, []
+    for b in range(pc.shape[0]):
+        diff = np.nonzero(pc[b] != pg[b])[0]
+        j = int(diff[0]) if len(diff) else N
+        for s in range(min(j + 1, N)):
+            a, c = lg[s][b].numpy(), lc[s][b].numpy()
+            np.testing.assert_allclose(
+                a, c, rtol=TRAIN_CPU_RTOL, atol=FP32_TOL * np.abs(c).max(),
+                err_msg=f"incubate (e) row {b} step {s}")
+            worst = max(worst, float(np.abs(a - c).max()))
+        if j < N:
+            top2 = np.sort(lc[j][b].numpy())[-2:]
+            if not top2[1] - top2[0] < MARGIN:
+                raise AssertionError(f"incubate (e) row {b} parts at {j}")
+            parted.append((b, j))
+    print(f"incubate (e) 2-layer fp32 card vs CPU: logits max abs "
+          f"{worst:.3e} (rtol {TRAIN_CPU_RTOL}, atol FP32_TOL of the "
+          f"largest), streams equal{'' if not parted else ' but ' + str(parted)}"
+          f", K1-sep {n_card} launches on the card")
+    return {"max_abs_err": worst, "parted": parted}
+
+
+def run_incubate(dev) -> dict:
+    """Phase incubate: (a)-(e) (see the module's doc). Returns the
+    launches of (a)'s first generation and (c)'s AdamW steps."""
+    import paddle_tpu_torch as pt
+
+    t_phase = time.perf_counter()
+    pt.set_device("gpu:0")
+    a = _incubate_llama(pt, dev)
+    c = _incubate_train(pt, dev)
+    d = _incubate_cases(pt, dev)
+    e = _incubate_card_vs_cpu(pt, dev)
+    rec = {"a": a["a"], "b": a["b"], "c": c["c"], "d": d, "e": e,
+           "phase_s": time.perf_counter() - t_phase}
+    print("incubate record " + json.dumps(rec))
+    return {k: a["launches"][k] + c["launches"][k]
+            for k in ("flash_fwd_sep", "flash_bwd_sep")}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -9973,6 +10689,13 @@ def main(argv=None) -> int:
             launches[k] = launches.get(k, 0) + ln[k]
         torch.cuda.empty_cache()
         done("pp_moe")
+    if "incubate" in phases:
+        ln = run_incubate(dev)
+        print(f"incubate launches {ln}")
+        for k in ("flash_fwd_sep", "flash_bwd_sep"):
+            launches[k] = launches.get(k, 0) + ln[k]
+        torch.cuda.empty_cache()
+        done("incubate")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of phases "
           f"after the build ({_build.last_build_seconds:.1f} s)")
     if set(phases) != set(PHASES):

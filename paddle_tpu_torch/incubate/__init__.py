@@ -1,8 +1,9 @@
-"""paddle_tpu_torch.incubate (port of paddle_tpu.incubate): the serving
-ops of ``incubate.nn.functional.fused_transformer`` so far, and the MoE
-Layer of ``incubate.distributed.models.moe`` (imported on its own, as
-the reference's)."""
+"""paddle_tpu_torch.incubate (port of paddle_tpu.incubate): the fused
+functionals and Layers of ``incubate.nn``, the incubate optimizers and,
+imported on their own as the reference's, ASP (``incubate.asp``) and the
+MoE Layer of ``incubate.distributed.models.moe``."""
 
 from . import nn
+from . import optimizer
 
-__all__ = ["nn"]
+__all__ = ["nn", "optimizer"]

@@ -9,7 +9,8 @@ __all__ = ["params_from_jax", "opt_state_from_jax", "paged_cache_from_jax",
            "layer_state_from_jax", "optimizer_state_from_jax",
            "layer_shards_from_global", "layer_global_state",
            "pipeline_shards_from_global", "pipeline_global_state",
-           "moe_shards_from_global", "moe_global_state"]
+           "moe_shards_from_global", "moe_global_state",
+           "incubate_optimizer_state_from_jax", "asp_masks_from_jax"]
 
 _NP_TO_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "float16": torch.float16, "int8": torch.int8,
@@ -112,6 +113,22 @@ def layer_state_from_jax(state_dict, device) -> dict:
             for k, v in state_dict.items()}
 
 
+def _checked_names(names, params) -> list:
+    """``names`` as a list, one a parameter and none twice (the
+    reference's deep copies keep the original's name, so their states
+    could not be told apart)."""
+    names = list(names)
+    dup = sorted({n for n in names if names.count(n) > 1})
+    if dup:
+        raise ValueError(f"reference parameter names appear more than "
+                         f"once, so their states cannot be told apart: "
+                         f"{dup}")
+    if len(names) != len(params):
+        raise ValueError(f"{len(names)} reference parameter names for "
+                         f"{len(params)} parameters")
+    return names
+
+
 def optimizer_state_from_jax(state_dict, optimizer, device=None,
                              names=None) -> dict:
     """A reference ``Optimizer.state_dict()`` as the port optimizer's.
@@ -128,15 +145,7 @@ def optimizer_state_from_jax(state_dict, optimizer, device=None,
     named = state_dict.get("state", {})
     params = optimizer._parameter_list
     if names is not None:
-        names = list(names)
-        dup = sorted({n for n in names if names.count(n) > 1})
-        if dup:
-            raise ValueError(f"reference parameter names appear more than "
-                             f"once, so their states cannot be told apart: "
-                             f"{dup}")
-        if len(names) != len(params):
-            raise ValueError(f"{len(names)} reference parameter names for "
-                             f"{len(params)} parameters")
+        names = _checked_names(names, params)
         pairs = [(p, named[n]) for p, n in zip(params, names) if n in named]
     else:
         if len(named) != len(params):
@@ -292,4 +301,83 @@ def moe_global_state(layer) -> dict:
     out = {}
     for part in parts:
         out.update(part)
+    return out
+
+
+def _pair_by_name(ref_params, params, names):
+    """[(port parameter, reference parameter)]: by ``names`` (the
+    reference's parameter names in the port's parameter order) or, without
+    them, by position; refuses what ``optimizer_state_from_jax`` refuses."""
+    if names is None:
+        if len(ref_params) != len(params):
+            raise ValueError(f"{len(ref_params)} reference parameters for "
+                             f"{len(params)}: cannot pair them by position "
+                             f"(pass the reference's _parameter_names as "
+                             f"names=)")
+        return list(zip(params, ref_params))
+    ref_names = _checked_names([p.name for p in ref_params], ref_params)
+    by_name = dict(zip(ref_names, ref_params))
+    return [(p, by_name[n]) for p, n in zip(params, _checked_names(names,
+                                                                   params))]
+
+
+def incubate_optimizer_state_from_jax(ref_opt, port_opt, names=None,
+                                      device=None) -> None:
+    """Carry the state an incubate optimizer keeps per parameter from the
+    reference's into the port's, in place: a ``LookAhead``'s slow weights
+    and window count, or a ``ModelAverage``'s sums and count (and any
+    backup an ``apply()`` left). Parameters pair by name with ``names``
+    (the reference's ``_parameter_names`` in the port's parameter order),
+    else by position; colliding names are refused. The inner optimizer's
+    moments carry through ``optimizer_state_from_jax``."""
+    pairs = _pair_by_name(ref_opt._parameter_list, port_opt._parameter_list,
+                          names)
+
+    def carry(table):
+        out = {}
+        for p, r in pairs:
+            if id(r) in table:
+                dev = device if device is not None else p._data.device
+                out[id(p)] = _leaf(np.asarray(getattr(table[id(r)], "_data",
+                                                      table[id(r)])),
+                                   dev, None)
+        return out
+
+    if hasattr(ref_opt, "_slow"):
+        port_opt._slow = carry(ref_opt._slow)
+        port_opt._k_count = int(ref_opt._k_count)
+    elif hasattr(ref_opt, "_sum"):
+        port_opt._sum = carry(ref_opt._sum)
+        port_opt._backup = carry(ref_opt._backup)
+        port_opt._cnt = int(ref_opt._cnt)
+    else:
+        raise TypeError(f"no per-parameter incubate state on "
+                        f"{type(ref_opt).__name__}")
+
+
+def asp_masks_from_jax(masks, layer, device=None) -> dict:
+    """Register the reference's ASP masks on the port's ``layer``: ``masks``
+    is what the reference's ``prune_model`` returned ({sublayer name:
+    mask}, the model itself under its class name), the port's layer has
+    the same structure, and each mask goes to the same-named sublayer's
+    ``weight`` on its device, where a decorated optimizer re-applies it.
+    An unknown name is refused. Returns the port's {name: mask}."""
+    from ..core.tensor import Tensor
+    from ..incubate.asp import _register_mask
+
+    subs = dict(layer.named_sublayers(include_self=True))
+    out = {}
+    for name, m in masks.items():
+        sub = subs.get(name)
+        if sub is None and name == type(layer).__name__:
+            sub = layer
+        w = getattr(sub, "weight", None)
+        if w is None:
+            raise KeyError(f"no sublayer {name!r} with a weight in "
+                           f"{type(layer).__name__}")
+        dev = device if device is not None else w._data.device
+        t = Tensor(_leaf(np.asarray(getattr(m, "_data", m)), dev,
+                         None).to(w._data.dtype), stop_gradient=True)
+        _register_mask(w, t)
+        out[name] = t
     return out

@@ -131,6 +131,10 @@ def test_port_imports_without_jax_or_reference():
             "paddle_tpu_torch.incubate.distributed.models.moe",
             "paddle_tpu_torch.incubate.distributed.models.moe.gate",
             "paddle_tpu_torch.incubate.distributed.models.moe.moe_layer",
+            "paddle_tpu_torch.incubate.nn.functional.fused_parity",
+            "paddle_tpu_torch.incubate.nn.layer",
+            "paddle_tpu_torch.incubate.optimizer",
+            "paddle_tpu_torch.incubate.asp",
             } <= mods
 
 

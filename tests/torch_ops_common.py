@@ -108,6 +108,9 @@ def hold(ref_fn, port_fn, case, *, differentiable=True, fwd_rtol=FWD_RTOL,
         check([npy(o) for o in p_outs], [npy(o) for o in r_outs])
     else:
         for i, (po, ro) in enumerate(zip(p_outs, r_outs)):
+            if po is None or ro is None:    # a passthrough slot
+                assert po is None and ro is None, f"{name} output {i}"
+                continue
             assert_same(npy(po), npy(ro), fwd_rtol, f"{name} output {i}")
     if not differentiable or not r_in:
         return p_outs, r_outs
@@ -115,7 +118,8 @@ def hold(ref_fn, port_fn, case, *, differentiable=True, fwd_rtol=FWD_RTOL,
         r_l, p_l = loss(ref, r_outs), loss(port, p_outs)
     else:
         sel = range(len(r_outs)) if grad_outs is None else grad_outs
-        sel = [i for i in sel if npy(r_outs[i]).dtype.kind == "f"
+        sel = [i for i in sel if r_outs[i] is not None
+               and npy(r_outs[i]).dtype.kind == "f"
                and not r_outs[i].stop_gradient]
         if not sel:
             return p_outs, r_outs
